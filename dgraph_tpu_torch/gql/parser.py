@@ -1,0 +1,1060 @@
+"""Recursive-descent parser for GraphQL±.
+
+Accepts the language of the reference's gql.Parse (gql/parser.go:481):
+named/anonymous query blocks, root functions and ``id:`` lists, filters
+with AND/OR/NOT, pagination/order args, aliases, language tags, variables
+(``x as pred``), value/uid var usage, aggregations, math(), expand(),
+count blocks, @facets, @groupby, @normalize/@cascade/@ignorereflex,
+GraphQL query variables ($var), fragments, mutation blocks and schema
+blocks.  The HTTP JSON wrapper {"query":..., "variables":...} is also
+handled here (reference does this under Request.Http).
+"""
+
+from __future__ import annotations
+
+import json
+import re
+from typing import Dict, List, Optional, Tuple
+
+from dgraph_tpu_torch.gql.ast import (
+    FacetsSpec,
+    FilterTree,
+    Function,
+    GraphQuery,
+    MathTree,
+    Mutation,
+    ParsedResult,
+    SchemaRequest,
+    VarRef,
+    UID_VAR,
+    VALUE_VAR,
+)
+
+
+class ParseError(ValueError):
+    pass
+
+
+# ---------------------------------------------------------------------------
+# Lexer
+
+_TOKEN_RE = re.compile(
+    r"""
+    (?P<ws>\s+)
+  | (?P<comment>\#[^\n]*)
+  | (?P<string>"(?:\\.|[^"\\])*")
+  | (?P<iri><[^>\s]+>)
+  | (?P<number>0[xX][0-9a-fA-F]+|\d+(?:\.\d+)?(?:[eE][-+]?\d+)?)
+  | (?P<name>~?[A-Za-z_][A-Za-z0-9_.]*)
+  | (?P<dollar>\$[A-Za-z_][A-Za-z0-9_]*)
+  | (?P<spread>\.\.\.)
+  | (?P<op><=|>=|==|!=|&&|\|\||=|[-+*/%<>])
+  | (?P<punct>[{}()\[\]:,@!.])
+    """,
+    re.VERBOSE,
+)
+
+
+class Tok:
+    __slots__ = ("kind", "text", "pos")
+
+    def __init__(self, kind, text, pos):
+        self.kind, self.text, self.pos = kind, text, pos
+
+    def __repr__(self):  # pragma: no cover
+        return f"Tok({self.kind},{self.text!r})"
+
+
+def _lex(s: str) -> List[Tok]:
+    out, i = [], 0
+    n = len(s)
+    while i < n:
+        m = _TOKEN_RE.match(s, i)
+        if m is None:
+            raise ParseError(f"unexpected character {s[i]!r} at offset {i}")
+        i = m.end()
+        kind = m.lastgroup
+        if kind in ("ws", "comment"):
+            continue
+        out.append(Tok(kind, m.group(), m.start()))
+    out.append(Tok("eof", "", n))
+    return out
+
+
+def _unquote(s: str) -> str:
+    body = s[1:-1]
+    return re.sub(
+        r"\\(.)",
+        lambda m: {"n": "\n", "t": "\t", '"': '"', "\\": "\\", "'": "'"}.get(
+            m.group(1), m.group(1)
+        ),
+        body,
+    )
+
+
+_DIRECTIVES = {
+    "filter",
+    "facets",
+    "groupby",
+    "normalize",
+    "cascade",
+    "ignorereflex",
+    "recurse",
+}
+
+_AGG_FUNCS = {"min", "max", "sum", "avg"}
+
+_ROOT_ARGS = {
+    "first",
+    "offset",
+    "after",
+    "orderasc",
+    "orderdesc",
+    "depth",
+    "from",
+    "to",
+    "numpaths",
+    "minweight",
+    "maxweight",
+}
+
+
+class _Parser:
+    def __init__(self, toks: List[Tok], gqlvars: Dict[str, str]):
+        self.toks = toks
+        self.i = 0
+        self.vars = gqlvars
+        self.fragments: Dict[str, List[GraphQuery]] = {}
+
+    # -- token plumbing ----------------------------------------------------
+
+    def peek(self, ahead: int = 0) -> Tok:
+        return self.toks[min(self.i + ahead, len(self.toks) - 1)]
+
+    def next(self) -> Tok:
+        t = self.toks[self.i]
+        if t.kind != "eof":
+            self.i += 1
+        return t
+
+    def expect(self, kind: str, text: Optional[str] = None) -> Tok:
+        t = self.next()
+        if t.kind != kind or (text is not None and t.text != text):
+            raise ParseError(
+                f"expected {text or kind} at offset {t.pos}, got {t.text!r}"
+            )
+        return t
+
+    def accept(self, kind: str, text: Optional[str] = None) -> Optional[Tok]:
+        t = self.peek()
+        if t.kind == kind and (text is None or t.text == text):
+            return self.next()
+        return None
+
+    def _value_token(self) -> str:
+        """One scalar argument value, with $var substitution."""
+        t = self.next()
+        if t.kind == "op" and t.text in ("-", "+"):
+            num = self.expect("number")
+            return t.text + num.text
+        if t.kind == "string":
+            return _unquote(t.text)
+        if t.kind == "dollar":
+            if t.text not in self.vars:
+                raise ParseError(f"undefined query variable {t.text}")
+            return self.vars[t.text]
+        if t.kind in ("name", "number", "iri"):
+            return t.text.strip("<>") if t.kind == "iri" else t.text
+        raise ParseError(f"expected value at offset {t.pos}, got {t.text!r}")
+
+    # -- entry -------------------------------------------------------------
+
+    def parse(self) -> ParsedResult:
+        res = ParsedResult()
+        while True:
+            t = self.peek()
+            if t.kind == "eof":
+                break
+            if t.kind == "punct" and t.text == "{":
+                self._parse_query_body(res)
+            elif t.kind == "name" and t.text == "query":
+                self.next()
+                if self.peek().text == "(":
+                    self._parse_var_decls()
+                if self.peek().kind == "name":  # named query: query name(...)
+                    self.next()
+                    if self.peek().text == "(":
+                        self._parse_var_decls()
+                self._parse_query_body(res)
+            elif t.kind == "name" and t.text == "schema":
+                self.next()
+                res.schema_request = self._parse_schema_request()
+            elif t.kind == "name" and t.text == "fragment":
+                self.next()
+                name = self.expect("name").text
+                self.expect("punct", "{")
+                self.fragments[name] = self._parse_children()
+            else:
+                raise ParseError(f"unexpected {t.text!r} at offset {t.pos}")
+        self._expand_fragments_all(res)
+        self._collect_query_vars(res)
+        return res
+
+    def _parse_var_decls(self):
+        """query name($a: int = 3, $b: string!) — fills defaults into vars."""
+        self.expect("punct", "(")
+        while not self.accept("punct", ")"):
+            d = self.expect("dollar").text
+            self.expect("punct", ":")
+            self.expect("name")  # type
+            self.accept("punct", "!")
+            if self.accept("op", "="):
+                self.vars.setdefault(d, self._value_token())
+            self.accept("punct", ",")
+
+    # -- query blocks ------------------------------------------------------
+
+    def _parse_query_body(self, res: ParsedResult):
+        self.expect("punct", "{")
+        n0 = len(res.queries)
+        while not self.accept("punct", "}"):
+            self.accept("punct", ",")
+            res.queries.append(self._parse_block())
+        if len(res.queries) == n0:
+            raise ParseError("empty query body")
+
+    def _parse_block(self) -> GraphQuery:
+        gq = GraphQuery()
+        name_tok = self.expect("name")
+        name = name_tok.text
+        var_def = ""
+        if self.peek().kind == "name" and self.peek().text.lower() == "as":
+            # "X as shortest(...)" / var-block named by a variable
+            self.next()
+            var_def = name
+            name = self.expect("name").text
+        gq.alias = name
+        gq.var = var_def
+        if name == "var":
+            gq.is_internal = True
+        self._parse_root_args(gq)
+        self._parse_directives(gq)
+        self.expect("punct", "{")
+        gq.children = self._parse_children()
+        return gq
+
+    def _parse_lang_chain(self) -> List[str]:
+        """The lang list after '@': ``ru:en:.`` — names separated by ':',
+        where '.' is the forced any-value fallback (gql/parser.go lang
+        list semantics, query_test.go TestLangMany*/ForcedFallback)."""
+        langs: List[str] = []
+        while True:
+            if self.accept("punct", "."):
+                langs.append(".")
+            else:
+                langs.append(self.expect("name").text)
+            if not self.accept("punct", ":"):
+                return langs
+
+    def _parse_root_args(self, gq: GraphQuery):
+        if not self.accept("punct", "("):
+            return
+        while not self.accept("punct", ")"):
+            self.accept("punct", ",")
+            if self.peek().text == ")":
+                continue
+            key = self.expect("name").text
+            self.expect("punct", ":")
+            if key == "func":
+                gq.func = self._parse_function()
+            elif key == "id":
+                self._parse_id_arg(gq)
+            elif key in _ROOT_ARGS:
+                if (
+                    key in ("orderasc", "orderdesc")
+                    and self.peek().kind == "name"
+                    and self.peek().text == "val"
+                    and self.peek(1).text == "("
+                ):
+                    self.next()
+                    self.expect("punct", "(")
+                    v = self.expect("name").text
+                    self.expect("punct", ")")
+                    gq.args[key] = "val:" + v
+                    gq.needs_var.append(VarRef(v, VALUE_VAR))
+                else:
+                    v = self._value_token()
+                    if key in ("orderasc", "orderdesc"):
+                        while self.accept("punct", "@"):
+                            v += "@" + self.expect("name").text
+                    elif key in ("first", "offset", "after", "depth", "numpaths"):
+                        # integer args validate at parse time (parser.go:360
+                        # "Expected an int but got %v"); counts are base 10
+                        # to match the reference's strconv semantics
+                        # (leading-zero literals parse as decimal, 0x is
+                        # rejected) — but `after` is a uid boundary and
+                        # keeps accepting hex like uid() does
+                        try:
+                            int(v, 0 if key == "after" else 10)
+                        except ValueError:
+                            raise ParseError(
+                                f"expected an int for {key}: but got {v!r}"
+                            )
+                    gq.args[key] = v
+            else:
+                # unknown args are ignored (reference ignores xid:, etc.)
+                self._value_token()
+
+    def _parse_id_arg(self, gq: GraphQuery):
+        """id: 0x0a | id: [1, 2, 0x3] — sugar for root uid list."""
+        if self.accept("punct", "["):
+            while not self.accept("punct", "]"):
+                self.accept("punct", ",")
+                if self.peek().text == "]":
+                    continue
+                gq.uid_list.append(_parse_uid(self._value_token()))
+        else:
+            v = self._value_token()
+            gq.uid_list.append(_parse_uid(v))
+
+    # -- functions ---------------------------------------------------------
+
+    def _parse_function(self) -> Function:
+        fn = Function()
+        fn.name = self.expect("name").text.lower()
+        self.expect("punct", "(")
+        if fn.name == "uid":
+            if self.peek().text == ")":  # uid() — "Empty Argument"
+                raise ParseError("uid() needs at least one uid or variable")
+            while not self.accept("punct", ")"):
+                self.accept("punct", ",")
+                if self.peek().text == ")":
+                    continue
+                t = self.next()
+                if t.kind == "number" or (t.kind == "name" and _is_uid(t.text)):
+                    fn.uid_args.append(_parse_uid(t.text))
+                elif t.kind == "name":
+                    fn.needs_vars.append(VarRef(t.text, UID_VAR))
+                elif t.kind == "dollar":
+                    if t.text not in self.vars:
+                        raise ParseError(f"undefined query variable {t.text}")
+                    fn.uid_args.append(_parse_uid(self.vars[t.text]))
+                else:
+                    raise ParseError(f"bad uid() arg {t.text!r}")
+            return fn
+        # first argument: attr | attr@lang | val(v) | count(attr)
+        t = self.next()
+        if t.kind == "name" and t.text == "val" and self.peek().text == "(":
+            self.expect("punct", "(")
+            v = self.expect("name").text
+            self.expect("punct", ")")
+            fn.is_val_var = True
+            fn.attr = v
+            fn.needs_vars.append(VarRef(v, VALUE_VAR))
+        elif t.kind == "name" and t.text == "count" and self.peek().text == "(":
+            self.expect("punct", "(")
+            fn.is_count = True
+            fn.attr = self.expect("name").text
+            self.expect("punct", ")")
+        elif t.kind in ("name", "iri"):
+            fn.attr = t.text.strip("<>") if t.kind == "iri" else t.text
+            if self.accept("punct", "@"):
+                fn.lang = ",".join(self._parse_lang_chain())
+        else:
+            raise ParseError(f"bad function first arg {t.text!r}")
+        # remaining args
+        while not self.accept("punct", ")"):
+            self.accept("punct", ",")
+            if self.peek().text == ")":
+                continue
+            if self.peek().text == "[":
+                fn.args.append(self._parse_bracket_list())
+            elif (
+                self.peek().kind == "name"
+                and self.peek().text == "val"
+                and self.peek(1).text == "("
+            ):
+                self.next()
+                self.expect("punct", "(")
+                v = self.expect("name").text
+                self.expect("punct", ")")
+                # note: is_val_var stays false — that flag means the FIRST
+                # arg is val(var); a val() comparand is carried in args
+                fn.needs_vars.append(VarRef(v, VALUE_VAR))
+                fn.args.append("val(" + v + ")")
+            else:
+                fn.args.append(self._value_token())
+        return fn
+
+    def _parse_bracket_list(self) -> str:
+        """Geo coordinate lists: returned as a JSON string."""
+
+        def rec():
+            self.expect("punct", "[")
+            out = []
+            while not self.accept("punct", "]"):
+                self.accept("punct", ",")
+                if self.peek().text == "]":
+                    continue
+                if self.peek().text == "[":
+                    out.append(rec())
+                else:
+                    v = self._value_token()
+                    try:
+                        out.append(float(v))
+                    except ValueError:
+                        out.append(v)
+            return out
+
+        return json.dumps(rec())
+
+    # -- filters -----------------------------------------------------------
+
+    def _parse_filter(self) -> Optional[FilterTree]:
+        self.expect("punct", "(")
+        if self.accept("punct", ")"):
+            raise ParseError("empty @filter()")  # lex "Empty Argument"
+        tree = self._parse_filter_or()
+        self.expect("punct", ")")
+        return tree
+
+    def _parse_filter_or(self) -> FilterTree:
+        left = self._parse_filter_and()
+        while self.peek().kind == "name" and self.peek().text.lower() == "or":
+            self.next()
+            right = self._parse_filter_and()
+            if left.op == "or":
+                left.children.append(right)
+            else:
+                left = FilterTree(op="or", children=[left, right])
+        return left
+
+    def _parse_filter_and(self) -> FilterTree:
+        left = self._parse_filter_not()
+        while self.peek().kind == "name" and self.peek().text.lower() == "and":
+            self.next()
+            right = self._parse_filter_not()
+            if left.op == "and":
+                left.children.append(right)
+            else:
+                left = FilterTree(op="and", children=[left, right])
+        return left
+
+    def _parse_filter_not(self) -> FilterTree:
+        if self.peek().kind == "name" and self.peek().text.lower() == "not":
+            self.next()
+            return FilterTree(op="not", children=[self._parse_filter_not()])
+        if self.accept("punct", "("):
+            t = self._parse_filter_or()
+            self.expect("punct", ")")
+            return t
+        return FilterTree(func=self._parse_function())
+
+    # -- directives --------------------------------------------------------
+
+    def _parse_directives(self, gq: GraphQuery):
+        while True:
+            t = self.peek()
+            if not (t.kind == "punct" and t.text == "@"):
+                return
+            nxt = self.peek(1)
+            if nxt.kind != "name":
+                return
+            d = nxt.text.lower()
+            if d not in _DIRECTIVES:
+                return
+            self.next()
+            self.next()
+            if d == "filter":
+                gq.filter = self._parse_filter()
+            elif d == "normalize":
+                gq.normalize = True
+            elif d == "cascade":
+                gq.cascade = True
+            elif d == "ignorereflex":
+                gq.ignore_reflex = True
+            elif d == "groupby":
+                gq.is_groupby = True
+                self.expect("punct", "(")
+                while not self.accept("punct", ")"):
+                    self.accept("punct", ",")
+                    if self.peek().text == ")":
+                        continue
+                    attr = self.expect("name").text
+                    lang = ""
+                    if self.accept("punct", "@"):
+                        # full chain, ':'-joined (groupby.py resolves it
+                        # element by element, '.' = any_value fallback)
+                        lang = ":".join(self._parse_lang_chain())
+                    gq.groupby_attrs.append((attr, lang))
+            elif d == "facets":
+                self._parse_facets(gq)
+            elif d == "recurse":
+                # modern-style @recurse(depth: n) — also accepted alongside
+                # the v0.7 "recurse(func:...)" block-name form
+                gq.args["recurse"] = "true"
+                if self.accept("punct", "("):
+                    while not self.accept("punct", ")"):
+                        self.accept("punct", ",")
+                        if self.peek().text == ")":
+                            continue
+                        k = self.expect("name").text
+                        self.expect("punct", ":")
+                        gq.args[k] = self._value_token()
+
+    def _parse_facets(self, gq: GraphQuery):
+        spec = gq.facets or FacetsSpec()
+        if not self.accept("punct", "("):
+            spec.all_keys = True
+            gq.facets = spec
+            return
+        if self.accept("punct", ")"):
+            spec.all_keys = True
+            gq.facets = spec
+            return
+        first = True
+        while True:
+            if not first:
+                if not self.accept("punct", ","):
+                    break
+                if self.peek().text == ")":
+                    raise ParseError("trailing comma in @facets")
+            first = False
+            t = self.peek()
+            if t.kind == "punct" and t.text == "(":
+                # parenthesized filter tree: @facets((eq(a,1) or eq(b,2))
+                # and ge(c,3)) — the reference's parseFilter admits a
+                # leading group the same way
+                gq.facets_filter = self._parse_filter_or()
+                break
+            if t.kind == "name" and t.text in ("orderasc", "orderdesc") and self.peek(1).text == ":":
+                self.next()
+                self.expect("punct", ":")
+                if spec.order_key:
+                    raise ParseError("only one facet order allowed")
+                spec.order_key = self.expect("name").text
+                spec.order_desc = t.text == "orderdesc"
+            elif t.kind == "name":
+                # facet key, possibly "v as key", possibly a filter tree
+                if self.peek(1).kind == "name" and self.peek(1).text.lower() == "as":
+                    v = self.next().text
+                    self.next()
+                    key = self.expect("name").text
+                    spec.keys.append(key)
+                    spec.aliases[key] = v
+                elif self.peek(1).text == "(" or t.text.lower() == "not":
+                    # facet filter tree: @facets(eq(close, true)) — the
+                    # reference reverts to parseFilter when the content
+                    # is not a key list, which also admits leading NOT
+                    gq.facets_filter = self._parse_filter_or()
+                    break
+                else:
+                    key = self.next().text
+                    if key in spec.keys:
+                        raise ParseError(f"duplicate facet key {key}")
+                    spec.keys.append(key)
+            else:
+                raise ParseError(f"bad @facets content at {t.text!r}")
+        self.expect("punct", ")")
+        if spec.keys or spec.all_keys or spec.order_key or spec.aliases:
+            gq.facets = spec  # filter-only @facets(...) fetches nothing
+
+    # -- children ----------------------------------------------------------
+
+    def _parse_children(self) -> List[GraphQuery]:
+        out: List[GraphQuery] = []
+        while not self.accept("punct", "}"):
+            self.accept("punct", ",")
+            if self.peek().text == "}":
+                continue
+            if self.accept("spread"):
+                name = self.expect("name").text
+                ph = GraphQuery(attr="...fragment", alias=name)
+                out.append(ph)
+                continue
+            out.append(self._parse_child())
+        return out
+
+    def _parse_child(self) -> GraphQuery:
+        gq = GraphQuery()
+        # optional alias prefix: "alias: <anything>", including aliased
+        # count()/math()/val() forms ("total: count(friends)")
+        if (
+            self.peek().kind == "name"
+            and self.peek(1).kind == "punct"
+            and self.peek(1).text == ":"
+            and self.peek(2).kind in ("name", "iri")
+        ):
+            gq.alias = self.next().text
+            self.next()
+        t = self.next()
+        if t.kind == "iri":
+            gq.attr = t.text.strip("<>")
+            if self.peek().text == "(":
+                self._parse_root_args(gq)
+            self._parse_directives(gq)
+            if self.accept("punct", "{"):
+                gq.children = self._parse_children()
+            return gq
+        if t.kind != "name":
+            raise ParseError(f"expected attribute at offset {t.pos}, got {t.text!r}")
+        name = t.text
+
+        # "x as ..." variable definition
+        if self.peek().kind == "name" and self.peek().text.lower() == "as":
+            self.next()
+            gq.var = name
+            t = self.expect("name")
+            name = t.text
+
+        low = name.lower()
+        if low == "count" and self.peek().text == "(":
+            self.expect("punct", "(")
+            if self.accept("punct", ")"):  # bare count(): count of uids
+                gq.attr = ""
+                gq.is_count = True
+                self._parse_directives(gq)
+                return gq
+            inner = self.expect("name").text
+            if inner == "var" or inner == "val":
+                raise ParseError("count(val()) is not allowed")
+            gq.attr = inner
+            gq.is_count = True
+            if self.accept("punct", "@"):
+                gq.langs.extend(self._parse_lang_chain())
+            self.expect("punct", ")")
+        elif low in _AGG_FUNCS and self.peek().text == "(":
+            self.expect("punct", "(")
+            self.expect("name", "val")
+            self.expect("punct", "(")
+            v = self.expect("name").text
+            self.expect("punct", ")")
+            self.expect("punct", ")")
+            gq.attr = "val"
+            gq.agg_func = low
+            gq.needs_var.append(VarRef(v, VALUE_VAR))
+        elif low == "val" and self.peek().text == "(":
+            self.expect("punct", "(")
+            v = self.expect("name").text
+            self.expect("punct", ")")
+            gq.attr = "val"
+            gq.needs_var.append(VarRef(v, VALUE_VAR))
+        elif low == "math" and self.peek().text == "(":
+            gq.attr = "math"
+            gq.math_exp = self._parse_math()
+            gq.is_internal = not bool(gq.var) and not bool(gq.alias)
+        elif low == "expand" and self.peek().text == "(":
+            self.expect("punct", "(")
+            inner = self.expect("name").text
+            if inner == "_all_":
+                gq.expand = "_all_"
+            elif inner == "val":
+                self.expect("punct", "(")
+                v = self.expect("name").text
+                self.expect("punct", ")")
+                gq.expand = v
+                gq.needs_var.append(VarRef(v, VALUE_VAR))
+            else:
+                raise ParseError(f"bad expand() arg {inner!r}")
+            self.expect("punct", ")")
+            gq.attr = "expand"
+        elif low == "checkpwd" and self.peek().text == "(":
+            self.expect("punct", "(")
+            gq.attr = self.expect("name").text
+            self.accept("punct", ",")
+            pwd = self._value_token()
+            self.expect("punct", ")")
+            f = Function(name="checkpwd", attr=gq.attr, args=[pwd])
+            gq.func = f
+        else:
+            gq.attr = name
+            if self.peek().kind == "punct" and self.peek().text == "@":
+                nxt = self.peek(1)
+                if not (nxt.kind == "name" and nxt.text.lower() in _DIRECTIVES):
+                    self.next()
+                    gq.langs.extend(self._parse_lang_chain())
+
+        # (args) — pagination/order on the edge
+        if self.peek().text == "(":
+            self._parse_root_args(gq)
+        self._parse_directives(gq)
+        if self.accept("punct", "{"):
+            gq.children = self._parse_children()
+        return gq
+
+    # -- math --------------------------------------------------------------
+
+    _MATH_FUNCS = {
+        "exp", "ln", "sqrt", "floor", "ceil", "since", "pow", "logbase",
+        "max", "min", "cond",
+    }
+
+    def _parse_math(self) -> MathTree:
+        self.expect("punct", "(")
+        tree = self._math_expr(0)
+        self.expect("punct", ")")
+        return tree
+
+    # Binary operator precedences — the reference's exact (all-distinct)
+    # table (gql/parser.go:156 mathOpPrecedence), which with left
+    # associativity reproduces its shunting-yard groupings, e.g.
+    # "a + b*c/a + e - l" ⇒ (+ (+ a (* b (/ c a))) (- e l)).
+    _BINOPS = {
+        "/": 50, "*": 49, "%": 48, "-": 47, "+": 46,
+        "<": 10, ">": 9, "<=": 8, ">=": 7, "==": 6, "!=": 5,
+        "&&": 3, "and": 3, "||": 2, "or": 2,
+    }
+
+    def _math_expr(self, min_prec: int) -> MathTree:
+        left = self._math_atom()
+        while True:
+            t = self.peek()
+            op = t.text.lower() if t.kind in ("op", "name") else None
+            if op not in self._BINOPS or self._BINOPS[op] < min_prec:
+                return left
+            self.next()
+            right = self._math_expr(self._BINOPS[op] + 1)
+            left = MathTree(fn=t.text if t.kind == "op" else op, children=[left, right])
+
+    def _math_atom(self) -> MathTree:
+        t = self.peek()
+        if t.kind == "punct" and t.text == "(":
+            self.next()
+            e = self._math_expr(0)
+            self.expect("punct", ")")
+            return e
+        if t.kind == "op" and t.text == "-":
+            self.next()
+            return MathTree(fn="u-", children=[self._math_atom()])
+        if t.kind == "number":
+            self.next()
+            return MathTree(const=float(t.text))
+        if t.kind == "name":
+            name = t.text
+            if name.lower() in self._MATH_FUNCS and self.peek(1).text == "(":
+                self.next()
+                self.expect("punct", "(")
+                node = MathTree(fn=name.lower())
+                node.children.append(self._math_expr(0))
+                while self.accept("punct", ","):
+                    node.children.append(self._math_expr(0))
+                self.expect("punct", ")")
+                return node
+            self.next()
+            return MathTree(var=name)
+        raise ParseError(f"bad math expression at {t.text!r}")
+
+    # -- schema request ----------------------------------------------------
+
+    def _parse_schema_request(self) -> SchemaRequest:
+        req = SchemaRequest()
+        if self.accept("punct", "("):
+            self.expect("name", "pred")
+            self.expect("punct", ":")
+            if self.accept("punct", "["):
+                while not self.accept("punct", "]"):
+                    self.accept("punct", ",")
+                    if self.peek().text == "]":
+                        continue
+                    req.predicates.append(self._value_token())
+            else:
+                req.predicates.append(self._value_token())
+            self.expect("punct", ")")
+        self.expect("punct", "{")
+        while not self.accept("punct", "}"):
+            self.accept("punct", ",")
+            if self.peek().text == "}":
+                continue
+            req.fields.append(self.expect("name").text)
+        return req
+
+    # -- fragments ---------------------------------------------------------
+
+    def _expand_fragments_all(self, res: ParsedResult):
+        for q in res.queries:
+            self._expand_fragments(q, set())
+
+    def _expand_fragments(self, gq: GraphQuery, seen: frozenset):
+        out = []
+        for c in gq.children:
+            if c.attr == "...fragment":
+                name = c.alias
+                if name in seen:
+                    raise ParseError(f"fragment cycle at {name}")
+                body = self.fragments.get(name)
+                if body is None:
+                    raise ParseError(f"missing fragment {name}")
+                import copy
+
+                for item in body:
+                    item2 = copy.deepcopy(item)
+                    holder = GraphQuery(children=[item2])
+                    self._expand_fragments(holder, set(seen) | {name})
+                    out.extend(holder.children)
+            else:
+                self._expand_fragments(c, seen)
+                out.append(c)
+        gq.children = out
+
+    # -- var dependency collection ------------------------------------------
+
+    def _collect_query_vars(self, res: ParsedResult):
+        for q in res.queries:
+            defines: List[str] = []
+            needs: List[str] = []
+            self._walk_vars(q, defines, needs, is_root=True)
+            res.query_vars.append((defines, needs))
+        # checkDependency (gql/parser.go:605): undefined uses, duplicate
+        # definitions, and defined-but-unused vars are all request errors
+        flat_defs = [d for ds, _ in res.query_vars for d in ds]
+        all_defs = set(flat_defs)
+        if len(flat_defs) != len(all_defs):
+            raise ParseError("some variables are declared multiple times")
+        all_needs = {n for _ds, ns in res.query_vars for n in ns}
+        unused = all_defs - all_needs
+        if unused:
+            raise ParseError(
+                f"some variables are defined but not used: {sorted(unused)}"
+            )
+        for q, (_ds, ns) in zip(res.queries, res.query_vars):
+            for n in ns:
+                if n not in all_defs:
+                    raise ParseError(f"variable {n!r} used but not defined")
+
+    def _walk_vars(self, gq: GraphQuery, defines, needs, is_root=False):
+        if gq.var:
+            defines.append(gq.var)
+        if gq.facets:
+            defines.extend(gq.facets.aliases.values())  # "a as facetkey"
+        for vr in gq.needs_var:
+            needs.append(vr.name)
+        if gq.func:
+            for vr in gq.func.needs_vars:
+                needs.append(vr.name)
+        if gq.filter:
+            self._walk_filter_vars(gq.filter, needs)
+        if gq.math_exp:
+            self._walk_math_vars(gq.math_exp, needs)
+        for c in gq.children:
+            self._walk_vars(c, defines, needs)
+
+    def _walk_filter_vars(self, ft: FilterTree, needs):
+        if ft.func:
+            for vr in ft.func.needs_vars:
+                needs.append(vr.name)
+        for c in ft.children:
+            self._walk_filter_vars(c, needs)
+
+    def _walk_math_vars(self, mt: MathTree, needs):
+        if mt.var:
+            needs.append(mt.var)
+        for c in mt.children:
+            self._walk_math_vars(c, needs)
+
+
+def _is_uid(s: str) -> bool:
+    return bool(re.fullmatch(r"0[xX][0-9a-fA-F]+|\d+", s))
+
+
+def _parse_uid(s: str) -> int:
+    if s.lower().startswith("0x"):
+        return int(s, 16)
+    if s.isdigit():
+        return int(s)
+    raise ParseError(f"invalid uid {s!r}")
+
+
+# Brace matching over big mutation bodies is a bulk-load hot path: any
+# scheme that visits every token pays ~3 Python iterations per RDF line
+# (two IRIs + a literal).  Braces themselves are RARE — section headers
+# plus the odd quoted brace — so the matcher seeks candidate braces with
+# C-level str.find and tokenizes ONLY the lines containing them (string
+# literals, IRIs and comments never span lines, matching the reference's
+# single-line lexer tokens; gql/state.go errors on unclosed strings).
+_LINE_TOK_RE = re.compile(
+    r'"(?:\\.|[^"\\\n])*(?:"|$)'  # string literal, line-bounded
+    r"|<[^>\n]*>"                 # IRI
+    r"|#[^\n]*"                   # comment
+    r"|[{}]",
+    re.MULTILINE,
+)
+
+
+def _match_brace(text: str, open_idx: int) -> int:
+    """Index of the '}' matching text[open_idx] == '{' (string/comment/
+    IRI aware)."""
+    depth = 1
+    pos = open_idx + 1
+    n = len(text)
+    # candidates memoize across iterations (refreshed only once passed):
+    # re-finding both per loop would go quadratic on bodies dense in one
+    # brace kind, e.g. literals full of '{' with a distant final '}'
+    jo = jc = -2
+    while pos < n:
+        if -1 < jo < pos or jo == -2:
+            jo = text.find("{", pos)
+        if -1 < jc < pos or jc == -2:
+            jc = text.find("}", pos)
+        if jc == -1 and jo == -1:
+            break
+        cand = min(x for x in (jo, jc) if x != -1)
+        # tokenize just this candidate's line (from the later of line
+        # start / the char after the open brace — both token boundaries)
+        ls = text.rfind("\n", 0, cand) + 1
+        le = text.find("\n", cand)
+        le = n if le == -1 else le
+        for m in _LINE_TOK_RE.finditer(text, max(ls, open_idx + 1), le):
+            c = text[m.start()]
+            if c == "{":
+                depth += 1
+            elif c == "}":
+                depth -= 1
+                if depth == 0:
+                    return m.start()
+        pos = le + 1
+    raise ParseError("unbalanced braces")
+
+
+_REGEXP_ARG_RE = re.compile(
+    r"(regexp\s*\(\s*[^,()]+?,\s*)/((?:\\.|[^/\\\n])*)/([a-z]*)"
+)
+
+
+_MUT_TOK_RE = re.compile(
+    # string-literal token is LINE-bounded, like _LINE_TOK_RE's: an
+    # unterminated quote must swallow at most the rest of its line, or
+    # this tokenizer and _match_brace disagree about brace nesting (a
+    # multi-line string here would hide real braces — and a genuine
+    # top-level `mutation {` — that _match_brace still counts)
+    r'"(?:\\.|[^"\\\n])*(?:"|(?=\n)|\Z)|#[^\n]*|[{}]|mutation'
+)
+
+
+def _find_toplevel_mutation(text: str) -> Optional[re.Match]:
+    """Find 'mutation {' at brace depth 0, outside strings/comments —
+    a regex search alone would match inside string literals or a
+    predicate subtree named 'mutation'.  Tokenized like _match_brace
+    (per-character walking is too slow for bulk bodies); string and
+    comment tokens fall through untouched."""
+    depth = 0
+    n = len(text)
+    for m in _MUT_TOK_RE.finditer(text):
+        i = m.start()
+        c = text[i]
+        if c == "{":
+            depth += 1
+        elif c == "}":
+            depth -= 1
+        elif c == "m":  # the literal 'mutation'
+            if depth == 0 and (
+                i == 0 or not (text[i - 1].isalnum() or text[i - 1] in "_.")
+            ):
+                j = m.end()
+                while j < n and text[j].isspace():
+                    j += 1
+                if j < n and text[j] == "{":
+                    return _FakeMatch(i, j)
+    return None
+
+
+class _FakeMatch:
+    """Minimal match-like holder: start of keyword + index of '{'."""
+
+    def __init__(self, start: int, brace: int):
+        self._start, self.brace = start, brace
+
+    def start(self) -> int:
+        return self._start
+
+
+_SECTION_AT_RE = re.compile(r"(set|delete|del|schema)\s*\{")
+
+
+def _extract_mutation(text: str) -> Tuple[str, Optional[Mutation]]:
+    """Cut the top-level ``mutation { set {...} delete {...} schema {...} }``
+    out of the request text before lexing — N-Quad bodies are not lexable
+    as query tokens (they contain bare '.', '^^', etc.).
+
+    Single forward pass: each section's body is brace-matched exactly
+    once (the earlier outer-then-per-section structure scanned every
+    multi-million-quad set body twice), and anything between sections
+    that is not whitespace/comment is an unknown operation (the
+    reference lexer's "Invalid operation type")."""
+    m = _find_toplevel_mutation(text)
+    if m is None:
+        return text, None
+    mu = Mutation()
+    n = len(text)
+    i = m.brace + 1
+    close_idx = None
+    while i < n:
+        c = text[i]
+        if c in " \t\r\n":
+            i += 1
+            continue
+        if c == "#":  # comment between sections
+            j = text.find("\n", i + 1)
+            i = n if j == -1 else j + 1
+            continue
+        if c == "}":
+            close_idx = i
+            break
+        sm = _SECTION_AT_RE.match(text, i)
+        if sm is None:
+            snippet = text[i : i + 30].split("\n")[0]
+            raise ParseError(f"unknown mutation section near {snippet!r}")
+        o = sm.end() - 1
+        c_idx = _match_brace(text, o)
+        content = text[o + 1 : c_idx]
+        kw = sm.group(1)
+        if kw == "set":
+            mu.set_nquads = content
+        elif kw in ("delete", "del"):
+            mu.del_nquads = content
+        else:
+            mu.schema = content
+        i = c_idx + 1
+    if close_idx is None:
+        raise ParseError("unbalanced braces")
+    rest = text[: m.start()] + text[close_idx + 1 :]
+    return rest, mu
+
+
+def parse(text: str, variables: Optional[Dict[str, str]] = None) -> ParsedResult:
+    """Parse a GraphQL± request.
+
+    Accepts either a bare query string or the HTTP JSON wrapper
+    {"query": "...", "variables": {...}} (gql.Parse with Request.Http).
+    """
+    stripped = text.lstrip()
+    gqlvars: Dict[str, str] = dict(variables or {})
+    if stripped.startswith("{") and '"query"' in stripped[:400]:
+        try:
+            obj = json.loads(stripped)
+        except json.JSONDecodeError:
+            obj = None
+        if isinstance(obj, dict) and "query" in obj:
+            text = obj["query"]
+            v = obj.get("variables") or {}
+            if isinstance(v, str):
+                v = json.loads(v) if v else {}
+            # keep JSON lexical form: true/false/null, not True/False/None
+            gqlvars.update(
+                {
+                    k: (val if isinstance(val, str) else json.dumps(val))
+                    for k, val in v.items()
+                }
+            )
+    text, mutation = _extract_mutation(text)
+    # /re/ literals are only legal as regexp() args; quote them before
+    # lexing so '/' never collides with the division operator
+    text = _REGEXP_ARG_RE.sub(
+        lambda m: m.group(1) + json.dumps("/" + m.group(2) + "/" + m.group(3)),
+        text,
+    )
+    toks = _lex(text)
+    p = _Parser(toks, gqlvars)
+    res = p.parse()
+    if mutation is not None:
+        res.mutation = mutation
+    return res
