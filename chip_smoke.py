@@ -28,15 +28,39 @@ Phases, each fatal (exit code 1, no result line):
       2-hop over a fresh 8192-seed frontier holding those seeds,
       byte-identical to the host route with the new edges present.
    The counts are read right after.
-5. report — per kernel its launches, error, time, plain-version time and
-   bound (one ``kernels`` JSON line), the nvidia-smi line, and last the
-   ``{"ok": true, "device": ...}`` line.
+5. dense — the same generated edges as a dense CSR arena on cuda in the
+   skey-grouped inline-head layout; 1000 query frontiers of 4096 drawn
+   seeds (bench.py's draw, seed 3) and the pipeline's capacity plan.
+6. slotmap kernels — the slot-map kernel against its plain version on
+   the card, exactly: the pipeline's real (cs, cd) at both hops of one
+   200-query chunk, random grouped batches, totals at block boundaries,
+   zero-cd rows between productive ones, truncation at capc, an
+   all-zero batch.
+7. batched 2-hop — every kernel's launch count is set to 0, then the
+   device-dedup batched 2-hop (``bench2hop.run_device_dedup``) runs the
+   1000 queries in chunks of 200 (a warm pass, then best of 4); every
+   query's edge count and checksum and the last query's set must equal
+   numpy's (``np_two_hop``), and the slot-map kernel must have launched
+   twice per chunk in every pass plus twice for the last set.  The counts
+   are read right after.  Edges/s, the numpy baseline and the caps are
+   printed.
+8. report — the device time of one 200-query chunk by stage (hop 1,
+   dedup, hop 2, checksum; CUDA events); one pass of the 1000 queries
+   under ``torch.profiler``: the card's busy time (the union of its
+   kernel and copy intervals) over the pass's host wall time, and device
+   ms by kernel name; one pass with CUDA events around each chunk; the
+   slot-map's time at both hops' shapes; the bytes bound of the kernel
+   not yet ported; then per kernel its launches (from its own path's
+   run), error, time, plain-version time and bound (one ``kernels`` JSON
+   line), the nvidia-smi line, and last the ``{"ok": true, "device":
+   ...}`` line.
 
 Exits non-zero without a CUDA GPU, or when the package is not beside it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -53,12 +77,17 @@ N_NODES, N_EDGES, GRAPH_SEED = 2_000_000, 21_000_000, 7
 # 8192 seeds about 410,000, so the served query crosses it (the config
 # line prints both counts)
 SMALL_SEEDS, LARGE_SEEDS, REPEATS = 64, 8192, 20
+# the batched 2-hop: bench.py's defaults (BENCH_SEEDS, BENCH_ITERS) and
+# its chunk of queries per batched program
+BATCH_SEEDS, BATCH_QUERIES, CHUNK_Q = 4096, 1000, 200
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 
-# kernels of the main path: (name, wrapper module, TPU kernel it replaces)
+# kernels: (name, wrapper module, TPU kernel it replaces, path that runs it)
 KERNELS = [
     ("gather_packed", "dgraph_tpu_torch.ops.gather",
-     "dgraph_tpu/ops/pallas_gather.py:48"),
+     "dgraph_tpu/ops/pallas_gather.py:48", "main_path"),
+    ("slotmap", "dgraph_tpu_torch.ops.slotmap",
+     "dgraph_tpu/ops/pallas_slotmap.py:46", "batched_2hop"),
 ]
 
 
@@ -82,18 +111,6 @@ def nvidia_smi() -> str:
     )
     check(r.returncode == 0, f"nvidia-smi failed: {r.stderr}")
     return r.stdout.strip().splitlines()[0]
-
-
-def build_graph(n_nodes: int, n_edges: int, seed: int = GRAPH_SEED):
-    """bench.py build_graph's edge generator: uniform sources, half the
-    targets uniform and half pareto-skewed (celebrity uids)."""
-    rng = np.random.default_rng(seed)
-    src = rng.integers(1, n_nodes + 1, size=n_edges)
-    pop = (rng.pareto(1.2, size=n_edges).astype(np.float64) + 1.0)
-    dst = (np.clip(pop / pop.max(), 1e-9, 1.0) * (n_nodes - 1)).astype(np.int64) + 1
-    half = n_edges // 2
-    dst[:half] = rng.integers(1, n_nodes + 1, size=half)
-    return src, dst
 
 
 def post(addr: str, text: str, params: str = ""):
@@ -186,11 +203,12 @@ def phase_build() -> dict:
 
 
 def phase_graph(device, n_nodes: int, n_edges: int):
+    from dgraph_tpu_torch.bench2hop import gen_edges
     from dgraph_tpu_torch.models import PostingStore
     from dgraph_tpu_torch.serve.server import DgraphServer
 
     t0 = time.perf_counter()
-    src, dst = build_graph(n_nodes, n_edges)
+    src, dst = gen_edges(n_nodes, n_edges)
     store = PostingStore()
     store.apply_schema("e: uid .")
     store.bulk_set_uid_edges("e", src, dst)
@@ -213,7 +231,7 @@ def phase_graph(device, n_nodes: int, n_edges: int):
          "load_s": round(t1 - t0, 3), "arena_build_s": round(t2 - t1, 3),
          "server": srv.addr, "device": str(srv.engine.device),
          "expand_device_min": srv.engine.expand_device_min})
-    return store, srv
+    return store, srv, (src, dst)
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -394,7 +412,330 @@ def phase_main_path(store, srv, rng, card: str) -> dict:
     return out
 
 
-# -- phase 5 ----------------------------------------------------------------
+# -- phases 5-7: the batched 2-hop -------------------------------------------
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def phase_dense(device, src, dst, n_nodes: int, n_queries: int = BATCH_QUERIES):
+    """The graph phase's edges as a dense arena in the grouped inline
+    layout on ``device``, the query frontiers and the pipeline's plan."""
+    from dgraph_tpu_torch import bench2hop, ops
+    from dgraph_tpu_torch.models.arena import csr_dense_from_edges
+
+    t0 = time.perf_counter()
+    a = csr_dense_from_edges(src, dst, n_nodes, device)
+    t1 = time.perf_counter()
+    metap, ov = a.inline_layout_grouped()
+    _sync(a.device)
+    t2 = time.perf_counter()
+    frontiers = bench2hop.draw_frontiers(n_nodes, BATCH_SEEDS, n_queries)
+    fcap = ops.bucket(max(len(f) for f in frontiers))
+    plan = bench2hop.plan_caps(a, frontiers, fcap, grouped=True)
+    t3 = time.perf_counter()
+    sizes = [len(f) for f in frontiers]
+    log({"phase": "dense", "rows": a.n_rows, "edges_stored": a.n_edges,
+         "metap": list(metap.shape), "ov_chunks": list(ov.shape),
+         "device_bytes": a.device_bytes(), "queries": n_queries,
+         "seeds_drawn": BATCH_SEEDS, "frontier_min": min(sizes),
+         "frontier_max": max(sizes), "plan": dataclasses.asdict(plan),
+         "arena_s": round(t1 - t0, 3), "layout_s": round(t2 - t1, 3),
+         "plan_s": round(t3 - t2, 3)})
+    return a, frontiers, fcap, plan
+
+
+def chunk_tensor(a, frontiers, plan):
+    """The pipeline's first chunk of group-ordered seed frontiers,
+    int32[CHUNK_Q, fcap] on the arena's device."""
+    import torch
+
+    from dgraph_tpu_torch import bench2hop, ops
+
+    g = bench2hop.group_order(a, frontiers[:CHUNK_Q])
+    return torch.from_numpy(np.stack([ops.pad_to(f, plan.fcap) for f in g])).to(a.device)
+
+
+def slotmap_real_inputs(a, frontiers, plan):
+    """(name, cs, cd, capc) at both hops of the pipeline's first chunk;
+    hop 1's output is formed by the torch chain, not the kernel."""
+    from dgraph_tpu_torch import bench2hop, ops
+    from dgraph_tpu_torch.ops.sets import ov_slotmap_inputs
+
+    metap, ov = a.inline_layout_grouped()
+    rows0 = ops.frontier_rows(chunk_tensor(a, frontiers, plan))
+    cs1, cd1 = ov_slotmap_inputs(metap, rows0, plan.pcap1)
+    inl1, ov1, _t = ops.expand_inline_grouped(metap, ov, rows0, plan.capo1, plan.pcap1)
+    rows1 = bench2hop.next_rows(inl1, ov1, plan)
+    cs2, cd2 = ov_slotmap_inputs(metap, rows1, plan.pcap2)
+    return [("hop1_chunk", cs1.contiguous(), cd1.contiguous(), plan.capo1),
+            ("hop2_chunk", cs2.contiguous(), cd2.contiguous(), plan.capo2)]
+
+
+def grouped_batch(rng, q: int, pcap: int, fill: float = 0.5):
+    """q random grouped prefixes: up to ``fill``·pcap productive rows with
+    strictly ascending chunk starts (cd 1..5, gaps 0..2), zero tail."""
+    cs = np.zeros((q, pcap), np.int32)
+    cd = np.zeros((q, pcap), np.int32)
+    for i in range(q):
+        n = int(rng.integers(0, int(pcap * fill) + 1))
+        d = rng.integers(1, 6, size=n)
+        start = np.cumsum(rng.integers(0, 3, size=n)) + np.cumsum(d) - d
+        cs[i, :n] = start
+        cd[i, :n] = d
+    return cs, cd
+
+
+def total_case(rng, total: int, pcap: int = 1024):
+    """One query whose chunk counts sum to exactly ``total``."""
+    d = rng.integers(1, 5, size=total)
+    c = np.cumsum(d)
+    k = int(np.searchsorted(c, total))
+    d = d[: k + 1]
+    d[-1] -= int(c[k]) - total
+    cs = np.zeros((1, pcap), np.int32)
+    cd = np.zeros((1, pcap), np.int32)
+    cs[0, : len(d)] = np.cumsum(rng.integers(0, 2, size=len(d))) + np.cumsum(d) - d
+    cd[0, : len(d)] = d
+    return cs, cd
+
+
+def phase_slotmap_kernels(a, frontiers, plan, rng) -> int:
+    """Slot-map kernel == plain version on the card, exactly, over the
+    grid; returns the max |kernel - plain|."""
+    import torch
+
+    from dgraph_tpu_torch.ops import slotmap
+
+    dev = a.device
+    cases = slotmap_real_inputs(a, frontiers, plan)
+    _n, cs2, cd2, capc2 = cases[1]
+    cases.append(("hop2_chunk_truncated", cs2, cd2, max(8, capc2 // 4)))
+    host = []
+    for q, pcap, capc in ((CHUNK_Q, 16384, 16384), (CHUNK_Q, 3072, 3328), (7, 1000, 2900)):
+        host.append((f"random_grouped_Q{q}_P{pcap}_C{capc}",
+                     *grouped_batch(rng, q, pcap), capc))
+    for t in (127, 128, 129, 255, 256, 257, 383, 1023, 1024, 1025):
+        host.append((f"total_{t}", *total_case(rng, t), 2048))
+    cs, cd = grouped_batch(rng, 64, 4096)
+    cd[rng.random(cd.shape) < 0.2] = 0  # zero-cd rows between productive ones
+    host.append(("zero_cd_between", cs, cd, 8192))
+    cs, cd = grouped_batch(rng, 16, 4096, fill=1.0)
+    host.append(("random_truncated", cs, cd, 512))
+    host.append(("all_zero", np.zeros((CHUNK_Q, 16384), np.int32),
+                 np.zeros((CHUNK_Q, 16384), np.int32), 16384))
+    host.append(("single_row_prefix", np.array([[5]], np.int32),
+                 np.array([[3]], np.int32), 8))
+    for name, cs, cd, capc in host:
+        cases.append((name, torch.from_numpy(cs).to(dev),
+                      torch.from_numpy(cd).to(dev), capc))
+    results, max_err = [], 0
+    for name, cs, cd, capc in cases:
+        got = slotmap.slotmap(cs, cd, capc)
+        want = slotmap.slotmap_plain(cs, cd, capc)
+        _sync(dev)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        max_err = max(max_err, err)
+        total = int(cd.to(torch.int64).sum(1).max())
+        results.append((name, tuple(cs.shape), int(capc), total, err))
+        check(torch.equal(got, want), f"slotmap kernel != plain version on {name}")
+    log({"phase": "slotmap_kernels", "kernel": "slotmap", "tolerance": 0,
+         "cases": [{"case": n, "Q_pcap": list(s_), "capc": c, "max_total": t,
+                    "max_abs_err": e} for n, s_, c, t, e in results]})
+    return max_err
+
+
+def phase_batched_2hop(a, frontiers, fcap, plan, card: str) -> dict:
+    """The batched 2-hop over every query, held against numpy query by
+    query; the caller zeroes the launch counts just before."""
+    from dgraph_tpu_torch import bench2hop
+    from dgraph_tpu_torch.ops import slotmap
+
+    stats: dict = {}
+    t0 = time.perf_counter()
+    dev_s, edges, chks, last_set = bench2hop.run_device_dedup(
+        a, frontiers, fcap, CHUNK_Q, stats, plan=plan)
+    run_s = time.perf_counter() - t0
+    launches = slotmap.KERNEL.launches
+    t1 = time.perf_counter()
+    cpu_s, cpu_edges, cpu_chks = bench2hop.numpy_baseline(a, frontiers, reps=1)
+    numpy_s = time.perf_counter() - t1
+    _n, want_last, _c = bench2hop.np_two_hop(a, a.host_dst(), frontiers[-1])
+    bad = np.nonzero(stats["counts"] != cpu_edges)[0]
+    check(not len(bad), f"edge counts differ from numpy at queries {bad[:10].tolist()}")
+    bad = np.nonzero(chks != cpu_chks)[0]
+    check(not len(bad), f"checksums differ from numpy at queries {bad[:10].tolist()}")
+    check(np.array_equal(last_set, want_last), "last query's set differs from numpy")
+    check(edges == int(cpu_edges.sum()), "total edges differ from numpy")
+    n_chunks = -(-len(frontiers) // CHUNK_Q)
+    per_pass = stats["slotmap_launches_per_pass"]
+    check(per_pass == [2 * n_chunks] * len(per_pass),
+          f"slot-map launches per pass {per_pass}, want {2 * n_chunks} each")
+    check(launches == sum(per_pass) + 2,
+          f"slot-map launches {launches}, want {sum(per_pass) + 2}")
+    out = {
+        "queries": len(frontiers), "seeds_drawn": BATCH_SEEDS,
+        "chunk_q": CHUNK_Q, "caps": stats["plan"], "edges": edges,
+        "edges_per_query_mean": edges / len(frontiers),
+        "best_pass_s": dev_s, "pass_seconds": stats["pass_seconds"],
+        "edges_per_s": edges / dev_s, "numpy_best_s": cpu_s,
+        "numpy_edges_per_s": edges / cpu_s, "vs_baseline": cpu_s / dev_s,
+        "slotmap_launches_per_pass": per_pass, "slotmap_launches": launches,
+        "checksums_equal_numpy": True, "last_set_equal_numpy": True,
+        "run_s": run_s, "numpy_run_s": numpy_s, "card": card,
+    }
+    log(dict(phase="batched_2hop", **out))
+    return out
+
+
+def batched_breakdown(a, frontiers, plan) -> dict:
+    """Device time of one chunk of the pipeline by stage (CUDA events,
+    median of 10 after a warm run): hop 1, dedup, hop 2, checksum."""
+    import torch
+
+    from dgraph_tpu_torch import bench2hop, ops
+
+    metap, ov = a.inline_layout_grouped()
+    fm = chunk_tensor(a, frontiers, plan)
+    ex = ops.expand_inline_grouped_kernel
+
+    def stages():
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        evs[0].record()
+        rows0 = ops.frontier_rows(fm)
+        inl1, ov1, t1 = ex(metap, ov, rows0, plan.capo1, plan.pcap1)
+        evs[1].record()
+        rows1 = bench2hop.next_rows(inl1, ov1, plan)
+        evs[2].record()
+        inl2, ov2, t2 = ex(metap, ov, rows1, plan.capo2, plan.pcap2)
+        evs[3].record()
+        bench2hop.checksum(inl2, ov2, plan.mask)
+        evs[4].record()
+        return evs
+
+    stages()
+    runs = [stages() for _ in range(10)]
+    torch.cuda.synchronize()
+    names = ["hop1_ms", "dedup_ms", "hop2_ms", "checksum_ms"]
+    out = {n: float(np.median([r[k].elapsed_time(r[k + 1]) for r in runs]))
+           for k, n in enumerate(names)}
+    out["chunk_ms"] = float(np.median([r[0].elapsed_time(r[4]) for r in runs]))
+    # hop 2's least traffic: rows in, one 8-lane metap row per row, the
+    # inline lanes out, each overflow chunk gathered and written once,
+    # the slot-map's inputs and map
+    q, u, c, p = fm.shape[0], plan.ucap, plan.capo2, plan.pcap2
+    out["hop2_bytes"] = 4 * q * (u + 8 * u + ops.INLINE * u + 16 * c + 2 * p + c)
+    out["hop2_bound_ms"] = out["hop2_bytes"] / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def slotmap_timing(a, frontiers, plan) -> dict:
+    """The slot-map at both hops' shapes of a chunk (hop 2's is the main
+    path's largest): wrapper and plain-version device times, and the
+    bytes bound, keyed by hop."""
+    from dgraph_tpu_torch.ops import slotmap
+
+    out = {}
+    for name, cs, cd, capc in slotmap_real_inputs(a, frontiers, plan):
+        q, pcap = cs.shape
+        # the function reads cs and cd once and writes the map once
+        nbytes = 4 * q * (2 * pcap + capc)
+        ms = cuda_ms(lambda cs=cs, cd=cd, capc=capc: slotmap.slotmap(cs, cd, capc))
+        plain_ms = cuda_ms(
+            lambda cs=cs, cd=cd, capc=capc: slotmap.slotmap_plain(cs, cd, capc))
+        out[name] = {"Q": q, "pcap": pcap, "capc": capc,
+                     "max_total": int(cd.sum(1).max()), "bytes": nbytes,
+                     "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    return out
+
+
+def _union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def pass_profile(a, frontiers, fcap, plan) -> dict:
+    """The card's busy share of one pass of the batched 2-hop: a pass
+    under ``torch.profiler`` (device intervals of every kernel, copy and
+    fill; their union over the pass's host wall time, and device ms by
+    kernel name), then a pass with CUDA events around each chunk (the sum
+    of the chunks' device spans over that pass's host wall time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dgraph_tpu_torch import bench2hop
+
+    metap, ov, plan, fmat = bench2hop.prepare(a, frontiers, fcap, plan)
+    bench2hop.run_pass(metap, ov, fmat, plan, CHUNK_Q)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bench2hop.run_pass(metap, ov, fmat, plan, CHUNK_Q)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        s, e = ev.time_range.start, ev.time_range.end
+        spans.append((s, e))
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + (e - s) / 1e3
+    out = {"profiled_pass_s": wall_s, "device_events": len(spans)}
+    if spans:
+        busy_ms = _union_us(spans) / 1e3
+        slot_ms = sum(v for k, v in by_name.items() if "slotmap" in k)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        out.update(device_busy_ms=busy_ms,
+                   busy_share_of_pass=busy_ms / (wall_s * 1e3),
+                   device_window_ms=(max(e for _s, e in spans)
+                                     - min(s for s, _e in spans)) / 1e3,
+                   slotmap_kernels_ms=slot_ms,
+                   slotmap_share_of_busy=slot_ms / busy_ms,
+                   top_kernels_ms=[[k, v] for k, v in top])
+    else:  # the profiler saw no device activity: leave the share unmeasured
+        out.update(device_busy_ms=None, busy_share_of_pass=None)
+
+    n = fmat.shape[0]
+    evs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(0, n, CHUNK_Q):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        bench2hop.two_hop_batch(metap, ov, fmat[b: b + CHUNK_Q], plan)
+        e1.record()
+        evs.append((e0, e1))
+    torch.cuda.synchronize()
+    ev_wall_s = time.perf_counter() - t0
+    chunk_ms = [e0.elapsed_time(e1) for e0, e1 in evs]
+    out.update(event_pass_s=ev_wall_s, chunk_event_ms=chunk_ms,
+               chunk_share_of_pass=sum(chunk_ms) / (ev_wall_s * 1e3))
+    return out
+
+
+def pending_kernel_bounds() -> list:
+    """Bytes bounds of the TPU kernel not yet on any path of the port,
+    ``intersect_pallas`` ([K, L] int32 in, [L] out), at bench_ops.py's
+    shapes: (K + 1)·4·L bytes over the device memory rate."""
+    return [{"name": "intersect_pallas", "K": k, "L": 8192,
+             "bytes": (k + 1) * 4 * 8192,
+             "bound_ms": (k + 1) * 4 * 8192 / HBM_BYTES_PER_S * 1e3}
+            for k in (2, 4, 8)]
+
+
+# -- phase 8 ----------------------------------------------------------------
 
 
 def gather_timing(arena, rng) -> dict:
@@ -450,38 +791,71 @@ def main() -> int:
         t_start = time.perf_counter()
         info = phase_build()
         phase = "graph"
-        store, srv = phase_graph("cuda", N_NODES, N_EDGES)
+        store, srv, (src, dst) = phase_graph("cuda", N_NODES, N_EDGES)
         arena = srv.engine.arenas.data("e")
         phase = "kernels"
         errs = phase_kernels(arena, np.random.default_rng(11))
+        wrappers = {n: importlib.import_module(m) for n, m, _r, _p in KERNELS}
+        launches = {}
+
+        def zero_counts():
+            for w in wrappers.values():
+                w.KERNEL.launches = 0
+
+        def read_counts(path):
+            counts = {n: w.KERNEL.launches for n, w in wrappers.items()}
+            for n, _m, _r, p in KERNELS:
+                if p == path:
+                    check(counts[n] > 0, f"kernel {n} was not launched on {path}")
+                    launches[n] = counts[n]
+
         phase = "main_path"
-        wrappers = {n: importlib.import_module(m) for n, m, _ in KERNELS}
-        for w in wrappers.values():
-            w.KERNEL.launches = 0
+        zero_counts()
         main = phase_main_path(store, srv, np.random.default_rng(GRAPH_SEED),
                                info["nvidia_smi"])
-        launches = {n: w.KERNEL.launches for n, w in wrappers.items()}
-        for n, c in launches.items():
-            check(c > 0, f"kernel {n} was not launched on the main path")
+        read_counts("main_path")
+        phase = "dense"
+        dense, frontiers, fcap, plan = phase_dense("cuda", src, dst, N_NODES)
+        del src, dst
+        phase = "slotmap_kernels"
+        errs["slotmap"] = phase_slotmap_kernels(dense, frontiers, plan,
+                                                np.random.default_rng(17))
+        phase = "batched_2hop"
+        zero_counts()
+        batched = phase_batched_2hop(dense, frontiers, fcap, plan, info["nvidia_smi"])
+        read_counts("batched_2hop")
         phase = "report"
         t = gather_timing(srv.engine.arenas.data("e"), np.random.default_rng(13))
         log(dict(phase="gather_timing", **t))
+        st = slotmap_timing(dense, frontiers, plan)
+        log(dict(phase="slotmap_timing", **st))
+        bd = batched_breakdown(dense, frontiers, plan)
+        bd["slotmap_share_of_chunk"] = (st["hop1_chunk"]["ms"]
+                                        + st["hop2_chunk"]["ms"]) / bd["chunk_ms"]
+        log(dict(phase="batched_breakdown", chunk_q=CHUNK_Q, **bd))
+        log(dict(phase="pass_profile", chunk_q=CHUNK_Q,
+                 **pass_profile(dense, frontiers, fcap, plan)))
+        log({"phase": "pending_kernel_bounds", "bounds": pending_kernel_bounds()})
+        timing = {"gather_packed": t, "slotmap": st["hop2_chunk"]}
         kernels = [{
-            "name": "gather_packed",
+            "name": n,
             "ok": True,
             "route": "cuda",
-            "source": "dgraph_tpu_torch/csrc/gather.cu",
-            "replaces": KERNELS[0][2],
-            "launches": launches["gather_packed"],
-            "max_abs_err": errs["gather_packed"],
-            "ms": t["ms"],
-            "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"],
+            "source": f"dgraph_tpu_torch/csrc/{wrappers[n].KERNEL.source}.cu",
+            "replaces": r,
+            "launches": launches[n],
+            "max_abs_err": errs[n],
+            "ms": timing[n]["ms"],
+            "plain_ms": timing[n]["plain_ms"],
+            "bound_ms": timing[n]["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
-        }]
+        } for n, _m, r, _p in KERNELS]
         log({"seconds": round(time.perf_counter() - t_start, 3),
-             "large_2hop": main["large"]})
+             "large_2hop": main["large"],
+             "batched_2hop": {k: batched[k] for k in (
+                 "queries", "edges", "edges_per_s", "numpy_edges_per_s",
+                 "vs_baseline", "chunk_q", "caps")}})
         log({"kernels": kernels})
         log(info["nvidia_smi"])
         log({"ok": True, "device": {

@@ -5,10 +5,14 @@ device tier rebuilt on PyTorch tensors and hand-written CUDA kernels for
 NVIDIA Hopper.  Module paths mirror ``dgraph_tpu`` so each piece has a
 named counterpart:
 
-- ``ops``     sorted-set ops on int32 uid tensors and the resident-CSR
-              gather kernel (``csrc/gather.cu``).
+- ``ops``     sorted-set ops on int32 uid tensors, the inline-head
+              expansions, and the kernels: the resident-CSR gather
+              (``csrc/gather.cu``) and the grouped slot-map
+              (``csrc/slotmap.cu``).
 - ``models``  host posting store, schema, value types and the
-              device-resident CSR arenas.
+              device-resident CSR arenas with their inline layouts.
+- ``bench2hop``  the batched 2-hop pipeline with on-device dedup
+              (``python -m dgraph_tpu_torch.bench2hop``).
 - ``gql``, ``rdf``, ``tok``  query parser, N-Quad parser, tokenizers
               (host copies).
 - ``query``   level-batched traversal engine and JSON encoding.

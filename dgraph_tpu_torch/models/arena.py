@@ -11,11 +11,16 @@ planning —
   device for the resident gather kernel (``ops/gather.py``), kept fresh
   by a device-side merge of each mutation's delta pairs.
 
+- **inline layouts** (``CSRArena.inline_layout`` / ``_grouped``): per
+  row one 8-lane record holding the overflow chunk start, the degree and
+  the first INLINE targets, plus an 8-wide overflow chunk table — the
+  layout of the batched 2-hop pipeline (``bench2hop.py``).
+
 Arenas are rebuilt per dirty predicate from the host store, or patched
 in place from the store's delta journal (``ArenaManager.refresh``).
-Not ported yet: the chunked/inline/grouped layouts, MXU tiles, the
-uid->row LUT, value arenas (order-by runs on the host), the hop cache,
-IVM repair and mesh sharding.
+Not ported yet: the chunked layout, MXU tiles, the uid->row LUT, value
+arenas (order-by runs on the host), the hop cache, IVM repair and mesh
+sharding.
 """
 
 from __future__ import annotations
@@ -96,9 +101,13 @@ class CSRArena:
         return out, seg_ptr
 
     def device_bytes(self) -> int:
-        """Device footprint of this arena's tensors, resident tier
-        included — the residency manager's accounting unit."""
+        """Device footprint of this arena's tensors, built inline layouts
+        and resident tier included — the residency manager's accounting
+        unit."""
         n = _nbytes(self.src) + _nbytes(self.offsets) + _nbytes(self.dst)
+        for pair in (self._inline, self._inline_grouped):
+            if pair is not None:
+                n += sum(_nbytes(t) for t in pair)
         if self._resident is not None:
             n += self._resident.device_bytes()
         return n
@@ -110,6 +119,106 @@ class CSRArena:
             return np.full(len(uids), -1, dtype=np.int64)
         hit = self.h_src[pos] == uids
         return np.where(hit, pos, -1)
+
+    # -- inline-head layouts (ops/sets.py expand_inline*) --------------------
+
+    _inline: Optional[tuple] = None          # lazy (metap, ov_chunks)
+    _inline_grouped: Optional[tuple] = None  # lazy, skey-coded
+
+    def _inline_host(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Host arrays of the inline-head layout (see inline_layout)."""
+        INL = ops.INLINE
+        S = self.n_rows
+        deg = self.h_offsets[1:] - self.h_offsets[:-1]
+        ovdeg = np.maximum(deg - INL, 0)
+        cdeg = (ovdeg + 7) >> 3
+        coff = np.zeros(S + 1, dtype=np.int64)
+        np.cumsum(cdeg, out=coff[1:])
+        NCov = int(coff[-1])
+        Sb = ops.bucket(max(1, S))
+        metap = np.full((Sb, 8), SENT, dtype=np.int32)
+        metap[:, :2] = 0
+        metap[:S, 0] = coff[:-1]
+        metap[:S, 1] = deg
+        h_dst = self.host_dst() if self.n_edges else np.zeros(0, np.int32)
+        starts = self.h_offsets[:-1]
+        for j in range(INL):
+            sel = deg > j
+            metap[:S][sel, 2 + j] = h_dst[starts[sel] + j]
+        ov = np.full((max(1, NCov), 8), SENT, dtype=np.int32)
+        rows = np.nonzero(deg > INL)[0]
+        if len(rows):
+            # tail-edge index set without a per-row loop: within = 0..od-1
+            # per row by the repeat/cumsum trick
+            od = ovdeg[rows]
+            rowid = np.repeat(rows, od)
+            ends = np.cumsum(od)
+            within = np.arange(int(ends[-1]), dtype=np.int64) - np.repeat(
+                ends - od, od
+            )
+            e = starts[rowid] + INL + within
+            ov[coff[rowid] + (within >> 3), within & 7] = h_dst[e]
+        return metap, ov
+
+    def inline_layout(self) -> tuple:
+        """Inline-head layout for ops.expand_inline, built lazily on the
+        host and uploaded once.
+
+        Returns (metap, ov_chunks): int32[Sb, 8] per-row records with
+        lane0 = overflow chunk start, lane1 = degree, lanes 2..7 = the
+        first INLINE targets (SENT pad); int32[NCov, 8] overflow chunks
+        (targets INLINE.. of each row, 8 per chunk), unpadded row count.
+        One row gather serves the metadata and every short posting list."""
+        if self._inline is not None:
+            return self._inline
+        with _BUILD_LOCK:
+            if self._inline is None:
+                metap, ov = self._inline_host()
+                self._inline = (_to_device(metap, self.device),
+                                _to_device(ov, self.device))
+            return self._inline
+
+    def ov_chunk_degree_of_rows(self, rows: np.ndarray) -> np.ndarray:
+        """Host overflow-chunk-count lookup for inline_layout planning."""
+        d = np.maximum(self.degree_of_rows(rows) - ops.INLINE, 0)
+        return (d + 7) >> 3
+
+    def inline_layout_grouped(self) -> tuple:
+        """inline_layout with skey-coded target lanes (ops.skey_encode):
+        stored targets carry the no-overflow group bit, so sorting an
+        expansion's output groups overflow-bearing rows into an ascending
+        prefix and ops.expand_inline_grouped runs its slot-map on that
+        prefix alone.  Dense arenas only (row i == uid i) with uids below
+        2^GROUP_BIT — raises ValueError beyond that; callers catch it and
+        use inline_layout().  Built from the host arrays; the ungrouped
+        layout is not uploaded for it."""
+        if self._inline_grouped is not None:
+            return self._inline_grouped
+        max_uid = self.n_rows
+        if self.n_edges:
+            max_uid = max(max_uid, int(self.host_dst().max()) + 1)
+        if max_uid >= (1 << ops.GROUP_BIT):
+            raise ValueError(
+                f"uid space too large for grouped inline layout "
+                f"({max_uid} >= 2^{ops.GROUP_BIT}); use inline_layout()"
+            )
+        with _BUILD_LOCK:
+            if self._inline_grouped is not None:
+                return self._inline_grouped
+            metap, ov = self._inline_host()
+            S = self.n_rows
+            deg = self.h_offsets[1:] - self.h_offsets[:-1]
+            # overflow bit by TARGET uid; uids without a row have no edges,
+            # hence no overflow
+            has_ov_of_uid = np.zeros(max_uid + 1, bool)
+            has_ov_of_uid[:S] = deg > ops.INLINE
+            for tab in (metap[:, 2:], ov):
+                valid = tab != SENT
+                u = tab[valid]
+                tab[valid] = ops.skey_encode(u, has_ov_of_uid[u])
+            self._inline_grouped = (_to_device(metap, self.device),
+                                    _to_device(ov, self.device))
+            return self._inline_grouped
 
     # -- device-resident tier (ops/gather.py) --------------------------------
 
@@ -185,6 +294,9 @@ class CSRArena:
             self.h_offsets[1:] += sign * np.cumsum(cnt)
         self._h_dst = h_dst.astype(np.int32)
         self.n_edges = len(h_dst)
+        # derived layouts are rebuilt from the new mirrors at next use
+        self._inline = None
+        self._inline_grouped = None
         if len(adds) or len(dels):
             self.epoch += 1
             ra = self._resident
@@ -437,6 +549,19 @@ def csr_from_edges(
         keys = ekeys
     offsets = np.zeros(len(keys) + 1, dtype=np.int64)
     np.cumsum(counts, out=offsets[1:])
+    return _csr_from_arrays(keys, offsets, d.astype(np.int32), device)
+
+
+def csr_dense_from_edges(src: np.ndarray, dst: np.ndarray, n_nodes: int,
+                         device) -> CSRArena:
+    """Dense CSR: one row per uid in [0, n_nodes] (degree 0 where
+    absent), so frontier uids ARE row indices — no row lookup on the
+    query path.  The layout of the batched 2-hop pipeline."""
+    s, d = _sorted_unique_edges(src, dst)
+    counts = np.bincount(s, minlength=n_nodes + 1)
+    offsets = np.zeros(n_nodes + 2, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    keys = np.arange(n_nodes + 1, dtype=np.int64)
     return _csr_from_arrays(keys, offsets, d.astype(np.int32), device)
 
 

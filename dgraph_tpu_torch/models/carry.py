@@ -1,4 +1,5 @@
-"""State carried into the port: build a ``PostingStore`` from plain data.
+"""State carried into the port: build a ``PostingStore`` from plain data,
+or a ``CSRArena`` from another arena's host mirrors.
 
 A snapshot is a dict of Python and numpy values only, so any producer —
 the reference engine's store, an export, a generator — can hand its
@@ -23,6 +24,10 @@ where every ``value`` is ``(tid, payload)``: ``tid`` a ``TypeID`` int,
 for geometry).  Lists keep their producer's order, so dict iteration
 order — and with it the order of facet keys in responses — carries over.
 The arenas are built from the store on first use.
+
+An arena is carried as its host CSR mirrors (``csr_arena_from_host``):
+row offsets, packed targets and the two counts, as plain numpy — what
+any CSR producer holds, the reference's ``CSRArena`` included.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from collections import defaultdict
 
 import numpy as np
 
+from dgraph_tpu_torch.models.arena import CSRArena, _csr_from_arrays
 from dgraph_tpu_torch.models.geo import Geom
 from dgraph_tpu_torch.models.schema import PredicateSchema
 from dgraph_tpu_torch.models.store import PostingStore
@@ -81,3 +87,16 @@ def store_from_snapshot(snap: dict) -> PostingStore:
         for uid, items in p.get("value_facets", ()):
             pd.value_facets[int(uid)] = _facets(items)
     return st
+
+
+def csr_arena_from_host(h_offsets, h_dst, n_rows: int, n_edges: int,
+                        device) -> CSRArena:
+    """The port's dense CSRArena (row i == uid i) over the same CSR as
+    another dense arena's host mirrors: ``h_offsets`` int[n_rows + 1] and
+    ``h_dst`` int[>= n_edges] (packed targets, ascending within each
+    row).  The device tensors are padded as the port builds its own."""
+    n_rows, n_edges = int(n_rows), int(n_edges)
+    keys = np.arange(n_rows, dtype=np.int64)
+    offsets = np.asarray(h_offsets, dtype=np.int64)[: n_rows + 1]
+    dst = np.asarray(h_dst)[:n_edges].astype(np.int32)
+    return _csr_from_arrays(keys, offsets, dst, device)

@@ -1,10 +1,16 @@
-"""Sorted-set ops over int32 uid tensors and the resident-CSR gather
-kernel (the PyTorch counterpart of ``dgraph_tpu.ops``, for the subset
-the 2-hop query path calls)."""
+"""Sorted-set ops over int32 uid tensors, the inline-head expansions and
+the port's hand-written kernels (the PyTorch counterpart of
+``dgraph_tpu.ops``, for the subset the 2-hop query path and the batched
+2-hop pipeline call).  The slot-map kernel's wrapper lives in
+``ops.slotmap`` (``slotmap``, ``slotmap_plain``, ``KERNEL``)."""
 
 from dgraph_tpu_torch.ops.sets import (  # noqa: F401
     SENT,
+    INLINE,
+    GROUP_BIT,
+    GROUP_MASK,
     bucket,
+    bucket_fine,
     pad_to,
     pad_rows,
     sort_unique,
@@ -17,6 +23,12 @@ from dgraph_tpu_torch.ops.sets import (  # noqa: F401
     union_many,
     rows_of,
     expand_csr,
+    skey_encode,
+    skey_uid,
+    frontier_rows,
+    expand_inline,
+    expand_inline_grouped,
+    expand_inline_grouped_kernel,
 )
 from dgraph_tpu_torch.ops.gather import (  # noqa: F401
     gather_packed,

@@ -1,0 +1,87 @@
+"""The port's kernels on the card: each CUDA kernel against its plain
+PyTorch version on CUDA tensors, and the batched 2-hop pipeline on the
+card against the numpy oracle.  Every test is marked ``cuda`` and skips
+where no GPU is visible.  The file imports neither JAX nor the JAX
+package, so on the card's machine (no JAX there) it runs alone:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+Tolerance: none (int32 outputs, equal)."""
+
+import numpy as np
+import pytest
+import torch
+
+from dgraph_tpu_torch import bench2hop
+from dgraph_tpu_torch import ops as tops
+from dgraph_tpu_torch.ops import slotmap as tslot
+
+pytestmark = pytest.mark.cuda
+
+
+def _need_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the port's kernels have no CPU mode")
+
+
+def _grouped(rng, q, pcap, fill=0.5):
+    cs = np.zeros((q, pcap), np.int32)
+    cd = np.zeros((q, pcap), np.int32)
+    for i in range(q):
+        n = int(rng.integers(0, int(pcap * fill) + 1))
+        d = rng.integers(1, 6, size=n)
+        cs[i, :n] = np.cumsum(rng.integers(0, 3, size=n)) + np.cumsum(d) - d
+        cd[i, :n] = d
+    return cs, cd
+
+
+def _case(name):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "grouped":
+        return (*_grouped(rng, 200, 4096), 8192)
+    if name == "truncated":
+        return (*_grouped(rng, 9, 4096, fill=1.0), 300)
+    if name == "zero_rows_between":
+        cs, cd = _grouped(rng, 32, 2048)
+        cd[rng.random(cd.shape) < 0.25] = 0
+        return cs, cd, 4096
+    if name == "all_zero":
+        z = np.zeros((200, 3072), np.int32)
+        return z, z.copy(), 3328
+    if name == "one_block_edge":  # totals 1023..1025 around the scan tile
+        cs, cd = np.zeros((3, 2048), np.int32), np.zeros((3, 2048), np.int32)
+        for q, t in enumerate((1023, 1024, 1025)):
+            cd[q, :t] = 1
+            cs[q, :t] = np.arange(t) * 2
+        return cs, cd, 2048
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["grouped", "truncated", "zero_rows_between",
+                                  "all_zero", "one_block_edge"])
+def test_slotmap_kernel_matches_plain_version(name):
+    _need_gpu()
+    cs, cd, capc = _case(name)
+    want = tslot.slotmap_plain(torch.from_numpy(cs), torch.from_numpy(cd), capc)
+    n0 = tslot.KERNEL.launches
+    got = tslot.slotmap(torch.from_numpy(cs).cuda(), torch.from_numpy(cd).cuda(), capc)
+    torch.cuda.synchronize()
+    assert tslot.KERNEL.launches == n0 + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_batched_two_hop_on_the_card_matches_numpy():
+    _need_gpu()
+    a = bench2hop.build_graph(20_000, 200_000, "cuda")
+    frontiers = bench2hop.draw_frontiers(20_000, 512, 9)
+    fcap = tops.bucket(max(len(f) for f in frontiers))
+    stats = {}
+    _s, edges, chks, last_set = bench2hop.run_device_dedup(
+        a, frontiers, fcap, chunk_q=4, stats=stats)
+    _cpu_s, want_edges, want_chks = bench2hop.numpy_baseline(a, frontiers, reps=1)
+    assert stats["slotmap_launches_per_pass"] == [6] * 5  # 3 chunks, 2 hops
+    assert np.array_equal(stats["counts"], want_edges)
+    assert edges == int(want_edges.sum())
+    assert np.array_equal(chks, want_chks)
+    _n, want_last, _c = bench2hop.np_two_hop(a, a.host_dst(), frontiers[-1])
+    assert np.array_equal(last_set, want_last)
