@@ -28,15 +28,35 @@ Phases, each fatal (exit code 1, no result line):
       2-hop over a fresh 8192-seed frontier holding those seeds,
       byte-identical to the host route with the new edges present.
    The counts are read right after.
-5. dense — the same generated edges as a dense CSR arena on cuda in the
+5. names — the schema ``name: string @index(term) .`` and a name of 3
+   words per node for uids 1..1,000,000, drawn uniformly from a fixed
+   16-word vocabulary (seed 23), written into the served store; the
+   server's term index is built.  Each word's posting set holds about
+   176,000 uids, so a 3-word ``allofterms`` sums to about 528,000, above
+   the default k-way gate (262,144).
+6. intersect kernels — the intersect kernel against its plain version on
+   the card, exactly: the served matrices of the join path (K 3, L 2^21
+   for the ``@filter`` AND), bench_ops.py's draws (K 2/4/8 at L 8192;
+   B 1/64/1024 × K 2/4/8 at L 1024), K 1 and K 16, an empty row, an
+   all-SENT row 0, identical rows, L not a multiple of 256.
+7. join path — every kernel's launch count is set to 0, then, over HTTP
+   on the server of phase 2, repeated: (a) an ``@filter(has(e) AND
+   uid(g))`` over the 2-hop set of 8192 seeds (one k-way call of K 3,
+   L 2^21); (b) an ``allofterms`` over 3 words filtered by ``has(e) AND
+   uid(f)`` (two k-way calls).  Each body must equal an engine over the
+   same store pinned to the host route, each request of (a) must launch
+   the intersect kernel at least once and of (b) twice; p50/p99 and the
+   ``kway_ms`` of one ``?debug=true`` request are printed.  The counts
+   are read right after.
+8. dense — the same generated edges as a dense CSR arena on cuda in the
    skey-grouped inline-head layout; 1000 query frontiers of 4096 drawn
    seeds (bench.py's draw, seed 3) and the pipeline's capacity plan.
-6. slotmap kernels — the slot-map kernel against its plain version on
+9. slotmap kernels — the slot-map kernel against its plain version on
    the card, exactly: the pipeline's real (cs, cd) at both hops of one
    200-query chunk, random grouped batches, totals at block boundaries,
    zero-cd rows between productive ones, truncation at capc, an
    all-zero batch.
-7. batched 2-hop — every kernel's launch count is set to 0, then the
+10. batched 2-hop — every kernel's launch count is set to 0, then the
    device-dedup batched 2-hop (``bench2hop.run_device_dedup``) runs the
    1000 queries in chunks of 200 (a warm pass, then best of 4); every
    query's edge count and checksum and the last query's set must equal
@@ -44,16 +64,17 @@ Phases, each fatal (exit code 1, no result line):
    twice per chunk in every pass plus twice for the last set.  The counts
    are read right after.  Edges/s, the numpy baseline and the caps are
    printed.
-8. report — the device time of one 200-query chunk by stage (hop 1,
+11. report — the device time of one 200-query chunk by stage (hop 1,
    dedup, hop 2, checksum; CUDA events); one pass of the 1000 queries
    under ``torch.profiler``: the card's busy time (the union of its
    kernel and copy intervals) over the pass's host wall time, and device
    ms by kernel name; one pass with CUDA events around each chunk; the
-   slot-map's time at both hops' shapes; the bytes bound of the kernel
-   not yet ported; then per kernel its launches (from its own path's
-   run), error, time, plain-version time and bound (one ``kernels`` JSON
-   line), the nvidia-smi line, and last the ``{"ok": true, "device":
-   ...}`` line.
+   slot-map's time at both hops' shapes; the intersect kernel's time at
+   the served shape and at bench_ops.py's (wrapper, kernel alone, plain
+   version, the port's ``intersect_many`` tree, bytes bound); then per
+   kernel its launches (from its own path's run), error, time,
+   plain-version time and bound (one ``kernels`` JSON line), the
+   nvidia-smi line, and last the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero without a CUDA GPU, or when the package is not beside it.
 """
@@ -61,6 +82,7 @@ Exits non-zero without a CUDA GPU, or when the package is not beside it.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -81,6 +103,15 @@ SMALL_SEEDS, LARGE_SEEDS, REPEATS = 64, 8192, 20
 # its chunk of queries per batched program
 BATCH_SEEDS, BATCH_QUERIES, CHUNK_Q = 4096, 1000, 200
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+# the join path: names on uids 1..N_NAMED, NAME_WORDS words each drawn
+# from VOCAB; the allofterms query asks for the first NAME_WORDS words
+N_NAMED, NAME_WORDS, NAME_SEED, JOIN_SEED = 1_000_000, 3, 23, 29
+VOCAB = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf",
+         "hotel", "india", "juliett", "kilo", "lima", "mike", "november",
+         "oscar", "papa"]
+
+# the intersect kernel's three launches (csrc/intersect.cu), by name
+INTERSECT_LAUNCHES = ("intersect_probe", "intersect_scan", "intersect_compact")
 
 # kernels: (name, wrapper module, TPU kernel it replaces, path that runs it)
 KERNELS = [
@@ -88,6 +119,8 @@ KERNELS = [
      "dgraph_tpu/ops/pallas_gather.py:48", "main_path"),
     ("slotmap", "dgraph_tpu_torch.ops.slotmap",
      "dgraph_tpu/ops/pallas_slotmap.py:46", "batched_2hop"),
+    ("intersect", "dgraph_tpu_torch.ops.kway",
+     "dgraph_tpu/ops/pallas_intersect.py:35", "join_path"),
 ]
 
 
@@ -153,6 +186,7 @@ def host_engine(store):
 
     eng = QueryEngine(store, device="cpu")
     eng.expand_device_min = 1 << 62
+    eng.arenas.kway_device_min = 1 << 62
     return eng
 
 
@@ -412,7 +446,197 @@ def phase_main_path(store, srv, rng, card: str) -> dict:
     return out
 
 
-# -- phases 5-7: the batched 2-hop -------------------------------------------
+# -- phases 5-7: the join path ------------------------------------------------
+
+
+def join_filter_query(s1, s2) -> str:
+    """(a): an @filter AND over the 2-hop set of ``s1`` — one k-way call
+    of K 3 (the candidates, has(e), uid(g))."""
+    return ("{ var(func: uid(%s)) { e { f as e } } "
+            "var(func: uid(%s)) { e { g as e } } "
+            "q(func: uid(f)) @filter(has(e) AND uid(g)) { uid } }"
+            % (uid_list(s1), uid_list(s2)))
+
+
+def allofterms_query(s1) -> str:
+    """(b): a 3-word allofterms (one k-way call over the words' posting
+    sets) filtered by has(e) AND uid(f) (a second k-way call)."""
+    return ("{ var(func: uid(%s)) { e { f as e } } "
+            'q(func: allofterms(name, "%s")) @filter(has(e) AND uid(f)) '
+            "{ uid name } }" % (uid_list(s1), " ".join(VOCAB[:NAME_WORDS])))
+
+
+def phase_names(store, srv, n_named: int):
+    """Names of NAME_WORDS words from VOCAB on uids 1..n_named, written
+    into the served store, and the server's term index built; returns
+    the index."""
+    from dgraph_tpu_torch.models.store import Edge
+    from dgraph_tpu_torch.models.types import TypeID, TypedValue
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(NAME_SEED)
+    words = np.asarray(VOCAB)[rng.integers(0, len(VOCAB), size=(n_named, NAME_WORDS))]
+    store.apply_schema("name: string @index(term) .")
+    store.apply_many(
+        Edge("name", u, value=TypedValue(TypeID.STRING, " ".join(w)))
+        for u, w in enumerate(words.tolist(), 1))
+    t1 = time.perf_counter()
+    idx = srv.engine.arenas.index("name", "term")
+    t2 = time.perf_counter()
+    postings = {w: int(idx.csr.degree_of_rows(np.array([idx.row_of(w)]))[0])
+                for w in VOCAB[:NAME_WORDS]}
+    log({"phase": "names", "named_nodes": n_named, "words_per_name": NAME_WORDS,
+         "vocabulary": len(VOCAB), "seed": NAME_SEED, "tokens": len(idx.tokens),
+         "query_word_postings": postings, "load_s": round(t1 - t0, 3),
+         "index_build_s": round(t2 - t1, 3),
+         "kway_device_min": srv.engine.arenas.kway_device_min})
+    return idx
+
+
+def two_hop_set(arena, seeds) -> np.ndarray:
+    """The uids a 2-hop from ``seeds`` reaches: what ``e { f as e }``
+    binds to ``f``."""
+    out, _ = arena.expand_host(arena.rows_for_uids_host(seeds))
+    out, _ = arena.expand_host(arena.rows_for_uids_host(np.unique(out)))
+    return np.unique(out)
+
+
+def join_matrices(arena, idx, s1, s2) -> dict:
+    """The k-way inputs the join path's queries send, stacked as the
+    engine stacks them (the sets in argument order, SENT-padded to
+    ``bucket`` of the longest): (a)'s filter, (b)'s root allofterms and
+    (b)'s filter."""
+    from dgraph_tpu_torch import ops
+
+    n = len(arena.h_src)
+    has_e = arena.h_src[(arena.h_offsets[1: n + 1] - arena.h_offsets[:n]) > 0]
+    f, g = two_hop_set(arena, s1), two_hop_set(arena, s2)
+    words = [np.unique(idx.csr.expand_host(np.array([idx.row_of(w)]))[0])
+             for w in VOCAB[:NAME_WORDS]]
+    cands = words[0]
+    for w in words[1:]:
+        cands = np.intersect1d(cands, w)
+    out = {}
+    for name, sets in (("a_filter", [f, has_e, g]), ("b_root", words),
+                       ("b_filter", [cands, has_e, f])):
+        L = ops.bucket(max(len(x) for x in sets))
+        out[name] = np.stack([ops.pad_to(x, L) for x in sets])
+    return out
+
+
+def bench_ops_sets(rng, k: int, L: int, size: int, lo: int, hi: int) -> np.ndarray:
+    """k sorted-unique sets of ``size`` draws from [lo, hi), SENT-padded
+    to L: bench_ops.py's k-way draws."""
+    from dgraph_tpu_torch import ops
+
+    return np.stack([ops.pad_to(np.unique(rng.integers(lo, hi, size=size)), L)
+                     for _ in range(k)])
+
+
+def phase_intersect_kernels(device, served: dict, rng) -> int:
+    """Intersect kernel == plain version on the card, exactly, over the
+    grid; returns the max |kernel - plain|."""
+    import torch
+
+    from dgraph_tpu_torch import ops
+    from dgraph_tpu_torch.ops import kway
+
+    sent = ops.SENT
+    cases = [(f"served_{n}", m[None]) for n, m in served.items()]
+    for k in (2, 4, 8):  # bench_ops.py:498-507
+        cases.append((f"bench_ops_K{k}_L8192",
+                      bench_ops_sets(rng, k, 8192, 8192 * 3 // 4, 0, 8192 * 4)[None]))
+    for b in (1, 64, 1024):  # bench_ops.py:189-216
+        for k in (2, 4, 8):
+            cases.append((f"bench_ops_B{b}_K{k}_L1024", np.stack(
+                [bench_ops_sets(rng, k, 1024, 768, 1, 1200) for _ in range(b)])))
+    cases.append(("K1", bench_ops_sets(rng, 1, 4096, 3000, 0, 8192)[None]))
+    cases.append(("K16", bench_ops_sets(rng, 16, 4096, 4000, 0, 4400)[None]))
+    m = bench_ops_sets(rng, 4, 8192, 6144, 0, 16384)
+    m[2] = sent
+    cases.append(("empty_row", m[None]))
+    m = bench_ops_sets(rng, 4, 8192, 6144, 0, 16384)
+    m[0] = sent
+    cases.append(("all_sent_row0", m[None]))
+    m = bench_ops_sets(rng, 1, 8192, 6144, 0, 16384)
+    cases.append(("identical_rows", np.repeat(m[None], 8, axis=1)))
+    for L in (1000, 4097, 65535):
+        cases.append((f"L{L}", np.stack(
+            [bench_ops_sets(rng, 3, L, L, 0, L + L // 2) for _ in range(3)])))
+    results, max_err = [], 0
+    for name, mat in cases:
+        t = torch.from_numpy(np.ascontiguousarray(mat, dtype=np.int32)).to(device)
+        got = kway.intersect_batch(t)
+        want = kway.intersect_plain(t)
+        _sync(t.device)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        max_err = max(max_err, err)
+        results.append((name, list(mat.shape), int((want != sent).sum()), err))
+        check(torch.equal(got, want), f"intersect kernel != plain version on {name}")
+    for name, m in served.items():  # the served inputs against numpy too
+        fold = m[0][m[0] != sent]
+        for row in m[1:]:
+            fold = np.intersect1d(fold, row[row != sent])
+        got = kway.intersect_kernel(torch.from_numpy(m).to(device)).cpu().numpy()
+        check(np.array_equal(got[got != sent], fold), f"served {name} != numpy fold")
+    log({"phase": "intersect_kernels", "kernel": "intersect", "tolerance": 0,
+         "cases": [{"case": n, "B_K_L": s_, "survivors": v, "max_abs_err": e}
+                   for n, s_, v, e in results]})
+    return max_err
+
+
+def phase_join_path(store, srv, s1, s2, card: str) -> dict:
+    """The served join path; the caller zeroes the launch counts just
+    before.  ``card`` is the nvidia-smi name and power limit."""
+    from dgraph_tpu_torch.ops import kway
+    from dgraph_tpu_torch.query import joinplan
+
+    check(srv.engine.arenas.kway_device_min == 262144,
+          "the server must run the default k-way gate")
+    ref = host_engine(store)
+    out = {}
+    for name, q, need in (("filter_and", join_filter_query(s1, s2), 1),
+                          ("allofterms", allofterms_query(s1), 2)):
+        n0 = kway.KERNEL.launches
+        lat = []
+        for _ in range(REPEATS):
+            status, raw, secs = post(srv.addr, q)
+            check(status == 200, f"{name}: HTTP {status}")
+            lat.append(secs)
+        per_query = (kway.KERNEL.launches - n0) / REPEATS
+        check(per_query >= need,
+              f"{name}: {per_query} intersect launches a request, want >= {need}")
+        want = json.dumps(ref.run(q))
+        check(strip_latency(raw) == want, f"{name} body differs from the host route")
+        check(ref.stats["kway_device"] == 0 and ref.stats["kway_host"] >= need,
+              f"{name}: the host route engine did not fold on the host")
+        found = json.loads(want).get("q", [])
+        check(len(found) > 0, f"{name} matched nothing")
+        _status, raw, _secs = post(srv.addr, q, "?debug=true")
+        lat_map = json.loads(raw)["server_latency"]
+        eng = lat_map.pop("engine")
+        check(eng["kway_device"] >= need and eng["kway_host"] == 0,
+              f"{name}: k-way routes {eng['kway_device']} device, {eng['kway_host']} host")
+        out[name] = {
+            "seeds": len(s1), "repeats": REPEATS,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "request_ms": [x * 1e3 for x in lat],
+            "launches_per_query": per_query, "uids_in_body": len(found),
+            "body_bytes": len(want), "kway_ms": eng["kway_ms"],
+            "kway_device": eng["kway_device"], "join_routes": eng["join_routes"],
+            "engine": {k: eng[k] for k in ("host_expand_ms", "device_expand_ms",
+                                           "resolver_expand_ms", "encode_ms",
+                                           "routes", "edges")},
+            "server_latency": lat_map, "byte_identical_to_host_route": True,
+            "card": card,
+        }
+        log(dict(phase="join_path", query=name, **out[name]))
+    log(dict(phase="join_routes", **joinplan.debug_summary()))
+    return out
+
+
+# -- phases 8-10: the batched 2-hop ------------------------------------------
 
 
 def _sync(dev) -> None:
@@ -725,17 +949,67 @@ def pass_profile(a, frontiers, fcap, plan) -> dict:
     return out
 
 
-def pending_kernel_bounds() -> list:
-    """Bytes bounds of the TPU kernel not yet on any path of the port,
-    ``intersect_pallas`` ([K, L] int32 in, [L] out), at bench_ops.py's
-    shapes: (K + 1)·4·L bytes over the device memory rate."""
-    return [{"name": "intersect_pallas", "K": k, "L": 8192,
-             "bytes": (k + 1) * 4 * 8192,
-             "bound_ms": (k + 1) * 4 * 8192 / HBM_BYTES_PER_S * 1e3}
-            for k in (2, 4, 8)]
+# -- phase 11 ---------------------------------------------------------------
 
 
-# -- phase 8 ----------------------------------------------------------------
+def intersect_timing(device, served, rng) -> dict:
+    """The intersect kernel at the served shapes (the matrices of the join
+    path: (a)'s filter, the kernels line's shape; (b)'s root and filter)
+    and at bench_ops.py's (K 2/4/8, L 8192): the wrapper's, the kernel's
+    alone (scratch allocated outside), the plain version's and the port's
+    ``intersect_many`` tree's times by CUDA events; the device time of the
+    kernel's three launches by ``torch.profiler`` (events also count the
+    host's launch gaps); and the bytes bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dgraph_tpu_torch import ops
+    from dgraph_tpu_torch.ops import kway
+
+    shapes = [(f"served_{n}", m) for n, m in served.items()]
+    for k in (2, 4, 8):
+        shapes.append((f"bench_ops_K{k}_L8192",
+                       bench_ops_sets(rng, k, 8192, 8192 * 3 // 4, 0, 8192 * 4)))
+    out = {}
+    for name, m in shapes:
+        k, L = m.shape
+        t2 = torch.from_numpy(m).to(device)
+        t3 = t2[None]
+        keep = torch.empty((1, L), dtype=torch.uint8, device=device)
+        counts = torch.empty((1, -(-L // kway.BLOCK)), dtype=torch.int32, device=device)
+        totals = torch.empty(1, dtype=torch.int32, device=device)
+        res = torch.empty((1, L), dtype=torch.int32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        # the function reads each row's valid entries once (the SENT tail
+        # need not be read) and writes the L output lanes once
+        row_sizes = [int(v) for v in (m != ops.SENT).sum(1)]
+        nbytes = 4 * (sum(row_sizes) + L)
+        out[name] = {
+            "K": k, "L": L, "row_sizes": row_sizes, "bytes": nbytes,
+            "ms": cuda_ms(lambda t3=t3: kway.intersect_batch(t3)),
+            "kernel_only_ms": cuda_ms(lambda t3=t3, L=L, k=k, keep=keep, counts=counts,
+                                      totals=totals, res=res: kway.KERNEL.launch(
+                t3.data_ptr(), 1, k, L, keep.data_ptr(), counts.data_ptr(),
+                totals.data_ptr(), res.data_ptr(), stream)),
+            "plain_ms": cuda_ms(lambda t3=t3: kway.intersect_plain(t3)),
+            "intersect_many_ms": cuda_ms(lambda t2=t2: ops.intersect_many(t2)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        }
+        iters = 30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                kway.intersect_batch(t3)
+            torch.cuda.synchronize()
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA and any(
+                    k in ev.name for k in INTERSECT_LAUNCHES):
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + (
+                    ev.time_range.end - ev.time_range.start) / 1e3 / iters
+        out[name]["device_ms_by_kernel"] = by_name
+        out[name]["device_ms"] = sum(by_name.values()) if by_name else None
+    return out
 
 
 def gather_timing(arena, rng) -> dict:
@@ -783,7 +1057,6 @@ def main() -> int:
               "beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    import importlib
 
     srv = None
     phase = "build"
@@ -814,6 +1087,19 @@ def main() -> int:
         main = phase_main_path(store, srv, np.random.default_rng(GRAPH_SEED),
                                info["nvidia_smi"])
         read_counts("main_path")
+        phase = "names"
+        idx = phase_names(store, srv, N_NAMED)
+        jrng = np.random.default_rng(JOIN_SEED)
+        s1, s2 = (np.unique(jrng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+                  for _ in range(2))
+        phase = "intersect_kernels"
+        served = join_matrices(srv.engine.arenas.data("e"), idx, s1, s2)
+        errs["intersect"] = phase_intersect_kernels(
+            srv.engine.device, served, np.random.default_rng(31))
+        phase = "join_path"
+        zero_counts()
+        join = phase_join_path(store, srv, s1, s2, info["nvidia_smi"])
+        read_counts("join_path")
         phase = "dense"
         dense, frontiers, fcap, plan = phase_dense("cuda", src, dst, N_NODES)
         del src, dst
@@ -835,8 +1121,18 @@ def main() -> int:
         log(dict(phase="batched_breakdown", chunk_q=CHUNK_Q, **bd))
         log(dict(phase="pass_profile", chunk_q=CHUNK_Q,
                  **pass_profile(dense, frontiers, fcap, plan)))
-        log({"phase": "pending_kernel_bounds", "bounds": pending_kernel_bounds()})
-        timing = {"gather_packed": t, "slotmap": st["hop2_chunk"]}
+        it = intersect_timing(srv.engine.device, served, np.random.default_rng(37))
+        log(dict(phase="intersect_timing", **it))
+        # the wrapper's device time for the k-way calls of one request
+        kms = {"filter_and": it["served_a_filter"]["ms"],
+               "allofterms": it["served_b_root"]["ms"] + it["served_b_filter"]["ms"]}
+        log({"phase": "intersect_share", **{
+            n: {"kernel_ms": kms[n], "kway_ms": j["kway_ms"], "p50_ms": j["p50_ms"],
+                "kernel_share_of_p50": kms[n] / j["p50_ms"],
+                "kway_share_of_p50": j["kway_ms"] / j["p50_ms"]}
+            for n, j in join.items()}})
+        timing = {"gather_packed": t, "slotmap": st["hop2_chunk"],
+                  "intersect": it["served_a_filter"]}
         kernels = [{
             "name": n,
             "ok": True,
@@ -853,6 +1149,9 @@ def main() -> int:
         } for n, _m, r, _p in KERNELS]
         log({"seconds": round(time.perf_counter() - t_start, 3),
              "large_2hop": main["large"],
+             "join_path": {n: {k: j[k] for k in ("p50_ms", "p99_ms", "kway_ms",
+                                                 "launches_per_query")}
+                           for n, j in join.items()},
              "batched_2hop": {k: batched[k] for k in (
                  "queries", "edges", "edges_per_s", "numpy_edges_per_s",
                  "vs_baseline", "chunk_q", "caps")}})

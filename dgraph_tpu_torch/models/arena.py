@@ -655,6 +655,8 @@ class ArenaManager:
         # single source of truth for host-vs-device expansion routing
         # (engine and FuncResolver both read it; the engine may retune)
         self.expand_device_min = planconfig.expand_device_min()
+        # the same for k-way intersections (query/joinplan.py)
+        self.kway_device_min = planconfig.kway_device_min()
         self._data: Dict[str, CSRArena] = {}
         self._reverse: Dict[str, CSRArena] = {}
         self._index: Dict[Tuple[str, str], IndexArena] = {}

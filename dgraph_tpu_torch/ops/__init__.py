@@ -1,8 +1,10 @@
 """Sorted-set ops over int32 uid tensors, the inline-head expansions and
 the port's hand-written kernels (the PyTorch counterpart of
 ``dgraph_tpu.ops``, for the subset the 2-hop query path and the batched
-2-hop pipeline call).  The slot-map kernel's wrapper lives in
-``ops.slotmap`` (``slotmap``, ``slotmap_plain``, ``KERNEL``)."""
+2-hop pipeline call, and the k-way intersection of the join path).  The
+slot-map kernel's wrapper lives in ``ops.slotmap`` (``slotmap``,
+``slotmap_plain``, ``KERNEL``), the intersect kernel's in ``ops.kway``
+(its ``KERNEL`` counts launches)."""
 
 from dgraph_tpu_torch.ops.sets import (  # noqa: F401
     SENT,
@@ -33,4 +35,10 @@ from dgraph_tpu_torch.ops.sets import (  # noqa: F401
 from dgraph_tpu_torch.ops.gather import (  # noqa: F401
     gather_packed,
     gather_packed_plain,
+)
+from dgraph_tpu_torch.ops.kway import (  # noqa: F401
+    KMAX,
+    intersect_batch,
+    intersect_kernel,
+    intersect_plain,
 )

@@ -10,11 +10,15 @@ the host mirror, below ``expand_device_min``), ``resident`` (the
 hand-written gather kernel over the device-resident CSR, the default on
 a CUDA device) and ``csr`` (torch ``expand_csr`` over the staged CSR).
 Queries that need a module not ported yet (@recurse, shortest path,
-@groupby) raise ``QueryError`` naming that module.  The reference's
-fused chain, join tier, device order-by, hop cache, segments, QoS and
-mesh are execution strategies over the same semantics: here every level
-runs through the ``DeviceExpander``, filters fold on the host and
-order-by sorts on the host.
+@groupby) raise ``QueryError`` naming that module.  The join tier's
+k-way half is ported (``query/joinplan.py``): an ``@filter`` AND with at
+least two leaves that resolve without the frontier intersects them with
+the candidates in one ``kway_intersect`` call, on the intersect kernel
+above ``kway_device_min``.  The reference's fused chain, mxu tile
+route, device order-by, hop cache, segments, QoS and mesh are execution
+strategies over the same semantics: here every level runs through the
+``DeviceExpander``, the other filters fold on the host and order-by
+sorts on the host.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from dgraph_tpu_torch.models.store import PostingStore
 from dgraph_tpu_torch.models.types import TypeID, TypedValue, numeric, sort_key
 from dgraph_tpu_torch.query.functions import FuncResolver, QueryError
 from dgraph_tpu_torch.query.subgraph import SubGraph, build_subgraph
-from dgraph_tpu_torch.query import outputnode, planner
+from dgraph_tpu_torch.query import joinplan, outputnode, planner
 from dgraph_tpu_torch.utils import planconfig
 
 _EMPTY = np.empty(0, dtype=np.int64)
@@ -49,15 +53,20 @@ def not_ported(feature: str, module: str) -> QueryError:
 
 def _fresh_stats() -> dict:
     """Per-request engine stats: edges traversed, per-stage wall time
-    (ms: expansions by route, resolver expansions, JSON-tree encoding) and
-    the count of each expansion route taken."""
+    (ms: expansions by route, resolver expansions, k-way intersections,
+    JSON-tree encoding), the count of each expansion route and each k-way
+    route taken, and the join-route decisions (query/joinplan.py)."""
     return {
         "edges": 0,
         "host_expand_ms": 0.0,
         "device_expand_ms": 0.0,
         "resolver_expand_ms": 0.0,
+        "kway_ms": 0.0,
         "encode_ms": 0.0,
         "routes": {},
+        "kway_device": 0,
+        "kway_host": 0,
+        "join_routes": [],
     }
 
 
@@ -546,6 +555,29 @@ class QueryEngine:
         if ft.func is not None:
             return resolver.resolve(ft.func, candidates)
         if ft.op == "and":
+            # the join tier's k-way entry (query/joinplan.py): leaves that
+            # resolve WITHOUT the frontier — index funcs, has(), uid sets —
+            # intersect with the candidates as ONE k-way call (size-routed
+            # host fold / intersect kernel) instead of k narrowing passes.
+            # AND children are set filters, so the intersection commutes:
+            # frontier-dependent leaves and nested trees apply afterwards,
+            # and the output is byte-identical to the sequential fold
+            glob = [
+                c for c in ft.children
+                if c.func is not None and joinplan.filter_leaf_global(c.func)
+            ]
+            if len(glob) >= 2:
+                sets = [resolver.resolve(c.func, None) for c in glob]
+                out = joinplan.kway_intersect(
+                    [candidates] + sets, stats=self.stats,
+                    device=self.device,
+                    device_min=self.arenas.kway_device_min,
+                )
+                gids = {id(c) for c in glob}
+                for c in ft.children:
+                    if id(c) not in gids:
+                        out = self._apply_filter(c, out, resolver)
+                return out
             out = candidates
             for c in ft.children:
                 out = self._apply_filter(c, out, resolver)

@@ -4,9 +4,9 @@ The port of ``dgraph_tpu/query/functions.py``: each function is resolved
 against the arenas (index posting lists expanded through the torch
 ``expand_csr`` above the device gate, numpy below it), then — for lossy
 tokenizers (float/year/term-eq/trigram/geo) — exact-rechecked on the
-host.  k-way intersections (allofterms, term-eq, trigram AND) fold with
-``np.intersect1d`` on the host: the reference's batched device tier for
-them (query/joinplan.py) is not ported yet.
+host.  k-way intersections (allofterms / alloftext, term-eq, trigram AND)
+route through ``joinplan.kway_intersect``: the host fold below the
+arenas' ``kway_device_min``, the intersect kernel above it.
 """
 
 from __future__ import annotations
@@ -148,6 +148,16 @@ class FuncResolver:
             u = ops.sort_unique(out).cpu().numpy()
             return u[u != SENT].astype(np.int64)
 
+    def _kway(self, sets: List[np.ndarray]) -> np.ndarray:
+        """k-way intersection of sorted-unique sets, size-routed through
+        the join tier (query/joinplan.py) on the arenas' device."""
+        from dgraph_tpu_torch.query import joinplan
+
+        return joinplan.kway_intersect(
+            sets, stats=self.stats, device=self.arenas.device,
+            device_min=self.arenas.kway_device_min,
+        )
+
     def _pred_index(self, pred: str, prefer_sortable: bool) -> IndexArena:
         toks = self.store.schema.tokenizers(pred)
         if not toks:
@@ -228,7 +238,7 @@ class FuncResolver:
             if any(r < 0 for r in rows) or not rows:
                 return _EMPTY
             sets = [self._expand_rows(idx.csr, np.array([r])) for r in rows]
-            cand = _intersect_fold(sets)
+            cand = self._kway(sets)
             return self._host_recheck(pred, cand, "eq", val, fn.lang)
         if not tk.sortable and op != "eq":
             raise QueryError(
@@ -297,7 +307,7 @@ class FuncResolver:
                 sets.append(self._expand_rows(idx.csr, np.array([r])))
         if all_of:
             # allofterms = k-way intersection of token posting sets
-            return _intersect_fold(sets)
+            return self._kway(sets)
         out = sets[0]
         for s in sets[1:]:
             out = np.union1d(out, s)
@@ -344,7 +354,7 @@ class FuncResolver:
                     )
             if tsets:
                 # trigram AND over every literal's posting set
-                cand = _intersect_fold(tsets)
+                cand = self._kway(tsets)
         if cand is None:
             pd = self.store.peek(fn.attr)
             cand = (
@@ -525,22 +535,6 @@ class FuncResolver:
         rows = rev.rows_for_uids_host(np.array([target], dtype=np.int64))
         sources = self._expand_rows(rev, rows)
         return self._bound(sources, candidates)
-
-
-def _intersect_fold(sets: List[np.ndarray]) -> np.ndarray:
-    """Intersection of k sorted-unique uid sets: the host fold of the
-    reference's ``joinplan.kway_intersect`` (sorted-unique int64)."""
-    sets = [np.asarray(s, dtype=np.int64) for s in sets]
-    if not sets:
-        return _EMPTY
-    if len(sets) == 1:
-        return sets[0]
-    if min(len(s) for s in sets) == 0:
-        return _EMPTY
-    out = sets[0]
-    for s in sets[1:]:
-        out = np.intersect1d(out, s)
-    return out
 
 
 def _literal_runs(pattern: str) -> List[str]:

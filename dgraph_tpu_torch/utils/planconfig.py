@@ -10,6 +10,9 @@ DGRAPH_TPU_RESIDENT           1        resident-CSR gather tier: '0' never,
                                        '1' on a CUDA device, 'force' on any
                                        device (the CPU runs the kernel's
                                        plain version; the parity tests)
+DGRAPH_TPU_KWAY_DEVICE_MIN    262144   min total elements of a k-way
+                                       intersection before the host fold
+                                       yields to the intersect kernel
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import os
 
 EXPAND_DEVICE_MIN_DEFAULT = 262144
+KWAY_DEVICE_MIN_DEFAULT = 262144
 
 
 def _int(name: str, default: int) -> int:
@@ -35,3 +39,9 @@ def expand_device_min() -> int:
 def resident() -> str:
     """DGRAPH_TPU_RESIDENT: '0', '1' (auto) or 'force'."""
     return os.environ.get("DGRAPH_TPU_RESIDENT", "1")
+
+
+def kway_device_min() -> int:
+    """Static min total candidate elements before a k-way intersection
+    takes the intersect kernel over the host fold."""
+    return _int("DGRAPH_TPU_KWAY_DEVICE_MIN", KWAY_DEVICE_MIN_DEFAULT)

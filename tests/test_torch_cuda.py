@@ -14,6 +14,7 @@ import torch
 
 from dgraph_tpu_torch import bench2hop
 from dgraph_tpu_torch import ops as tops
+from dgraph_tpu_torch.ops import kway
 from dgraph_tpu_torch.ops import slotmap as tslot
 
 pytestmark = pytest.mark.cuda
@@ -85,3 +86,29 @@ def test_batched_two_hop_on_the_card_matches_numpy():
     assert np.array_equal(chks, want_chks)
     _n, want_last, _c = bench2hop.np_two_hop(a, a.host_dst(), frontiers[-1])
     assert np.array_equal(last_set, want_last)
+
+
+def _sets(rng, b, k, L, universe):
+    """[b, k, L] sorted-unique rows of 1..L uids, SENT-padded."""
+    mat = np.full((b, k, L), tops.SENT, np.int32)
+    for i in range(b):
+        for j in range(k):
+            s = np.unique(rng.integers(0, universe, size=int(rng.integers(1, L + 1))))
+            mat[i, j, : len(s)] = s
+    return mat
+
+
+@pytest.mark.parametrize("b,k,L", [(1, 1, 100), (1, 2, 256), (1, 3, 1000),
+                                   (7, 4, 257), (64, 8, 1024), (2, 16, 5000)])
+def test_intersect_kernel_matches_plain_version(b, k, L):
+    _need_gpu()
+    rng = np.random.default_rng(b * 1000 + k * 10 + L)
+    mat = _sets(rng, b, k, L, L + L // 4)
+    mat[0, k - 1, :] = tops.SENT  # an empty member annihilates row 0
+    want = kway.intersect_plain(torch.from_numpy(mat))
+    n0 = kway.KERNEL.launches
+    got = kway.intersect_batch(torch.from_numpy(mat).cuda())
+    torch.cuda.synchronize()
+    assert kway.KERNEL.launches == n0 + 1
+    assert torch.equal(got.cpu(), want)
+    assert (want[0] == tops.SENT).all()
