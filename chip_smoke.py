@@ -38,7 +38,13 @@ Phases, each fatal (exit code 1, no result line):
    the card, exactly: the served matrices of the join path (K 3, L 2^21
    for the ``@filter`` AND), bench_ops.py's draws (K 2/4/8 at L 8192;
    B 1/64/1024 × K 2/4/8 at L 1024), K 1 and K 16, an empty row, an
-   all-SENT row 0, identical rows, L not a multiple of 256.
+   all-SENT row 0, identical rows, L not a multiple of 256, and the
+   tiling's edges (``tests/torch_cases.py``): every lane surviving (each
+   tile's prefix exactly at its end), survivors only in the last tile, a
+   dense row whose range under one tile is more than the kernel stages in
+   shared memory, survivors spread thin over a 2^21-lane row, B 1024
+   batch rows; then
+   the served (a) matrix intersected 200 times, every result compared.
 7. join path — every kernel's launch count is set to 0, then, over HTTP
    on the server of phase 2, repeated: (a) an ``@filter(has(e) AND
    uid(g))`` over the 2-hop set of 8192 seeds (one k-way call of K 3,
@@ -55,7 +61,10 @@ Phases, each fatal (exit code 1, no result line):
    the card, exactly: the pipeline's real (cs, cd) at both hops of one
    200-query chunk, random grouped batches, totals at block boundaries,
    zero-cd rows between productive ones, truncation at capc, an
-   all-zero batch.
+   all-zero batch, and the tiling's edges (``tests/torch_cases.py``):
+   pcap of three shared-memory tiles plus one row, one row owning more
+   slots than capc, Q 1, Q 20,000 at pcap 64, totals and capc at tile
+   boundaries.
 10. batched 2-hop — every kernel's launch count is set to 0, then the
    device-dedup batched 2-hop (``bench2hop.run_device_dedup``) runs the
    1000 queries in chunks of 200 (a warm pass, then best of 4); every
@@ -68,13 +77,18 @@ Phases, each fatal (exit code 1, no result line):
    dedup, hop 2, checksum; CUDA events); one pass of the 1000 queries
    under ``torch.profiler``: the card's busy time (the union of its
    kernel and copy intervals) over the pass's host wall time, and device
-   ms by kernel name; one pass with CUDA events around each chunk; the
-   slot-map's time at both hops' shapes; the intersect kernel's time at
-   the served shape and at bench_ops.py's (wrapper, kernel alone, plain
-   version, the port's ``intersect_many`` tree, bytes bound); then per
-   kernel its launches (from its own path's run), error, time,
-   plain-version time and bound (one ``kernels`` JSON line), the
-   nvidia-smi line, and last the ``{"ok": true, "device": ...}`` line.
+   ms by kernel name; one pass with CUDA events around each chunk; each
+   kernel's wrapper at its path's shapes (the gather at the large
+   2-hop's second hop, the slot-map at both hops, the intersect at the
+   served matrices and bench_ops.py's K 2/4/8 at L 8192) timed three
+   ways: CUDA events around each call, events around 30 back-to-back
+   calls, and its device time under ``torch.profiler``; beside them the
+   plain version, the bytes bound and, for the intersect, the port's
+   ``intersect_many`` tree; a summary line (the paths' numbers and the
+   run's seconds, in all and by phase); then per kernel its launches
+   (from its own path's run), error, time, plain-version time and bound
+   (one ``kernels`` JSON line), the nvidia-smi line, and last the
+   ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero without a CUDA GPU, or when the package is not beside it.
 """
@@ -83,6 +97,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -110,8 +125,11 @@ VOCAB = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf",
          "hotel", "india", "juliett", "kilo", "lima", "mike", "november",
          "oscar", "papa"]
 
-# the intersect kernel's three launches (csrc/intersect.cu), by name
-INTERSECT_LAUNCHES = ("intersect_probe", "intersect_scan", "intersect_compact")
+# device work of one wrapper call, by event name (substrings): the kernel
+# and, for the intersect, the memset of its tile status words
+GATHER_LAUNCHES = ("gather_packed",)
+SLOTMAP_LAUNCHES = ("slotmap",)
+INTERSECT_LAUNCHES = ("intersect", "Memset")
 
 # kernels: (name, wrapper module, TPU kernel it replaces, path that runs it)
 KERNELS = [
@@ -207,6 +225,44 @@ def cuda_ms(fn, iters: int = 30, warm: int = 3) -> float:
         evs.append((a, b))
     torch.cuda.synchronize()
     return float(np.median([a.elapsed_time(b) for a, b in evs]))
+
+
+def kernel_times(fn, names, iters: int = 30) -> dict:
+    """A wrapper call's time three ways, ms: ``ms``, the median of CUDA
+    events around each call (for a call of a few µs mostly the host's
+    enqueue while the card waits); ``b2b_ms``, events around ``iters``
+    back-to-back calls, over ``iters``; ``device_ms``, the device time per
+    call of the events whose names hold one of ``names`` under
+    ``torch.profiler`` (None if it records none), with its split by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {"ms": cuda_ms(fn, iters)}
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    out["b2b_ms"] = a.elapsed_time(b) / iters
+    by_name: dict = {}
+    for _attempt in range(2):  # the profiler has returned no device events at times
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA and any(k in ev.name for k in names):
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + (
+                    ev.time_range.end - ev.time_range.start) / 1e3 / iters
+        if by_name:
+            break
+    out["device_ms"] = sum(by_name.values()) if by_name else None
+    out["device_ms_by_kernel"] = by_name
+    return out
 
 
 # -- phase 1 ----------------------------------------------------------------
@@ -524,6 +580,16 @@ def join_matrices(arena, idx, s1, s2) -> dict:
     return out
 
 
+def load_torch_cases():
+    """``tests/torch_cases.py``, the kernels' edge-case inputs, loaded by
+    path: an installed package may own the name ``tests``."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_cases", ROOT / "tests" / "torch_cases.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def bench_ops_sets(rng, k: int, L: int, size: int, lo: int, hi: int) -> np.ndarray:
     """k sorted-unique sets of ``size`` draws from [lo, hi), SENT-padded
     to L: bench_ops.py's k-way draws."""
@@ -541,6 +607,7 @@ def phase_intersect_kernels(device, served: dict, rng) -> int:
     from dgraph_tpu_torch import ops
     from dgraph_tpu_torch.ops import kway
 
+    torch_cases = load_torch_cases()
     sent = ops.SENT
     cases = [(f"served_{n}", m[None]) for n, m in served.items()]
     for k in (2, 4, 8):  # bench_ops.py:498-507
@@ -563,6 +630,7 @@ def phase_intersect_kernels(device, served: dict, rng) -> int:
     for L in (1000, 4097, 65535):
         cases.append((f"L{L}", np.stack(
             [bench_ops_sets(rng, 3, L, L, 0, L + L // 2) for _ in range(3)])))
+    cases += [(n, torch_cases.intersect_case(n)) for n in torch_cases.INTERSECT_CASES]
     results, max_err = [], 0
     for name, mat in cases:
         t = torch.from_numpy(np.ascontiguousarray(mat, dtype=np.int32)).to(device)
@@ -573,6 +641,18 @@ def phase_intersect_kernels(device, served: dict, rng) -> int:
         max_err = max(max_err, err)
         results.append((name, list(mat.shape), int((want != sent).sum()), err))
         check(torch.equal(got, want), f"intersect kernel != plain version on {name}")
+    # the ordering case: SENT stores of one tile against survivor stores
+    # of a later one, the served (a) matrix over and over
+    t = torch.from_numpy(served["a_filter"][None]).to(device)
+    want = kway.intersect_plain(t)
+    differ = 0
+    for _ in range(torch_cases.REPEATS):
+        differ += not torch.equal(kway.intersect_batch(t), want)
+    _sync(t.device)
+    check(differ == 0, f"intersect kernel differed on {differ} of "
+                       f"{torch_cases.REPEATS} repeats of the served (a) matrix")
+    results.append((f"served_a_filter_x{torch_cases.REPEATS}", list(t.shape),
+                    int((want != sent).sum()), 0))
     for name, m in served.items():  # the served inputs against numpy too
         fold = m[0][m[0] != sent]
         for row in m[1:]:
@@ -700,20 +780,6 @@ def slotmap_real_inputs(a, frontiers, plan):
             ("hop2_chunk", cs2.contiguous(), cd2.contiguous(), plan.capo2)]
 
 
-def grouped_batch(rng, q: int, pcap: int, fill: float = 0.5):
-    """q random grouped prefixes: up to ``fill``·pcap productive rows with
-    strictly ascending chunk starts (cd 1..5, gaps 0..2), zero tail."""
-    cs = np.zeros((q, pcap), np.int32)
-    cd = np.zeros((q, pcap), np.int32)
-    for i in range(q):
-        n = int(rng.integers(0, int(pcap * fill) + 1))
-        d = rng.integers(1, 6, size=n)
-        start = np.cumsum(rng.integers(0, 3, size=n)) + np.cumsum(d) - d
-        cs[i, :n] = start
-        cd[i, :n] = d
-    return cs, cd
-
-
 def total_case(rng, total: int, pcap: int = 1024):
     """One query whose chunk counts sum to exactly ``total``."""
     d = rng.integers(1, 5, size=total)
@@ -735,6 +801,7 @@ def phase_slotmap_kernels(a, frontiers, plan, rng) -> int:
 
     from dgraph_tpu_torch.ops import slotmap
 
+    torch_cases = load_torch_cases()
     dev = a.device
     cases = slotmap_real_inputs(a, frontiers, plan)
     _n, cs2, cd2, capc2 = cases[1]
@@ -742,18 +809,19 @@ def phase_slotmap_kernels(a, frontiers, plan, rng) -> int:
     host = []
     for q, pcap, capc in ((CHUNK_Q, 16384, 16384), (CHUNK_Q, 3072, 3328), (7, 1000, 2900)):
         host.append((f"random_grouped_Q{q}_P{pcap}_C{capc}",
-                     *grouped_batch(rng, q, pcap), capc))
+                     *torch_cases.grouped(rng, q, pcap), capc))
     for t in (127, 128, 129, 255, 256, 257, 383, 1023, 1024, 1025):
         host.append((f"total_{t}", *total_case(rng, t), 2048))
-    cs, cd = grouped_batch(rng, 64, 4096)
+    cs, cd = torch_cases.grouped(rng, 64, 4096)
     cd[rng.random(cd.shape) < 0.2] = 0  # zero-cd rows between productive ones
     host.append(("zero_cd_between", cs, cd, 8192))
-    cs, cd = grouped_batch(rng, 16, 4096, fill=1.0)
+    cs, cd = torch_cases.grouped(rng, 16, 4096, fill=1.0)
     host.append(("random_truncated", cs, cd, 512))
     host.append(("all_zero", np.zeros((CHUNK_Q, 16384), np.int32),
                  np.zeros((CHUNK_Q, 16384), np.int32), 16384))
     host.append(("single_row_prefix", np.array([[5]], np.int32),
                  np.array([[3]], np.int32), 8))
+    host += [(n, *torch_cases.slotmap_case(n)) for n in torch_cases.SLOTMAP_CASES]
     for name, cs, cd, capc in host:
         cases.append((name, torch.from_numpy(cs).to(dev),
                       torch.from_numpy(cd).to(dev), capc))
@@ -859,8 +927,8 @@ def batched_breakdown(a, frontiers, plan) -> dict:
 
 def slotmap_timing(a, frontiers, plan) -> dict:
     """The slot-map at both hops' shapes of a chunk (hop 2's is the main
-    path's largest): wrapper and plain-version device times, and the
-    bytes bound, keyed by hop."""
+    path's largest): the wrapper's times (``kernel_times``), the plain
+    version's, and the bytes bound, keyed by hop."""
     from dgraph_tpu_torch.ops import slotmap
 
     out = {}
@@ -868,12 +936,14 @@ def slotmap_timing(a, frontiers, plan) -> dict:
         q, pcap = cs.shape
         # the function reads cs and cd once and writes the map once
         nbytes = 4 * q * (2 * pcap + capc)
-        ms = cuda_ms(lambda cs=cs, cd=cd, capc=capc: slotmap.slotmap(cs, cd, capc))
+        times = kernel_times(
+            lambda cs=cs, cd=cd, capc=capc: slotmap.slotmap(cs, cd, capc),
+            SLOTMAP_LAUNCHES)
         plain_ms = cuda_ms(
             lambda cs=cs, cd=cd, capc=capc: slotmap.slotmap_plain(cs, cd, capc))
         out[name] = {"Q": q, "pcap": pcap, "capc": capc,
                      "max_total": int(cd.sum(1).max()), "bytes": nbytes,
-                     "ms": ms, "plain_ms": plain_ms,
+                     **times, "plain_ms": plain_ms,
                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
     return out
 
@@ -955,14 +1025,11 @@ def pass_profile(a, frontiers, fcap, plan) -> dict:
 def intersect_timing(device, served, rng) -> dict:
     """The intersect kernel at the served shapes (the matrices of the join
     path: (a)'s filter, the kernels line's shape; (b)'s root and filter)
-    and at bench_ops.py's (K 2/4/8, L 8192): the wrapper's, the kernel's
-    alone (scratch allocated outside), the plain version's and the port's
-    ``intersect_many`` tree's times by CUDA events; the device time of the
-    kernel's three launches by ``torch.profiler`` (events also count the
-    host's launch gaps); and the bytes bound."""
+    and at bench_ops.py's (K 2/4/8, L 8192): the wrapper's times
+    (``kernel_times``; its device time counts the memset of the tile
+    status words too), the plain version's and the port's
+    ``intersect_many`` tree's, and the bytes bound."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from dgraph_tpu_torch import ops
     from dgraph_tpu_torch.ops import kway
@@ -976,45 +1043,25 @@ def intersect_timing(device, served, rng) -> dict:
         k, L = m.shape
         t2 = torch.from_numpy(m).to(device)
         t3 = t2[None]
-        keep = torch.empty((1, L), dtype=torch.uint8, device=device)
-        counts = torch.empty((1, -(-L // kway.BLOCK)), dtype=torch.int32, device=device)
-        totals = torch.empty(1, dtype=torch.int32, device=device)
-        res = torch.empty((1, L), dtype=torch.int32, device=device)
-        stream = torch.cuda.current_stream(device).cuda_stream
         # the function reads each row's valid entries once (the SENT tail
         # need not be read) and writes the L output lanes once
         row_sizes = [int(v) for v in (m != ops.SENT).sum(1)]
         nbytes = 4 * (sum(row_sizes) + L)
         out[name] = {
             "K": k, "L": L, "row_sizes": row_sizes, "bytes": nbytes,
-            "ms": cuda_ms(lambda t3=t3: kway.intersect_batch(t3)),
-            "kernel_only_ms": cuda_ms(lambda t3=t3, L=L, k=k, keep=keep, counts=counts,
-                                      totals=totals, res=res: kway.KERNEL.launch(
-                t3.data_ptr(), 1, k, L, keep.data_ptr(), counts.data_ptr(),
-                totals.data_ptr(), res.data_ptr(), stream)),
+            **kernel_times(lambda t3=t3: kway.intersect_batch(t3), INTERSECT_LAUNCHES),
             "plain_ms": cuda_ms(lambda t3=t3: kway.intersect_plain(t3)),
             "intersect_many_ms": cuda_ms(lambda t2=t2: ops.intersect_many(t2)),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         }
-        iters = 30
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                kway.intersect_batch(t3)
-            torch.cuda.synchronize()
-        by_name = {}
-        for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA and any(
-                    k in ev.name for k in INTERSECT_LAUNCHES):
-                by_name[ev.name] = by_name.get(ev.name, 0.0) + (
-                    ev.time_range.end - ev.time_range.start) / 1e3 / iters
-        out[name]["device_ms_by_kernel"] = by_name
-        out[name]["device_ms"] = sum(by_name.values()) if by_name else None
     return out
 
 
 def gather_timing(arena, rng) -> dict:
     """The gather at the main path's largest shape (the large 2-hop's
-    second hop): wrapper and plain-version device times, and the bound."""
+    second hop): the wrapper's times (``kernel_times``), the kernel's
+    alone (its O(B) torch prolog computed outside), the plain version's,
+    and the bound."""
     import torch
 
     from dgraph_tpu_torch.ops import gather
@@ -1028,9 +1075,9 @@ def gather_timing(arena, rng) -> dict:
     # bytes the function must move: the frontier, two offsets per live
     # row, each live span of dst once, and the packed output once
     nbytes = 4 * len(rows) + 8 * len(valid) + 4 * total + 8 * cap
-    ms = cuda_ms(lambda: gather.gather_packed(ra.off, ra.dst, rt, cap))
+    times = kernel_times(lambda: gather.gather_packed(ra.off, ra.dst, rt, cap),
+                         GATHER_LAUNCHES)
     plain_ms = cuda_ms(lambda: gather.gather_packed_plain(ra.off, ra.dst, rt, cap))
-    # the CUDA kernel alone, its O(B) torch prolog computed once outside
     _deg, cum, sstart = gather._prolog(ra.off, rt)
     out = torch.empty(2 * cap, dtype=torch.int32, device=arena.device)
     stream = torch.cuda.current_stream(arena.device).cuda_stream
@@ -1038,7 +1085,7 @@ def gather_timing(arena, rng) -> dict:
         cum.data_ptr(), sstart.data_ptr(), ra.dst.data_ptr(),
         int(rt.shape[0]), int(cap), out.data_ptr(), stream))
     return {"B": len(rows), "live_rows": len(valid), "total": total,
-            "cap": cap, "bytes": nbytes, "ms": ms, "kernel_only_ms": kernel_ms,
+            "cap": cap, "bytes": nbytes, **times, "kernel_only_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
 
 
@@ -1060,13 +1107,21 @@ def main() -> int:
 
     srv = None
     phase = "build"
+    phase_s: dict = {}  # seconds each phase took, up to the report's end
+    t_phase = [time.perf_counter()]
+
+    def mark(name: str) -> str:
+        phase_s[phase] = time.perf_counter() - t_phase[0]
+        t_phase[0] = time.perf_counter()
+        return name
+
     try:
         t_start = time.perf_counter()
         info = phase_build()
-        phase = "graph"
+        phase = mark("graph")
         store, srv, (src, dst) = phase_graph("cuda", N_NODES, N_EDGES)
         arena = srv.engine.arenas.data("e")
-        phase = "kernels"
+        phase = mark("kernels")
         errs = phase_kernels(arena, np.random.default_rng(11))
         wrappers = {n: importlib.import_module(m) for n, m, _r, _p in KERNELS}
         launches = {}
@@ -1082,45 +1137,49 @@ def main() -> int:
                     check(counts[n] > 0, f"kernel {n} was not launched on {path}")
                     launches[n] = counts[n]
 
-        phase = "main_path"
+        phase = mark("main_path")
         zero_counts()
         main = phase_main_path(store, srv, np.random.default_rng(GRAPH_SEED),
                                info["nvidia_smi"])
         read_counts("main_path")
-        phase = "names"
+        phase = mark("names")
         idx = phase_names(store, srv, N_NAMED)
         jrng = np.random.default_rng(JOIN_SEED)
         s1, s2 = (np.unique(jrng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
                   for _ in range(2))
-        phase = "intersect_kernels"
+        phase = mark("intersect_kernels")
         served = join_matrices(srv.engine.arenas.data("e"), idx, s1, s2)
         errs["intersect"] = phase_intersect_kernels(
             srv.engine.device, served, np.random.default_rng(31))
-        phase = "join_path"
+        phase = mark("join_path")
         zero_counts()
         join = phase_join_path(store, srv, s1, s2, info["nvidia_smi"])
         read_counts("join_path")
-        phase = "dense"
+        phase = mark("dense")
         dense, frontiers, fcap, plan = phase_dense("cuda", src, dst, N_NODES)
         del src, dst
-        phase = "slotmap_kernels"
+        phase = mark("slotmap_kernels")
         errs["slotmap"] = phase_slotmap_kernels(dense, frontiers, plan,
                                                 np.random.default_rng(17))
-        phase = "batched_2hop"
+        phase = mark("batched_2hop")
         zero_counts()
         batched = phase_batched_2hop(dense, frontiers, fcap, plan, info["nvidia_smi"])
         read_counts("batched_2hop")
-        phase = "report"
+        phase = mark("gather_timing")
         t = gather_timing(srv.engine.arenas.data("e"), np.random.default_rng(13))
         log(dict(phase="gather_timing", **t))
+        phase = mark("slotmap_timing")
         st = slotmap_timing(dense, frontiers, plan)
         log(dict(phase="slotmap_timing", **st))
+        phase = mark("batched_breakdown")
         bd = batched_breakdown(dense, frontiers, plan)
         bd["slotmap_share_of_chunk"] = (st["hop1_chunk"]["ms"]
                                         + st["hop2_chunk"]["ms"]) / bd["chunk_ms"]
         log(dict(phase="batched_breakdown", chunk_q=CHUNK_Q, **bd))
+        phase = mark("pass_profile")
         log(dict(phase="pass_profile", chunk_q=CHUNK_Q,
                  **pass_profile(dense, frontiers, fcap, plan)))
+        phase = mark("intersect_timing")
         it = intersect_timing(srv.engine.device, served, np.random.default_rng(37))
         log(dict(phase="intersect_timing", **it))
         # the wrapper's device time for the k-way calls of one request
@@ -1142,12 +1201,15 @@ def main() -> int:
             "launches": launches[n],
             "max_abs_err": errs[n],
             "ms": timing[n]["ms"],
+            "b2b_ms": timing[n]["b2b_ms"],
+            "device_ms": timing[n]["device_ms"],
             "plain_ms": timing[n]["plain_ms"],
             "bound_ms": timing[n]["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
         } for n, _m, r, _p in KERNELS]
-        log({"seconds": round(time.perf_counter() - t_start, 3),
+        mark("done")
+        log({"seconds": round(time.perf_counter() - t_start, 3), "phase_seconds": phase_s,
              "large_2hop": main["large"],
              "join_path": {n: {k: j[k] for k in ("p50_ms", "p99_ms", "kway_ms",
                                                  "launches_per_query")}

@@ -1,8 +1,9 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exports plain C entry points.  ``nvcc`` compiles
-it for Hopper (``sm_90a``) into ``_build/<name>-<hash>.so``, keyed by the
-hash of the source and the flags, at first use; the library is loaded
+Each ``csrc/<name>.cu`` exports plain C entry points and may include the
+shared ``csrc/*.cuh`` headers.  ``nvcc`` compiles it for Hopper
+(``sm_90a``) into ``_build/<name>-<hash>.so``, keyed by the hash of the
+source, the headers and the flags, at first use; the library is loaded
 with ``ctypes``.  Nothing here runs at import time: this module is
 imported on hosts without ``nvcc`` or a GPU, where only the kernels'
 plain PyTorch versions run.
@@ -49,7 +50,9 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 

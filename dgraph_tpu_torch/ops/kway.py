@@ -13,9 +13,13 @@ of ``regexp``.
 Bound: memory.  The function must read each row's valid (non-``SENT``)
 entries once and write the ``L`` output lanes once: 4·(Σ valid + B·L)
 bytes over 3.35 TB/s on an H100.  The padding need not be read (a row's
-end is a log-L search away).  The kernel (csrc/intersect.cu)
-binary-searches each row-0 lane in the other rows, scans the per-block
-survivor counts and compacts in order: three launches, no sort.
+end is a log-L search away).  The kernel (csrc/intersect.cu) is one
+launch after one memset of its scratch: each block takes a tile of row
+0, copies the range of each other row its candidates can meet into
+shared memory (those that fit; it searches the others in device memory),
+looks the candidates up there, writes SENT over its own output lanes,
+and places its survivors after a decoupled look-back over the earlier
+tiles' counts; no sort.
 
 On a CUDA tensor :func:`intersect_batch` launches the kernel or raises;
 the plain version runs only for CPU tensors.
@@ -35,11 +39,10 @@ KMAX = 8  # intersect_pallas's static lane budget (its twin checks it)
 KERNEL = CudaKernel(
     "intersect", "intersect",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p],
+     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p],
 )
 
-BLOCK = 256          # row-0 lanes per block of the probe and compact launches
+TILE = 1024          # row-0 lanes per tile: csrc/intersect.cu's kTile
 _MAX_B = 65535       # the kernel puts batch rows on the grid's y axis
 _MAX_L = 1 << 30     # lanes index int32 in the kernel
 
@@ -77,15 +80,14 @@ def intersect_batch(mat: torch.Tensor) -> torch.Tensor:
     if mat.device.type != "cuda":
         raise ValueError(f"intersect: no kernel for device {mat.device}")
     b, k, length = mat.shape
-    nblk = -(-length // BLOCK)
-    keep = torch.empty((b, length), dtype=torch.uint8, device=mat.device)
-    counts = torch.empty((b, nblk), dtype=torch.int32, device=mat.device)
-    totals = torch.empty(b, dtype=torch.int32, device=mat.device)
+    # a status word per tile of each batch row, then a tile counter per row
+    scratch = torch.empty(b * (-(-length // TILE) + 1), dtype=torch.int64,
+                          device=mat.device)
     out = torch.empty((b, length), dtype=torch.int32, device=mat.device)
     stream = torch.cuda.current_stream(mat.device).cuda_stream
     KERNEL.launch(
-        mat.data_ptr(), int(b), int(k), int(length), keep.data_ptr(),
-        counts.data_ptr(), totals.data_ptr(), out.data_ptr(), stream,
+        mat.data_ptr(), int(b), int(k), int(length), scratch.data_ptr(),
+        scratch.numel(), out.data_ptr(), stream,
     )
     return out
 

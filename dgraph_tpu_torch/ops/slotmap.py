@@ -11,9 +11,11 @@ batch by the 2-hop pipeline (``bench2hop.py``).
 
 Bound: memory.  The function reads cs and cd once and writes the map
 once, 4·Q·(2·pcap + capc) bytes; its floor on an H100 is that over
-3.35 TB/s.  The kernel (csrc/slotmap.cu) scans cd per query in one block,
-then runs one thread per output slot with a binary search over the scan;
-fusing the two launches is later work.
+3.35 TB/s.  The kernel (csrc/slotmap.cu) is one launch with no scratch:
+one block per query walks its rows in shared-memory tiles (cp.async,
+double-buffered), scans each tile in place and writes the slots the
+tile's rows own, so each input entry is read once and each slot written
+once.
 
 On a CUDA tensor :func:`slotmap` launches the kernel or raises; the plain
 version runs only for CPU tensors.
@@ -29,13 +31,12 @@ from dgraph_tpu_torch.ops._build import CudaKernel
 
 KERNEL = CudaKernel(
     "slotmap", "slotmap",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
 )
 
-_MAX_Q = 65535       # the kernel puts queries on the grid's y axis
-_MAX_CAP = 1 << 30   # slots and scan entries index int32 in the kernel
+_MAX_Q = (1 << 31) - 1  # one block per query on the grid's x axis
+_MAX_CAP = 1 << 30      # rows and slots index int32 in the kernel
 
 
 def _check(cs: torch.Tensor, cd: torch.Tensor, capc: int) -> None:
@@ -46,7 +47,7 @@ def _check(cs: torch.Tensor, cd: torch.Tensor, capc: int) -> None:
         raise ValueError("slotmap: cs and cd must share a shape and a device")
     q, pcap = cs.shape
     if not 0 < q <= _MAX_Q or not 0 < pcap < _MAX_CAP:
-        raise ValueError(f"slotmap: need 0 < Q <= {_MAX_Q} and 0 < pcap < 2^30, "
+        raise ValueError(f"slotmap: need 0 < Q < 2^31 and 0 < pcap < 2^30, "
                          f"got {tuple(cs.shape)}")
     if not 0 < capc < _MAX_CAP:
         raise ValueError(f"slotmap: capc must be in (0, 2^30), got {capc}")
@@ -78,11 +79,8 @@ def slotmap(cs: torch.Tensor, cd: torch.Tensor, capc: int) -> torch.Tensor:
     if cs.device.type != "cuda":
         raise ValueError(f"slotmap: no kernel for device {cs.device}")
     q, pcap = cs.shape
-    ccum = torch.empty((q, pcap), dtype=torch.int32, device=cs.device)
     out = torch.empty((q, capc), dtype=torch.int32, device=cs.device)
     stream = torch.cuda.current_stream(cs.device).cuda_stream
-    KERNEL.launch(
-        cs.data_ptr(), cd.data_ptr(), ccum.data_ptr(),
-        int(q), int(pcap), int(capc), out.data_ptr(), stream,
-    )
+    KERNEL.launch(cs.data_ptr(), cd.data_ptr(), int(q), int(pcap), int(capc),
+                  out.data_ptr(), stream)
     return out

@@ -16,6 +16,7 @@ from dgraph_tpu_torch import bench2hop
 from dgraph_tpu_torch import ops as tops
 from dgraph_tpu_torch.ops import kway
 from dgraph_tpu_torch.ops import slotmap as tslot
+import torch_cases  # tests/torch_cases.py (pytest puts tests/ on the path)
 
 pytestmark = pytest.mark.cuda
 
@@ -25,31 +26,22 @@ def _need_gpu():
         pytest.skip("needs a CUDA GPU: the port's kernels have no CPU mode")
 
 
-def _grouped(rng, q, pcap, fill=0.5):
-    cs = np.zeros((q, pcap), np.int32)
-    cd = np.zeros((q, pcap), np.int32)
-    for i in range(q):
-        n = int(rng.integers(0, int(pcap * fill) + 1))
-        d = rng.integers(1, 6, size=n)
-        cs[i, :n] = np.cumsum(rng.integers(0, 3, size=n)) + np.cumsum(d) - d
-        cd[i, :n] = d
-    return cs, cd
-
-
 def _case(name):
+    if name in torch_cases.SLOTMAP_CASES:
+        return torch_cases.slotmap_case(name)
     rng = np.random.default_rng(sum(map(ord, name)))
     if name == "grouped":
-        return (*_grouped(rng, 200, 4096), 8192)
+        return (*torch_cases.grouped(rng, 200, 4096), 8192)
     if name == "truncated":
-        return (*_grouped(rng, 9, 4096, fill=1.0), 300)
+        return (*torch_cases.grouped(rng, 9, 4096, fill=1.0), 300)
     if name == "zero_rows_between":
-        cs, cd = _grouped(rng, 32, 2048)
+        cs, cd = torch_cases.grouped(rng, 32, 2048)
         cd[rng.random(cd.shape) < 0.25] = 0
         return cs, cd, 4096
     if name == "all_zero":
         z = np.zeros((200, 3072), np.int32)
         return z, z.copy(), 3328
-    if name == "one_block_edge":  # totals 1023..1025 around the scan tile
+    if name == "one_block_edge":  # totals 1023..1025
         cs, cd = np.zeros((3, 2048), np.int32), np.zeros((3, 2048), np.int32)
         for q, t in enumerate((1023, 1024, 1025)):
             cd[q, :t] = 1
@@ -59,7 +51,8 @@ def _case(name):
 
 
 @pytest.mark.parametrize("name", ["grouped", "truncated", "zero_rows_between",
-                                  "all_zero", "one_block_edge"])
+                                  "all_zero", "one_block_edge",
+                                  *torch_cases.SLOTMAP_CASES])
 def test_slotmap_kernel_matches_plain_version(name):
     _need_gpu()
     cs, cd, capc = _case(name)
@@ -112,3 +105,29 @@ def test_intersect_kernel_matches_plain_version(b, k, L):
     assert kway.KERNEL.launches == n0 + 1
     assert torch.equal(got.cpu(), want)
     assert (want[0] == tops.SENT).all()
+
+
+@pytest.mark.parametrize("name", torch_cases.INTERSECT_CASES)
+def test_intersect_kernel_on_the_tile_edges(name):
+    _need_gpu()
+    mat = torch_cases.intersect_case(name)
+    want = kway.intersect_plain(torch.from_numpy(mat))
+    n0 = kway.KERNEL.launches
+    got = kway.intersect_batch(torch.from_numpy(mat).cuda())
+    torch.cuda.synchronize()
+    assert kway.KERNEL.launches == n0 + 1
+    assert torch.equal(got.cpu(), want)
+    for g, fold in zip(got.cpu().numpy(), torch_cases.intersect_fold(mat)):
+        assert np.array_equal(g[: len(fold)], fold) and (g[len(fold):] == tops.SENT).all()
+
+
+def test_intersect_kernel_repeats_exactly():
+    """One matrix with survivors in many tiles, intersected over and over:
+    a tile's SENT stores must never land after a later tile's survivor
+    stores."""
+    _need_gpu()
+    mat = torch.from_numpy(torch_cases.intersect_case("thin_L2_21")).cuda()
+    want = kway.intersect_plain(mat.cpu()).cuda()
+    differ = sum(not torch.equal(kway.intersect_batch(mat), want)
+                 for _ in range(torch_cases.REPEATS))
+    assert differ == 0

@@ -22,6 +22,7 @@ from dgraph_tpu_torch import ops as tops
 from dgraph_tpu_torch.ops.kway import (
     KERNEL, KMAX, intersect_batch, intersect_kernel, intersect_plain,
 )
+import torch_cases  # tests/torch_cases.py (pytest puts tests/ on the path)
 
 pytestmark = pytest.mark.pallas_interpret
 
@@ -115,6 +116,20 @@ def test_intersect_stack_batch_matches_the_reference(k):
     assert got.shape == (5, 256)
     assert got.numpy().tobytes() == want.tobytes()
     assert (got[2] == SENT).all()
+
+
+@pytest.mark.parametrize("case", torch_cases.INTERSECT_CASES)
+def test_plain_version_matches_the_oracle_on_the_kernel_tiles(case):
+    """The inputs the card holds the kernel to its plain version on
+    (every lane surviving, survivors only in the last tile, a dense row,
+    thin survivors at L 2^21, B 1024): the plain version against an
+    np.intersect1d fold."""
+    mat = torch_cases.intersect_case(case)
+    got = intersect_batch(torch.from_numpy(mat)).numpy()
+    assert got.shape == (mat.shape[0], mat.shape[2])
+    for g, fold in zip(got, torch_cases.intersect_fold(mat)):
+        assert np.array_equal(g[: len(fold)], fold)
+        assert (g[len(fold):] == SENT).all()
 
 
 @pytest.mark.parametrize("bad", ["dtype", "dim", "noncontig", "batch",

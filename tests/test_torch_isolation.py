@@ -1,5 +1,6 @@
-"""The port stands alone: ``dgraph_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor anything of the ``dgraph_tpu`` package."""
+"""The port stands alone: ``dgraph_tpu_torch``, ``chip_smoke.py`` and the
+test inputs it imports (``tests/torch_cases.py``) import neither JAX nor
+anything of the ``dgraph_tpu`` package."""
 
 import ast
 import pkgutil
@@ -23,7 +24,8 @@ def _imported_roots(path: Path):
 
 
 def test_static_scan_finds_no_forbidden_import():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests" / "torch_cases.py"]
     assert len(files) > 20
     bad = [
         f"{f.relative_to(ROOT)}:{line}: {mod}"

@@ -20,6 +20,7 @@ from dgraph_tpu.ops.pallas_slotmap import slotmap_pallas, slotmap_reference
 from dgraph_tpu.ops.sets import _ov_slot_map as j_ov_slot_map
 from dgraph_tpu_torch.ops import sets as tsets
 from dgraph_tpu_torch.ops import slotmap as tslot
+import torch_cases  # tests/torch_cases.py (pytest puts tests/ on the path)
 
 pytestmark = pytest.mark.pallas_interpret
 
@@ -130,6 +131,18 @@ def test_slotmap_matches_pallas_and_oracle(case):
     for out in (plain, got):
         assert out.dtype == torch.int32 and out.shape == (cs.shape[0], capc)
         assert out.numpy().tobytes() == pal.tobytes()
+
+
+@pytest.mark.parametrize("case", torch_cases.SLOTMAP_CASES)
+def test_plain_version_matches_the_oracle_on_the_kernel_tiles(case):
+    """The inputs the card holds the kernel to its plain version on
+    (pcap past several kernel tiles, a row owning more than capc, Q 1 and
+    Q 20,000, totals on tile boundaries): the plain version against the
+    numpy oracle."""
+    cs, cd, capc = torch_cases.slotmap_case(case)
+    want = np.stack([slotmap_reference(cs[q], cd[q], capc) for q in range(cs.shape[0])])
+    got = tslot.slotmap(torch.from_numpy(cs), torch.from_numpy(cd), capc)
+    assert got.numpy().tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("batched", [False, True])
