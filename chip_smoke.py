@@ -13,10 +13,14 @@ Phases, each fatal (exit code 1, no result line):
    nodes, 21,000,000 pareto-skewed edges, seed 7), load it through
    ``PostingStore.bulk_set_uid_edges`` on the uid predicate ``e``, and
    boot ``DgraphServer`` on cuda on an ephemeral port.
-3. kernels — hold every kernel against its plain PyTorch version on the
-   card, exactly (integer outputs: tolerance 0), over a grid: the main
-   path's frontiers, random frontiers (B up to 4096), a 10^6-edge row,
-   truncation at cap, an all-skip frontier.
+3. kernels — hold the gather kernel against its plain PyTorch version on
+   the card, exactly (integer outputs: tolerance 0), one launch per call,
+   over a grid: the main path's frontiers, random frontiers (B up to
+   4096), truncation at cap, and the fused kernel's edges
+   (``tests/torch_cases.py``): B 1, B ragged, B 2^20, total == cap, cap
+   inside a row, tiles starting inside a long row, a 10^6-edge row, runs
+   of rows that own no slot longer than a staging window, an all-skip
+   frontier.
 4. main path — every kernel's launch count is set to 0, then, over HTTP:
    a. a materialised 2-hop from 64 seeds, byte-identical to an engine
       over the same store pinned to the host route;
@@ -43,7 +47,7 @@ Phases, each fatal (exit code 1, no result line):
    tile's prefix exactly at its end), survivors only in the last tile, a
    dense row whose range under one tile is more than the kernel stages in
    shared memory, survivors spread thin over a 2^21-lane row, B 1024
-   batch rows; then
+   and B 70,000 batch rows (above a grid's y axis); then
    the served (a) matrix intersected 200 times, every result compared.
 7. join path — every kernel's launch count is set to 0, then, over HTTP
    on the server of phase 2, repeated: (a) an ``@filter(has(e) AND
@@ -79,18 +83,25 @@ Phases, each fatal (exit code 1, no result line):
    kernel and copy intervals) over the pass's host wall time, and device
    ms by kernel name; one pass with CUDA events around each chunk; each
    kernel's wrapper at its path's shapes (the gather at the large
-   2-hop's second hop, the slot-map at both hops, the intersect at the
+   2-hop's second hop, at a 10^6-edge row among light rows and at a
+   frontier of B 2^20; the slot-map at both hops; the intersect at the
    served matrices and bench_ops.py's K 2/4/8 at L 8192) timed three
    ways: CUDA events around each call, events around 30 back-to-back
-   calls, and its device time under ``torch.profiler``; beside them the
-   plain version, the bytes bound and, for the intersect, the port's
-   ``intersect_many`` tree; a summary line (the paths' numbers and the
+   calls, and the device time of every device op in the profiler window
+   of a call (split by name); beside them the plain version, the bytes
+   bound and, for the intersect, the port's ``intersect_many`` tree; a
+   summary line (the paths' numbers and the
    run's seconds, in all and by phase); then per kernel its launches
    (from its own path's run), error, time, plain-version time and bound
    (one ``kernels`` JSON line), the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero without a CUDA GPU, or when the package is not beside it.
+
+``python3 chip_smoke.py --gather-only`` runs phases 1-3 and the gather's
+timing line alone.  It goes through wrapper calls only, so an older tree
+with this script and ``tests/torch_cases.py`` copied in runs it too: that
+is how two trees' gathers are compared in one call.
 """
 
 from __future__ import annotations
@@ -124,12 +135,6 @@ N_NAMED, NAME_WORDS, NAME_SEED, JOIN_SEED = 1_000_000, 3, 23, 29
 VOCAB = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf",
          "hotel", "india", "juliett", "kilo", "lima", "mike", "november",
          "oscar", "papa"]
-
-# device work of one wrapper call, by event name (substrings): the kernel
-# and, for the intersect, the memset of its tile status words
-GATHER_LAUNCHES = ("gather_packed",)
-SLOTMAP_LAUNCHES = ("slotmap",)
-INTERSECT_LAUNCHES = ("intersect", "Memset")
 
 # kernels: (name, wrapper module, TPU kernel it replaces, path that runs it)
 KERNELS = [
@@ -227,13 +232,15 @@ def cuda_ms(fn, iters: int = 30, warm: int = 3) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in evs]))
 
 
-def kernel_times(fn, names, iters: int = 30) -> dict:
+def kernel_times(fn, iters: int = 30) -> dict:
     """A wrapper call's time three ways, ms: ``ms``, the median of CUDA
     events around each call (for a call of a few µs mostly the host's
     enqueue while the card waits); ``b2b_ms``, events around ``iters``
     back-to-back calls, over ``iters``; ``device_ms``, the device time per
-    call of the events whose names hold one of ``names`` under
-    ``torch.profiler`` (None if it records none), with its split by name."""
+    call of every device op (kernel, memset, copy) in the profiler window
+    of the calls (None if it records none), with its split by name, so
+    that a design that does its work in several ops and one that does it
+    in one are timed alike."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -255,7 +262,7 @@ def kernel_times(fn, names, iters: int = 30) -> dict:
                 fn()
             torch.cuda.synchronize()
         for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA and any(k in ev.name for k in names):
+            if ev.device_type == DeviceType.CUDA:
                 by_name[ev.name] = by_name.get(ev.name, 0.0) + (
                     ev.time_range.end - ev.time_range.start) / 1e3 / iters
         if by_name:
@@ -340,13 +347,14 @@ def second_hop_rows(arena, seeds):
 
 
 def phase_kernels(arena, rng) -> dict:
-    """Kernel == plain version on the card, exactly, over the grid.
-    Returns the max |kernel - plain| and the main-path timing input."""
+    """Gather kernel == plain version on the card, exactly, one launch a
+    call, over the grid.  Returns the max |kernel - plain|."""
     import torch
 
     from dgraph_tpu_torch import ops
     from dgraph_tpu_torch.ops import gather
 
+    torch_cases = load_torch_cases()
     dev = arena.device
     ra = arena.resident()
     off, dst = ra.off, ra.dst
@@ -363,36 +371,23 @@ def phase_kernels(arena, rng) -> dict:
         tot = int(arena.degree_of_rows(r).sum())
         cases.append((f"random_B{b}", r, ops.bucket(max(1, tot))))
         cases.append((f"random_B{b}_truncated", r, max(8, ops.bucket(max(1, tot)) // 4)))
-    cases.append(("all_skip", np.full(4096, -1, np.int32), 1024))
+    cases = [(n, off, dst, torch.from_numpy(np.ascontiguousarray(r, dtype=np.int32)).to(dev), c)
+             for n, r, c in cases]
+    for name in torch_cases.GATHER_CASES:
+        coff, cdst, rows, cap = torch_cases.gather_case(name)
+        cases.append((name, *(torch.from_numpy(x).to(dev) for x in (coff, cdst, rows)), cap))
     results = []
     max_err = 0
-    for name, rows, cap in cases:
-        rt = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int32)).to(dev)
-        got = gather.gather_packed(off, dst, rt, cap)
-        want = gather.gather_packed_plain(off, dst, rt, cap)
+    for name, coff, cdst, rt, cap in cases:
+        want = gather.gather_packed_plain(coff, cdst, rt, cap)
         torch.cuda.synchronize()
+        n0 = gather.KERNEL.launches
+        got = gather.gather_packed(coff, cdst, rt, cap)
+        torch.cuda.synchronize()
+        check(gather.KERNEL.launches == n0 + 1, f"gather on {name}: not one launch")
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         max_err = max(max_err, err)
         results.append((name, int(rt.shape[0]), int(cap), err))
-        check(torch.equal(got, want), f"gather kernel != plain version on {name}")
-    # one 10^6-edge row among light rows (degree skew inside one launch)
-    heavy = 1_000_000
-    degs = np.array([heavy, 3, 0, 7, 1], dtype=np.int64)
-    hoff = torch.from_numpy(np.concatenate([[0], np.cumsum(degs)]).astype(np.int32)).to(dev)
-    hdst = torch.from_numpy(
-        rng.integers(1, N_NODES + 1, size=int(degs.sum()) + 128).astype(np.int32)
-    ).to(dev)
-    for name, rows, cap in (
-        ("heavy_row", [1, 0, -1, 3, 4, 2, 0, -1], ops.bucket(2 * heavy + 11)),
-        ("heavy_row_truncated", [0, 1, 3], 1 << 19),
-    ):
-        rt = torch.tensor(rows, dtype=torch.int32, device=dev)
-        got = gather.gather_packed(hoff, hdst, rt, cap)
-        want = gather.gather_packed_plain(hoff, hdst, rt, cap)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        max_err = max(max_err, err)
-        results.append((name, len(rows), int(cap), err))
         check(torch.equal(got, want), f"gather kernel != plain version on {name}")
     log({"phase": "kernels", "kernel": "gather_packed", "tolerance": 0,
          "cases": [{"case": n, "B": b, "cap": c, "max_abs_err": e}
@@ -937,8 +932,7 @@ def slotmap_timing(a, frontiers, plan) -> dict:
         # the function reads cs and cd once and writes the map once
         nbytes = 4 * q * (2 * pcap + capc)
         times = kernel_times(
-            lambda cs=cs, cd=cd, capc=capc: slotmap.slotmap(cs, cd, capc),
-            SLOTMAP_LAUNCHES)
+            lambda cs=cs, cd=cd, capc=capc: slotmap.slotmap(cs, cd, capc))
         plain_ms = cuda_ms(
             lambda cs=cs, cd=cd, capc=capc: slotmap.slotmap_plain(cs, cd, capc))
         out[name] = {"Q": q, "pcap": pcap, "capc": capc,
@@ -1026,8 +1020,8 @@ def intersect_timing(device, served, rng) -> dict:
     """The intersect kernel at the served shapes (the matrices of the join
     path: (a)'s filter, the kernels line's shape; (b)'s root and filter)
     and at bench_ops.py's (K 2/4/8, L 8192): the wrapper's times
-    (``kernel_times``; its device time counts the memset of the tile
-    status words too), the plain version's and the port's
+    (``kernel_times``: the memset of the tile status words and the
+    kernel), the plain version's and the port's
     ``intersect_many`` tree's, and the bytes bound."""
     import torch
 
@@ -1049,7 +1043,7 @@ def intersect_timing(device, served, rng) -> dict:
         nbytes = 4 * (sum(row_sizes) + L)
         out[name] = {
             "K": k, "L": L, "row_sizes": row_sizes, "bytes": nbytes,
-            **kernel_times(lambda t3=t3: kway.intersect_batch(t3), INTERSECT_LAUNCHES),
+            **kernel_times(lambda t3=t3: kway.intersect_batch(t3)),
             "plain_ms": cuda_ms(lambda t3=t3: kway.intersect_plain(t3)),
             "intersect_many_ms": cuda_ms(lambda t2=t2: ops.intersect_many(t2)),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -1058,38 +1052,52 @@ def intersect_timing(device, served, rng) -> dict:
 
 
 def gather_timing(arena, rng) -> dict:
-    """The gather at the main path's largest shape (the large 2-hop's
-    second hop): the wrapper's times (``kernel_times``), the kernel's
-    alone (its O(B) torch prolog computed outside), the plain version's,
-    and the bound."""
+    """The gather through wrapper calls only (so that it times an older
+    tree's wrapper too), keyed by shape: the main path's largest (the
+    large 2-hop's second hop), a 10^6-edge row among light rows, and a
+    frontier of B 2^20 arena rows (sorted, distinct).  Per shape the
+    wrapper's times (``kernel_times``: device time of every device op of
+    a call), the plain version's, and the bytes bound."""
     import torch
 
+    from dgraph_tpu_torch import ops
     from dgraph_tpu_torch.ops import gather
 
+    dev = arena.device
     ra = arena.resident()
     seeds = np.unique(rng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
     rows, cap, _ = second_hop_rows(arena, seeds)
-    rt = torch.from_numpy(rows).to(arena.device)
-    valid = rows[rows >= 0]
-    total = int(arena.degree_of_rows(valid).sum())
-    # bytes the function must move: the frontier, two offsets per live
-    # row, each live span of dst once, and the packed output once
-    nbytes = 4 * len(rows) + 8 * len(valid) + 4 * total + 8 * cap
-    times = kernel_times(lambda: gather.gather_packed(ra.off, ra.dst, rt, cap),
-                         GATHER_LAUNCHES)
-    plain_ms = cuda_ms(lambda: gather.gather_packed_plain(ra.off, ra.dst, rt, cap))
-    _deg, cum, sstart = gather._prolog(ra.off, rt)
-    out = torch.empty(2 * cap, dtype=torch.int32, device=arena.device)
-    stream = torch.cuda.current_stream(arena.device).cuda_stream
-    kernel_ms = cuda_ms(lambda: gather.KERNEL.launch(
-        cum.data_ptr(), sstart.data_ptr(), ra.dst.data_ptr(),
-        int(rt.shape[0]), int(cap), out.data_ptr(), stream))
-    return {"B": len(rows), "live_rows": len(valid), "total": total,
-            "cap": cap, "bytes": nbytes, **times, "kernel_only_ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    shapes = [("hop2_large_seeds", ra.off, ra.dst, rows, cap)]
+    hoff, hdst, hrows, hcap = load_torch_cases().gather_case("heavy_row")
+    shapes.append(("heavy_row", torch.from_numpy(hoff).to(dev),
+                   torch.from_numpy(hdst).to(dev), hrows, hcap))
+    rows = np.sort(rng.choice(arena.n_rows, size=1 << 20, replace=False)).astype(np.int32)
+    shapes.append(("b_2_20", ra.off, ra.dst, rows,
+                   ops.bucket(int(arena.degree_of_rows(rows).sum()))))
+    out = {}
+    for name, off, dst, rows, cap in shapes:
+        rt = torch.from_numpy(rows).to(dev)
+        live = rows[rows >= 0]
+        deg = (off[torch.from_numpy(live + 1).to(dev).long()]
+               - off[torch.from_numpy(live).to(dev).long()])
+        total = int(deg.sum())
+        # bytes the function must move: the frontier, two offsets per live
+        # row, each placed target once, and the packed output once
+        nbytes = 4 * len(rows) + 8 * len(live) + 4 * min(total, cap) + 8 * cap
+        out[name] = {
+            "B": len(rows), "live_rows": len(live), "total": total, "cap": cap,
+            "bytes": nbytes,
+            **kernel_times(lambda off=off, dst=dst, rt=rt, cap=cap:
+                           gather.gather_packed(off, dst, rt, cap)),
+            "plain_ms": cuda_ms(lambda off=off, dst=dst, rt=rt, cap=cap:
+                                gather.gather_packed_plain(off, dst, rt, cap)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        }
+    return out
 
 
-def main() -> int:
+def main(argv) -> int:
+    gather_only = "--gather-only" in argv
     try:
         import torch
     except ImportError:
@@ -1123,6 +1131,11 @@ def main() -> int:
         arena = srv.engine.arenas.data("e")
         phase = mark("kernels")
         errs = phase_kernels(arena, np.random.default_rng(11))
+        if gather_only:
+            phase = mark("gather_timing")
+            log(dict(phase="gather_timing", card=info["nvidia_smi"],
+                     **gather_timing(arena, np.random.default_rng(13))))
+            return 0
         wrappers = {n: importlib.import_module(m) for n, m, _r, _p in KERNELS}
         launches = {}
 
@@ -1190,7 +1203,7 @@ def main() -> int:
                 "kernel_share_of_p50": kms[n] / j["p50_ms"],
                 "kway_share_of_p50": j["kway_ms"] / j["p50_ms"]}
             for n, j in join.items()}})
-        timing = {"gather_packed": t, "slotmap": st["hop2_chunk"],
+        timing = {"gather_packed": t["hop2_large_seeds"], "slotmap": st["hop2_chunk"],
                   "intersect": it["served_a_filter"]}
         kernels = [{
             "name": n,
@@ -1235,4 +1248,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

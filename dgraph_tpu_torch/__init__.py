@@ -7,8 +7,9 @@ named counterpart:
 
 - ``ops``     sorted-set ops on int32 uid tensors, the inline-head
               expansions, and the kernels: the resident-CSR gather
-              (``csrc/gather.cu``) and the grouped slot-map
-              (``csrc/slotmap.cu``).
+              (``csrc/gather.cu``), the grouped slot-map
+              (``csrc/slotmap.cu``) and the k-way intersection
+              (``csrc/intersect.cu``).
 - ``models``  host posting store, schema, value types and the
               device-resident CSR arenas with their inline layouts.
 - ``bench2hop``  the batched 2-hop pipeline with on-device dedup

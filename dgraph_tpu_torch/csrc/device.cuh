@@ -1,5 +1,6 @@
-// Device helpers shared by the port's kernels (sm_90a): a warp scan, and
-// cp.async staging of a run of int32 entries into shared memory.
+// Device helpers shared by the port's kernels (sm_90a): a warp scan, a
+// warp-wide search of a sorted run, and cp.async staging of a run of
+// int32 entries into shared memory.
 #pragma once
 
 #include <cstdint>
@@ -16,6 +17,32 @@ __device__ __forceinline__ int32_t warp_inclusive_scan(int32_t v, int lane) {
     if (lane >= o) v += n;
   }
   return v;
+}
+
+// The first index p in [lo, hi) whose entry load(p) is > x (upper) or >= x
+// (lower), hi if none; the entries ascend over [lo, hi).  The whole warp
+// calls it: each round its 32 lanes probe 32 points that cut the range
+// into 33 parts, so a range of n entries takes about log33(n) dependent
+// loads.
+template <typename Load>
+__device__ int warp_bound(Load load, int lo, int hi, int32_t x, bool upper, int lane) {
+  while (hi - lo > 32) {
+    const int p = lo + static_cast<int>(static_cast<long long>(hi - lo) * (lane + 1) / 33);
+    const int32_t v = load(p);
+    const unsigned m = __ballot_sync(kFull, upper ? v > x : v >= x);
+    if (m == 0) {
+      lo = __shfl_sync(kFull, p, 31) + 1;
+    } else {
+      const int l0 = __ffs(m) - 1;
+      const int below = __shfl_sync(kFull, p, l0 > 0 ? l0 - 1 : 0);
+      hi = __shfl_sync(kFull, p, l0);
+      if (l0 > 0) lo = below + 1;
+    }
+  }
+  const int p = lo + lane;
+  const bool hit = p >= hi || (upper ? load(p) > x : load(p) >= x);
+  const unsigned m = __ballot_sync(kFull, hit);
+  return m ? lo + __ffs(m) - 1 : hi;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {

@@ -19,9 +19,11 @@
 // every whole row in VMEM (a [128 x L] equality tile, quadratic in L) and
 // sorts once afterwards.  The sets are sorted, so here a tile's candidates
 // meet only one range of each other row, and survivors keep row 0's order:
-// no compare tile and no sort.  One launch, grid (ntiles, B), single pass
-// with a decoupled look-back (Merrill & Garland) over the tiles of kTile
-// lanes of each batch row's row 0.  Each block:
+// no compare tile and no sort.  One launch, B * ntiles blocks on the
+// grid's x axis (block x serves batch row x / ntiles, so B has no bound of
+// its own: the y axis would stop at 65,535), single pass with a decoupled
+// look-back (Merrill & Garland) over the tiles of kTile lanes of each
+// batch row's row 0.  Each block:
 //   - takes the next tile id of its batch row from an atomic counter, not
 //     from blockIdx, so every tile it looks back at is already running;
 //   - if the tile's first lane is SENT (every later lane is SENT too) it
@@ -86,30 +88,6 @@ __device__ __forceinline__ void st_release(unsigned long long* p, unsigned long 
   asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-// The first index in [lo, hi) whose entry is > x (upper) or >= x (lower),
-// hi if none; row[lo, hi) ascending.  The whole warp calls it: each round
-// its 32 lanes probe 32 points that cut the range into 33 parts.
-__device__ int warp_bound(const int32_t* row, int lo, int hi, int32_t x, bool upper,
-                          int lane) {
-  while (hi - lo > 32) {
-    const int p = lo + static_cast<int>(static_cast<long long>(hi - lo) * (lane + 1) / 33);
-    const int32_t v = row[p];
-    const unsigned m = __ballot_sync(dgt::kFull, upper ? v > x : v >= x);
-    if (m == 0) {
-      lo = __shfl_sync(dgt::kFull, p, 31) + 1;
-    } else {
-      const int l0 = __ffs(m) - 1;
-      const int below = __shfl_sync(dgt::kFull, p, l0 > 0 ? l0 - 1 : 0);
-      hi = __shfl_sync(dgt::kFull, p, l0);
-      if (l0 > 0) lo = below + 1;
-    }
-  }
-  const int p = lo + lane;
-  const bool hit = p >= hi || (upper ? row[p] > x : row[p] >= x);
-  const unsigned m = __ballot_sync(dgt::kFull, hit);
-  return m ? lo + __ffs(m) - 1 : hi;
-}
-
 // Marks in `found` (bit r * kPer + u) each candidate c[u] present in
 // seg[r][0, m[r]) (ascending) for the rows r with m[r] > 0.  Binary
 // lifting with clamped, unconditional loads, all kGroup * kPer searches
@@ -157,7 +135,7 @@ intersect_tiles(const int32_t* __restrict__ mat, int k, int L, int ntiles,
   __shared__ int32_t s_last;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const size_t b = blockIdx.y;
+  const size_t b = blockIdx.x / ntiles;  // the batch row: ntiles blocks each
   if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(counter + b, 1ull));
   __syncthreads();
   const int tile = s_tile;
@@ -196,8 +174,9 @@ intersect_tiles(const int32_t* __restrict__ mat, int k, int L, int ntiles,
     // it ends past `last`: the range of each row the tile can meet
     if (warp < 2 * gn) {
       const int32_t* row = rows + static_cast<size_t>(g + (warp >> 1)) * L;
-      const int x = (warp & 1) ? warp_bound(row, 0, L, last, true, lane)
-                               : warp_bound(row, 0, L, first, false, lane);
+      const auto load = [row](int p) { return row[p]; };
+      const int x = (warp & 1) ? dgt::warp_bound(load, 0, L, last, true, lane)
+                               : dgt::warp_bound(load, 0, L, first, false, lane);
       if (lane == 0) s_range[warp] = x;
     }
     __syncthreads();
@@ -306,12 +285,13 @@ intersect_tiles(const int32_t* __restrict__ mat, int k, int L, int ntiles,
 // launch on the stream; returns the first error.
 extern "C" int intersect(const void* mat, int b, int k, int L, void* scratch,
                          long long words, void* out, void* stream) {
-  if (b <= 0 || b > 65535 || k <= 0 || L <= 0 || L >= (1 << 30)) {
+  if (b <= 0 || k <= 0 || L <= 0 || L >= (1 << 30)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int ntiles = (L + kTile - 1) / kTile;
+  const long long blocks = static_cast<long long>(b) * ntiles;  // the grid's x
   const long long need = static_cast<long long>(b) * (ntiles + 1);
-  if (words < need) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks > 0x7fffffffLL || words < need) return static_cast<int>(cudaErrorInvalidValue);
   // above 48 KB a block's dynamic shared memory must be asked for, once
   static const cudaError_t attr = cudaFuncSetAttribute(
       intersect_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -320,7 +300,7 @@ extern "C" int intersect(const void* mat, int b, int k, int L, void* scratch,
   unsigned long long* status = static_cast<unsigned long long*>(scratch);
   cudaError_t e = cudaMemsetAsync(status, 0, need * sizeof(unsigned long long), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  intersect_tiles<<<dim3(ntiles, b), kThreads, kSmemBytes, s>>>(
+  intersect_tiles<<<static_cast<unsigned>(blocks), kThreads, kSmemBytes, s>>>(
       static_cast<const int32_t*>(mat), k, L, ntiles, status,
       status + static_cast<size_t>(b) * ntiles, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());

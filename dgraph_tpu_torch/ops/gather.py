@@ -7,12 +7,14 @@ tier, walking a ResidentArena's (offsets, dst) buffers directly.  The
 output is the engine's packed layout ``concat([out, seg])`` (int32[2·cap]),
 byte-identical to ``expand_csr`` on the same inputs.
 
-Bound: memory.  The call moves about 4·total + 8·cap + 16·B bytes
-(targets read once, two int32 written per output slot, the O(B) prolog),
-so its floor on an H100 is that over 3.35 TB/s.  The kernel
-(csrc/gather.cu) runs one thread per output slot with a binary search
-over the degree cumsum; TMA/wgmma-era tuning of long spans, and fusing
-the torch prolog into the launch, is later work.
+Bound: memory.  The function must move 4·B + 8·(live rows) +
+4·min(total, cap) + 8·cap bytes (the frontier, two offsets per live row,
+each placed target once, the packed output once), so its floor on an
+H100 is that over 3.35 TB/s.  On a CUDA tensor :func:`gather_packed`
+makes one allocation (the output with the kernel's scratch behind it)
+and one cooperative launch of ``csrc/gather.cu``, which computes the
+degrees, their int32 cumsum and the expansion itself; no torch op, no
+memset and no host sync.  TMA bulk copies of long spans are later work.
 
 On a CUDA tensor :func:`gather_packed` launches the kernel or raises; the
 plain version runs only for CPU tensors.
@@ -29,16 +31,21 @@ from dgraph_tpu_torch.ops.sets import SENT
 
 KERNEL = CudaKernel(
     "gather", "gather_packed",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
 )
 
 _MAX_CAP = 1 << 30  # 2·cap must index an int32 output in the kernel
+_MAX_B = 1 << 30    # the kernel indexes rows and its scratch in int32
+# scratch words behind the output: a block-local degree cumsum and a span
+# start per row, then one sum per block (csrc/gather.cu kMaxGrid blocks)
+MAX_GRID = 2048
 
 
 def _prolog(offsets: torch.Tensor, rows: torch.Tensor):
-    """O(B) frontier math shared by the kernel and the plain version:
-    per-row degree, inclusive degree cumsum, span start (all int32)."""
+    """The plain version's O(B) frontier math: per-row degree, inclusive
+    degree cumsum, span start (all int32).  The kernel computes the same
+    inside its launch."""
     valid = rows >= 0
     r = torch.where(valid, rows, 0)
     lo = offsets[r]
@@ -98,11 +105,14 @@ def gather_packed(
         return gather_packed_plain(offsets, dst, rows, cap)
     if offsets.device.type != "cuda":
         raise ValueError(f"gather: no kernel for device {offsets.device}")
-    _deg, cum, sstart = _prolog(offsets, rows)
-    out = torch.empty(2 * cap, dtype=torch.int32, device=offsets.device)
+    b = int(rows.shape[0])
+    if b >= _MAX_B:
+        raise ValueError(f"gather: the kernel takes B < 2^30, got {b}")
+    buf = torch.empty(2 * cap + 2 * b + MAX_GRID, dtype=torch.int32,
+                      device=offsets.device)
     stream = torch.cuda.current_stream(offsets.device).cuda_stream
     KERNEL.launch(
-        cum.data_ptr(), sstart.data_ptr(), dst.data_ptr(),
-        int(rows.shape[0]), int(cap), out.data_ptr(), stream,
+        offsets.data_ptr(), dst.data_ptr(), rows.data_ptr(), b, int(cap),
+        buf.data_ptr(), buf.numel(), stream,
     )
-    return out
+    return buf[: 2 * cap]

@@ -43,17 +43,17 @@ KERNEL = CudaKernel(
 )
 
 TILE = 1024          # row-0 lanes per tile: csrc/intersect.cu's kTile
-_MAX_B = 65535       # the kernel puts batch rows on the grid's y axis
 _MAX_L = 1 << 30     # lanes index int32 in the kernel
+_MAX_BLOCKS = (1 << 31) - 1  # the kernel's grid: B · ceil(L / TILE) blocks on x
 
 
 def _check(mat: torch.Tensor) -> None:
     if mat.dtype != torch.int32 or mat.dim() != 3 or not mat.is_contiguous():
         raise ValueError("intersect: mat must be a contiguous 3-D int32 tensor")
     b, k, length = mat.shape
-    if not 0 < b <= _MAX_B or k < 1 or not 0 < length < _MAX_L:
-        raise ValueError(f"intersect: need 0 < B <= {_MAX_B}, K >= 1 and "
-                         f"0 < L < 2^30, got {tuple(mat.shape)}")
+    if b < 1 or k < 1 or not 0 < length < _MAX_L:
+        raise ValueError(f"intersect: need B >= 1, K >= 1 and 0 < L < 2^30, "
+                         f"got {tuple(mat.shape)}")
 
 
 def intersect_plain(mat: torch.Tensor) -> torch.Tensor:
@@ -73,16 +73,19 @@ def intersect_plain(mat: torch.Tensor) -> torch.Tensor:
 
 def intersect_batch(mat: torch.Tensor) -> torch.Tensor:
     """B independent k-way intersections, int32[B, K, L] → int32[B, L];
-    any K >= 1."""
+    any B >= 1 and K >= 1 (on the card, B · ceil(L / 1024) < 2^31)."""
     _check(mat)
     if mat.device.type == "cpu":
         return intersect_plain(mat)
     if mat.device.type != "cuda":
         raise ValueError(f"intersect: no kernel for device {mat.device}")
     b, k, length = mat.shape
+    ntiles = -(-length // TILE)
+    if b * ntiles > _MAX_BLOCKS:
+        raise ValueError(f"intersect: B · ceil(L / {TILE}) must be < 2^31 "
+                         f"blocks, got {tuple(mat.shape)}")
     # a status word per tile of each batch row, then a tile counter per row
-    scratch = torch.empty(b * (-(-length // TILE) + 1), dtype=torch.int64,
-                          device=mat.device)
+    scratch = torch.empty(b * (ntiles + 1), dtype=torch.int64, device=mat.device)
     out = torch.empty((b, length), dtype=torch.int32, device=mat.device)
     stream = torch.cuda.current_stream(mat.device).cuda_stream
     KERNEL.launch(

@@ -1,6 +1,7 @@
-"""The port's kernels on the card: each CUDA kernel against its plain
-PyTorch version on CUDA tensors, and the batched 2-hop pipeline on the
-card against the numpy oracle.  Every test is marked ``cuda`` and skips
+"""The port's kernels on the card: each CUDA kernel (gather, slot-map,
+intersect) against its plain PyTorch version on CUDA tensors, one launch
+per wrapper call, and the batched 2-hop pipeline on the card against the
+numpy oracle.  Every test is marked ``cuda`` and skips
 where no GPU is visible.  The file imports neither JAX nor the JAX
 package, so on the card's machine (no JAX there) it runs alone:
 
@@ -14,6 +15,7 @@ import torch
 
 from dgraph_tpu_torch import bench2hop
 from dgraph_tpu_torch import ops as tops
+from dgraph_tpu_torch.ops import gather as tgather
 from dgraph_tpu_torch.ops import kway
 from dgraph_tpu_torch.ops import slotmap as tslot
 import torch_cases  # tests/torch_cases.py (pytest puts tests/ on the path)
@@ -48,6 +50,23 @@ def _case(name):
             cs[q, :t] = np.arange(t) * 2
         return cs, cd, 2048
     raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", torch_cases.GATHER_CASES)
+def test_gather_kernel_on_the_tile_edges(name):
+    """One wrapper call is one launch of the fused kernel, equal to the
+    plain version."""
+    _need_gpu()
+    off, dst, rows, cap = torch_cases.gather_case(name)
+    off, dst, rows = (torch.from_numpy(x) for x in (off, dst, rows))
+    want = tgather.gather_packed_plain(off, dst, rows, cap)
+    off, dst, rows = off.cuda(), dst.cuda(), rows.cuda()
+    torch.cuda.synchronize()
+    n0 = tgather.KERNEL.launches
+    got = tgather.gather_packed(off, dst, rows, cap)
+    torch.cuda.synchronize()
+    assert tgather.KERNEL.launches == n0 + 1
+    assert got.shape == (2 * cap,) and torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("name", ["grouped", "truncated", "zero_rows_between",

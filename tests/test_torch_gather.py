@@ -5,8 +5,9 @@ ResidentArena slack-padded layout, on the cases of tests/test_pallas.py.
 
 On the CPU the wrapper runs the kernel's plain version; the CUDA kernel
 itself is compared with that plain version on the card by the
-``cuda``-marked test below and by chip_smoke.py.  Tolerance: none
-(int32 uids and row indices, byte-equal)."""
+``cuda``-marked tests below and in tests/test_torch_cuda.py, and by
+chip_smoke.py, on the edge cases of tests/torch_cases.py too.  Tolerance:
+none (int32 uids and row indices, byte-equal)."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ import jax.numpy as jnp
 from dgraph_tpu import ops as jops
 from dgraph_tpu.models.arena import ResidentArena, csr_dense_from_edges
 from dgraph_tpu_torch.ops import gather as tgather
+import torch_cases  # tests/torch_cases.py (pytest puts tests/ on the path)
 
 pytestmark = pytest.mark.pallas_interpret
 
@@ -106,6 +108,28 @@ def test_plain_version_counts_no_launch():
     before = tgather.KERNEL.launches
     _check(a, ra, jops.pad_rows(np.arange(8), 8), 64)
     assert tgather.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("name", torch_cases.GATHER_CASES)
+def test_kernel_edge_cases_match_pallas_and_oracle(name):
+    """The inputs the card holds the kernel to its plain version on (B 1,
+    B ragged, B 2^20, total == cap, cap inside a row, tiles starting inside
+    a long row, a 10^6-edge row, long runs of rows that own no slot, an
+    all-skip frontier): the plain version against the numpy oracle, and
+    against ``gather_pallas_packed`` in interpret mode where its grid of
+    one step per row is short enough for a CPU (not at B 2^20)."""
+    off, dst, rows, cap = torch_cases.gather_case(name)
+    got = tgather.gather_packed(torch.from_numpy(off), torch.from_numpy(dst),
+                                torch.from_numpy(rows), cap)
+    assert got.dtype == torch.int32 and got.shape == (2 * cap,)
+    got = got.numpy()
+    w_out, w_seg, _ = jops.gather_reference(off, dst, rows, cap)
+    assert np.array_equal(got[:cap], w_out)
+    assert np.array_equal(got[cap:], w_seg)
+    if len(rows) <= torch_cases.GATHER_INTERPRET_MAX_B:
+        packed = jops.gather_pallas_packed(jnp.asarray(off), jnp.asarray(dst),
+                                           jnp.asarray(rows), cap, interpret=True)
+        assert got.tobytes() == np.asarray(packed).tobytes()
 
 
 @pytest.mark.parametrize("bad", ["dtype", "noncontig", "cap", "empty_rows", "device"])

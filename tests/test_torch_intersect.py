@@ -118,6 +118,25 @@ def test_intersect_stack_batch_matches_the_reference(k):
     assert (got[2] == SENT).all()
 
 
+@pytest.mark.parametrize("case", ["all_sent_65536", "B70000"])
+def test_intersect_batch_takes_any_b(case):
+    """B above the 65,535 a grid's y axis holds: the reference's
+    ``intersect_stack_batch`` (a vmap) takes any B, and so does the port,
+    the plain version here and the kernel on the card."""
+    if case == "all_sent_65536":
+        mat = np.full((65536, 2, 8), SENT, np.int32)
+    else:
+        mat = torch_cases.intersect_case(case)
+    want = np.asarray(jops.intersect_stack_batch(jnp.asarray(mat)))
+    got = intersect_batch(torch.from_numpy(mat))
+    assert got.shape == (mat.shape[0], mat.shape[2])
+    assert got.numpy().tobytes() == want.tobytes()
+    if case == "all_sent_65536":
+        assert (want == SENT).all()
+    else:
+        assert (want != SENT).any()
+
+
 @pytest.mark.parametrize("case", torch_cases.INTERSECT_CASES)
 def test_plain_version_matches_the_oracle_on_the_kernel_tiles(case):
     """The inputs the card holds the kernel to its plain version on
@@ -144,7 +163,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "noncontig":
         mat = torch.zeros((2, 16, 3), dtype=torch.int32).transpose(1, 2)
     elif bad == "batch":
-        mat = torch.zeros((65536, 1, 1), dtype=torch.int32)
+        mat = mat[:0]
     elif bad == "empty":
         mat = mat[:, :0]
     elif bad == "kmax":
