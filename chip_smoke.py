@@ -58,10 +58,30 @@ Phases, each fatal (exit code 1, no result line):
    the intersect kernel at least once and of (b) twice; p50/p99 and the
    ``kway_ms`` of one ``?debug=true`` request are printed.  The counts
    are read right after.
-8. dense — the same generated edges as a dense CSR arena on cuda in the
+8. ranks — the schema ``rank: int .`` and an int per node for uids
+   1..1,000,000, drawn from [0, 2^16) (seed 43: about 15 uids a value),
+   written into the served store; the server's value arena is built.
+9. query surface — every kernel's launch count is set to 0, then, over
+   HTTP on the server of phase 2, each query repeated and its body held
+   byte for byte against an engine over the same store pinned to the
+   host route: (a) the order-by: a root ``orderasc: rank`` over the
+   10^6 ranked uids, a child ``orderdesc: rank, first: 2`` on the 2-hop
+   of 8192 seeds (about 346,000 second-level edges) and an order with
+   ``offset`` and ``after``; the first two must sort on the card (the
+   engine's ``device_order`` count); (b) ``@recurse(depth: 2)`` from the
+   8192 seeds, whose second level crosses the default device gate: it
+   must launch the gather kernel and stay under the reference's 10^6
+   recursion edges; (c) ``shortest`` from a seed to a node two hops away
+   with ``numpaths`` 1 and 3, served as the server stands and again with
+   the gate at 1, when every expansion must launch the gather; (d)
+   ``@groupby`` by ``rank`` and by the uid edge ``e`` with ``count(uid)``,
+   at the root (8192 seeds) and under a child (64 seeds).  One line per
+   query: p50/p99, the gather's launches, ``device_order_ms`` and the
+   engine's routes.  The counts are read right after.
+10. dense — the same generated edges as a dense CSR arena on cuda in the
    skey-grouped inline-head layout; 1000 query frontiers of 4096 drawn
    seeds (bench.py's draw, seed 3) and the pipeline's capacity plan.
-9. slotmap kernels — the slot-map kernel against its plain version on
+11. slotmap kernels — the slot-map kernel against its plain version on
    the card, exactly: the pipeline's real (cs, cd) at both hops of one
    200-query chunk, random grouped batches, totals at block boundaries,
    zero-cd rows between productive ones, truncation at capc, an
@@ -69,7 +89,7 @@ Phases, each fatal (exit code 1, no result line):
    pcap of three shared-memory tiles plus one row, one row owning more
    slots than capc, Q 1, Q 20,000 at pcap 64, totals and capc at tile
    boundaries.
-10. batched 2-hop — every kernel's launch count is set to 0, then the
+12. batched 2-hop — every kernel's launch count is set to 0, then the
    device-dedup batched 2-hop (``bench2hop.run_device_dedup``) runs the
    1000 queries in chunks of 200 (a warm pass, then best of 4); every
    query's edge count and checksum and the last query's set must equal
@@ -77,7 +97,7 @@ Phases, each fatal (exit code 1, no result line):
    twice per chunk in every pass plus twice for the last set.  The counts
    are read right after.  Edges/s, the numpy baseline and the caps are
    printed.
-11. report — the device time of one 200-query chunk by stage (hop 1,
+13. report — the device time of one 200-query chunk by stage (hop 1,
    dedup, hop 2, checksum; CUDA events); one pass of the 1000 queries
    under ``torch.profiler``: the card's busy time (the union of its
    kernel and copy intervals) over the pass's host wall time, and device
@@ -89,11 +109,13 @@ Phases, each fatal (exit code 1, no result line):
    ways: CUDA events around each call, events around 30 back-to-back
    calls, and the device time of every device op in the profiler window
    of a call (split by name); beside them the plain version, the bytes
-   bound and, for the intersect, the port's ``intersect_many`` tree; a
-   summary line (the paths' numbers and the
-   run's seconds, in all and by phase); then per kernel its launches
-   (from its own path's run), error, time, plain-version time and bound
-   (one ``kernels`` JSON line), the nvidia-smi line, and last the
+   bound and, for the intersect, the port's ``intersect_many`` tree; the
+   order-by at the query surface's two sorted shapes (the two torch ops
+   on the card, the engine's device branch and its numpy branch); a
+   summary line (the paths' numbers and the run's seconds, in all and by
+   phase); then per kernel its launches (from its own paths' runs, split
+   by path), error, time, plain-version time and bound (one ``kernels``
+   JSON line), the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero without a CUDA GPU, or when the package is not beside it.
@@ -136,14 +158,21 @@ VOCAB = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf",
          "hotel", "india", "juliett", "kilo", "lima", "mike", "november",
          "oscar", "papa"]
 
-# kernels: (name, wrapper module, TPU kernel it replaces, path that runs it)
+# the query surface: ranks on uids 1..N_RANKED drawn from [0, RANK_RANGE)
+# (ties); each served query repeated SURFACE_REPEATS times (the @recurse,
+# whose body holds some 470,000 nodes, RECURSE_REPEATS times)
+N_RANKED, RANK_RANGE, RANK_SEED, SURFACE_SEED = 1_000_000, 1 << 16, 43, 47
+SURFACE_REPEATS, RECURSE_REPEATS = 5, 3
+RECURSE_MAX_EDGES = 1_000_000  # the reference's recursion cap (query/recurse.py)
+
+# kernels: (name, wrapper module, TPU kernel it replaces, paths that run it)
 KERNELS = [
     ("gather_packed", "dgraph_tpu_torch.ops.gather",
-     "dgraph_tpu/ops/pallas_gather.py:48", "main_path"),
+     "dgraph_tpu/ops/pallas_gather.py:48", ("main_path", "query_surface")),
     ("slotmap", "dgraph_tpu_torch.ops.slotmap",
-     "dgraph_tpu/ops/pallas_slotmap.py:46", "batched_2hop"),
+     "dgraph_tpu/ops/pallas_slotmap.py:46", ("batched_2hop",)),
     ("intersect", "dgraph_tpu_torch.ops.kway",
-     "dgraph_tpu/ops/pallas_intersect.py:35", "join_path"),
+     "dgraph_tpu/ops/pallas_intersect.py:35", ("join_path",)),
 ]
 
 
@@ -711,7 +740,142 @@ def phase_join_path(store, srv, s1, s2, card: str) -> dict:
     return out
 
 
-# -- phases 8-10: the batched 2-hop ------------------------------------------
+# -- phases 8-9: the query surface --------------------------------------------
+
+
+def phase_ranks(store, srv, n_ranked: int) -> None:
+    """An int ``rank`` on uids 1..n_ranked, written into the served store,
+    and the server's value arena built."""
+    from dgraph_tpu_torch.models.store import Edge
+    from dgraph_tpu_torch.models.types import TypeID, TypedValue
+
+    t0 = time.perf_counter()
+    vals = np.random.default_rng(RANK_SEED).integers(0, RANK_RANGE, size=n_ranked)
+    store.apply_schema("rank: int .")
+    store.apply_many(Edge("rank", u, value=TypedValue(TypeID.INT, v))
+                     for u, v in enumerate(vals.tolist(), 1))
+    t1 = time.perf_counter()
+    va = srv.engine.arenas.values("rank")
+    t2 = time.perf_counter()
+    log({"phase": "ranks", "ranked_nodes": n_ranked, "range": RANK_RANGE,
+         "distinct_values": int(len(np.unique(vals))), "seed": RANK_SEED,
+         "value_arena_slots": int(va.src.shape[0]), "device": str(va.src.device),
+         "load_s": round(t1 - t0, 3), "value_arena_s": round(t2 - t1, 3)})
+
+
+def shortest_ends(arena, seeds):
+    """(from, to, paths): the first seed with a node two hops away (not
+    one) reached through at least three distinct middles, and that node
+    (the most reached, then the smallest): numpaths 3 finds its paths
+    without leaving the seed's 2-hop ring."""
+    for s in seeds.tolist():
+        n1, _ = arena.expand_host(arena.rows_for_uids_host(np.array([s])))
+        n2, _ = arena.expand_host(arena.rows_for_uids_host(np.unique(n1)))
+        far = n2[~np.isin(n2, n1) & (n2 != s)]
+        if not len(far):
+            continue
+        uniq, cnt = np.unique(far, return_counts=True)
+        if cnt.max() >= 3:
+            return s, int(uniq[np.argmax(cnt)]), int(cnt.max())
+    raise SmokeFailure("no seed has a node two hops away by three paths")
+
+
+def serve_surface(srv, ref, name: str, q: str, repeats: int, card: str) -> dict:
+    """Serve ``q`` ``repeats`` times, hold the last body against the host
+    route, then read the engine's stats from one ``?debug=true`` request;
+    logs and returns the query's line."""
+    from dgraph_tpu_torch.ops import gather
+
+    n0 = gather.KERNEL.launches
+    lat = []
+    for _ in range(repeats):
+        status, raw, secs = post(srv.addr, q)
+        check(status == 200, f"{name}: HTTP {status}: {raw[:300]!r}")
+        lat.append(secs)
+    launches = gather.KERNEL.launches - n0
+    want = json.dumps(ref.run(q))
+    check(strip_latency(raw) == want, f"{name} body differs from the host route")
+    _status, raw, _secs = post(srv.addr, q, "?debug=true")
+    eng = json.loads(raw)["server_latency"]["engine"]
+    row = {"query": name, "repeats": repeats,
+           "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+           "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+           "request_ms": [x * 1e3 for x in lat], "body_bytes": len(want),
+           "objects": {k: len(v) for k, v in json.loads(want).items()},
+           "gather_launches": launches, "gather_launches_per_query": launches / repeats,
+           "device_order": eng["device_order"], "device_order_ms": eng["device_order_ms"],
+           "routes": eng["routes"], "edges": eng["edges"],
+           "device_expand_ms": eng["device_expand_ms"],
+           "host_expand_ms": eng["host_expand_ms"], "encode_ms": eng["encode_ms"],
+           "expand_device_min": srv.engine.expand_device_min,
+           "byte_identical_to_host_route": True, "card": card}
+    log(dict(phase="query_surface", **row))
+    return row
+
+
+def phase_query_surface(store, srv, n_ranked: int, card: str) -> dict:
+    """The served @recurse, shortest, @groupby and order-by; the caller
+    zeroes the launch counts just before.  ``card`` is the nvidia-smi
+    name and power limit."""
+    gate = srv.engine.expand_device_min
+    check(gate == 262144, "the server must run the default planner gate")
+    ref = host_engine(store)
+    arena = srv.engine.arenas.data("e")
+    rng = np.random.default_rng(SURFACE_SEED)
+    large = np.unique(rng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+    small = np.unique(rng.integers(1, N_NODES + 1, size=SMALL_SEEDS))
+    rows = {}
+
+    def serve(name, q, repeats=SURFACE_REPEATS):
+        rows[name] = serve_surface(srv, ref, name, q, repeats, card)
+        return rows[name]
+
+    # (a) order-by over the value arena
+    for name, q, on_card in (
+        ("order_root", "{ q(func: has(rank), orderasc: rank, first: 100) "
+                       "{ uid rank } }", True),
+        ("order_child_2hop", "{ q(func: uid(%s)) { e { e (orderdesc: rank, "
+                             "first: 2) { uid } } } }" % uid_list(large), True),
+        ("order_offset_after", "{ q(func: has(rank), orderdesc: rank, offset: "
+                               "1000, first: 50, after: 0x%x) { uid rank } }"
+                               % (n_ranked // 2), False),
+    ):
+        row = serve(name, q)
+        check(row["objects"]["q"] > 0, f"{name} answered nothing")
+        if on_card:
+            check(row["device_order"] >= 1, f"{name} did not sort on the card")
+    # (b) @recurse: its second level crosses the device gate
+    row = serve("recurse_depth2",
+                "{ q(func: uid(%s)) @recurse(depth: 2) { uid rank e } }"
+                % uid_list(large), RECURSE_REPEATS)
+    check(row["gather_launches"] >= RECURSE_REPEATS,
+          "the @recurse did not launch the gather kernel")
+    check(row["edges"] < RECURSE_MAX_EDGES,
+          f"the @recurse walked {row['edges']} edges, the cap is {RECURSE_MAX_EDGES}")
+    # (c) shortest, as the server stands and with every expansion on the card
+    src, dst, n_paths = shortest_ends(arena, large)
+    for k in (1, 3):
+        q = ("{ shortest(from: 0x%x, to: 0x%x, numpaths: %d) { e } }" % (src, dst, k))
+        serve(f"shortest_k{k}", q)
+        srv.engine.expand_device_min = 1
+        try:
+            row = serve(f"shortest_k{k}_gate1", q)
+        finally:
+            srv.engine.expand_device_min = gate
+        check(row["gather_launches"] > 0,
+              f"shortest k {k} at gate 1 did not launch the gather kernel")
+        check(row["objects"]["_path_"] == k, f"shortest k {k}: not {k} paths")
+    # (d) @groupby at the root and under a child, by value and by uid edge
+    for attr in ("rank", "e"):
+        serve(f"groupby_root_{attr}", "{ q(func: uid(%s)) @groupby(%s) "
+              "{ count(uid) } }" % (uid_list(large), attr))
+        serve(f"groupby_child_{attr}", "{ q(func: uid(%s)) { e @groupby(%s) "
+              "{ count(uid) } } }" % (uid_list(small), attr))
+    return {"rows": rows, "shortest": {"from": src, "to": dst, "two_hop_paths": n_paths},
+            "large_seeds": large}
+
+
+# -- phases 10-12: the batched 2-hop -----------------------------------------
 
 
 def _sync(dev) -> None:
@@ -1051,6 +1215,54 @@ def intersect_timing(device, served, rng) -> dict:
     return out
 
 
+def order_timing(engine, seeds) -> dict:
+    """The order-by at the served shapes — the root's 10^6 ranked uids in
+    one segment (ascending), and the 2-hop of ``seeds`` by level-1 node
+    (descending) — three ways: ``ops_ms``, CUDA events around the two
+    torch ops on tensors already on the card (median of 30);
+    ``device_branch_ms``, the engine's device branch on the host clock
+    (padding, uploads, the two ops, the fetch of the permutation);
+    ``host_branch_ms``, its numpy branch over the rank mirror (the route
+    below the gate).  Medians of 5 for the last two."""
+    import torch
+
+    from dgraph_tpu_torch import ops
+
+    va = engine.arenas.values("rank")
+    arena = engine.arenas.data("e")
+    n1, _ = arena.expand_host(arena.rows_for_uids_host(seeds))
+    f1 = np.unique(n1)
+    out2, seg_ptr = arena.expand_host(arena.rows_for_uids_host(f1))
+    shapes = [("root_asc", va.h_src, np.zeros(va.n, np.int64), False),
+              ("child_2hop_desc", out2, np.repeat(np.arange(len(f1)), np.diff(seg_ptr)), True)]
+    gate = engine.expand_device_min
+    out = {}
+    for name, uids, owner, desc in shapes:
+        n = len(uids)
+        cap = ops.bucket(n)
+        seg = np.full(cap, -1, np.int32)
+        seg[:n] = owner
+        u_d = torch.from_numpy(ops.pad_to(uids, cap)).to(va.src.device)
+        s_d = torch.from_numpy(seg).to(va.src.device)
+        ops_ms = cuda_ms(lambda u_d=u_d, s_d=s_d, desc=desc: ops.segmented_sort_perm(
+            s_d, ops.gather_ranks(va.src, va.ranks, u_d), desc))
+        branch = {}
+        for route, g in (("device_branch_ms", 1), ("host_branch_ms", n + 1)):
+            engine.expand_device_min = g
+            try:
+                secs = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    engine._device_order_perm(uids, owner, "rank", desc)
+                    secs.append(time.perf_counter() - t0)
+            finally:
+                engine.expand_device_min = gate
+            branch[route] = float(np.median(secs)) * 1e3
+        out[name] = {"n": n, "segments": int(owner[-1]) + 1 if n else 0,
+                     "cap": cap, "ops_ms": ops_ms, **branch}
+    return out
+
+
 def gather_timing(arena, rng) -> dict:
     """The gather through wrapper calls only (so that it times an older
     tree's wrapper too), keyed by shape: the main path's largest (the
@@ -1145,10 +1357,10 @@ def main(argv) -> int:
 
         def read_counts(path):
             counts = {n: w.KERNEL.launches for n, w in wrappers.items()}
-            for n, _m, _r, p in KERNELS:
-                if p == path:
+            for n, _m, _r, paths in KERNELS:
+                if path in paths:
                     check(counts[n] > 0, f"kernel {n} was not launched on {path}")
-                    launches[n] = counts[n]
+                    launches.setdefault(n, {})[path] = counts[n]
 
         phase = mark("main_path")
         zero_counts()
@@ -1168,6 +1380,12 @@ def main(argv) -> int:
         zero_counts()
         join = phase_join_path(store, srv, s1, s2, info["nvidia_smi"])
         read_counts("join_path")
+        phase = mark("ranks")
+        phase_ranks(store, srv, N_RANKED)
+        phase = mark("query_surface")
+        zero_counts()
+        surface = phase_query_surface(store, srv, N_RANKED, info["nvidia_smi"])
+        read_counts("query_surface")
         phase = mark("dense")
         dense, frontiers, fcap, plan = phase_dense("cuda", src, dst, N_NODES)
         del src, dst
@@ -1195,6 +1413,9 @@ def main(argv) -> int:
         phase = mark("intersect_timing")
         it = intersect_timing(srv.engine.device, served, np.random.default_rng(37))
         log(dict(phase="intersect_timing", **it))
+        phase = mark("order_timing")
+        log(dict(phase="order_timing", card=info["nvidia_smi"],
+                 **order_timing(srv.engine, surface["large_seeds"])))
         # the wrapper's device time for the k-way calls of one request
         kms = {"filter_and": it["served_a_filter"]["ms"],
                "allofterms": it["served_b_root"]["ms"] + it["served_b_filter"]["ms"]}
@@ -1211,7 +1432,9 @@ def main(argv) -> int:
             "route": "cuda",
             "source": f"dgraph_tpu_torch/csrc/{wrappers[n].KERNEL.source}.cu",
             "replaces": r,
-            "launches": launches[n],
+            "paths": list(paths),
+            "launches": sum(launches[n].values()),
+            "launches_by_path": launches[n],
             "max_abs_err": errs[n],
             "ms": timing[n]["ms"],
             "b2b_ms": timing[n]["b2b_ms"],
@@ -1220,13 +1443,16 @@ def main(argv) -> int:
             "bound_ms": timing[n]["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
-        } for n, _m, r, _p in KERNELS]
+        } for n, _m, r, paths in KERNELS]
         mark("done")
         log({"seconds": round(time.perf_counter() - t_start, 3), "phase_seconds": phase_s,
              "large_2hop": main["large"],
              "join_path": {n: {k: j[k] for k in ("p50_ms", "p99_ms", "kway_ms",
                                                  "launches_per_query")}
                            for n, j in join.items()},
+             "query_surface": {n: {k: r[k] for k in (
+                 "p50_ms", "p99_ms", "gather_launches_per_query", "device_order",
+                 "device_order_ms")} for n, r in surface["rows"].items()},
              "batched_2hop": {k: batched[k] for k in (
                  "queries", "edges", "edges_per_s", "numpy_edges_per_s",
                  "vs_baseline", "chunk_q", "caps")}})

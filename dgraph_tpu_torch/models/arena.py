@@ -15,12 +15,14 @@ planning —
   row one 8-lane record holding the overflow chunk start, the degree and
   the first INLINE targets, plus an 8-wide overflow chunk table — the
   layout of the batched 2-hop pipeline (``bench2hop.py``).
+- **value arenas** (:class:`ValueArena`): a predicate's numeric values
+  as sorted uids + exact dense ranks on the device, for the order-by
+  (``ops/order.py``).
 
 Arenas are rebuilt per dirty predicate from the host store, or patched
 in place from the store's delta journal (``ArenaManager.refresh``).
-Not ported yet: the chunked layout, MXU tiles, the uid->row LUT, value
-arenas (order-by runs on the host), the hop cache, IVM repair and mesh
-sharding.
+Not ported yet: the chunked layout, MXU tiles, the uid->row LUT, the hop
+cache, IVM repair and mesh sharding.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from dgraph_tpu_torch import ops
 from dgraph_tpu_torch import tok as tokmod
 from dgraph_tpu_torch.device import resolve
 from dgraph_tpu_torch.models.store import PostingStore
+from dgraph_tpu_torch.models.types import numeric
 from dgraph_tpu_torch.obs import ledger as _ledger
 from dgraph_tpu_torch.ops.sets import SENT
 from dgraph_tpu_torch.utils import planconfig
@@ -625,6 +628,28 @@ class IndexArena:
         return start, max(start, end)
 
 
+@dataclass
+class ValueArena:
+    """A predicate's numeric values on the device, for the order-by."""
+
+    src: torch.Tensor               # int32[Sb] sorted uids, SENT-padded
+    vals: torch.Tensor              # float32[Sb]; padding slots hold NaN
+    ranks: torch.Tensor             # int32[Sb] dense rank of the EXACT
+                                    # float64 value (ordering by rank is
+                                    # exact; float32 vals are not);
+                                    # padding slots hold -1
+    h_src: np.ndarray               # int64[S]
+    h_vals: np.ndarray              # float64[S]
+    h_ranks: np.ndarray             # int32[S] host mirror of ranks (exact)
+    n: int
+    langless: bool = True           # no lang-tagged values existed for the
+                                    # predicate — untagged host lookup and
+                                    # this arena agree uid-for-uid
+
+    def device_bytes(self) -> int:
+        return sum(_nbytes(t) for t in (self.src, self.vals, self.ranks))
+
+
 def default_budget_bytes(device: torch.device) -> int:
     """Arena residency budget when none is given: on a CUDA device three
     quarters of the memory free when the manager is built
@@ -660,6 +685,7 @@ class ArenaManager:
         self._data: Dict[str, CSRArena] = {}
         self._reverse: Dict[str, CSRArena] = {}
         self._index: Dict[Tuple[str, str], IndexArena] = {}
+        self._values: Dict[str, ValueArena] = {}
         self._cache_lock = threading.RLock()
         self.budget_bytes = int(
             budget_bytes if budget_bytes is not None
@@ -671,6 +697,7 @@ class ArenaManager:
             id(self._data): self._data,
             id(self._reverse): self._reverse,
             id(self._index): self._index,
+            id(self._values): self._values,
         }
 
     def _get_or_build(self, cache, key, build):
@@ -714,7 +741,7 @@ class ArenaManager:
             if not dirty:
                 return
             if "*" in dirty:  # full-store replacement
-                for c in (self._data, self._reverse, self._index):
+                for c in (self._data, self._reverse, self._index, self._values):
                     c.clear()
                 self._lru.clear()
                 self._lru_total = 0
@@ -733,6 +760,8 @@ class ArenaManager:
                 for key in [k for k in self._index if k[0] == p]:
                     self._index.pop(key, None)
                     self._lru_drop(self._index, key)
+                self._values.pop(p, None)
+                self._lru_drop(self._values, p)
                 dirty.discard(p)
 
     def _try_apply_delta(self, pred: str, delta: list) -> bool:
@@ -838,3 +867,53 @@ class ArenaManager:
         csr = _build_csr(rows, self.device)
         csr.src = None  # implicit rows: row i of the CSR == tokens[i]
         return IndexArena(tokenizer=tokenizer, tokens=tokens, csr=csr, lossy=tk.lossy)
+
+    # -- numeric values ------------------------------------------------------
+
+    def values(self, pred: str) -> ValueArena:
+        self.refresh()
+        return self._get_or_build(
+            self._values, pred, lambda: self._build_values(pred)
+        )
+
+    def _build_values(self, pred: str) -> ValueArena:
+        pd = self.store.peek(pred)
+        pairs: Dict[int, float] = {}
+        langless = True
+        if pd is not None:
+            # deterministic language choice: the untagged value wins, else
+            # the lexicographically first language (stable across ingest
+            # order, unlike dict iteration)
+            for (uid, lang) in sorted(
+                pd.values.keys(), key=lambda k: (k[0], k[1] != "", k[1])
+            ):
+                if lang:
+                    langless = False
+                if uid in pairs:
+                    continue
+                x = numeric(pd.values[(uid, lang)])
+                if x is not None:
+                    pairs[uid] = x
+        uids = np.array(sorted(pairs.keys()), dtype=np.int64)
+        vals = np.array([pairs[u] for u in uids], dtype=np.float64)
+        S = len(uids)
+        Sb = ops.bucket(max(1, S))
+        su = np.full(Sb, SENT, dtype=np.int32)
+        su[:S] = uids.astype(np.int32)
+        vv = np.full(Sb, np.nan, dtype=np.float32)
+        vv[:S] = vals.astype(np.float32)
+        # dense rank of the exact float64 value: the device order-by sorts
+        # by rank, immune to float32 rounding collisions
+        rk = np.full(Sb, -1, dtype=np.int32)
+        if S:
+            rk[:S] = np.searchsorted(np.unique(vals), vals).astype(np.int32)
+        return ValueArena(
+            src=_to_device(su, self.device),
+            vals=_to_device(vv, self.device),
+            ranks=_to_device(rk, self.device),
+            h_src=uids,
+            h_vals=vals,
+            h_ranks=rk[:S].copy(),
+            n=S,
+            langless=langless,
+        )

@@ -47,7 +47,9 @@ class Ledger:
         self.host_ms += stats.get("host_expand_ms", 0.0) + stats.get(
             "resolver_expand_ms", 0.0
         )
-        self.device_ms += stats.get("device_expand_ms", 0.0)
+        self.device_ms += stats.get("device_expand_ms", 0.0) + stats.get(
+            "device_order_ms", 0.0
+        )
 
     def to_dict(self) -> dict:
         return {

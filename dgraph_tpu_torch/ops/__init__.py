@@ -4,7 +4,8 @@ the port's hand-written kernels (the PyTorch counterpart of
 2-hop pipeline call, and the k-way intersection of the join path).  The
 slot-map kernel's wrapper lives in ``ops.slotmap`` (``slotmap``,
 ``slotmap_plain``, ``KERNEL``), the intersect kernel's in ``ops.kway``
-(its ``KERNEL`` counts launches)."""
+(its ``KERNEL`` counts launches).  The segmented order-by
+(``gather_ranks``, ``segmented_sort_perm``) is plain torch ops."""
 
 from dgraph_tpu_torch.ops.sets import (  # noqa: F401
     SENT,
@@ -41,4 +42,8 @@ from dgraph_tpu_torch.ops.kway import (  # noqa: F401
     intersect_batch,
     intersect_kernel,
     intersect_plain,
+)
+from dgraph_tpu_torch.ops.order import (  # noqa: F401
+    gather_ranks,
+    segmented_sort_perm,
 )

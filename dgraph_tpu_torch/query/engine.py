@@ -9,16 +9,20 @@ Expansion routes (``DeviceExpander``): ``empty``, ``host`` (numpy over
 the host mirror, below ``expand_device_min``), ``resident`` (the
 hand-written gather kernel over the device-resident CSR, the default on
 a CUDA device) and ``csr`` (torch ``expand_csr`` over the staged CSR).
-Queries that need a module not ported yet (@recurse, shortest path,
-@groupby) raise ``QueryError`` naming that module.  The join tier's
-k-way half is ported (``query/joinplan.py``): an ``@filter`` AND with at
-least two leaves that resolve without the frontier intersects them with
-the candidates in one ``kway_intersect`` call, on the intersect kernel
-above ``kway_device_min``.  The reference's fused chain, mxu tile
-route, device order-by, hop cache, segments, QoS and mesh are execution
-strategies over the same semantics: here every level runs through the
-``DeviceExpander``, the other filters fold on the host and order-by
-sorts on the host.
+``@recurse`` (``query/recurse.py``), ``shortest`` (``query/shortest.py``)
+and ``@groupby`` (``query/groupby.py``) expand through the same
+``DeviceExpander``.  The join tier's k-way half is ported
+(``query/joinplan.py``): an ``@filter`` AND with at least two leaves
+that resolve without the frontier intersects them with the candidates
+in one ``kway_intersect`` call, on the intersect kernel above
+``kway_device_min``.  Order-by on a numeric, date or bool predicate
+runs on the device above ``expand_device_min`` (``_device_order_perm``:
+value ranks from the predicate's ``ValueArena``, one stable segmented
+sort); string keys, language-tagged values and value variables sort on
+the host.  The reference's fused chain and fused recurse, mxu tile
+route, hop cache, segments, QoS and mesh are execution strategies over
+the same semantics: here every level runs through the
+``DeviceExpander`` and the other filters fold on the host.
 """
 
 from __future__ import annotations
@@ -36,36 +40,32 @@ from dgraph_tpu_torch.models.store import PostingStore
 from dgraph_tpu_torch.models.types import TypeID, TypedValue, numeric, sort_key
 from dgraph_tpu_torch.query.functions import FuncResolver, QueryError
 from dgraph_tpu_torch.query.subgraph import SubGraph, build_subgraph
-from dgraph_tpu_torch.query import joinplan, outputnode, planner
+from dgraph_tpu_torch.query import (
+    groupby, joinplan, outputnode, planner, recurse, shortest,
+)
 from dgraph_tpu_torch.utils import planconfig
 
 _EMPTY = np.empty(0, dtype=np.int64)
 
 
-def not_ported(feature: str, module: str) -> QueryError:
-    """The error a query gets for a feature whose module is still to be
-    ported (named after its counterpart in dgraph_tpu)."""
-    return QueryError(
-        f"{feature} is not supported yet: dgraph_tpu_torch has no port of "
-        f"{module}"
-    )
-
-
 def _fresh_stats() -> dict:
     """Per-request engine stats: edges traversed, per-stage wall time
     (ms: expansions by route, resolver expansions, k-way intersections,
-    JSON-tree encoding), the count of each expansion route and each k-way
-    route taken, and the join-route decisions (query/joinplan.py)."""
+    device order-by, JSON-tree encoding), the count of each expansion
+    route and each k-way route taken, the count of order-by sorts run on
+    the device, and the join-route decisions (query/joinplan.py)."""
     return {
         "edges": 0,
         "host_expand_ms": 0.0,
         "device_expand_ms": 0.0,
         "resolver_expand_ms": 0.0,
         "kway_ms": 0.0,
+        "device_order_ms": 0.0,
         "encode_ms": 0.0,
         "routes": {},
         "kway_device": 0,
         "kway_host": 0,
+        "device_order": 0,
         "join_routes": [],
     }
 
@@ -278,6 +278,9 @@ class QueryEngine:
                 if sg.params.is_internal:
                     continue
                 name = sg.params.alias or "me"
+                if sg.params.is_shortest:
+                    outputnode.encode_path(self.store, sg, out)
+                    continue
                 out.setdefault(name, []).extend(
                     outputnode.encode_block(self.store, sg)
                 )
@@ -286,21 +289,24 @@ class QueryEngine:
     # -- block execution ---------------------------------------------------
 
     def _exec_block(self, sg: SubGraph, uid_vars, value_vars):
-        if sg.params.is_shortest:
-            raise not_ported("shortest path", "query/shortest.py")
-        if sg.params.is_recurse:
-            raise not_ported("@recurse", "query/recurse.py")
-        if sg.params.is_groupby:
-            raise not_ported("@groupby", "query/groupby.py")
         resolver = FuncResolver(
             self.store, self.arenas, uid_vars, value_vars, stats=self.stats,
         )
+        if sg.params.is_shortest:
+            shortest.shortest_path(self, sg, resolver)
+            self._collect_vars(sg, uid_vars, value_vars)
+            return
         dest = self._root_uids(sg, resolver)
         if sg.filter is not None:
             dest = self._apply_filter(sg.filter, dest, resolver)
         dest = self._order_and_paginate_root(sg, dest, value_vars)
         sg.dest_uids = dest
-        self._exec_children(sg, resolver, uid_vars, value_vars)
+        if sg.params.is_groupby:
+            groupby.process_groupby(self, sg, value_vars)  # root @groupby
+        elif sg.params.is_recurse:
+            recurse.recurse(self, sg, resolver)
+        else:
+            self._exec_children(sg, resolver, uid_vars, value_vars)
         self._collect_vars(sg, uid_vars, value_vars)
 
     def _root_uids(self, sg: SubGraph, resolver: FuncResolver) -> np.ndarray:
@@ -523,8 +529,6 @@ class QueryEngine:
         # uid expansion: one batched expansion per (level × predicate)
         # (the reference's fused chain, query/chain.py, is not ported:
         # every level runs through the DeviceExpander)
-        if p.is_groupby:
-            raise not_ported("@groupby", "query/groupby.py")
         arena = self.arenas.reverse(attr) if child.reverse else self.arenas.data(attr)
         out_flat, seg_ptr = self._expand(arena, src, attr=attr, reverse=child.reverse)
         child.src_uids = src
@@ -540,6 +544,9 @@ class QueryEngine:
             self._apply_facet_filter(child)
         self._order_and_paginate_child(child, value_vars)
         child.dest_uids = np.unique(child.out_flat)
+        if p.is_groupby:
+            groupby.process_groupby(self, child, value_vars)
+            return
         self._exec_children(child, resolver, uid_vars, value_vars)
 
     def _expand(
@@ -785,6 +792,59 @@ class QueryEngine:
 
         return key
 
+    # device order-by eligibility: types whose host sort_key orders
+    # identically to the ValueArena's exact-float64 value ranks
+    _DEVICE_ORDER_TIDS = (
+        TypeID.INT, TypeID.FLOAT, TypeID.DATETIME, TypeID.DATE, TypeID.BOOL,
+    )
+
+    def _device_order_perm(
+        self, out: np.ndarray, owner: np.ndarray, attr: str, desc: bool
+    ) -> Optional[np.ndarray]:
+        """Segmented order-by over value ranks (the reference's
+        ``_device_order_perm``; worker/sort.go:123-149 in Dgraph): gather
+        each uid's rank from the ValueArena with one batched binary
+        search, then one stable sort over (segment, ±rank).  Returns the
+        permutation, or None when the host path must order (string keys,
+        lang-tagged values).  Below ``expand_device_min`` items the sort
+        runs in numpy over the rank mirror, above it on ``self.device``."""
+        tid = self.store.schema.type_of(attr)
+        if tid not in self._DEVICE_ORDER_TIDS:
+            return None
+        va = self.arenas.values(attr)
+        if not va.langless:
+            return None
+        n = len(out)
+        if n == 0:
+            return np.empty(0, dtype=np.int64)
+        if n < self.expand_device_min:
+            # small sorts: numpy lexsort over the host rank mirror beats a
+            # device round trip (the size routing of _expand); missing
+            # values sort last ascending / first descending, as on the
+            # device (ops/order.py segmented_sort_perm)
+            miss = np.int64(1) << 40
+            if va.n:
+                pos = np.clip(np.searchsorted(va.h_src, out), 0, va.n - 1)
+                hit = va.h_src[pos] == out
+                key = np.where(hit, va.h_ranks[pos].astype(np.int64), miss)
+            else:
+                key = np.full(n, miss, dtype=np.int64)
+            if desc:
+                key = np.where(key == miss, -miss, -key)
+            return np.lexsort((key, owner)).astype(np.int64)
+        with obs.stage(self.stats, "device_order_ms"):
+            cap = ops.bucket(n)
+            seg = np.full(cap, -1, dtype=np.int32)
+            seg[:n] = owner
+            uids = torch.from_numpy(ops.pad_to(out, cap)).to(va.src.device)
+            ranks = ops.gather_ranks(va.src, va.ranks, uids)
+            perm = ops.segmented_sort_perm(
+                torch.from_numpy(seg).to(va.src.device), ranks, bool(desc)
+            )
+            perm = perm[:n].cpu().numpy()  # padding sorts to the tail
+        self.stats["device_order"] += 1
+        return perm
+
     def _host_order_perm(
         self, n_items: int, owner: np.ndarray, n_segs: int, key_at, desc: bool
     ) -> np.ndarray:
@@ -805,11 +865,20 @@ class QueryEngine:
         if p.after:
             dest = dest[dest > p.after]
         if p.order_attr:
-            # host sort (the reference's device order-by over value
-            # arenas is not ported; the orders agree by construction)
-            key = self._value_key_fn(p.order_attr, p.order_langs, value_vars, p.order_is_var)
-            lst = sorted(dest.tolist(), key=key, reverse=p.order_desc)
-            dest = np.array(lst, dtype=np.int64)
+            perm = None
+            if not (p.order_is_var or p.order_langs):
+                perm = self._device_order_perm(
+                    dest, np.zeros(len(dest), dtype=np.int64), p.order_attr,
+                    p.order_desc,
+                )
+            if perm is not None:
+                dest = dest[perm]
+            else:
+                key = self._value_key_fn(
+                    p.order_attr, p.order_langs, value_vars, p.order_is_var
+                )
+                lst = sorted(dest.tolist(), key=key, reverse=p.order_desc)
+                dest = np.array(lst, dtype=np.int64)
         dest = _paginate(dest, p.offset, p.first)
         return dest
 
@@ -837,13 +906,17 @@ class QueryEngine:
             )
             out, owner = out[perm], owner[perm]
         elif p.order_attr:
-            key = self._value_key_fn(
-                p.order_attr, p.order_langs, value_vars, p.order_is_var
-            )
-            perm = self._host_order_perm(
-                len(out), owner, n_segs,
-                lambda j: key(int(out[j])), p.order_desc,
-            )
+            perm = None
+            if not (p.order_is_var or p.order_langs):
+                perm = self._device_order_perm(out, owner, p.order_attr, p.order_desc)
+            if perm is None:
+                key = self._value_key_fn(
+                    p.order_attr, p.order_langs, value_vars, p.order_is_var
+                )
+                perm = self._host_order_perm(
+                    len(out), owner, n_segs,
+                    lambda j: key(int(out[j])), p.order_desc,
+                )
             out, owner = out[perm], owner[perm]
 
         # -- after + per-segment windowing (vectorized, no python loop) -----

@@ -258,3 +258,24 @@ def encode_block(store: PostingStore, sg: SubGraph) -> List[dict]:
         if obj:
             out.append(obj)
     return out
+
+
+def encode_path(store: PostingStore, sg: SubGraph, out: dict):
+    """shortest blocks render under "_path_" (query/shortest.go
+    createPathSubgraph:598) plus a regular block for requested attrs."""
+    paths = getattr(sg, "paths", None) or []
+    objs = []
+    for path in paths:
+        node: Optional[dict] = None
+        for elem in reversed(path):
+            cur = {"_uid_": _uid_hex(elem["uid"])}
+            if elem.get("facets"):
+                cur["@facets"] = {"_": _facets_json(elem["facets"])}
+            if node is not None:
+                cur[elem["attr_out"]] = [node]
+            node = cur
+        if node:
+            objs.append(node)
+    out.setdefault("_path_", []).extend(objs)
+    if sg.children:
+        out.setdefault(sg.params.alias or "_path_", [])

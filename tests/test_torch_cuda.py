@@ -1,7 +1,8 @@
 """The port's kernels on the card: each CUDA kernel (gather, slot-map,
 intersect) against its plain PyTorch version on CUDA tensors, one launch
-per wrapper call, and the batched 2-hop pipeline on the card against the
-numpy oracle.  Every test is marked ``cuda`` and skips
+per wrapper call, the batched 2-hop pipeline on the card against the
+numpy oracle, and the order-by's torch ops on the card against the same
+ops on the CPU.  Every test is marked ``cuda`` and skips
 where no GPU is visible.  The file imports neither JAX nor the JAX
 package, so on the card's machine (no JAX there) it runs alone:
 
@@ -17,6 +18,7 @@ from dgraph_tpu_torch import bench2hop
 from dgraph_tpu_torch import ops as tops
 from dgraph_tpu_torch.ops import gather as tgather
 from dgraph_tpu_torch.ops import kway
+from dgraph_tpu_torch.ops import order as torder
 from dgraph_tpu_torch.ops import slotmap as tslot
 import torch_cases  # tests/torch_cases.py (pytest puts tests/ on the path)
 
@@ -150,3 +152,31 @@ def test_intersect_kernel_repeats_exactly():
     differ = sum(not torch.equal(kway.intersect_batch(mat), want)
                  for _ in range(torch_cases.REPEATS))
     assert differ == 0
+
+
+@pytest.mark.parametrize("desc", [False, True], ids=["asc", "desc"])
+def test_order_ops_on_the_card_match_the_cpu(desc):
+    """gather_ranks and segmented_sort_perm at 2^20 slots, most of them
+    tied (64 distinct ranks), with missing values and a padded tail: the
+    card's stable sort gives the CPU's permutation."""
+    _need_gpu()
+    rng = np.random.default_rng(41 + desc)
+    have = np.unique(rng.integers(1, 1 << 22, size=1 << 20))
+    src = np.full(1 << 21, tops.SENT, np.int32)
+    src[: len(have)] = have
+    ranks = np.full(1 << 21, -1, np.int32)
+    ranks[: len(have)] = rng.integers(0, 64, size=len(have))
+    n, cap = (1 << 20) - 1000, 1 << 20
+    uids = np.full(cap, tops.SENT, np.int32)
+    uids[:n] = rng.integers(1, 1 << 22, size=n)  # about 1 in 4 has no value
+    seg = np.full(cap, -1, np.int32)
+    seg[:n] = np.sort(rng.integers(0, 5000, size=n))
+    cpu = [torch.from_numpy(x) for x in (src, ranks, uids, seg)]
+    want_r = torder.gather_ranks(*cpu[:3])
+    want_p = torder.segmented_sort_perm(cpu[3], want_r, desc)
+    src_d, ranks_d, uids_d, seg_d = (t.cuda() for t in cpu)
+    got_r = torder.gather_ranks(src_d, ranks_d, uids_d)
+    got_p = torder.segmented_sort_perm(seg_d, got_r, desc)
+    assert torch.equal(got_r.cpu(), want_r)
+    assert torch.equal(got_p.cpu(), want_p)
+    assert (want_r == -1).sum() > n // 8

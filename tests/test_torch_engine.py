@@ -14,10 +14,7 @@ from the golden files).  Excluded, with the reason:
 - golden tests that build their own engine, or build a query at run
   time — not literal queries over the shared fixture;
 - ``mutation`` queries in the goldens — they would change the shared
-  fixture; ``test_parity_after_uid_mutation`` covers mutations instead;
-- @recurse, shortest paths and @groupby (``UNPORTED``): their modules
-  are not ported, and the port must refuse them with a QueryError that
-  names the module — which these cases check instead of parity.
+  fixture; ``test_parity_after_uid_mutation`` covers mutations instead.
 
 A query the reference rejects must be rejected by the port with the same
 error type and message.  A small geo + fulltext graph covers the
@@ -32,11 +29,10 @@ from dgraph_tpu.models import PostingStore as JaxStore
 from dgraph_tpu.obs import ledger as jledger
 from dgraph_tpu.query import QueryEngine as JaxEngine
 from dgraph_tpu_torch.query import QueryEngine
-from dgraph_tpu_torch.query.functions import QueryError
 
 from tests import test_film, test_goldens
 from tests.torch_parity import (
-    REFERENCE_ENV, body, golden_queries, port_store_of, unported_module,
+    REFERENCE_ENV, body, golden_queries, port_store_of,
 )
 
 # interpret-mode Pallas compiles one program per (frontier, capacity)
@@ -100,11 +96,6 @@ def _check(pair, text, variables):
         err = None
     except Exception as e:  # noqa: BLE001 — the reference's verdict
         err = e
-    module = unported_module(text)
-    if module is not None and type(err).__name__ != "ParseError":
-        with pytest.raises(QueryError, match=module.replace(".", r"\.")):
-            teng.run(text, variables)
-        return
     if err is not None:
         # the port's error classes are its own copies: same name, same
         # message, same base

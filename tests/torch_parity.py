@@ -87,23 +87,6 @@ def body(resp: dict) -> str:
     return json.dumps(resp)
 
 
-# queries needing a module the port has not ported yet: the port must
-# refuse them with a QueryError naming that module
-UNPORTED = [
-    ("@recurse", "query/recurse.py"),
-    ("recurse(", "query/recurse.py"),
-    ("shortest(", "query/shortest.py"),
-    ("@groupby", "query/groupby.py"),
-]
-
-
-def unported_module(text: str):
-    for needle, module in UNPORTED:
-        if needle in text:
-            return module
-    return None
-
-
 def golden_queries(fname: str):
     """(id, text, variables) of every literal query a golden test sends
     through the shared ``eng`` fixture (``q(eng, ...)`` / ``eng.run``),
