@@ -21,7 +21,10 @@ Phases, each fatal (exit code 1, no result line):
    inside a row, tiles starting inside a long row, a 10^6-edge row, runs
    of rows that own no slot longer than a staging window, an all-skip
    frontier.
-4. main path — every kernel's launch count is set to 0, then, over HTTP:
+4. main path — every kernel's launch count is set to 0, then, over HTTP
+   on the per-level route (the server's fused chain and fused @recurse
+   pinned off, as in phases 7 and 9: these phases measure what earlier
+   runs measured; the host-route engine pins them off too):
    a. a materialised 2-hop from 64 seeds, byte-identical to an engine
       over the same store pinned to the host route;
    b. a var-block 2-hop from 8192 seeds with a root ``count()``,
@@ -78,10 +81,32 @@ Phases, each fatal (exit code 1, no result line):
    at the root (8192 seeds) and under a child (64 seeds).  One line per
    query: p50/p99, the gather's launches, ``device_order_ms`` and the
    engine's routes.  The counts are read right after.
-10. dense — the same generated edges as a dense CSR arena on cuda in the
+10. multi-hop kernels — ``ops.multi_hop`` (one gather launch a hop) on
+   the card against the same call on the CPU, exactly: from the 8192
+   seeds of phase 11's (a) over the served resident CSR and its uid->row
+   table, with and without the visited set, and from a drained frontier
+   (uids that own no row).
+11. chain — every kernel's launch count is set to 0, then, over HTTP at
+   the default chain threshold, each query served a few times and held
+   byte for byte against the host-route engine, from seeds of their own
+   (seed 53): (a) the main path's var-block 2-hop count from 8192 seeds,
+   which must take the multi-hop pass (2 levels fused, 2 gather
+   launches a request); (b) the materialised 2-hop (a staged full-mode
+   chain); (c) the child ``orderdesc: rank, first: 2`` 2-hop (a fused
+   order); (d) a 2-hop whose second level carries ``@filter(has(rank)
+   AND has(name))`` (a fused keep-set whose AND launches the intersect
+   kernel); (e) a var-block ``@recurse(depth: 2)`` count (the fused BFS,
+   one gather launch a level; from the largest of 8192, 4096, 2048 and
+   1024 seeds whose edge bound the fused BFS admits); (f) a var-block
+   3-hop count from 1024 seeds.  (a), (b) and (e) are served again with
+   the chain and the fused BFS pinned off.  One line per query: p50/p99
+   of each route, ``chain_ms``, ``chain_fused_levels`` and
+   ``chain_reject`` of one ``?debug=true`` request, each kernel's
+   launches a request.  The counts are read right after.
+12. dense — the same generated edges as a dense CSR arena on cuda in the
    skey-grouped inline-head layout; 1000 query frontiers of 4096 drawn
    seeds (bench.py's draw, seed 3) and the pipeline's capacity plan.
-11. slotmap kernels — the slot-map kernel against its plain version on
+13. slotmap kernels — the slot-map kernel against its plain version on
    the card, exactly: the pipeline's real (cs, cd) at both hops of one
    200-query chunk, random grouped batches, totals at block boundaries,
    zero-cd rows between productive ones, truncation at capc, an
@@ -89,7 +114,7 @@ Phases, each fatal (exit code 1, no result line):
    pcap of three shared-memory tiles plus one row, one row owning more
    slots than capc, Q 1, Q 20,000 at pcap 64, totals and capc at tile
    boundaries.
-12. batched 2-hop — every kernel's launch count is set to 0, then the
+14. batched 2-hop — every kernel's launch count is set to 0, then the
    device-dedup batched 2-hop (``bench2hop.run_device_dedup``) runs the
    1000 queries in chunks of 200 (a warm pass, then best of 4); every
    query's edge count and checksum and the last query's set must equal
@@ -97,7 +122,7 @@ Phases, each fatal (exit code 1, no result line):
    twice per chunk in every pass plus twice for the last set.  The counts
    are read right after.  Edges/s, the numpy baseline and the caps are
    printed.
-13. report — the device time of one 200-query chunk by stage (hop 1,
+15. report — the device time of one 200-query chunk by stage (hop 1,
    dedup, hop 2, checksum; CUDA events); one pass of the 1000 queries
    under ``torch.profiler``: the card's busy time (the union of its
    kernel and copy intervals) over the pass's host wall time, and device
@@ -128,6 +153,7 @@ is how two trees' gathers are compared in one call.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import importlib.util
@@ -165,14 +191,21 @@ N_RANKED, RANK_RANGE, RANK_SEED, SURFACE_SEED = 1_000_000, 1 << 16, 43, 47
 SURFACE_REPEATS, RECURSE_REPEATS = 5, 3
 RECURSE_MAX_EDGES = 1_000_000  # the reference's recursion cap (query/recurse.py)
 
+# the chain phase: its own seeds; requests a route of each cheap query
+# ((a), (e), (f)) and of each query with a body of megabytes ((b)-(d));
+# the fewest requests a p99 is reported over; the threshold that pins
+# the chain off
+CHAIN_SEED, PINNED_OFF = 53, 1 << 62
+CHAIN_REPEATS, CHAIN_REPEATS_BULKY, CHAIN_P99_MIN = 24, 3, 20
+
 # kernels: (name, wrapper module, TPU kernel it replaces, paths that run it)
 KERNELS = [
     ("gather_packed", "dgraph_tpu_torch.ops.gather",
-     "dgraph_tpu/ops/pallas_gather.py:48", ("main_path", "query_surface")),
+     "dgraph_tpu/ops/pallas_gather.py:48", ("main_path", "query_surface", "chain")),
     ("slotmap", "dgraph_tpu_torch.ops.slotmap",
      "dgraph_tpu/ops/pallas_slotmap.py:46", ("batched_2hop",)),
     ("intersect", "dgraph_tpu_torch.ops.kway",
-     "dgraph_tpu/ops/pallas_intersect.py:35", ("join_path",)),
+     "dgraph_tpu/ops/pallas_intersect.py:35", ("join_path", "chain")),
 ]
 
 
@@ -232,14 +265,29 @@ def two_hop_count(seeds) -> str:
 
 
 def host_engine(store):
-    """An engine over the same store pinned to the host route: the
-    reference the served bodies must equal byte for byte."""
+    """An engine over the same store pinned to the host route, the fused
+    chain and the fused @recurse off: the reference the served bodies
+    must equal byte for byte."""
     from dgraph_tpu_torch.query import QueryEngine
 
     eng = QueryEngine(store, device="cpu")
     eng.expand_device_min = 1 << 62
     eng.arenas.kway_device_min = 1 << 62
+    eng.chain_threshold = PINNED_OFF
+    eng.expander.fused_hop = False
     return eng
+
+
+@contextlib.contextmanager
+def per_level(engine):
+    """The served engine with its fused chain and fused @recurse pinned
+    off: every level on the per-level route."""
+    thr, hop = engine.chain_threshold, engine.expander.fused_hop
+    engine.chain_threshold, engine.expander.fused_hop = PINNED_OFF, False
+    try:
+        yield
+    finally:
+        engine.chain_threshold, engine.expander.fused_hop = thr, hop
 
 
 def cuda_ms(fn, iters: int = 30, warm: int = 3) -> float:
@@ -444,7 +492,8 @@ def phase_main_path(store, srv, rng, card: str) -> dict:
     check(strip_latency(raw) == want,
           "materialised 2-hop body differs from the host route")
     n_nodes = want.count("_uid_")
-    log({"phase": "materialised_2hop", "seeds": len(seeds), "uids_in_body": n_nodes,
+    log({"phase": "materialised_2hop", "route": "per_level", "seeds": len(seeds),
+         "uids_in_body": n_nodes,
          "body_bytes": len(raw), "ms": round(secs * 1e3, 3),
          "byte_identical_to_host_route": True})
 
@@ -479,7 +528,7 @@ def phase_main_path(store, srv, rng, card: str) -> dict:
         "count": json.loads(want)["q"][0]["count"],
         "card": card,
     }
-    log(dict(phase="large_2hop", **out["large"]))
+    log(dict(phase="large_2hop", route="per_level", **out["large"]))
     del ref  # its arenas predate the mutation below
 
     # c. mutation merged on the device, then a fresh materialised 2-hop
@@ -518,7 +567,8 @@ def phase_main_path(store, srv, rng, card: str) -> dict:
         kids = {k["_uid_"] for k in by_uid["0x%x" % s].get("e", [])}
         check("0x%x" % t in kids, f"new edge 0x{s:x} -> 0x{t:x} missing")
     led = json.loads(raw)["extensions"]["ledger"]
-    log({"phase": "mutation", "new_edges": len(new_edges), "epoch": arena.epoch,
+    log({"phase": "mutation", "route": "per_level", "new_edges": len(new_edges),
+         "epoch": arena.epoch,
          "reseeded": False, "merged_on_device": True, "seeds": len(fresh),
          "edges": led["edges"], "hops": led["hops"], "body_bytes": len(raw),
          "ms": round(secs * 1e3, 3), "byte_identical_to_host_route": True,
@@ -735,7 +785,7 @@ def phase_join_path(store, srv, s1, s2, card: str) -> dict:
             "server_latency": lat_map, "byte_identical_to_host_route": True,
             "card": card,
         }
-        log(dict(phase="join_path", query=name, **out[name]))
+        log(dict(phase="join_path", route="per_level", query=name, **out[name]))
     log(dict(phase="join_routes", **joinplan.debug_summary()))
     return out
 
@@ -809,7 +859,7 @@ def serve_surface(srv, ref, name: str, q: str, repeats: int, card: str) -> dict:
            "host_expand_ms": eng["host_expand_ms"], "encode_ms": eng["encode_ms"],
            "expand_device_min": srv.engine.expand_device_min,
            "byte_identical_to_host_route": True, "card": card}
-    log(dict(phase="query_surface", **row))
+    log(dict(phase="query_surface", route="per_level", **row))
     return row
 
 
@@ -875,7 +925,209 @@ def phase_query_surface(store, srv, n_ranked: int, card: str) -> dict:
             "large_seeds": large}
 
 
-# -- phases 10-12: the batched 2-hop -----------------------------------------
+# -- phases 10-11: the fused chain --------------------------------------------
+
+
+def chain_seeds():
+    """The chain phase's seeds, drawn with a seed of their own: 8192 for
+    (a)-(d), 1024 for (f), and for (e) the largest of 8192, 4096, 2048 and
+    1024 draws whose 2-level edge bound the fused BFS admits (its bound
+    sums the top-m degrees of each level, so 8192 seeds can exceed the
+    10^6 recursion cap while their real walk does not)."""
+    rng = np.random.default_rng(CHAIN_SEED)
+    large = np.unique(rng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+    small = np.unique(rng.integers(1, N_NODES + 1, size=1024))
+    by_size = {k: np.unique(rng.integers(1, N_NODES + 1, size=k))
+               for k in (8192, 4096, 2048, 1024)}
+    return large, small, by_size
+
+
+def recurse_seeds(arena, by_size):
+    """(seeds, cap) for (e): see ``chain_seeds``."""
+    from dgraph_tpu_torch.query.recurse import fused_cap
+
+    for k, seeds in by_size.items():
+        cap = fused_cap(arena, len(seeds), 2)
+        if cap is not None:
+            return seeds, cap
+    raise SmokeFailure("the fused BFS admits none of the (e) seed draws")
+
+
+def phase_multi_hop_kernels(arena, large, rseeds, rcap) -> int:
+    """ops.multi_hop on the card == the same call on the CPU (the
+    gather's plain version), exactly, one gather launch a hop: from
+    (a)'s seeds at the capacity the chain plans for them, from (e)'s with
+    the visited set at the fused BFS's capacity, and from a drained
+    frontier (uids above every row) both ways.  Returns the max
+    |card - CPU|."""
+    import torch
+
+    from dgraph_tpu_torch import ops
+    from dgraph_tpu_torch.ops import gather
+    from dgraph_tpu_torch.query import chain
+    from dgraph_tpu_torch.query.recurse import fused_cap
+
+    ra = arena.resident()
+    lut = arena.lut()
+    est = int(arena.degree_of_rows(arena.rows_for_uids_host(large)).sum())
+    drained = np.arange(N_NODES + 1, N_NODES + 1001, dtype=np.int64)
+    cases = [("a_frontier", large, chain.scan_cap(arena, len(large), est, 2), False),
+             ("e_frontier_bfs", rseeds, rcap, True),
+             ("drained", drained, chain.scan_cap(arena, len(drained), 0, 2), False),
+             ("drained_bfs", drained, fused_cap(arena, len(drained), 2), True)]
+    cpu = [t.cpu() for t in (ra.off, ra.dst, lut)]
+    results, max_err = [], 0
+    for name, f0, cap, tv in cases:
+        f = torch.from_numpy(ops.pad_to(f0, cap))
+        vis = f if tv else torch.full((cap,), ops.SENT, dtype=torch.int32)
+        want = ops.multi_hop(cpu[0], cpu[1], f, vis, 2, cap, tv, cpu[2])
+        torch.cuda.synchronize()
+        n0 = gather.KERNEL.launches
+        got = ops.multi_hop(ra.off, ra.dst, f.cuda(), vis.cuda(), 2, cap, tv, lut)
+        torch.cuda.synchronize()
+        check(gather.KERNEL.launches == n0 + 2, f"multi_hop on {name}: not 2 gather launches")
+        err = max(int((g.cpu().to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        max_err = max(max_err, err)
+        check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+              f"multi_hop on the card != its CPU run on {name}")
+        results.append({"case": name, "frontier": len(f0), "cap": cap,
+                        "track_visited": tv, "edges_by_hop": want[1].tolist(),
+                        "max_abs_err": err})
+    check(results[2]["edges_by_hop"] == [0, 0], "the drained frontier walked edges")
+    log({"phase": "multi_hop_kernels", "kernel": "gather_packed (ops.multi_hop)",
+         "tolerance": 0, "cases": results})
+    return max_err
+
+
+def latency_summary(lat) -> dict:
+    """ms figures of a list of request seconds: every request, min, p50,
+    max, and p99 only where there are enough requests
+    (CHAIN_P99_MIN) for it to be more than the largest one."""
+    ms = [x * 1e3 for x in lat]
+    out = {"requests": len(ms), "min_ms": min(ms),
+           "p50_ms": float(np.percentile(ms, 50)), "max_ms": max(ms)}
+    if len(ms) >= CHAIN_P99_MIN:
+        out["p99_ms"] = float(np.percentile(ms, 99))
+    return {**out, "request_ms": ms}
+
+
+def serve_routes(srv, name: str, q: str, want: str, hops: list,
+                 repeats: int, both: bool) -> dict:
+    """Serve ``q`` ``repeats`` times on the fused route and, with
+    ``both``, as many times with the chain pinned off, alternating route
+    by route request by request so that a drift of the host's speed
+    weighs on both alike; each body is held against ``want``.  Then one
+    ``?debug=true`` request a route for the engine's stats.  ``hops[0]``
+    counts ``ops.multi_hop`` calls.  Returns {route: figures}."""
+    from dgraph_tpu_torch.ops import gather, kway
+
+    routes = ["fused", "per_level"] if both else ["fused"]
+    lat = {r: [] for r in routes}
+    launches = {r: [0, 0, 0] for r in routes}
+
+    def on(route):
+        return per_level(srv.engine) if route == "per_level" else contextlib.nullcontext()
+
+    for _ in range(repeats):
+        for r in routes:
+            n0 = (gather.KERNEL.launches, kway.KERNEL.launches, hops[0])
+            with on(r):
+                status, raw, secs = post(srv.addr, q)
+            n1 = (gather.KERNEL.launches, kway.KERNEL.launches, hops[0])
+            check(status == 200, f"{name} ({r}): HTTP {status}: {raw[:300]!r}")
+            check(strip_latency(raw) == want, f"{name} ({r}) body differs from the host route")
+            lat[r].append(secs)
+            launches[r] = [c + y - x for c, x, y in zip(launches[r], n0, n1)]
+    out = {}
+    for r in routes:
+        with on(r):
+            _status, raw, _secs = post(srv.addr, q, "?debug=true")
+        eng = json.loads(raw)["server_latency"]["engine"]
+        per = [c / repeats for c in launches[r]]
+        out[r] = {**latency_summary(lat[r]),
+                  "gather_launches_per_query": per[0],
+                  "intersect_launches_per_query": per[1],
+                  "multi_hop_calls_per_query": per[2],
+                  **{k: eng[k] for k in (
+                      "chain_ms", "chain_fused_levels", "chain_reject",
+                      "fused_gathers", "routes", "edges", "kway_device",
+                      "device_expand_ms", "host_expand_ms", "encode_ms")}}
+    return out
+
+
+def phase_chain(store, srv, large, small, rseeds, card: str) -> dict:
+    """The served fused chain; the caller zeroes the launch counts just
+    before.  ``card`` is the nvidia-smi name and power limit."""
+    from dgraph_tpu_torch import ops
+
+    eng = srv.engine
+    check(eng.chain_threshold == 262144 and eng.expander.fused_hop,
+          "the server must run the default chain threshold with fused hops on")
+    ref = host_engine(store)
+    # (name, query, fused levels, gathers a request, multi-hop calls a
+    # request, served per level as well, requests a route)
+    many, few = CHAIN_REPEATS, CHAIN_REPEATS_BULKY
+    queries = [
+        ("a_varblock_2hop_count", two_hop_count(large), 2, 2, 1, True, many),
+        ("b_materialised_2hop", two_hop(large), 2, 2, 0, True, few),
+        ("c_child_order_2hop", "{ q(func: uid(%s)) { e { e (orderdesc: rank, "
+         "first: 2) { uid } } } }" % uid_list(large), 2, 2, 0, False, few),
+        ("d_filtered_2hop", "{ q(func: uid(%s)) { uid e { uid e @filter(has(rank) "
+         "AND has(name)) { uid } } } }" % uid_list(large), 2, 2, 0, False, few),
+        ("e_recurse_varblock_count", "{ var(func: uid(%s)) @recurse(depth: 2) "
+         "{ r as e } q(func: uid(r)) { count() } }" % uid_list(rseeds), 0, 2, 1,
+         True, many),
+        ("f_varblock_3hop_count", "{ var(func: uid(%s)) { e { e { f as e } } } "
+         "q(func: uid(f)) { count() } }" % uid_list(small), 3, 3, 1, False, many),
+    ]
+    hops = [0]
+    multi_hop = ops.multi_hop
+
+    def counting(*a, **k):
+        hops[0] += 1
+        return multi_hop(*a, **k)
+
+    rows = {}
+    ops.multi_hop = counting
+    try:
+        for name, q, levels, gathers, scans, both, repeats in queries:
+            want = json.dumps(ref.run(q))
+            body = json.loads(want)
+            row = {"query": name, "seeds": q.count("0x"), "body_bytes": len(want),
+                   "objects": {k: len(v) for k, v in body.items()}, "card": card}
+            row.update(serve_routes(srv, name, q, want, hops, repeats, both))
+            f = row["fused"]
+            check(f["chain_fused_levels"] == levels,
+                  f"{name}: {f['chain_fused_levels']} fused levels, want {levels} "
+                  f"(rejects: {f['chain_reject']})")
+            check(f["gather_launches_per_query"] == gathers,
+                  f"{name}: {f['gather_launches_per_query']} gather launches a "
+                  f"request, want {gathers}")
+            check(f["fused_gathers"] == gathers and "resident" not in f["routes"],
+                  f"{name}: not every gather ran fused ({f['routes']})")
+            check(f["multi_hop_calls_per_query"] == scans,
+                  f"{name}: {f['multi_hop_calls_per_query']} multi-hop calls a "
+                  f"request, want {scans}")
+            if name.startswith("d_"):
+                check(f["intersect_launches_per_query"] >= 1 and f["kway_device"] >= 1,
+                      f"{name}: the fused keep-set did not launch the intersect kernel")
+            if both:
+                p = row["per_level"]
+                check(p["chain_fused_levels"] == 0 and p["fused_gathers"] == 0
+                      and p["multi_hop_calls_per_query"] == 0,
+                      f"{name}: the pinned-off route still fused")
+            first = (body.get("q") or [{}])[0]
+            if "count" in first:
+                row["count"] = first["count"]
+            rows[name] = row
+            log(dict(phase="chain", **row))
+    finally:
+        ops.multi_hop = multi_hop
+    return rows
+
+
+# -- phases 12-14: the batched 2-hop -----------------------------------------
 
 
 def _sync(dev) -> None:
@@ -1364,8 +1616,9 @@ def main(argv) -> int:
 
         phase = mark("main_path")
         zero_counts()
-        main = phase_main_path(store, srv, np.random.default_rng(GRAPH_SEED),
-                               info["nvidia_smi"])
+        with per_level(srv.engine):
+            main = phase_main_path(store, srv, np.random.default_rng(GRAPH_SEED),
+                                   info["nvidia_smi"])
         read_counts("main_path")
         phase = mark("names")
         idx = phase_names(store, srv, N_NAMED)
@@ -1378,14 +1631,26 @@ def main(argv) -> int:
             srv.engine.device, served, np.random.default_rng(31))
         phase = mark("join_path")
         zero_counts()
-        join = phase_join_path(store, srv, s1, s2, info["nvidia_smi"])
+        with per_level(srv.engine):
+            join = phase_join_path(store, srv, s1, s2, info["nvidia_smi"])
         read_counts("join_path")
         phase = mark("ranks")
         phase_ranks(store, srv, N_RANKED)
         phase = mark("query_surface")
         zero_counts()
-        surface = phase_query_surface(store, srv, N_RANKED, info["nvidia_smi"])
+        with per_level(srv.engine):
+            surface = phase_query_surface(store, srv, N_RANKED, info["nvidia_smi"])
         read_counts("query_surface")
+        phase = mark("multi_hop_kernels")
+        arena = srv.engine.arenas.data("e")
+        large_c, small_c, by_size = chain_seeds()
+        rseeds, rcap = recurse_seeds(arena, by_size)
+        errs["gather_packed"] = max(errs["gather_packed"], phase_multi_hop_kernels(
+            arena, large_c, rseeds, rcap))
+        phase = mark("chain")
+        zero_counts()
+        chain_rows = phase_chain(store, srv, large_c, small_c, rseeds, info["nvidia_smi"])
+        read_counts("chain")
         phase = mark("dense")
         dense, frontiers, fcap, plan = phase_dense("cuda", src, dst, N_NODES)
         del src, dst
@@ -1453,6 +1718,12 @@ def main(argv) -> int:
              "query_surface": {n: {k: r[k] for k in (
                  "p50_ms", "p99_ms", "gather_launches_per_query", "device_order",
                  "device_order_ms")} for n, r in surface["rows"].items()},
+             "chain": {n: {route: {k: r[route][k] for k in (
+                 "requests", "min_ms", "p50_ms", "p99_ms", "max_ms",
+                 "gather_launches_per_query", "intersect_launches_per_query",
+                 "chain_fused_levels", "chain_ms") if k in r[route]}
+                 for route in ("fused", "per_level") if route in r}
+                 for n, r in chain_rows.items()},
              "batched_2hop": {k: batched[k] for k in (
                  "queries", "edges", "edges_per_s", "numpy_edges_per_s",
                  "vs_baseline", "chunk_q", "caps")}})

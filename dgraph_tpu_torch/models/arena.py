@@ -18,11 +18,15 @@ planning —
 - **value arenas** (:class:`ValueArena`): a predicate's numeric values
   as sorted uids + exact dense ranks on the device, for the order-by
   (``ops/order.py``).
+- **chain planning** (``CSRArena.lut``, ``n_distinct_dst``,
+  ``topm_deg_cumsum``): the dense uid->row table on the device and the
+  host bounds the fused chain (``query/chain.py``) plans capacities
+  with; all three are dropped by every applied delta.
 
 Arenas are rebuilt per dirty predicate from the host store, or patched
 in place from the store's delta journal (``ArenaManager.refresh``).
-Not ported yet: the chunked layout, MXU tiles, the uid->row LUT, the hop
-cache, IVM repair and mesh sharding.
+Not ported yet: the chunked layout, MXU tiles, the hop cache, IVM repair
+and mesh sharding.
 """
 
 from __future__ import annotations
@@ -107,7 +111,8 @@ class CSRArena:
         """Device footprint of this arena's tensors, built inline layouts
         and resident tier included — the residency manager's accounting
         unit."""
-        n = _nbytes(self.src) + _nbytes(self.offsets) + _nbytes(self.dst)
+        n = (_nbytes(self.src) + _nbytes(self.offsets) + _nbytes(self.dst)
+             + _nbytes(self._lut))
         for pair in (self._inline, self._inline_grouped):
             if pair is not None:
                 n += sum(_nbytes(t) for t in pair)
@@ -122,6 +127,47 @@ class CSRArena:
             return np.full(len(uids), -1, dtype=np.int64)
         hit = self.h_src[pos] == uids
         return np.where(hit, pos, -1)
+
+    # -- chain planning (query/chain.py) --------------------------------------
+
+    _lut: Optional[torch.Tensor] = None
+    _n_distinct_dst: Optional[int] = None
+    _topm_deg: Optional[np.ndarray] = None
+
+    def lut(self) -> torch.Tensor:
+        """Dense uid->row table on the device: int32[bucket(last source
+        uid + 1)], -1 where the uid has no row (``ops.batch.lut_rows``
+        maps uids past its end to -1 as well).  One elementwise gather
+        maps a device frontier to rows.  Kept until the next applied
+        delta (a new source row renumbers every later row)."""
+        cur = self._lut
+        if cur is not None:
+            return cur
+        with _BUILD_LOCK:
+            if self._lut is None:
+                top = int(self.h_src[-1]) if self.n_rows else 0
+                t = np.full(ops.bucket(top + 1), -1, dtype=np.int32)
+                t[self.h_src] = np.arange(self.n_rows, dtype=np.int32)
+                self._lut = _to_device(t, self.device)
+            return self._lut
+
+    def n_distinct_dst(self) -> int:
+        """Number of distinct target uids (cached): bounds the unique
+        frontier any expansion over this arena can produce, row-less
+        leaf uids included."""
+        if self._n_distinct_dst is None:
+            self._n_distinct_dst = (
+                int(len(np.unique(self.host_dst()))) if self.n_edges else 0
+            )
+        return self._n_distinct_dst
+
+    def topm_deg_cumsum(self) -> np.ndarray:
+        """Cumsum of the row degrees sorted descending, with a leading 0
+        (cached): entry m bounds the edges of ANY m distinct rows."""
+        if self._topm_deg is None:
+            deg = np.sort(self.h_offsets[1:] - self.h_offsets[:-1])[::-1]
+            self._topm_deg = np.concatenate([[0], np.cumsum(deg)])
+        return self._topm_deg
 
     # -- inline-head layouts (ops/sets.py expand_inline*) --------------------
 
@@ -297,9 +343,13 @@ class CSRArena:
             self.h_offsets[1:] += sign * np.cumsum(cnt)
         self._h_dst = h_dst.astype(np.int32)
         self.n_edges = len(h_dst)
-        # derived layouts are rebuilt from the new mirrors at next use
+        # derived layouts and planning caches are rebuilt from the new
+        # mirrors at next use
         self._inline = None
         self._inline_grouped = None
+        self._lut = None
+        self._n_distinct_dst = None
+        self._topm_deg = None
         if len(adds) or len(dels):
             self.epoch += 1
             ra = self._resident

@@ -5,7 +5,10 @@ the port's hand-written kernels (the PyTorch counterpart of
 slot-map kernel's wrapper lives in ``ops.slotmap`` (``slotmap``,
 ``slotmap_plain``, ``KERNEL``), the intersect kernel's in ``ops.kway``
 (its ``KERNEL`` counts launches).  The segmented order-by
-(``gather_ranks``, ``segmented_sort_perm``) is plain torch ops."""
+(``gather_ranks``, ``segmented_sort_perm``) is plain torch ops.
+``expand_ascending`` and ``multi_hop`` (``ops.batch``) walk hops through
+the gather; the reference's batched set ops of ``ops.batch`` are not
+ported, and ``intersect_batch`` here is the k-way intersect wrapper."""
 
 from dgraph_tpu_torch.ops.sets import (  # noqa: F401
     SENT,
@@ -46,4 +49,8 @@ from dgraph_tpu_torch.ops.kway import (  # noqa: F401
 from dgraph_tpu_torch.ops.order import (  # noqa: F401
     gather_ranks,
     segmented_sort_perm,
+)
+from dgraph_tpu_torch.ops.batch import (  # noqa: F401
+    expand_ascending,
+    multi_hop,
 )

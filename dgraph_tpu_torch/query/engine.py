@@ -9,20 +9,26 @@ Expansion routes (``DeviceExpander``): ``empty``, ``host`` (numpy over
 the host mirror, below ``expand_device_min``), ``resident`` (the
 hand-written gather kernel over the device-resident CSR, the default on
 a CUDA device) and ``csr`` (torch ``expand_csr`` over the staged CSR).
-``@recurse`` (``query/recurse.py``), ``shortest`` (``query/shortest.py``)
-and ``@groupby`` (``query/groupby.py``) expand through the same
-``DeviceExpander``.  The join tier's k-way half is ported
-(``query/joinplan.py``): an ``@filter`` AND with at least two leaves
-that resolve without the frontier intersects them with the candidates
-in one ``kway_intersect`` call, on the intersect kernel above
-``kway_device_min``.  Order-by on a numeric, date or bool predicate
-runs on the device above ``expand_device_min`` (``_device_order_perm``:
-value ranks from the predicate's ``ValueArena``, one stable segmented
-sort); string keys, language-tagged values and value variables sort on
-the host.  The reference's fused chain and fused recurse, mxu tile
-route, hop cache, segments, QoS and mesh are execution strategies over
-the same semantics: here every level runs through the
-``DeviceExpander`` and the other filters fold on the host.
+Before any per-level expansion, a uid child tries the fused chain
+(``query/chain.py``): above ``chain_threshold`` estimated edges a whole
+chain of levels runs on the device through the same expansion call,
+one fetch for all of them, and its levels are consumed from their
+``chain_stash``.  ``@recurse`` (``query/recurse.py``; an internal
+single-template one as one fused BFS), ``shortest``
+(``query/shortest.py``) and ``@groupby`` (``query/groupby.py``) expand
+through the same ``DeviceExpander``.  The join tier's k-way half is
+ported (``query/joinplan.py``): an ``@filter`` AND with at least two
+leaves that resolve without the frontier intersects them with the
+candidates in one ``kway_intersect`` call, on the intersect kernel
+above ``kway_device_min``.  Order-by on a numeric, date or bool
+predicate runs on the device above ``expand_device_min``
+(``_device_order_perm``: value ranks from the predicate's
+``ValueArena``, one stable segmented sort); string keys,
+language-tagged values and value variables sort on the host.  The
+reference's tile route, classed route, hop cache, segments, QoS and
+mesh are execution strategies over the same semantics and are not
+ported; filters other than the k-way AND and a fused chain's keep-sets
+fold on the host.
 """
 
 from __future__ import annotations
@@ -41,24 +47,39 @@ from dgraph_tpu_torch.models.types import TypeID, TypedValue, numeric, sort_key
 from dgraph_tpu_torch.query.functions import FuncResolver, QueryError
 from dgraph_tpu_torch.query.subgraph import SubGraph, build_subgraph
 from dgraph_tpu_torch.query import (
-    groupby, joinplan, outputnode, planner, recurse, shortest,
+    chain, groupby, joinplan, outputnode, planner, recurse, shortest,
 )
 from dgraph_tpu_torch.utils import planconfig
 
 _EMPTY = np.empty(0, dtype=np.int64)
 
 
+def _plan_rows(arena, src: np.ndarray) -> Tuple[np.ndarray, int]:
+    """``src``'s arena rows (-1 where a uid has none) and their edge
+    count: what a level's routing and the fused chain's estimate read."""
+    if arena.n_edges == 0:
+        return np.full(len(src), -1, dtype=np.int64), 0
+    rows = arena.rows_for_uids_host(src)
+    return rows, int(arena.degree_of_rows(rows).sum())
+
+
 def _fresh_stats() -> dict:
     """Per-request engine stats: edges traversed, per-stage wall time
-    (ms: expansions by route, resolver expansions, k-way intersections,
-    device order-by, JSON-tree encoding), the count of each expansion
-    route and each k-way route taken, the count of order-by sorts run on
-    the device, and the join-route decisions (query/joinplan.py)."""
+    (ms: expansions by route, resolver expansions, fused-chain attempts
+    with their planning, k-way intersections, device order-by, JSON-tree
+    encoding), the count of each expansion route and each k-way route
+    taken, the count of order-by sorts run on the device, the join-route
+    decisions (query/joinplan.py), the levels consumed from fused chains,
+    why chain attempts fell back to per-level execution (bounded), and
+    the gather calls the fused chain, multi-hop pass and fused
+    @recurse made (``fused_gathers``; per-level gathers count under
+    ``routes["resident"]``)."""
     return {
         "edges": 0,
         "host_expand_ms": 0.0,
         "device_expand_ms": 0.0,
         "resolver_expand_ms": 0.0,
+        "chain_ms": 0.0,
         "kway_ms": 0.0,
         "device_order_ms": 0.0,
         "encode_ms": 0.0,
@@ -67,6 +88,9 @@ def _fresh_stats() -> dict:
         "kway_host": 0,
         "device_order": 0,
         "join_routes": [],
+        "chain_fused_levels": 0,
+        "chain_reject": [],
+        "fused_gathers": 0,
     }
 
 
@@ -87,11 +111,14 @@ class DeviceExpander:
     taken when ``_use_resident()``: DGRAPH_TPU_RESIDENT '0' never, '1'
     (default) on a CUDA device, 'force' on any device — on the CPU the
     gather wrapper then runs its plain version (the parity tests).
-    A device fault propagates: there is no host failover."""
+    ``fused_hop`` (False: off) gates the chain's multi-hop pass and the
+    fused var-block @recurse.  A device fault propagates: there is no
+    host failover."""
 
     def __init__(self, engine: "QueryEngine"):
         self.engine = engine
         self.resident_mode = planconfig.resident()
+        self.fused_hop = True
         # the route the last expansion took (empty/host/resident/csr)
         self._route = ""
 
@@ -103,11 +130,14 @@ class DeviceExpander:
         return self.engine.device.type == "cuda"
 
     def expand(
-        self, arena, src: np.ndarray, attr: str = "", reverse: bool = False
+        self, arena, src: np.ndarray, attr: str = "", reverse: bool = False,
+        plan=None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Per-level expansion entry: returns (out, seg_ptr) — targets
-        grouped by source row, seg_ptr[i]:seg_ptr[i+1] slicing row i's."""
-        out, seg_ptr = self._expand_one(arena, src)
+        grouped by source row, seg_ptr[i]:seg_ptr[i+1] slicing row i's.
+        ``plan``: ``src``'s (rows, edge count) when the caller already
+        looked them up (``_plan_rows``)."""
+        out, seg_ptr = self._expand_one(arena, src, plan)
         routes = self.engine.stats["routes"]
         routes[self._route] = routes.get(self._route, 0) + 1
         led = _ledger.current()
@@ -125,15 +155,14 @@ class DeviceExpander:
         return out, seg_ptr
 
     def _expand_one(
-        self, arena, src: np.ndarray
+        self, arena, src: np.ndarray, plan=None
     ) -> Tuple[np.ndarray, np.ndarray]:
         eng = self.engine
         n = len(src)
         if n == 0 or arena.n_edges == 0:
             self._route = "empty"
             return _EMPTY, np.zeros(n + 1, dtype=np.int64)
-        rows = arena.rows_for_uids_host(src)
-        total = int(arena.degree_of_rows(rows).sum())
+        rows, total = _plan_rows(arena, src) if plan is None else plan
         if total == 0:
             self._route = "empty"
             return _EMPTY, np.zeros(n + 1, dtype=np.int64)
@@ -145,21 +174,8 @@ class DeviceExpander:
             arena.device
         )
         with obs.stage(eng.stats, "device_expand_ms"):
-            if self._use_resident():
-                # the CSR pinned on the device: no re-staging rides this
-                # dispatch, only the frontier goes up and the packed
-                # result comes back
-                self._route = "resident"
-                dev = arena.resident().expand_packed(rows_dev, cap)
-            else:
-                self._route = "csr"
-                arena.ensure_device()  # re-upload after host deltas
-                out_d, seg_d, _t = ops.expand_csr(
-                    arena.offsets, arena.dst, rows_dev, cap
-                )
-                dev = torch.cat([out_d, seg_d])
             # one fetch: out|seg concatenated on the device
-            packed = dev.cpu().numpy()
+            packed = self.expand_rows(arena, rows_dev, cap).cpu().numpy()
         led = _ledger.current()
         if led is not None:
             led.bytes_h2d += rows_dev.numel() * rows_dev.element_size()
@@ -168,6 +184,30 @@ class DeviceExpander:
         seg = packed[cap : cap + total].astype(np.int64)
         eng.stats["edges"] += len(out)
         return out, _seg_ptr_of(seg, n)
+
+    def expand_rows(self, arena, rows: torch.Tensor, cap: int) -> torch.Tensor:
+        """Device expansion of int32 ``rows`` (-1 skips) on this route:
+        the packed ``concat([out, seg])`` int32[2·cap], device-in and
+        device-out (the per-level route's and the fused chain's call)."""
+        if self._use_resident():
+            # the CSR pinned on the device: no re-staging rides this
+            # dispatch
+            self._route = "resident"
+            return arena.resident().expand_packed(rows, cap)
+        self._route = "csr"
+        arena.ensure_device()  # re-upload after host deltas
+        out_d, seg_d, _t = ops.expand_csr(arena.offsets, arena.dst, rows, cap)
+        return torch.cat([out_d, seg_d])
+
+    def csr_buffers(self, arena) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The (offsets, dst) device buffers this route walks: the
+        resident CSR's live epoch, or the staged CSR (what the multi-hop
+        pass gathers from)."""
+        if self._use_resident():
+            ra = arena.resident()
+            return ra.off, ra.dst
+        arena.ensure_device()
+        return arena.offsets, arena.dst
 
 
 class QueryEngine:
@@ -196,6 +236,12 @@ class QueryEngine:
         )
         # per-level expansion routing — see DeviceExpander
         self.expander = DeviceExpander(self)
+        # minimum estimated fan-out before a uid chain fuses
+        # (query/chain.py); assigning it pins the gate
+        self.chain_threshold = planconfig.chain_threshold()
+        # whether the block being executed is a var block: its chains
+        # run light (query/chain.py)
+        self._cur_block_internal = False
         # per-request execution stats (reset by run_parsed)
         self.stats = _fresh_stats()
 
@@ -292,6 +338,9 @@ class QueryEngine:
         resolver = FuncResolver(
             self.store, self.arenas, uid_vars, value_vars, stats=self.stats,
         )
+        # var blocks are never encoded: chains under them may leave their
+        # result matrices on the device (light mode, query/chain.py)
+        self._cur_block_internal = bool(sg.params.is_internal)
         if sg.params.is_shortest:
             shortest.shortest_path(self, sg, resolver)
             self._collect_vars(sg, uid_vars, value_vars)
@@ -526,23 +575,68 @@ class QueryEngine:
                 }
             return
 
-        # uid expansion: one batched expansion per (level × predicate)
-        # (the reference's fused chain, query/chain.py, is not ported:
-        # every level runs through the DeviceExpander)
+        # uid expansion.  A big fusable chain runs as one device pass
+        # (query/chain.py), staged here and consumed level by level as the
+        # recursion descends; everything else is one batched expansion per
+        # (level × predicate)
         arena = self.arenas.reverse(attr) if child.reverse else self.arenas.data(attr)
-        out_flat, seg_ptr = self._expand(arena, src, attr=attr, reverse=child.reverse)
+        plan = None
+        if child.chain_stash is None:
+            # the level's rows and edge count: the chain's estimate starts
+            # from them, and the per-level expansion reuses them
+            plan = _plan_rows(arena, src)
+            # failed attempts count too: planning cost must show in SOME
+            # bucket or the breakdown misleads
+            with obs.stage(self.stats, "chain_ms"):
+                chain.try_run_chain(self, child, src, resolver, plan[1])
+        if child.chain_stash is not None and child.chain_stash[0] == "light":
+            _tag, dest, stash_src, n_edges = child.chain_stash
+            child.chain_stash = None
+            if stash_src is None or len(stash_src) == len(src):
+                # var-block level: the matrix stayed on the device; only
+                # the deduped frontier came back (and only where a var or
+                # a sibling subtree consumes it — dest None otherwise)
+                child.src_uids = src
+                child.out_flat = _EMPTY
+                child.seg_ptr = np.zeros(len(src) + 1, dtype=np.int64)
+                child.dest_uids = dest if dest is not None else _EMPTY
+                self.stats["edges"] += n_edges
+                self.stats["chain_fused_levels"] += 1
+                self._exec_children(child, resolver, uid_vars, value_vars)
+                return
+            # misaligned light stash: the per-level expansion below must
+            # apply filter and order again
+            child.chain_filtered = False
+            child.chain_ordered = False
+        if child.chain_stash is not None:
+            _tag, out_flat, seg_ptr, stash_src = child.chain_stash
+            child.chain_stash = None
+            if len(stash_src) != len(src):  # defensive: never mis-align
+                child.chain_filtered = False
+                child.chain_ordered = False
+                out_flat, seg_ptr = self._expand(
+                    arena, src, attr=attr, reverse=child.reverse
+                )
+            else:
+                self.stats["edges"] += len(out_flat)
+                self.stats["chain_fused_levels"] += 1
+        else:
+            out_flat, seg_ptr = self._expand(
+                arena, src, attr=attr, reverse=child.reverse, plan=plan
+            )
         child.src_uids = src
         child.out_flat = out_flat
         child.seg_ptr = seg_ptr
         dest = np.unique(out_flat)
 
-        if child.filter is not None:
+        if child.filter is not None and not child.chain_filtered:
             dest = self._apply_filter(child.filter, dest, resolver)
             self._mask_matrix(child, dest)
         self._load_edge_facets(child)
         if child.params.facets_filter is not None:
             self._apply_facet_filter(child)
-        self._order_and_paginate_child(child, value_vars)
+        if not child.chain_ordered:
+            self._order_and_paginate_child(child, value_vars)
         child.dest_uids = np.unique(child.out_flat)
         if p.is_groupby:
             groupby.process_groupby(self, child, value_vars)
@@ -550,11 +644,14 @@ class QueryEngine:
         self._exec_children(child, resolver, uid_vars, value_vars)
 
     def _expand(
-        self, arena, src: np.ndarray, attr: str = "", reverse: bool = False
+        self, arena, src: np.ndarray, attr: str = "", reverse: bool = False,
+        plan=None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """One batched device gather for a whole level — routing lives on
         the DeviceExpander (see class docstring)."""
-        return self.expander.expand(arena, src, attr=attr, reverse=reverse)
+        return self.expander.expand(
+            arena, src, attr=attr, reverse=reverse, plan=plan
+        )
 
     # -- filters -----------------------------------------------------------
 

@@ -75,8 +75,13 @@ class SubGraph:
     groups: Optional[List[dict]] = None          # groupby results
     reverse: bool = False                        # ~pred expansion
     # fused-chain results staged by query/chain.py for this node, consumed
-    # by the engine instead of a per-level _expand: (out_flat, seg_ptr)
-    chain_stash: Optional[Tuple[np.ndarray, np.ndarray]] = None
+    # by the engine instead of a per-level _expand: ("full", out_flat,
+    # seg_ptr, src) or ("light", dest or None, src or None, edge count)
+    chain_stash: Optional[tuple] = None
+    # the fused chain already applied this level's @filter / order and
+    # window to the stashed matrix: the engine must not apply them again
+    chain_filtered: bool = False
+    chain_ordered: bool = False
 
     def row_targets(self, i: int) -> np.ndarray:
         return self.out_flat[self.seg_ptr[i] : self.seg_ptr[i + 1]]

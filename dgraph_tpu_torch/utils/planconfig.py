@@ -13,6 +13,8 @@ DGRAPH_TPU_RESIDENT           1        resident-CSR gather tier: '0' never,
 DGRAPH_TPU_KWAY_DEVICE_MIN    262144   min total elements of a k-way
                                        intersection before the host fold
                                        yields to the intersect kernel
+DGRAPH_TPU_CHAIN_THRESHOLD    262144   min estimated fan-out of a uid chain
+                                       before it fuses (query/chain.py)
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import os
 
 EXPAND_DEVICE_MIN_DEFAULT = 262144
 KWAY_DEVICE_MIN_DEFAULT = 262144
+CHAIN_THRESHOLD_DEFAULT = 262144
 
 
 def _int(name: str, default: int) -> int:
@@ -45,3 +48,9 @@ def kway_device_min() -> int:
     """Static min total candidate elements before a k-way intersection
     takes the intersect kernel over the host fold."""
     return _int("DGRAPH_TPU_KWAY_DEVICE_MIN", KWAY_DEVICE_MIN_DEFAULT)
+
+
+def chain_threshold() -> int:
+    """Static min estimated fan-out before a uid chain fuses."""
+    return _int("DGRAPH_TPU_CHAIN_THRESHOLD", CHAIN_THRESHOLD_DEFAULT)
+

@@ -1,8 +1,9 @@
 """The port's kernels on the card: each CUDA kernel (gather, slot-map,
 intersect) against its plain PyTorch version on CUDA tensors, one launch
 per wrapper call, the batched 2-hop pipeline on the card against the
-numpy oracle, and the order-by's torch ops on the card against the same
-ops on the CPU.  Every test is marked ``cuda`` and skips
+numpy oracle, and the order-by's torch ops and the multi-hop pass
+(one gather launch a hop) on the card against the same calls on the
+CPU.  Every test is marked ``cuda`` and skips
 where no GPU is visible.  The file imports neither JAX nor the JAX
 package, so on the card's machine (no JAX there) it runs alone:
 
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from dgraph_tpu_torch import bench2hop
+from dgraph_tpu_torch.models.arena import csr_from_edges
 from dgraph_tpu_torch import ops as tops
 from dgraph_tpu_torch.ops import gather as tgather
 from dgraph_tpu_torch.ops import kway
@@ -180,3 +182,35 @@ def test_order_ops_on_the_card_match_the_cpu(desc):
     assert torch.equal(got_r.cpu(), want_r)
     assert torch.equal(got_p.cpu(), want_p)
     assert (want_r == -1).sum() > n // 8
+
+
+@pytest.mark.parametrize("track_visited", [False, True], ids=["plain", "bfs"])
+@pytest.mark.parametrize("start", ["frontier", "drains"])
+def test_multi_hop_on_the_card_matches_the_cpu(track_visited, start):
+    """ops.multi_hop through the uid->row table, 3 hops: on the card one
+    gather launch a hop and the CPU run's frontiers, edge counts and
+    visited set; "drains" starts from sources whose targets own no row,
+    so the second hop's frontier is empty."""
+    _need_gpu()
+    src, dst = bench2hop.gen_edges(20_000, 200_000)
+    rng = np.random.default_rng(43)
+    src = np.concatenate([src, rng.integers(30_000, 30_011, size=300)])
+    dst = np.concatenate([dst, rng.integers(40_000, 40_100, size=300)])
+    a = csr_from_edges(src, dst, "cpu")
+    f0 = (np.unique(rng.integers(1, 20_001, size=512)) if start == "frontier"
+          else np.arange(30_000, 30_011))
+    n_hops, cap = 3, 1 << 18
+    lut = a.lut()
+    f = torch.from_numpy(tops.pad_to(f0, cap))
+    vis = f if track_visited else torch.full((cap,), tops.SENT, dtype=torch.int32)
+    want = tops.multi_hop(a.offsets, a.dst, f, vis, n_hops, cap, track_visited, lut)
+    n0 = tgather.KERNEL.launches
+    got = tops.multi_hop(a.offsets.cuda(), a.dst.cuda(), f.cuda(), vis.cuda(),
+                         n_hops, cap, track_visited, lut.cuda())
+    torch.cuda.synchronize()
+    assert tgather.KERNEL.launches == n0 + n_hops
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(want[1][0]) > 0
+    if start == "drains":
+        assert (want[0][1:] == tops.SENT).all() and int(want[1][1]) == 0

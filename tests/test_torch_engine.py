@@ -55,6 +55,7 @@ def _fixture_pair(setup, port_resident="force"):
         mp.setenv("DGRAPH_TPU_RESIDENT", port_resident)
         teng = QueryEngine(port_store_of(jeng.store), device="cpu")
         teng.expand_device_min = 1
+        teng.chain_threshold = 1 << 62
         routes = {"resident" if port_resident == "force" else "csr", "empty"}
         yield jeng, teng, routes
 

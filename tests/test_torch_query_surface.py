@@ -105,14 +105,16 @@ CASES = {
 # reads the arena's host mirrors, a root order-by expands nothing)
 EXPANDS = {n for n in CASES
            if not n.startswith(("groupby_root", "order_root", "order_offset"))}
-# the reference serves an internal single-template @recurse as one fused
-# device BFS (ops.multi_hop), which its ledger counts as no hop
-FUSED_IN_REFERENCE = {"recurse_var_block"}
+# both engines serve an internal single-template @recurse as one fused
+# device BFS (ops.multi_hop): one gather a level, which the reference's
+# ledger counts as no hop and the port counts under fused_gathers
+FUSED = {"recurse_var_block": 3}
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_query_surface_parity(surface_pair, name, monkeypatch):
-    jeng, teng, routes = surface_pair
+def _serve(pair, name, monkeypatch):
+    """Both engines answer CASES[name] alike; returns (the port's
+    response, its stats, its gather calls, the reference's hops)."""
+    jeng, teng, routes = pair
     text = CASES[name]
     calls = []
 
@@ -125,15 +127,35 @@ def test_query_surface_parity(surface_pair, name, monkeypatch):
     want, jhops = _run_reference(jeng, text, None)
     got = teng.run(text)
     assert body(got) == body(want)
-    r = teng.stats["routes"]
-    assert set(r) <= routes, r
-    # the gather wrapper carried every level that had edges to walk
-    assert len(calls) == r.get("resident", 0)
+    assert set(teng.stats["routes"]) <= routes, teng.stats["routes"]
+    return got, teng.stats, len(calls), jhops
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_query_surface_parity(surface_pair, name, monkeypatch):
+    got, stats, calls, jhops = _serve(surface_pair, name, monkeypatch)
+    r = stats["routes"]
+    # the gather wrapper carried every level that had edges to walk: per
+    # level on the resident route, or inside the fused BFS
+    assert stats["fused_gathers"] == FUSED.get(name, 0)
+    assert calls == r.get("resident", 0) + stats["fused_gathers"]
     if name in EXPANDS:
-        assert len(calls) > 0
-    if name not in FUSED_IN_REFERENCE:
+        assert calls > 0
+    if name not in FUSED:
         assert set(jhops) <= {"resident", "empty"}, jhops
     if name.startswith("order_"):
-        assert teng.stats["device_order"] >= 1
+        assert stats["device_order"] >= 1
     out = json.loads(body(got))
     assert any(out.values()) != (name == "shortest_unreachable"), out
+
+
+def test_recurse_var_block_per_level(surface_pair, monkeypatch):
+    """With the fused BFS off (``fused_hop`` False) the port walks the
+    var-block @recurse level by level, every level through the gather on
+    the resident route, and still answers the reference's bytes."""
+    teng = surface_pair[1]
+    monkeypatch.setattr(teng.expander, "fused_hop", False)
+    _got, stats, calls, _jhops = _serve(surface_pair, "recurse_var_block",
+                                        monkeypatch)
+    assert stats["fused_gathers"] == 0
+    assert calls == stats["routes"].get("resident", 0) > 0
