@@ -103,10 +103,38 @@ Phases, each fatal (exit code 1, no result line):
    of each route, ``chain_ms``, ``chain_fused_levels`` and
    ``chain_reject`` of one ``?debug=true`` request, each kernel's
    launches a request.  The counts are read right after.
-12. dense — the same generated edges as a dense CSR arena on cuda in the
+12. serving plane — phases 4-11 run with both query caches detached
+   (the scheduler's result cache and the arenas' hop cache), so that
+   their repeats execute; here they are attached again, every kernel's
+   launch count is set to 0, and 16 client threads each send 8 requests
+   (128 in all) over HTTP to the server at its default knobs (the cohort
+   scheduler on): per client a var-block ``@recurse(depth: 2)`` count
+   from 8192 seeds (level by level: the fused BFS's bound rejects 8192
+   seeds, and level 2 is above the merge gate), the main path's var-block
+   2-hop count from 8192 seeds (the chain tier), join query (a), and
+   ``shortest`` k 1 from one source to three nodes two hops away (the
+   later two hit the hop cache), then repeats of its own first two
+   (25 %); seeds from ``default_rng(59)``.  Every body must equal a
+   host-route engine's, computed before the load.  One round on the
+   scheduled server, then one on the serial path (the scheduler
+   detached: ``DGRAPH_TPU_SCHED=0``), both caches emptied before each
+   round: requests/s, p50/p99, the gather and intersect launches,
+   merged hops, coalesced requests, cache hits, the mean cohort
+   occupancy and the card's busy share (the union of ``torch.profiler``'s
+   device intervals over the round's wall time) a round.  Merged hops
+   and both caches' hits must be above 0 and the scheduled rounds must
+   launch fewer gathers than the serial ones.  Then the guarantees: a
+   1 ms ``X-Dgraph-Timeout`` answers 504; a scheduler built at
+   ``DGRAPH_TPU_SCHED_QUEUE_CAP=1``, flooded while a writer holds the
+   engine, sheds at least one 429 with ``Retry-After``; and a mutation
+   adding edges lands while 8 clients keep asking for shortest paths, after
+   which a read cached whole (result cache) and a twin read served from
+   the hop cache both show the new edges, byte-identical to the host
+   route.  The counts are read right after.
+13. dense — the same generated edges as a dense CSR arena on cuda in the
    skey-grouped inline-head layout; 1000 query frontiers of 4096 drawn
    seeds (bench.py's draw, seed 3) and the pipeline's capacity plan.
-13. slotmap kernels — the slot-map kernel against its plain version on
+14. slotmap kernels — the slot-map kernel against its plain version on
    the card, exactly: the pipeline's real (cs, cd) at both hops of one
    200-query chunk, random grouped batches, totals at block boundaries,
    zero-cd rows between productive ones, truncation at capc, an
@@ -114,7 +142,7 @@ Phases, each fatal (exit code 1, no result line):
    pcap of three shared-memory tiles plus one row, one row owning more
    slots than capc, Q 1, Q 20,000 at pcap 64, totals and capc at tile
    boundaries.
-14. batched 2-hop — every kernel's launch count is set to 0, then the
+15. batched 2-hop — every kernel's launch count is set to 0, then the
    device-dedup batched 2-hop (``bench2hop.run_device_dedup``) runs the
    1000 queries in chunks of 200 (a warm pass, then best of 4); every
    query's edge count and checksum and the last query's set must equal
@@ -122,7 +150,7 @@ Phases, each fatal (exit code 1, no result line):
    twice per chunk in every pass plus twice for the last set.  The counts
    are read right after.  Edges/s, the numpy baseline and the caps are
    printed.
-15. report — the device time of one 200-query chunk by stage (hop 1,
+16. report — the device time of one 200-query chunk by stage (hop 1,
    dedup, hop 2, checksum; CUDA events); one pass of the 1000 queries
    under ``torch.profiler``: the card's busy time (the union of its
    kernel and copy intervals) over the pass's host wall time, and device
@@ -145,8 +173,10 @@ Phases, each fatal (exit code 1, no result line):
 
 Exits non-zero without a CUDA GPU, or when the package is not beside it.
 
-``python3 chip_smoke.py --gather-only`` runs phases 1-3 and the gather's
-timing line alone.  It goes through wrapper calls only, so an older tree
+``python3 chip_smoke.py --serving-only`` runs phases 1-3, the names of
+phase 5 and phase 12 alone (the serving plane on the caches' first
+use).  ``python3 chip_smoke.py --gather-only`` runs phases 1-3 and the
+gather's timing line alone.  It goes through wrapper calls only, so an older tree
 with this script and ``tests/torch_cases.py`` copied in runs it too: that
 is how two trees' gathers are compared in one call.
 """
@@ -158,6 +188,7 @@ import dataclasses
 import importlib
 import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -198,14 +229,20 @@ RECURSE_MAX_EDGES = 1_000_000  # the reference's recursion cap (query/recurse.py
 CHAIN_SEED, PINNED_OFF = 53, 1 << 62
 CHAIN_REPEATS, CHAIN_REPEATS_BULKY, CHAIN_P99_MIN = 24, 3, 20
 
+# the serving plane: client threads, requests each (the last two repeat
+# the client's first two), rounds of each path (scheduled, serial), and
+# the seed of the mix's draws
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_ROUNDS, SERVE_SEED = 16, 8, 1, 59
+
 # kernels: (name, wrapper module, TPU kernel it replaces, paths that run it)
 KERNELS = [
     ("gather_packed", "dgraph_tpu_torch.ops.gather",
-     "dgraph_tpu/ops/pallas_gather.py:48", ("main_path", "query_surface", "chain")),
+     "dgraph_tpu/ops/pallas_gather.py:48",
+     ("main_path", "query_surface", "chain", "serving_plane")),
     ("slotmap", "dgraph_tpu_torch.ops.slotmap",
      "dgraph_tpu/ops/pallas_slotmap.py:46", ("batched_2hop",)),
     ("intersect", "dgraph_tpu_torch.ops.kway",
-     "dgraph_tpu/ops/pallas_intersect.py:35", ("join_path", "chain")),
+     "dgraph_tpu/ops/pallas_intersect.py:35", ("join_path", "chain", "serving_plane")),
 ]
 
 
@@ -233,14 +270,23 @@ def nvidia_smi() -> str:
 
 def post(addr: str, text: str, params: str = ""):
     """POST /query; returns (status, body bytes, seconds)."""
-    req = urllib.request.Request(
-        addr + "/query" + params, data=text.encode(), method="POST"
-    )
+    status, raw, _headers, secs = post_any(addr, text, params=params)
+    return status, raw, secs
+
+
+def post_any(addr: str, text: str, headers=None, params: str = ""):
+    """POST /query (an error status does not raise); returns (status,
+    body bytes, response headers, seconds)."""
+    import urllib.error
+
+    req = urllib.request.Request(addr + "/query" + params, data=text.encode(),
+                                 method="POST", headers=headers or {})
     t0 = time.perf_counter()
-    with urllib.request.urlopen(req, timeout=900) as r:
-        raw = r.read()
-        status = r.status
-    return status, raw, time.perf_counter() - t0
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, r.read(), dict(r.headers), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers), time.perf_counter() - t0
 
 
 def strip_latency(raw: bytes) -> str:
@@ -266,13 +312,14 @@ def two_hop_count(seeds) -> str:
 
 def host_engine(store):
     """An engine over the same store pinned to the host route, the fused
-    chain and the fused @recurse off: the reference the served bodies
-    must equal byte for byte."""
+    chain, the fused @recurse and the hop cache off: the reference the
+    served bodies must equal byte for byte."""
     from dgraph_tpu_torch.query import QueryEngine
 
     eng = QueryEngine(store, device="cpu")
     eng.expand_device_min = 1 << 62
     eng.arenas.kway_device_min = 1 << 62
+    eng.arenas.hop_cache = None
     eng.chain_threshold = PINNED_OFF
     eng.expander.fused_hop = False
     return eng
@@ -813,19 +860,22 @@ def phase_ranks(store, srv, n_ranked: int) -> None:
          "load_s": round(t1 - t0, 3), "value_arena_s": round(t2 - t1, 3)})
 
 
+def two_hop_ring(arena, s: int):
+    """The nodes exactly two hops from ``s`` (not one, not ``s``), each
+    with the number of its paths from ``s``."""
+    n1, _ = arena.expand_host(arena.rows_for_uids_host(np.array([s])))
+    n2, _ = arena.expand_host(arena.rows_for_uids_host(np.unique(n1)))
+    return np.unique(n2[~np.isin(n2, n1) & (n2 != s)], return_counts=True)
+
+
 def shortest_ends(arena, seeds):
     """(from, to, paths): the first seed with a node two hops away (not
     one) reached through at least three distinct middles, and that node
     (the most reached, then the smallest): numpaths 3 finds its paths
     without leaving the seed's 2-hop ring."""
     for s in seeds.tolist():
-        n1, _ = arena.expand_host(arena.rows_for_uids_host(np.array([s])))
-        n2, _ = arena.expand_host(arena.rows_for_uids_host(np.unique(n1)))
-        far = n2[~np.isin(n2, n1) & (n2 != s)]
-        if not len(far):
-            continue
-        uniq, cnt = np.unique(far, return_counts=True)
-        if cnt.max() >= 3:
+        uniq, cnt = two_hop_ring(arena, s)
+        if len(cnt) and cnt.max() >= 3:
             return s, int(uniq[np.argmax(cnt)]), int(cnt.max())
     raise SmokeFailure("no seed has a node two hops away by three paths")
 
@@ -1127,7 +1177,322 @@ def phase_chain(store, srv, large, small, rseeds, card: str) -> dict:
     return rows
 
 
-# -- phases 12-14: the batched 2-hop -----------------------------------------
+# -- phase 12: the serving plane ----------------------------------------------
+
+
+@contextlib.contextmanager
+def no_caches(srv):
+    """The served store with both query caches detached (the scheduler's
+    result cache and the arenas' hop cache): every repeat of a request
+    executes, as the earlier phases' launch checks need."""
+    arenas, sched = srv.engine.arenas, srv.scheduler
+    hop, res = arenas.hop_cache, sched.result_cache
+    arenas.hop_cache, sched.result_cache = None, None
+    try:
+        yield
+    finally:
+        arenas.hop_cache, sched.result_cache = hop, res
+
+
+def recurse_count(seeds) -> str:
+    """A var-block @recurse(depth: 2) count: from 8192 seeds the fused
+    BFS's bound rejects it, so it walks level by level, and its second
+    level (some 400,000 edges) is above the merge gate."""
+    return ("{ var(func: uid(%s)) @recurse(depth: 2) { r as e } "
+            "q(func: uid(r)) { count() } }" % uid_list(seeds))
+
+
+def shortest_fan(arena, seeds, n: int):
+    """(from, [to, ...]): the first seed with ``n`` nodes two hops away
+    (not one), the most reached first."""
+    for s in seeds.tolist():
+        uniq, cnt = two_hop_ring(arena, s)
+        if len(uniq) >= n:
+            return s, uniq[np.argsort(-cnt, kind="stable")[:n]].tolist()
+    raise SmokeFailure(f"no seed has {n} nodes two hops away")
+
+
+def serving_mix(arena, rng):
+    """Each client's request texts: six fresh ones — a per-level
+    @recurse count and the main path's var-block 2-hop count (the chain
+    tier) from 8192 seeds, join query (a), and ``shortest`` k 1 from one
+    source to three nodes two hops away (the later two re-expand the
+    first's rings: hop-cache hits) — then repeats of its own first two
+    (25 % of the requests).  Every text reads only ``e``, so all share
+    one cache version (the caches' generation sweep reclaims entries of
+    any other version, live ones included)."""
+    def seeds():
+        return np.unique(rng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+
+    g = seeds()  # (a)'s uid(g) set, shared by every client
+    clients = []
+    for _c in range(SERVE_CLIENTS):
+        src, dsts = shortest_fan(arena, np.unique(
+            rng.integers(1, N_NODES + 1, size=SMALL_SEEDS)), 3)
+        fresh = [recurse_count(seeds()), two_hop_count(seeds()),
+                 join_filter_query(seeds(), g)]
+        fresh += ["{ shortest(from: 0x%x, to: 0x%x, numpaths: 1) { e } }" % (src, d)
+                  for d in dsts]
+        clients.append(fresh + fresh[:SERVE_PER_CLIENT - len(fresh)])
+    return clients
+
+
+def _hist_sum_count(h):
+    _cum, s, c = h.snapshot()
+    return s, c
+
+
+def serve_round(srv, clients, want, mode: str) -> dict:
+    """One round: every client thread sends its texts in order, each body
+    held against the host route's.  ``mode`` "scheduled" serves through
+    the server's scheduler, "serial" with it detached (the
+    DGRAPH_TPU_SCHED=0 path).  Both query caches are emptied first, so
+    every round does the same work.  The card's busy share is the union
+    of the device intervals ``torch.profiler`` records over the round's
+    wall time."""
+    import threading
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dgraph_tpu_torch.ops import gather, kway
+    from dgraph_tpu_torch.utils import metrics as m
+
+    sched = srv.scheduler
+    if sched.result_cache is not None:
+        sched.result_cache.clear()
+    srv.engine.arenas.hop_cache.clear()
+    lat, bad = [], []
+
+    def client(texts):
+        for q in texts:
+            status, raw, _h, secs = post_any(srv.addr, q)
+            if status != 200 or strip_latency(raw) != want[q]:
+                bad.append((status, q[:80], raw[:200]))
+                return
+            lat.append(secs)
+
+    snap = lambda: (gather.KERNEL.launches, kway.KERNEL.launches,  # noqa: E731
+                    m.SCHED_MERGED_HOPS.value(), m.SCHED_COALESCED.value(),
+                    m.QCACHE_RESULT_EVENTS.snapshot().get("hit", 0),
+                    m.QCACHE_HOP_EVENTS.snapshot().get("hit", 0),
+                    *_hist_sum_count(m.SCHED_COHORT_OCCUPANCY))
+    dev = srv.engine.device
+    acts = [ProfilerActivity.CUDA] if dev.type == "cuda" else [ProfilerActivity.CPU]
+    if mode == "serial":
+        srv.scheduler = None
+    _sync(dev)
+    n0 = snap()
+    threads = [threading.Thread(target=client, args=(t,)) for t in clients]
+    try:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+    finally:
+        srv.scheduler = sched
+    check(not any(t.is_alive() for t in threads), f"{mode} round: a client hung")
+    check(not bad, f"{mode} round: {len(bad)} bad responses, first {bad[:1]}")
+    n1 = snap()
+    d = [b - a for a, b in zip(n0, n1)]
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA]
+    busy_ms = _union_us(spans) / 1e3 if spans else None
+    n_req = sum(len(t) for t in clients)
+    check(len(lat) == n_req, f"{mode} round: {len(lat)} of {n_req} answered")
+    ms = sorted(x * 1e3 for x in lat)
+    return {"mode": mode, "requests": n_req, "wall_s": wall,
+            "requests_per_s": n_req / wall,
+            "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+            "min_ms": ms[0], "max_ms": ms[-1],
+            "gather_launches": d[0], "intersect_launches": d[1],
+            "merged_hops": d[2], "coalesced": d[3],
+            "result_cache_hits": d[4], "hop_cache_hits": d[5],
+            "cohorts": d[7], "mean_cohort_occupancy": (d[6] / d[7]) if d[7] else None,
+            "device_events": len(spans), "device_busy_ms": busy_ms,
+            "busy_share": (busy_ms / (wall * 1e3)) if busy_ms is not None else None}
+
+
+def phase_serving_plane(store, srv, card: str) -> dict:
+    """Concurrent /query load through the cohort scheduler at its default
+    knobs, rounds taken in turn with the serial path; then the shed and
+    freshness guarantees.  The caller zeroes the launch counts just
+    before.  ``card`` is the nvidia-smi name and power limit."""
+    import threading
+
+    from dgraph_tpu_torch.sched.scheduler import CohortScheduler
+    from dgraph_tpu_torch.utils.metrics import QCACHE_HOP_EVENTS, QCACHE_RESULT_EVENTS
+
+    sched = srv.scheduler
+    eng = srv.engine
+    check(sched is not None and sched.result_cache is not None
+          and eng.arenas.hop_cache is not None,
+          "the server must serve through the scheduler with both caches")
+    check((sched.max_batch, sched.flush_s, sched.queue_cap, sched.merge_window_s)
+          == (32, 0.002, 256, 0.001) and eng.expand_device_min == 262144
+          and eng.chain_threshold == 262144,
+          "the scheduler and the engine must run their default knobs")
+    t0 = time.perf_counter()
+    arena = eng.arenas.data("e")
+    rng = np.random.default_rng(SERVE_SEED)
+    clients = serving_mix(arena, rng)
+    ref = host_engine(store)
+    want = {}
+    for texts in clients:
+        for q in texts:
+            if q not in want:
+                want[q] = json.dumps(ref.run(q))
+    t_ref = time.perf_counter() - t0
+    rounds = []
+    for _r in range(SERVE_ROUNDS):
+        for mode in ("scheduled", "serial"):
+            row = serve_round(srv, clients, want, mode)
+            rounds.append(row)
+            log(dict(phase="serving_round", card=card, **row))
+    sch = [r for r in rounds if r["mode"] == "scheduled"]
+    ser = [r for r in rounds if r["mode"] == "serial"]
+    merged = sum(r["merged_hops"] for r in sch)
+    check(merged > 0, "no hop merged across requests under concurrent load")
+    check(sum(r["result_cache_hits"] for r in sch) > 0, "no result-cache hit")
+    check(sum(r["hop_cache_hits"] for r in sch) > 0, "no hop-cache hit")
+    g_sch = sum(r["gather_launches"] for r in sch)
+    g_ser = sum(r["gather_launches"] for r in ser)
+    check(g_sch < g_ser, f"scheduled rounds launched {g_sch} gathers, serial {g_ser}")
+    t_load = time.perf_counter() - t0 - t_ref
+
+    # a budget of 1 ms: the request is cancelled before it runs
+    q504 = two_hop_count(np.unique(rng.integers(1, N_NODES + 1, size=LARGE_SEEDS)))
+    status, raw, _h, _s = post_any(srv.addr, q504, {"X-Dgraph-Timeout": "0.001"})
+    check(status == 504 and json.loads(raw)["code"] == "ErrorDeadlineExceeded",
+          f"a 1 ms budget answered {status}: {raw[:200]!r}")
+
+    # a scheduler built at DGRAPH_TPU_SCHED_QUEUE_CAP=1, flooded while a
+    # writer holds the engine: one request is admitted, the rest shed
+    prev = os.environ.get("DGRAPH_TPU_SCHED_QUEUE_CAP")
+    os.environ["DGRAPH_TPU_SCHED_QUEUE_CAP"] = "1"
+    try:
+        tight = CohortScheduler(srv)
+    finally:
+        if prev is None:
+            del os.environ["DGRAPH_TPU_SCHED_QUEUE_CAP"]
+        else:
+            os.environ["DGRAPH_TPU_SCHED_QUEUE_CAP"] = prev
+    check(tight.queue_cap == 1, "the tight scheduler did not read its queue cap")
+    flood = [q for texts in clients for q in texts if "shortest" in q]
+    shed, codes = [], []
+    srv.scheduler = tight
+    srv._engine_lock.acquire_write()
+    try:
+        def flooder(q):
+            st, _raw, hdr, _s = post_any(srv.addr, q)
+            codes.append(st)
+            if st == 429:
+                shed.append(hdr.get("Retry-After"))
+        threads = [threading.Thread(target=flooder, args=(q,)) for q in flood]
+        for t in threads:
+            t.start()
+        t_end = time.perf_counter() + 60
+        while not shed and time.perf_counter() < t_end:
+            time.sleep(0.01)
+    finally:
+        srv._engine_lock.release_write()
+    for t in threads:
+        t.join(timeout=120)
+    srv.scheduler = sched
+    tight.stop()
+    check(shed and all(ra is not None and int(ra) >= 1 for ra in shed),
+          f"the flooded QUEUE_CAP=1 server gave no 429 with Retry-After ({codes})")
+    check(set(codes) <= {200, 429}, f"flood statuses {sorted(set(codes))}")
+
+    # read-after-write under load, through both caches: a 1-hop read is
+    # cached whole (result cache) and a twin text under another alias
+    # hits its hop (hop cache); a mutation lands mid-load; after its ack
+    # both texts must show the new edges
+    movers = np.unique(rng.integers(1, N_NODES + 1, size=SMALL_SEEDS))
+    movers = movers[arena.rows_for_uids_host(movers) >= 0][:8]
+    q_res = "{ q(func: uid(%s)) { uid e { uid } } }" % uid_list(movers)
+    q_hop = "{ h(func: uid(%s)) { uid e { uid } } }" % uid_list(movers)
+    r0 = QCACHE_RESULT_EVENTS.snapshot().get("hit", 0)
+    h0 = QCACHE_HOP_EVENTS.snapshot().get("hit", 0)
+    for q in (q_res, q_res, q_hop):
+        status, _raw, _h, _s = post_any(srv.addr, q)
+        check(status == 200, f"warm-up read: HTTP {status}")
+    check(QCACHE_RESULT_EVENTS.snapshot().get("hit", 0) > r0, "the warm read missed tier 2")
+    check(QCACHE_HOP_EVENTS.snapshot().get("hit", 0) > h0, "the twin read missed tier 1")
+    edges_e = store.peek("e").edges
+    new_edges = []
+    for s in movers.tolist():
+        t = int(rng.integers(1, N_NODES + 1))
+        while t in edges_e[s]:
+            t = int(rng.integers(1, N_NODES + 1))
+        new_edges.append((s, t))
+    stop = threading.Event()
+    bg_codes = []
+
+    def background(texts):
+        for q in texts:
+            if stop.is_set():
+                return
+            bg_codes.append(post_any(srv.addr, q)[0])
+
+    # the background clients ask for two paths where the round asked for
+    # one: fresh texts, executed under the read side, cheap
+    bg = [threading.Thread(target=background, args=(
+        [q.replace("numpaths: 1", "numpaths: 2") for q in t if "shortest" in q],))
+        for t in clients[:8]]
+    for t in bg:
+        t.start()
+    mu = "mutation { set { %s } }" % " ".join("<0x%x> <e> <0x%x> ." % e for e in new_edges)
+    status, raw, _h, _s = post_any(srv.addr, mu)
+    check(status == 200 and json.loads(raw).get("code") == "Success",
+          f"mid-load mutation failed: {raw[:200]!r}")
+    after = {q: post_any(srv.addr, q) for q in (q_res, q_hop)}
+    stop.set()
+    for t in bg:
+        t.join(timeout=600)
+    check(all(c == 200 for c in bg_codes), f"background load statuses {sorted(set(bg_codes))}")
+    ref = host_engine(store)
+    for q, (status, raw, _h, _s) in after.items():
+        check(status == 200, f"read after write: HTTP {status}")
+        got = strip_latency(raw)
+        check(got == json.dumps(ref.run(q)), "a read after the write differs from the host route")
+        by_uid = {n["_uid_"]: n for n in next(iter(json.loads(got).values()))}
+        for s, t in new_edges:
+            kids = {k["_uid_"] for k in by_uid["0x%x" % s].get("e", [])}
+            check("0x%x" % t in kids, f"read after write misses 0x{s:x} -> 0x{t:x}")
+
+    def agg(rows, k):
+        return [r[k] for r in rows]
+
+    out = {
+        "clients": SERVE_CLIENTS, "requests_per_client": SERVE_PER_CLIENT,
+        "rounds_each": SERVE_ROUNDS, "distinct_texts": len(want),
+        "seeds_per_heavy_request": LARGE_SEEDS, "card": card,
+        "reference_s": t_ref, "load_s": t_load,
+        "guarantees_s": time.perf_counter() - t0 - t_ref - t_load,
+        "merged_hops": merged,
+        "gather_launches": {"scheduled": g_sch, "serial": g_ser},
+        "intersect_launches": {"scheduled": sum(agg(sch, "intersect_launches")),
+                               "serial": sum(agg(ser, "intersect_launches"))},
+        "result_cache_hits": sum(agg(sch, "result_cache_hits")),
+        "hop_cache_hits": {"scheduled": sum(agg(sch, "hop_cache_hits")),
+                           "serial": sum(agg(ser, "hop_cache_hits"))},
+        "coalesced": sum(agg(sch, "coalesced")),
+        "mean_cohort_occupancy": agg(sch, "mean_cohort_occupancy"),
+        **{f"{k}_{mode}": agg(rows, k) for mode, rows in (("scheduled", sch), ("serial", ser))
+           for k in ("requests_per_s", "p50_ms", "p99_ms", "busy_share")},
+        "deadline_504": True, "shed_429": len(shed),
+        "read_after_write": {"new_edges": len(new_edges), "background_requests": len(bg_codes)},
+    }
+    log(dict(phase="serving_plane", **out))
+    return out
+
+
+# -- phases 13-15: the batched 2-hop -----------------------------------------
 
 
 def _sync(dev) -> None:
@@ -1562,6 +1927,7 @@ def gather_timing(arena, rng) -> dict:
 
 def main(argv) -> int:
     gather_only = "--gather-only" in argv
+    serving_only = "--serving-only" in argv
     try:
         import torch
     except ImportError:
@@ -1600,6 +1966,14 @@ def main(argv) -> int:
             log(dict(phase="gather_timing", card=info["nvidia_smi"],
                      **gather_timing(arena, np.random.default_rng(13))))
             return 0
+        if serving_only:
+            phase = mark("names")
+            phase_names(store, srv, N_NAMED)
+            phase = mark("serving_plane")
+            phase_serving_plane(store, srv, info["nvidia_smi"])
+            mark("done")
+            log({"phase_seconds": phase_s})
+            return 0
         wrappers = {n: importlib.import_module(m) for n, m, _r, _p in KERNELS}
         launches = {}
 
@@ -1614,6 +1988,10 @@ def main(argv) -> int:
                     check(counts[n] > 0, f"kernel {n} was not launched on {path}")
                     launches.setdefault(n, {})[path] = counts[n]
 
+        # phases 4-11 run with both query caches detached: their repeats
+        # must execute for their launch checks
+        caches = contextlib.ExitStack()
+        caches.enter_context(no_caches(srv))
         phase = mark("main_path")
         zero_counts()
         with per_level(srv.engine):
@@ -1651,6 +2029,11 @@ def main(argv) -> int:
         zero_counts()
         chain_rows = phase_chain(store, srv, large_c, small_c, rseeds, info["nvidia_smi"])
         read_counts("chain")
+        caches.close()
+        phase = mark("serving_plane")
+        zero_counts()
+        serving = phase_serving_plane(store, srv, info["nvidia_smi"])
+        read_counts("serving_plane")
         phase = mark("dense")
         dense, frontiers, fcap, plan = phase_dense("cuda", src, dst, N_NODES)
         del src, dst
@@ -1724,6 +2107,12 @@ def main(argv) -> int:
                  "chain_fused_levels", "chain_ms") if k in r[route]}
                  for route in ("fused", "per_level") if route in r}
                  for n, r in chain_rows.items()},
+             "serving_plane": {k: serving[k] for k in (
+                 "merged_hops", "gather_launches", "intersect_launches",
+                 "result_cache_hits", "hop_cache_hits", "mean_cohort_occupancy",
+                 "requests_per_s_scheduled", "requests_per_s_serial",
+                 "p50_ms_scheduled", "p50_ms_serial", "p99_ms_scheduled",
+                 "p99_ms_serial", "busy_share_scheduled", "busy_share_serial")},
              "batched_2hop": {k: batched[k] for k in (
                  "queries", "edges", "edges_per_s", "numpy_edges_per_s",
                  "vs_baseline", "chunk_q", "caps")}})

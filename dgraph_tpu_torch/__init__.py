@@ -17,6 +17,11 @@ named counterpart:
 - ``gql``, ``rdf``, ``tok``  query parser, N-Quad parser, tokenizers
               (host copies).
 - ``query``   level-batched traversal engine and JSON encoding.
+- ``sched``   the cohort scheduler (concurrent reads in cohorts, their
+              same-predicate hops merged into one launch), segment seams
+              and multi-tenant QoS.
+- ``cache``, ``ivm``  the result and hop caches, keyed by per-predicate
+              store versions.
 - ``serve``   mutations and the HTTP ``/query`` surface.
 - ``cli``     ``python -m dgraph_tpu_torch.cli.server``.
 

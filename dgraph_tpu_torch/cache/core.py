@@ -1,0 +1,237 @@
+"""Snapshot-versioned, byte-budgeted cache core shared by both tiers
+(copy of ``dgraph_tpu/cache/core.py``).
+
+Under concurrent skewed workloads, cross-query reuse of intermediate
+results dominates served QPS.  This module supplies the one mechanism
+both cache tiers (cache/hop.py, cache/result.py) share:
+
+- **Snapshot versioning.**  Every entry is keyed under a caller-chosen
+  monotonic version — the footprint-scoped predicate version
+  (ivm/versions.py), the store's global mutation ``version`` under
+  ``DGRAPH_TPU_IVM=0``.  A probe carries the *current* version; an
+  entry recorded under any older version can never match, so
+  invalidation is O(1): no flush stall, no lockstep with writers.  The
+  reference's in-place repair of entries (``repair_where``,
+  ``rekey_where``) is not ported yet.
+
+- **Generation sweeping.**  Dead-version entries still occupy budget
+  until reclaimed.  Rather than a stop-the-world flush (a latency
+  cliff exactly when a mutation already disturbed the warm path),
+  every put sweeps a bounded handful of stale entries — reclamation
+  cost is amortized across the operations that need the space.
+
+- **LFU-with-aging admission/eviction** under a byte budget.  Plain
+  LRU lets one megaquery walk the whole hot head out of the cache;
+  plain LFU never forgets, so yesterday's hot key squats forever.
+  Here each entry carries a frequency that ages (halves) every
+  ``age_interval`` puts, eviction takes the lowest (frequency, recency)
+  victim, and entries larger than ``max_entry_frac`` of the budget are
+  refused admission outright — one giant expansion cannot displace
+  thousands of hot small ones (the scan-resistance half of TinyLFU's
+  argument, without the sketch).
+
+Thread-safe; all operations are O(1) amortized except eviction scans,
+which touch only as many entries as they free.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Callable, Dict, Optional
+
+
+def cache_enabled() -> bool:
+    """The DGRAPH_TPU_CACHE gate (default ON; ``0`` restores today's
+    cache-less behavior byte-identically)."""
+    return os.environ.get("DGRAPH_TPU_CACHE", "1") != "0"
+
+
+class _Entry:
+    __slots__ = ("value", "version", "nbytes", "freq", "seq", "born")
+
+    def __init__(self, value, version: int, nbytes: int, seq: int):
+        self.value = value
+        self.version = version
+        self.nbytes = nbytes
+        self.freq = 1.0
+        self.seq = seq          # recency tiebreak (monotonic put/hit seq)
+        self.born = time.monotonic()
+
+
+class VersionedLFUCache:
+    """One cache tier: dict of key → entry under a byte budget.
+
+    ``stats_hook(event, entry_or_none)`` fires outside hot math but
+    inside the lock-free tail of each operation with event ∈
+    {"hit", "miss", "stale", "evicted", "rejected"} so the tiers can
+    pump the metrics registry without this module importing it.
+    """
+
+    def __init__(
+        self,
+        budget_bytes: int,
+        max_entry_frac: float = 0.125,
+        age_interval: int = 256,
+        sweep_limit: int = 32,
+        stats_hook: Optional[Callable] = None,
+    ):
+        self.budget_bytes = int(budget_bytes)
+        self.max_entry_bytes = max(1, int(self.budget_bytes * max_entry_frac))
+        self.age_interval = max(1, int(age_interval))
+        self.sweep_limit = max(1, int(sweep_limit))
+        self._hook = stats_hook
+        self._lock = threading.Lock()
+        self._m: Dict[object, _Entry] = {}
+        self._bytes = 0
+        self._seq = 0
+        self._puts_since_age = 0
+        # rotating sweep cursor: a list snapshot of keys consumed a few
+        # per put, rebuilt when exhausted — bounded work per operation
+        self._sweep_keys: list = []
+
+    # -- introspection -----------------------------------------------------
+
+    @property
+    def occupancy_bytes(self) -> int:
+        return self._bytes
+
+    def __len__(self) -> int:
+        return len(self._m)
+
+    # -- operations --------------------------------------------------------
+
+    def get(self, key, version: int):
+        """Return (value, age_seconds) on a live hit, else None.  An
+        entry recorded under an older version counts as stale (dead),
+        is reclaimed immediately, and reads as a miss."""
+        hit = None
+        with self._lock:
+            e = self._m.get(key)
+            if e is None:
+                ev = "miss"
+            elif e.version != version:
+                del self._m[key]
+                self._bytes -= e.nbytes
+                ev = "stale"
+            else:
+                e.freq += 1.0
+                self._seq += 1
+                e.seq = self._seq
+                ev = "hit"
+                hit = (e.value, time.monotonic() - e.born)
+        hook = self._hook
+        if hook is not None:
+            hook(ev, e if hit is not None else None)
+        return hit
+
+    def contains(self, key, version: int) -> bool:
+        """Live-entry probe with NO side effects (no heat, no reclaim,
+        no stats) — lets callers skip redundant value preparation before
+        a re-put of a key a twin already stored."""
+        with self._lock:
+            e = self._m.get(key)
+            return e is not None and e.version == version
+
+    def put(self, key, version: int, value, nbytes: int) -> bool:
+        """Admit ``value`` under the budget; returns False when refused
+        (over the per-entry cap, or a zero budget).  Also performs one
+        bounded generation sweep and, when needed, LFU-aging eviction."""
+        nbytes = int(nbytes)
+        if self.budget_bytes <= 0 or nbytes > self.max_entry_bytes:
+            hook = self._hook
+            if hook is not None:
+                hook("rejected", None)
+            return False
+        evicted = 0
+        with self._lock:
+            self._sweep_locked(version)
+            old = self._m.get(key)
+            if old is not None:
+                self._bytes -= old.nbytes
+            self._seq += 1
+            e = _Entry(value, version, nbytes, self._seq)
+            if old is not None and old.version == version:
+                e.freq = old.freq + 1.0  # re-put of a live key keeps heat
+                e.born = old.born        # …and its age (hit-age histogram
+                # must not reset when coalesced twins re-store the entry)
+            self._m[key] = e
+            self._bytes += nbytes
+            self._puts_since_age += 1
+            if self._puts_since_age >= self.age_interval:
+                self._puts_since_age = 0
+                for ent in self._m.values():
+                    ent.freq *= 0.5
+            evicted = self._evict_locked(protect=key)
+        hook = self._hook
+        if hook is not None:
+            for _ in range(evicted):
+                hook("evicted", None)
+        return True
+
+    def drop_where(self, pred: Callable[[object], bool]) -> int:
+        """Remove every entry whose KEY satisfies ``pred`` (explicit
+        invalidation — e.g. tier 1 on arena eviction).  Returns count."""
+        with self._lock:
+            dead = [k for k in self._m if pred(k)]
+            for k in dead:
+                self._bytes -= self._m.pop(k).nbytes
+            return len(dead)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._m.clear()
+            self._bytes = 0
+            self._sweep_keys = []
+
+    # -- internals (lock held) ---------------------------------------------
+
+    def _sweep_locked(self, version: int) -> None:
+        """Reclaim up to sweep_limit dead-version entries — the
+        incremental generation sweep (no global flush stall)."""
+        if not self._sweep_keys:
+            self._sweep_keys = list(self._m.keys())
+        n = 0
+        while self._sweep_keys and n < self.sweep_limit:
+            k = self._sweep_keys.pop()
+            e = self._m.get(k)
+            n += 1
+            if e is not None and e.version != version:
+                del self._m[k]
+                self._bytes -= e.nbytes
+
+    def _evict_locked(self, protect) -> int:
+        """Evict lowest-(freq, seq) entries until within budget; never
+        the entry just admitted.  ONE O(n) heapify per overflowing put,
+        then O(log n) per victim — not a full scan per eviction (an
+        at-budget steady state evicts on every miss-put, so the per-put
+        cost is what bounds admission-path latency under the tier lock).
+        Returns how many were evicted."""
+        if self._bytes <= self.budget_bytes:
+            return 0
+        import heapq
+
+        heap = [
+            (e.freq, e.seq, k)
+            for k, e in self._m.items()
+            if k != protect
+        ]
+        heapq.heapify(heap)
+        n = 0
+        while self._bytes > self.budget_bytes and heap:
+            _f, _s, victim = heapq.heappop(heap)
+            e = self._m.pop(victim, None)
+            if e is None:
+                continue
+            self._bytes -= e.nbytes
+            n += 1
+        return n
+
+
+def env_bytes(name: str, default: int) -> int:
+    """Parse a byte-count env knob (plain integer bytes)."""
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default

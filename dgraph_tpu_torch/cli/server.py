@@ -2,11 +2,15 @@
 
     python -m dgraph_tpu_torch.cli.server --port 8080 [--device cpu]
 
-Serves ``/query``, ``/health`` and ``/admin/shutdown`` over an in-memory
-store (load data with ``mutation { set { ... } }`` requests).  The
-engine runs on ``cuda`` unless ``--device cpu`` is given; without a GPU
-the default fails at start-up.  The reference's ``--p`` write-ahead log
-directory and the rest of its flags are not ported yet.
+Serves ``/query``, ``/health``, ``/metrics`` and ``/admin/shutdown``
+over an in-memory store (load data with ``mutation { set { ... } }``
+requests).  The engine runs on ``cuda`` unless ``--device cpu`` is
+given; without a GPU the default fails at start-up.  Reads go through
+the cohort scheduler, steered by the reference's environment knobs
+(``DGRAPH_TPU_SCHED``, ``DGRAPH_TPU_SCHED_*``, ``DGRAPH_TPU_QOS*``,
+``DGRAPH_TPU_CACHE*``, ``DGRAPH_TPU_IVM``, ``DGRAPH_TPU_SEGMENT*``).
+The reference's ``--p`` write-ahead log directory and the rest of its
+flags are not ported yet.
 """
 
 from __future__ import annotations

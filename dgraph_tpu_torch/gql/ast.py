@@ -109,6 +109,56 @@ class GraphQuery:
     # shortest-path / recurse args resolved by the engine from ``args``
 
 
+def referenced_preds(queries: List["GraphQuery"]) -> Optional[set]:
+    """The set of predicate names a parsed query can read, or None when
+    the set is not statically determinable (``expand()`` and
+    ``_predicate_`` blocks read schema-driven predicate lists only known
+    at execution time).  Used to scope the query caches' versions to the
+    predicates a request reads (ivm/versions.py).  Collection errs on the
+    side of INCLUSION — an extra name costs a spurious miss, a missed one
+    would serve a stale entry."""
+    out: set = set()
+
+    def add(name: str) -> None:
+        if name:
+            # "~pred" reads the same predicate's data through its reverse
+            # index; "pred@lang" order args keep the raw form
+            out.add(name.lstrip("~").split("@", 1)[0])
+
+    def walk_fn(fn: Optional[Function]) -> None:
+        if fn is not None:
+            add(fn.attr)
+
+    def walk_filter(ft: Optional[FilterTree]) -> None:
+        if ft is None:
+            return
+        walk_fn(ft.func)
+        for c in ft.children:
+            walk_filter(c)
+
+    def walk(gq: "GraphQuery") -> bool:
+        if gq.expand:
+            return False  # schema/var-driven: preds unknown until run time
+        if gq.attr == "_predicate_":
+            return False  # reads every predicate of the node
+        add(gq.attr)
+        walk_fn(gq.func)
+        walk_filter(gq.filter)
+        walk_filter(gq.facets_filter)
+        for key in ("orderasc", "orderdesc"):
+            v = gq.args.get(key, "")
+            if v and not v.startswith("val("):
+                add(v)
+        for attr, _lang in gq.groupby_attrs:
+            add(attr)
+        return all(walk(c) for c in gq.children)
+
+    for gq in queries:
+        if not walk(gq):
+            return None
+    return out
+
+
 @dataclass
 class Mutation:
     """Raw mutation bodies; RDF parsing happens in dgraph_tpu.rdf."""

@@ -24,9 +24,11 @@ planning —
   with; all three are dropped by every applied delta.
 
 Arenas are rebuilt per dirty predicate from the host store, or patched
-in place from the store's delta journal (``ArenaManager.refresh``).
-Not ported yet: the chunked layout, MXU tiles, the hop cache, IVM repair
-and mesh sharding.
+in place from the store's delta journal (``ArenaManager.refresh``).  The
+manager owns the tier-1 hop cache (``cache/hop.py``) and drops an
+arena's entries when a delta patches it or the arena is evicted or
+rebuilt.  Not ported yet: the chunked layout, MXU tiles, IVM repair of
+hop-cache entries and mesh sharding.
 """
 
 from __future__ import annotations
@@ -78,6 +80,14 @@ class CSRArena:
         ok = rows >= 0
         r = np.where(ok, rows, 0)
         return np.where(ok, self.h_offsets[r + 1] - self.h_offsets[r], 0)
+
+    @property
+    def avg_degree(self) -> float:
+        """Mean out-degree — the O(1) fan-out estimate the cohort hop
+        merger's gate and the hop cache's admission pre-screen read
+        before paying for exact per-row degrees (query/engine.py
+        DeviceExpander._expand_cached)."""
+        return self.n_edges / max(1, self.n_rows)
 
     @property
     def device(self) -> torch.device:
@@ -749,6 +759,21 @@ class ArenaManager:
             id(self._index): self._index,
             id(self._values): self._values,
         }
+        # tier-1 hop-expansion cache (cache/hop.py): expansion results
+        # are arena-snapshot state, so the cache lives and dies with this
+        # manager and hears about arena evictions (id-keyed entries may
+        # never outlive the arena object).  None when DGRAPH_TPU_CACHE=0
+        # — the expander then skips every probe.
+        from dgraph_tpu_torch.cache import HopCache, cache_enabled
+
+        self.hop_cache = HopCache() if cache_enabled() else None
+
+    def _drop_hops(self, arena) -> None:
+        """Drop the hop-cache entries of an arena leaving the cache NOW,
+        while the object is alive: a later allocation recycling its
+        id() must never alias a dead entry's key."""
+        if arena is not None and self.hop_cache is not None:
+            self.hop_cache.drop_arena(id(arena))
 
     def _get_or_build(self, cache, key, build):
         with self._cache_lock:
@@ -774,7 +799,7 @@ class ArenaManager:
                 break
             self._lru.pop(victim)
             self._lru_total -= vbytes
-            self._caches_by_id[victim[0]].pop(victim[1], None)
+            self._drop_hops(self._caches_by_id[victim[0]].pop(victim[1], None))
 
     def _lru_drop(self, cache, key) -> None:
         b = self._lru.pop((id(cache), key), None)
@@ -791,6 +816,8 @@ class ArenaManager:
             if not dirty:
                 return
             if "*" in dirty:  # full-store replacement
+                if self.hop_cache is not None:
+                    self.hop_cache.clear()
                 for c in (self._data, self._reverse, self._index, self._values):
                     c.clear()
                 self._lru.clear()
@@ -803,9 +830,9 @@ class ArenaManager:
                     dirty.discard(p)
                     continue
                 for key in [k for k in self._data if k == p or k.startswith(p + "\x00")]:
-                    self._data.pop(key, None)
+                    self._drop_hops(self._data.pop(key, None))
                     self._lru_drop(self._data, key)
-                self._reverse.pop(p, None)
+                self._drop_hops(self._reverse.pop(p, None))
                 self._lru_drop(self._reverse, p)
                 for key in [k for k in self._index if k[0] == p]:
                     self._index.pop(key, None)
@@ -840,6 +867,13 @@ class ArenaManager:
         r = self._reverse.get(pred)
         if r is not None:
             r.apply_delta(adds[:, ::-1], dels[:, ::-1])
+        if self.hop_cache is not None:
+            # the delta flipped each patched arena's epoch: entries keyed
+            # at an older one describe a snapshot that no longer exists
+            # (the reference repairs the ones it can; the port drops all)
+            for x in (a, r):
+                if x is not None:
+                    self.hop_cache.drop_stale_epoch(id(x), x.epoch)
         return True
 
     # -- data / reverse ----------------------------------------------------

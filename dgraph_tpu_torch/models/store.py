@@ -144,18 +144,36 @@ class PostingStore:
     # posting/lists.go:109-215)
     DELTA_MAX = 65536
 
+    # version covers EVERY observable change: anything readable through
+    # this store changes only via a version bump.  The tier-2 result
+    # cache (cache/result.py) requires this — a hit short-circuits
+    # execution entirely.
+    strict_snapshot_versions = True
+
     def __init__(self, schema: Optional[SchemaState] = None):
         self.schema = schema if schema is not None else SchemaState()
         self.uids = UidMap()
         self._preds: Dict[str, PredicateData] = {}
         self.dirty: Set[str] = set()
-        # monotonic snapshot version: bumps on every mutation batch
+        # monotonic snapshot version: bumps on every mutation batch.
+        # Consumers: the cohort scheduler's admission signature
+        # (sched/cohort.py) and, through ivm/versions.py, both query
+        # cache tiers
         self.version = 0
         # pred -> [(src, dst, +1|-1), ...] since the last arena refresh;
         # None = overflowed (full rebuild required).  Only uid-edge ops
         # journal here; value mutations always force a full refresh of
         # the value/index arenas (cheap: those arenas are value-sized).
         self.delta: Dict[str, Optional[List[Tuple[int, int, int]]]] = {}
+        # per-predicate freshness (ivm/versions.py): pred_versions maps
+        # each predicate to the version of the LAST mutation that
+        # touched it; pred_floor is the version of the last change that
+        # cannot be scoped to predicates (a schema mutation).  Cache
+        # tiers key entries on max(floor, max(pred_versions[footprint]))
+        # instead of the global version, so a mutation only invalidates
+        # entries that read its predicates.
+        self.pred_versions: Dict[str, int] = {}
+        self.pred_floor = 0
 
     # -- access ------------------------------------------------------------
 
@@ -214,6 +232,17 @@ class PostingStore:
 
     def _delta_overflow(self, pred: str) -> None:
         self.delta[pred] = None
+
+    def _note_pred_mutation(self, pred: str) -> None:
+        """Per-predicate freshness for ONE mutation (the version was
+        already bumped)."""
+        self.pred_versions[pred] = self.version
+
+    def note_global_change(self) -> None:
+        """Record a change that cannot be scoped to predicates (a schema
+        mutation): the floor advances to the current version, so EVERY
+        footprint-keyed cache entry goes stale."""
+        self.pred_floor = self.version
 
     def apply(self, e: Edge) -> None:
         """Apply one edge mutation (AddMutationWithIndex analog,
@@ -275,6 +304,7 @@ class PostingStore:
                     p._efmirror = None
         else:
             raise ValueError(f"unknown mutation op {e.op!r}")
+        self._note_pred_mutation(e.pred)
 
     def apply_many(self, edges: Iterable[Edge]) -> int:
         n = 0
@@ -320,6 +350,7 @@ class PostingStore:
                     self._journal_delta(pred, s, d, +1)
                 else:
                     self._journal_touch(pred)
+            self._note_pred_mutation(pred)
             return
         self._delta_overflow(pred)  # bulk volume: full rebuild is cheaper
         order = np.argsort(src, kind="stable")
@@ -335,6 +366,7 @@ class PostingStore:
                 edges[u] = set(d[b0:b1].tolist())
             else:
                 tgt.update(d[b0:b1].tolist())
+        self._note_pred_mutation(pred)
 
     def apply_schema(self, text: str) -> None:
         """Parse schema text into this store's schema state; journaled
@@ -343,3 +375,6 @@ class PostingStore:
 
         parse_schema(text, into=self.schema)
         self.version += 1
+        # schema changes (type/index/reverse semantics) are not scoped
+        # to a predicate's postings
+        self.note_global_change()

@@ -95,7 +95,9 @@ class CudaKernel:
 
     ``launches`` rises by one for every successful launch through
     :meth:`launch` and nowhere else, so a caller can show that a code
-    path really went through the kernel."""
+    path really went through the kernel.  The count is taken under a
+    lock: the cohort scheduler's member threads launch concurrently,
+    and a bare ``+= 1`` may lose an increment between threads."""
 
     def __init__(self, source: str, entry: str, argtypes: list):
         self.source = source
@@ -104,6 +106,7 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
         self._load_lock = threading.Lock()
+        self._count_lock = threading.Lock()
 
     def _bind(self):
         fn = self._fn
@@ -126,4 +129,5 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.source}.{self.entry}: CUDA launch failed (error {rc})"
             )
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1

@@ -14,8 +14,11 @@
   device ops.  Every capacity is planned on the host beforehand, so no
   hop waits for the device: nothing in the loop reads a value back.
 
-The reference's spans, device guard, failpoints and segmented dispatch
-have no counterpart: a device fault propagates to the caller.
+Where ``segments.plan`` returns k > 0, a scheduler yield point
+(``segments.seam``: cancellation, preemption) sits between every k hops,
+the reference's segmented dispatch.  The reference's spans, device
+guard and failpoints have no counterpart: a device fault propagates to
+the caller.
 """
 
 from __future__ import annotations
@@ -78,9 +81,14 @@ def multi_hop(
     (read only with ``track_visited``).  Returns (frontiers int32[n_hops,
     cap]: the deduplicated frontier each hop produced, edge counts
     int32[n_hops], the final visited int32[cap])."""
+    from dgraph_tpu_torch.sched import segments
+
+    k = segments.plan(n_hops, cap, "multi_hop")
     f, vis = frontier, visited
     fs, totals = [], []
-    for _ in range(n_hops):
+    for i in range(n_hops):
+        if 0 < k < n_hops and i and i % k == 0:
+            segments.seam("multi_hop")
         rows = frontier_rows(f) if lut is None else lut_rows(lut, f)
         out, total = expand_ascending(offsets, dst, rows, cap)
         f = sort_unique(out)

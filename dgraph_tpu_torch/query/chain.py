@@ -40,7 +40,9 @@ Capacity planning is overflow-free: level 0 is exact (host degrees of the
 root rows), deeper levels use the arena's top-m degree cumsum (the m
 largest rows bound any m-row frontier).  A plan over the cap is rejected
 before any dispatch.  Nothing falls back after a dispatch: a device fault
-propagates, as on the per-level route.
+propagates, as on the per-level route.  Where ``segments.plan`` returns
+k > 0, a scheduler yield point (``segments.seam``) sits between every k
+levels of the staged pass, as between every k hops of ``ops.multi_hop``.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from dgraph_tpu_torch.ops.batch import lut_rows
 from dgraph_tpu_torch.ops.sets import SENT
 from dgraph_tpu_torch.query import joinplan, planner
 from dgraph_tpu_torch.query.functions import QueryError
+from dgraph_tpu_torch.sched import segments
 
 # largest per-level plan, in edges: full-mode chains fetch their
 # matrices (transfer-sized), light-mode (var-block) chains fetch only
@@ -187,11 +190,16 @@ def _run_fused(engine, root_vec, arenas, luts, keeps, orders, caps, light):
     dropped it), grouped by owner ascending."""
     ex = engine.expander
     gathers = ex._use_resident()
+    # segment seams (sched/segments.py): a scheduler yield point every
+    # seg_k levels, where the planner asks for one
+    seg_k = segments.plan(len(arenas), max(c[0] for c in caps), "chain")
     u = root_vec
     parts = []
-    for a, lut, keep, order, (cap, cap_u, need_dest, _dec, ostat) in zip(
-        arenas, luts, keeps, orders, caps
+    for i, (a, lut, keep, order, (cap, cap_u, need_dest, _dec, ostat)) in enumerate(
+        zip(arenas, luts, keeps, orders, caps)
     ):
+        if 0 < seg_k < len(arenas) and i and i % seg_k == 0:
+            segments.seam("chain")
         packed = ex.expand_rows(a, lut_rows(lut, u), cap)
         if gathers:
             engine.stats["fused_gathers"] += 1

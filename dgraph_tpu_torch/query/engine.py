@@ -24,11 +24,15 @@ above ``kway_device_min``.  Order-by on a numeric, date or bool
 predicate runs on the device above ``expand_device_min``
 (``_device_order_perm``: value ranks from the predicate's
 ``ValueArena``, one stable segmented sort); string keys,
-language-tagged values and value variables sort on the host.  The
-reference's tile route, classed route, hop cache, segments, QoS and
-mesh are execution strategies over the same semantics and are not
-ported; filters other than the k-way AND and a fused chain's keep-sets
-fold on the host.
+language-tagged values and value variables sort on the host.  Above
+the routing, each expansion probes the tier-1 hop cache
+(``cache/hop.py``) and, on a cohort member of the scheduler
+(``sched/scheduler.py``), merges with the same hop of other requests
+into one union expansion (``DeviceExpander.submit_hop``); every hop is
+a cancellation checkpoint (``QueryEngine.checkpoint``).  The
+reference's tile route, classed route and mesh are execution
+strategies over the same semantics and are not ported; filters other
+than the k-way AND and a fused chain's keep-sets fold on the host.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from dgraph_tpu_torch import gql, obs, ops
+from dgraph_tpu_torch import gql, ivm, obs, ops
 from dgraph_tpu_torch.obs import ledger as _ledger
 from dgraph_tpu_torch.gql.ast import FilterTree, MathTree
 from dgraph_tpu_torch.models.arena import ArenaManager
@@ -49,7 +53,9 @@ from dgraph_tpu_torch.query.subgraph import SubGraph, build_subgraph
 from dgraph_tpu_torch.query import (
     chain, groupby, joinplan, outputnode, planner, recurse, shortest,
 )
+from dgraph_tpu_torch.sched import segments as _segments
 from dgraph_tpu_torch.utils import planconfig
+from dgraph_tpu_torch.utils.failpoints import fail
 
 _EMPTY = np.empty(0, dtype=np.int64)
 
@@ -112,13 +118,20 @@ class DeviceExpander:
     (default) on a CUDA device, 'force' on any device — on the CPU the
     gather wrapper then runs its plain version (the parity tests).
     ``fused_hop`` (False: off) gates the chain's multi-hop pass and the
-    fused var-block @recurse.  A device fault propagates: there is no
-    host failover."""
+    fused var-block @recurse.  Above the routing sit the tier-1 hop
+    cache and, under the cohort scheduler, the cross-request hop merger
+    (``_expand_cached``).  A device fault propagates: there is no host
+    failover."""
 
     def __init__(self, engine: "QueryEngine"):
         self.engine = engine
         self.resident_mode = planconfig.resident()
         self.fused_hop = True
+        # cross-request hop coalescing: the cohort scheduler
+        # (sched/scheduler.py) installs one HopMerger per cohort so
+        # same-(arena, predicate, direction) expansions from different
+        # requests sharing a snapshot merge into ONE expansion
+        self.hop_merger = None
         # the route the last expansion took (empty/host/resident/csr)
         self._route = ""
 
@@ -136,14 +149,85 @@ class DeviceExpander:
         """Per-level expansion entry: returns (out, seg_ptr) — targets
         grouped by source row, seg_ptr[i]:seg_ptr[i+1] slicing row i's.
         ``plan``: ``src``'s (rows, edge count) when the caller already
-        looked them up (``_plan_rows``)."""
-        out, seg_ptr = self._expand_one(arena, src, plan)
+        looked them up (``_plan_rows``); it serves the solo expansion
+        only — a merged hop looks up the union's rows afresh.
+
+        This call IS the hop boundary: the request's CancelToken
+        (sched/qos.py) is checkpointed here — a cancelled or
+        deadline-lapsed request stops BEFORE its next launch — and the
+        ``engine.hop`` failpoint lets chaos tests stretch exactly this
+        seam."""
+        self.engine.checkpoint()
+        fail.point("engine.hop")
+        out, seg_ptr = self._expand_cached(arena, src, attr, reverse, plan)
         routes = self.engine.stats["routes"]
         routes[self._route] = routes.get(self._route, 0) + 1
         led = _ledger.current()
         if led is not None:
             led.note_hop(self._route)
         return out, seg_ptr
+
+    def _expand_cached(
+        self, arena, src: np.ndarray, attr: str, reverse: bool, plan=None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Tier-1 hop cache first (a repeat expansion over an unchanged
+        predicate returns the memoized arrays: no launch, no copy), then
+        the cohort hop merger when one is installed AND the expansion is
+        big enough to be device-routed — merging a host-route numpy
+        expansion costs more in union bookkeeping than it saves, while a
+        gather launch and its round trip amortize across members."""
+        hc = self.engine.arenas.hop_cache
+        ver = hkey = None
+        if hc is not None and attr and len(src):
+            # pre-screen on the ESTIMATED result bytes: a frontier whose
+            # expansion cannot be admitted should not even pay for the
+            # digest
+            est = (len(src) + len(src) * arena.avg_degree) * 8
+            if est <= hc.max_entry_bytes:
+                # predicate-scoped freshness (ivm/versions.py): writes to
+                # other predicates leave the entry a hit
+                ver = ivm.hop_version(self.engine.store, attr)
+        if ver is not None:
+            # one digest per call: the miss path re-uses it for the fill
+            hkey = hc.key_for(arena, attr, reverse, src)
+            cached = hc.get(arena, attr, reverse, src, ver, key=hkey)
+            if cached is not None:
+                self.engine.stats["edges"] += len(cached[0])
+                self._route = "cache"
+                return cached
+        if (
+            self.hop_merger is not None
+            and attr
+            and len(src)
+            and planner.merge_gate(
+                len(src) * arena.avg_degree, self.engine.expand_device_min
+            )
+        ):
+            self._route = "merged"
+            out, seg_ptr = self.submit_hop(arena, src, attr, reverse)
+        else:
+            out, seg_ptr = self._expand_one(arena, src, plan)
+        if ver is not None:
+            # ``ver`` was read BEFORE the expansion: an entry can only
+            # land under an older version — stale-keyed, never
+            # stale-served
+            hc.put(arena, attr, reverse, src, ver, out, seg_ptr, key=hkey)
+        return out, seg_ptr
+
+    def submit_hop(
+        self, arena, src: np.ndarray, attr: str = "", reverse: bool = False
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Rendezvous this level's expansion with concurrent cohort
+        members: same-(arena, predicate, direction) submissions merge
+        into one union-frontier expansion — one gather launch on the
+        device route — and each request gets its exact per-source
+        segments back (sched/cohort.py::HopMerger: byte-identical to a
+        solo expansion).  The leader's stats carry the union's edges and
+        device time."""
+        key = (attr, bool(reverse), id(arena))
+        return self.hop_merger.submit(
+            key, src, lambda union: self._expand_one(arena, union)
+        )
 
     def _host_fallback(self, arena, rows) -> Tuple[np.ndarray, np.ndarray]:
         """Small expansions: vectorized numpy over the host CSR mirror."""
@@ -211,9 +295,10 @@ class DeviceExpander:
 
 
 class QueryEngine:
-    """One engine instance per store; thread-unsafe by design (the serving
-    layer serializes, as the reference does per-request goroutines over
-    shared immutable posting state)."""
+    """One engine instance per request at a time; concurrent requests
+    run on engine shells of their own over one shared ArenaManager (the
+    cohort scheduler's members, sched/scheduler.py), as the reference
+    runs per-request goroutines over shared immutable posting state."""
 
     def __init__(
         self,
@@ -244,6 +329,26 @@ class QueryEngine:
         self._cur_block_internal = False
         # per-request execution stats (reset by run_parsed)
         self.stats = _fresh_stats()
+        # cooperative cancellation (sched/qos.py): the scheduler installs
+        # the request's CancelToken here; checkpoint() probes it at hop
+        # boundaries.  None (embedded engines, QoS off) costs one
+        # attribute read per checkpoint.
+        self.cancel = None
+
+    def checkpoint(self) -> None:
+        """Cooperative cancellation checkpoint: raises
+        QueryCancelledError when this request's token flipped (deadline
+        lapse, client disconnect).  Placed at hop boundaries only — a
+        launched kernel always completes, so cancellation latency is
+        bounded by one hop.  A checkpoint is also a scheduler yield
+        point: after the token probe it offers the seam to a queued
+        higher-priority cohort (sched/segments.py)."""
+        tok = self.cancel
+        if tok is not None:
+            tok.check()
+        ctx = _segments.current()
+        if ctx is not None and ctx.preempt is not None:
+            ctx.preempt()
 
     @property
     def device(self) -> torch.device:
@@ -268,6 +373,25 @@ class QueryEngine:
         """Execute an already-parsed request — the single request pipeline
         shared by the embedded path (run) and the HTTP server."""
         self.stats = _fresh_stats()
+        # arm the fused hop loops' segment seams for this request.  A
+        # scheduler-installed context contributes the preempt hook (and
+        # the token it registered); with none active (embedded engines,
+        # DGRAPH_TPU_SCHED=0) a token-only context still bounds mid-chain
+        # cancellation to one segment.  Either way the stats binding is
+        # re-made here — the line above just replaced the dict the outer
+        # context captured.
+        outer = _segments.current()
+        prev = _segments.activate(_segments.SegmentContext(
+            token=outer.token if outer is not None else self.cancel,
+            preempt=outer.preempt if outer is not None else None,
+            stats=self.stats,
+        ))
+        try:
+            return self._run_parsed_inner(parsed)
+        finally:
+            _segments.deactivate(prev)
+
+    def _run_parsed_inner(self, parsed: "gql.ParsedResult") -> dict:
         out: dict = {}
         if parsed.mutation is not None:
             from dgraph_tpu_torch.serve.mutations import (

@@ -11,10 +11,17 @@ keeps only those static compares:
   smaller one as numpy over the host mirror;
 - a uid chain whose estimated fan-out over all its levels reaches
   ``chain_threshold`` (default ``CHAIN_THRESHOLD_DEFAULT``, 262144)
-  fuses (``query/chain.py``), a smaller one runs level by level.
+  fuses (``query/chain.py``), a smaller one runs level by level;
+- a cohort hop-merge admits an expansion whose estimated fan-out
+  reaches ``expand_device_min`` (``merge_gate``);
+- a fused hop loop yields at a segment seam every
+  ``DGRAPH_TPU_SEGMENT_K`` hops under ``DGRAPH_TPU_SEGMENT=force``,
+  never otherwise (``segment_route``).
 """
 
 from __future__ import annotations
+
+from dgraph_tpu_torch.utils import planconfig
 
 
 def expand_route(total: int, configured_min: int) -> bool:
@@ -27,3 +34,20 @@ def chain_route(est_total: int, threshold: int) -> bool:
     """Fuse a chain whose levels are estimated at ``est_total`` edges in
     all (True), or run it level by level (False)."""
     return est_total >= threshold
+
+
+def merge_gate(est_edges: float, configured_min: int) -> bool:
+    """Should a cohort hop-merge rendezvous admit this expansion?
+    Merging only amortizes when the union expansion device-routes, so
+    the gate IS the expand decision on the estimated fan-out."""
+    return est_edges >= configured_min
+
+
+def segment_route(n_steps: int, est_step_units: int, loop: str) -> int:
+    """How many hops one segment of a fused hop loop covers: k > 0 puts
+    a seam every k hops, 0 none.  DGRAPH_TPU_SEGMENT '0' never, 'force'
+    every DGRAPH_TPU_SEGMENT_K hops, 'auto' never (the reference prices
+    k from calibrated rates there; with its planner off it is 0 too)."""
+    if planconfig.segment_mode() != "force" or n_steps <= 1:
+        return 0
+    return max(1, min(planconfig.segment_k(), n_steps))

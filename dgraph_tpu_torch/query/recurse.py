@@ -16,9 +16,10 @@ nothing else under it, runs as one fused BFS instead
 (``_try_fused_recurse``, the reference's gates): ``ops.multi_hop`` with
 ``track_visited``, one gather a level on the device, the frontier and
 the visited set device-resident, one fetch.  The level-by-level loop
-answers every other shape, and the same bytes for that one.  The port
-has no cancellation token, so the reference's per-level cancellation
-checkpoints are left out.
+answers every other shape, and the same bytes for that one.  Each
+realized level-template and each value-leaf fetch is preceded by a
+cancellation checkpoint (``engine.checkpoint()``), as in the reference;
+the fused BFS yields at the segment seams of ``ops.multi_hop``.
 """
 
 from __future__ import annotations
@@ -62,6 +63,9 @@ def recurse(engine, sg: SubGraph, resolver):
             if not len(src):
                 continue
             for tmpl in uid_templates:
+                # cancellation checkpoint per realized level-template:
+                # a cancelled @recurse stops before its next expansion
+                engine.checkpoint()
                 child = SubGraph(
                     attr=tmpl.attr,
                     alias=tmpl.alias,
@@ -82,6 +86,7 @@ def recurse(engine, sg: SubGraph, resolver):
                 child.dest_uids = np.unique(child.out_flat)
                 # re-fetch value leaves for the new frontier
                 for vc in child.children:
+                    engine.checkpoint()
                     engine._exec_child(vc, child.dest_uids, resolver, {}, {})
                 edges += len(child.out_flat)
                 parent.children = parent.children + [child]
@@ -102,6 +107,7 @@ def recurse(engine, sg: SubGraph, resolver):
     sg.children = [c for c in sg.children if id(c) not in tids]
     # root-level value leaves for the root frontier
     for vc in sg.children:
+        engine.checkpoint()
         if not _is_uid_child(engine, vc) and not vc.values:
             engine._exec_child(vc, sg.dest_uids, resolver, {}, {})
 

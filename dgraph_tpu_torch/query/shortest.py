@@ -8,8 +8,8 @@ predicate, so the ``DeviceExpander`` routes it (the gather kernel above
 ``expand_device_min``); edge costs come from a ``weight`` facet when
 present, else 1 (getCost:102); k-shortest keeps per-path copies
 (KShortestPath:274).  The edge cap mirrors shortest.go:214 (10M edges).
-The port has no cancellation token, so the reference's per-expansion
-cancellation checkpoints are left out.
+Every predicate expansion and every pop of the search is preceded by a
+cancellation checkpoint (``engine.checkpoint()``), as in the reference.
 """
 
 from __future__ import annotations
@@ -48,6 +48,10 @@ def shortest_path(engine, sg: SubGraph, resolver):
             adj.setdefault(int(u), [])
             expanded.add(int(u))
         for tmpl in preds:
+            # cancellation checkpoint per predicate expansion: Dijkstra
+            # over a big fan-out must stop at the next hop, not at the
+            # end of the search
+            engine.checkpoint()
             child = SubGraph(attr=tmpl.attr, params=tmpl.params, filter=tmpl.filter,
                              reverse=tmpl.reverse)
             engine._exec_child(child, np.sort(todo), resolver, {}, {})
@@ -73,6 +77,7 @@ def shortest_path(engine, sg: SubGraph, resolver):
     heap: List[Tuple[float, int, List[int]]] = [(0.0, src, [src])]
     best_count: Dict[int, int] = {}
     while heap and len(found) < k and edges < MAX_EDGES:
+        engine.checkpoint()
         cost, u, path = heapq.heappop(heap)
         if best_count.get(u, 0) >= k:
             continue

@@ -1,0 +1,107 @@
+"""Segment seams: the scheduler's yield point inside a query (copy of
+``dgraph_tpu/sched/segments.py``).
+
+The reference's fused hop loops dispatch each query as one XLA program,
+and segmentation splits that program into bounded k-step segments with
+a ``seam()`` between dispatches.  In the port every hop of the fused
+loops (``ops.multi_hop``, ``query/chain.py`` ``_run_fused``) is
+already its own kernel launch, so a seam is one call between two
+iterations of those loops, every k hops where :func:`plan` returns
+k > 0.  One seam does three things, in order:
+
+1. **failpoint** — ``fail.point("segment.seam")`` so tests can inject a
+   per-segment delay;
+2. **cancellation** — probe the request's ``CancelToken``: a deadline
+   lapse or client disconnect surfaces within ONE segment;
+3. **preemption** — invoke the scheduler's donation hook: when a
+   strictly higher-priority cohort is queued, the running worker drains
+   it inline at this seam (sched/scheduler.py ``_maybe_preempt``).
+
+The context is thread-local and activated by the scheduler around
+``engine.run_parsed`` (token + preempt hook + stats), or by the engine
+itself token-only when no scheduler is driving.  ``seam()`` with no
+active context is a cheap no-op.  The reference's mesh drain-and-resume
+(``resume``) and its early exit of a drained frontier (``early_exit``:
+the port's hop loops never read the device back) have no counterpart.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable, Optional
+
+from dgraph_tpu_torch.utils.failpoints import fail
+from dgraph_tpu_torch.utils.metrics import SEGMENT_DISPATCHES, SEGMENT_YIELDS
+
+_tls = threading.local()
+
+
+class SegmentContext:
+    """Per-request yield-point wiring: the cancel token to probe at each
+    seam, the scheduler's preemption-donation hook, and the request's
+    stats dict."""
+
+    __slots__ = ("token", "preempt", "stats")
+
+    def __init__(
+        self,
+        token=None,
+        preempt: Optional[Callable[[], None]] = None,
+        stats: Optional[dict] = None,
+    ):
+        self.token = token
+        self.preempt = preempt
+        self.stats = stats
+
+
+def activate(ctx: Optional[SegmentContext]) -> Optional[SegmentContext]:
+    """Install ``ctx`` as this thread's active context; returns the
+    PREVIOUS one so callers restore it in a finally — preemption
+    donation runs a whole other query inline on the donor's thread, and
+    the donor's context must survive it."""
+    prev = getattr(_tls, "ctx", None)
+    _tls.ctx = ctx
+    return prev
+
+
+def deactivate(prev: Optional[SegmentContext] = None) -> None:
+    _tls.ctx = prev
+
+
+def current() -> Optional[SegmentContext]:
+    return getattr(_tls, "ctx", None)
+
+
+def seam(loop: str) -> None:
+    """One scheduler yield point, called by a fused hop loop BETWEEN
+    segments (never before the first or after the last).
+
+    Order matters: cancellation first (a dead query must not donate its
+    slot to drain someone else's cohort), preemption second.  A token
+    raise propagates — the loop's partial device state is simply
+    dropped with the query."""
+    fail.point("segment.seam")
+    ctx = current()
+    if ctx is None:
+        return
+    tok = ctx.token
+    if tok is not None:
+        try:
+            tok.check()
+        except BaseException:
+            SEGMENT_YIELDS.add("cancel")
+            raise
+    if ctx.preempt is not None:
+        ctx.preempt()
+
+
+def plan(n_steps: int, est_step_units: int, loop: str) -> int:
+    """The segment size for one run of a fused hop loop
+    (planner.segment_route, the reference's static half): k hops between
+    seams, 0 = no seam at all.  Counts the segmented runs."""
+    from dgraph_tpu_torch.query import planner
+
+    k = planner.segment_route(n_steps, est_step_units, loop)
+    if k > 0:
+        SEGMENT_DISPATCHES.add(loop)
+    return k

@@ -1,18 +1,30 @@
-"""HTTP serving surface of the port (minimal ``DgraphServer``).
-
-The subset of ``dgraph_tpu/serve/server.py`` the 2-hop slice serves:
+"""HTTP serving surface of the port (the subset of
+``dgraph_tpu/serve/server.py`` the port serves).
 
 - ``POST /query`` — a query, a ``mutation {}`` block, or both; variables
   ride the ``X-Dgraph-Vars`` header; ``?debug=true`` adds the engine's
   stats to ``server_latency``, ``?ledger=true`` the request's resource
-  ledger to ``extensions``.  The response body is built exactly as the
-  reference builds it, so its JSON is byte-identical.
+  ledger to ``extensions``.  ``X-Dgraph-Tenant`` names the request's QoS
+  tenant and ``X-Dgraph-Timeout`` its budget in seconds.  The response
+  body is built exactly as the reference builds it, so its JSON is
+  byte-identical.  Sheds answer 429 with ``Retry-After`` (the global
+  admission queue or the tenant's quota is full), an exhausted budget
+  504, a client that hung up 499.
 - ``GET /health`` — ``OK`` while serving.
+- ``GET /metrics`` (and ``/debug/prometheus_metrics``) — the Prometheus
+  text exposition of ``utils/metrics.py``.
 - ``GET /admin/shutdown`` — stops the server.
 
-One lock serializes request execution on the shared engine and device.
-The reference's cohort scheduler, query caches, QoS, tracing, cluster
-and durable storage are not ported yet.
+Reads go through the cohort scheduler (``sched/scheduler.py``, gated by
+``DGRAPH_TPU_SCHED``, default on): concurrent requests are admitted into
+cohorts that run together under the read side of one readers-writer
+lock, each member on an engine shell of its own over the shared arenas,
+their same-predicate hops merged into one gather launch, a tier-2 result
+cache in front.  Mutations take the write side and run on the server's
+engine.  ``DGRAPH_TPU_SCHED=0`` restores the serial path: every request
+under the write side on the server's engine, one at a time.  The
+reference's tracing, subscriptions, gRPC, cluster and durable storage
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +42,21 @@ from dgraph_tpu_torch import gql
 from dgraph_tpu_torch.models.store import PostingStore
 from dgraph_tpu_torch.obs import ledger as _ledger
 from dgraph_tpu_torch.query.engine import QueryEngine
+from dgraph_tpu_torch.sched import qos as _qos
+from dgraph_tpu_torch.sched.cohort import (
+    SchedDeadlineError,
+    SchedOverloadError,
+    SchedQuotaError,
+)
+from dgraph_tpu_torch.sched.qos import QueryCancelledError
+from dgraph_tpu_torch.sched.scheduler import CohortScheduler, sched_enabled
+from dgraph_tpu_torch.utils.metrics import (
+    NUM_QUERIES,
+    PENDING_QUERIES,
+    QUERY_CANCELLED,
+    metrics,
+)
+from dgraph_tpu_torch.utils.rwlock import RWLock
 
 _CORS = {
     "Access-Control-Allow-Origin": "*",
@@ -103,7 +130,10 @@ class DgraphServer:
             store, device=device,
             arena_budget_bytes=(arena_budget_mb * (1 << 20)) or None,
         )
-        self._exec_lock = threading.Lock()
+        # RW lock: read-only queries run CONCURRENTLY over the shared
+        # arenas; mutations (and every request on the serial path) take
+        # the exclusive side
+        self._engine_lock = RWLock()
         self._stop_lock = threading.Lock()
         self._serving = False
         self._stopped = False
@@ -111,13 +141,21 @@ class DgraphServer:
         self._thread: Optional[threading.Thread] = None
         self._bind = bind
         self._port = port
+        # cohort scheduler (sched/): gated by DGRAPH_TPU_SCHED (default
+        # on); =0 restores the serial per-request path
+        self.scheduler = CohortScheduler(self) if sched_enabled() else None
 
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> None:
-        self._httpd = ThreadingHTTPServer(
-            (self._bind, self._port), _make_handler(self)
-        )
+        # deep accept backlog: the stdlib default (5) drops connections
+        # the moment a few dozen clients connect at once, and the TCP
+        # retransmit turns into a phantom second of latency — the listen
+        # queue must absorb a burst of the whole client fleet
+        class _Server(ThreadingHTTPServer):
+            request_queue_size = 128
+
+        self._httpd = _Server((self._bind, self._port), _make_handler(self))
         self._port = self._httpd.server_address[1]
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name="dgraph-http", daemon=True
@@ -149,7 +187,12 @@ class DgraphServer:
                 self._httpd = None
             if self._thread is not None:
                 self._thread.join(timeout=30)
-            self._stopped = True
+            if self.scheduler is not None:
+                # before the write lock: queued cohorts must drain (fail
+                # fast) or they would wait on a read lock that never comes
+                self.scheduler.stop()
+            with self._engine_lock.write():  # in-flight requests finish
+                self._stopped = True
 
     def wait(self) -> None:
         """Block until the server is stopped (the CLI's main loop)."""
@@ -164,38 +207,83 @@ class DgraphServer:
         variables: Optional[dict] = None,
         debug: bool = False,
         ledger_out: bool = False,
+        timeout_s: Optional[float] = None,
+        tenant: str = "",
+        cancel_probe=None,
     ) -> dict:
         """Parse, execute (mutation and/or queries) and return the
-        response dict with its latency map."""
+        response dict with its latency map.
+
+        ``timeout_s`` is the caller's remaining budget (X-Dgraph-Timeout):
+        a scheduled request past it sheds with SchedDeadlineError while
+        queued, and — under QoS — its CancelToken stops execution at the
+        next hop once the budget lapses mid-flight (504 either way).
+        ``tenant`` is the QoS scope and ``cancel_probe`` an optional
+        transport-liveness callable (True when the client is GONE).
+        All three serve scheduled reads only; mutations and the serial
+        path run to completion, as in the reference."""
         from dgraph_tpu_torch.query import outputnode
 
+        NUM_QUERIES.add(1)
+        PENDING_QUERIES.add(1)
         lat = Latency()
+        sched = self.scheduler
+        token = None
+        if sched is not None and sched.qos is not None:
+            tenant = _qos.resolve_tenant(tenant)
+            token = _qos.CancelToken(timeout_s, tenant=tenant)
+            if cancel_probe is not None:
+                token.attach_probe(cancel_probe)
+        else:
+            tenant = ""
         led = _ledger.start()
         ltoken = _ledger.activate(led)
         try:
             parsed = gql.parse(text, variables)
             lat.record_parsing()
             out: dict = {}
-            debug_token = outputnode.DEBUG_UIDS.set(debug)
-            try:
-                with self._exec_lock:
-                    out.update(self.engine.run_parsed(parsed))
-                    stats = self.engine.stats
-            finally:
-                outputnode.DEBUG_UIDS.reset(debug_token)
-            led.merge_engine_stats(stats)
+            if sched is not None and parsed.mutation is None:
+                # read-only: ride a cohort (the member thread sets
+                # DEBUG_UIDS for the encode and folds its stats into the
+                # ledger).  The key makes equal requests singleflight-
+                # coalescible AND tier-2 result-cacheable.
+                vkey = json.dumps(variables, sort_keys=True) if variables else ""
+                result, stats = sched.run(
+                    parsed, debug=debug, timeout_s=timeout_s,
+                    key=(text, vkey, debug), tenant=tenant, cancel=token,
+                )
+                out.update(result)
+            else:
+                # mutations, and every request on the serial path: the
+                # exclusive side, on the server's engine
+                debug_token = outputnode.DEBUG_UIDS.set(debug)
+                try:
+                    with self._engine_lock.write():
+                        out.update(self.engine.run_parsed(parsed))
+                        stats = self.engine.stats
+                finally:
+                    outputnode.DEBUG_UIDS.reset(debug_token)
+                led.merge_engine_stats(stats)
             lat.record_processing()
             lat.record_json()
             out["server_latency"] = lat.to_map()
             if ledger_out:
                 out.setdefault("extensions", {})["ledger"] = led.to_dict()
             if debug:
+                # a hop MERGED across requests (HopMerger) attributes the
+                # whole union's edges and device time to the member that
+                # led it: cohort-attributed, as in the reference;
+                # DGRAPH_TPU_SCHED=0 restores exact per-request accounting
                 out["server_latency"]["engine"] = {
                     k: (round(v, 3) if isinstance(v, float) else v)
                     for k, v in stats.items()
                 }
             return out
+        except QueryCancelledError as e:
+            QUERY_CANCELLED.add((e.reason, _qos.metric_label(tenant or e.tenant)))
+            raise
         finally:
+            PENDING_QUERIES.add(-1)
             _ledger.deactivate(ltoken)
 
 
@@ -209,17 +297,31 @@ def _make_handler(srv: DgraphServer):
         def log_message(self, *a):  # quiet
             pass
 
-        def _reply(self, code: int, body: bytes, ctype: str = "application/json"):
+        def _reply(self, code: int, body: bytes, ctype: str = "application/json",
+                   extra_headers: Optional[dict] = None):
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
             for k, v in _CORS.items():
                 self.send_header(k, v)
+            for k, v in (extra_headers or {}).items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
 
-        def _err(self, code: int, msg: str, kind: str = "ErrorInvalidRequest"):
-            self._reply(code, json.dumps({"code": kind, "message": msg}).encode())
+        def _err(self, code: int, msg: str, kind: str = "ErrorInvalidRequest",
+                 extra: Optional[dict] = None, headers: Optional[dict] = None):
+            body = {"code": kind, "message": msg}
+            body.update(extra or {})
+            self._reply(code, json.dumps(body).encode(), extra_headers=headers)
+
+        def _disconnect_probe(self):
+            """Transport-liveness probe for cooperative cancellation
+            (None when QoS is off): peeks the socket for EOF without
+            consuming pipelined bytes (sched/qos.py)."""
+            if srv.scheduler is None or srv.scheduler.qos is None:
+                return None
+            return _qos.socket_disconnect_probe(self.connection)
 
         def do_OPTIONS(self):
             self._reply(200, b"")
@@ -231,6 +333,9 @@ def _make_handler(srv: DgraphServer):
                     self._reply(200, b"OK", "text/plain")
                 else:
                     self._reply(503, b"\"uninitialized\"")
+            elif path in ("/metrics", "/debug/prometheus_metrics"):
+                self._reply(200, metrics.prometheus_text().encode(),
+                            "text/plain; version=0.0.4; charset=utf-8")
             elif path == "/admin/shutdown":
                 self._reply(200, json.dumps(
                     {"code": "Success", "message": "Server is shutting down"}
@@ -252,8 +357,35 @@ def _make_handler(srv: DgraphServer):
                 vars_hdr = self.headers.get("X-Dgraph-Vars")
                 variables = json.loads(vars_hdr) if vars_hdr else None
                 out = srv.run_query(
-                    body, variables, debug=debug, ledger_out=want_ledger
+                    body, variables, debug=debug, ledger_out=want_ledger,
+                    timeout_s=_qos.parse_timeout(
+                        self.headers.get("X-Dgraph-Timeout")
+                    ),
+                    tenant=self.headers.get("X-Dgraph-Tenant") or "",
+                    cancel_probe=self._disconnect_probe(),
                 )
+            except SchedOverloadError as e:
+                # shed under overload: retriable, not a client error.  A
+                # tenant's quota shed carries a Retry-After sized to that
+                # tenant's backlog; the global cap's asks for a second
+                ra = max(1, int(round(getattr(e, "retry_after", 1.0))))
+                extra = {"tenant": e.tenant} if isinstance(e, SchedQuotaError) else None
+                return self._err(429, str(e), "ErrorServiceUnavailable",
+                                 extra=extra, headers={"Retry-After": str(ra)})
+            except SchedDeadlineError as e:
+                return self._err(504, str(e), "ErrorDeadlineExceeded")
+            except QueryCancelledError as e:
+                # a deadline that lapsed MID-EXECUTION reads exactly like
+                # the queued-shed 504; a disconnect gets 499 (the nginx
+                # client-closed-request convention), a reply that may race
+                # the vanished client
+                try:
+                    if e.reason == "deadline":
+                        return self._err(504, str(e), "ErrorDeadlineExceeded")
+                    return self._err(499, str(e), "ErrorQueryCancelled")
+                except OSError:
+                    self.close_connection = True
+                    return None
             except ValueError as e:
                 # parse, query and mutation errors (ParseError, QueryError,
                 # bad variables) are the client's: 400 as in the reference

@@ -1,0 +1,316 @@
+"""Metrics registry with Prometheus text exposition (trimmed copy of
+``dgraph_tpu/utils/metrics.py``).
+
+The counter, gauge and histogram types of the reference and the
+instruments the serving plane bumps: query counts, the cohort
+scheduler's, QoS sheds and cancellations, segment seams, the two query
+cache tiers, failpoint fires and deliberately swallowed exceptions.
+``GET /metrics`` (and ``/debug/prometheus_metrics``) serve
+``metrics.prometheus_text()``.  The reference's exemplars, OpenMetrics
+exposition and the instruments of its unported layers (cluster, WAL,
+mesh, device guard, planner, tracing) are not here.
+"""
+
+from __future__ import annotations
+
+import threading
+from bisect import bisect_left
+from typing import Dict
+
+
+class Counter:
+    """Monotonic counter."""
+
+    __slots__ = ("name", "_v", "_lock")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._v = 0
+        self._lock = threading.Lock()
+
+    def add(self, n: int = 1) -> None:
+        with self._lock:
+            self._v += n
+
+    def value(self) -> int:
+        return self._v
+
+
+class Gauge:
+    """Settable gauge."""
+
+    __slots__ = ("name", "_v", "_lock")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._v = 0.0
+        self._lock = threading.Lock()
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._v = v
+
+    def add(self, n: float = 1) -> None:
+        with self._lock:
+            self._v += n
+
+    def value(self) -> float:
+        return self._v
+
+
+class LabeledCounter:
+    """Counter family keyed by one label."""
+
+    def __init__(self, name: str, label: str):
+        self.name = name
+        self.label = label
+        self._m: Dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def add(self, key: str, n: int = 1) -> None:
+        with self._lock:
+            self._m[key] = self._m.get(key, 0) + n
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._m)
+
+
+class MultiLabeledCounter:
+    """Counter family keyed by a label TUPLE."""
+
+    def __init__(self, name: str, labels):
+        self.name = name
+        self.labels = tuple(labels)
+        self._m: Dict[tuple, int] = {}
+        self._lock = threading.Lock()
+
+    def add(self, key, n: int = 1) -> None:
+        key = tuple(str(k) for k in key)
+        if len(key) != len(self.labels):
+            raise ValueError(
+                f"{self.name}: expected {len(self.labels)} label values, "
+                f"got {len(key)}"
+            )
+        with self._lock:
+            self._m[key] = self._m.get(key, 0) + n
+
+    def snapshot(self) -> Dict[tuple, int]:
+        with self._lock:
+            return dict(self._m)
+
+    def total(self, **want) -> int:
+        """Sum over series matching the given label=value filters."""
+        idx = {l: i for i, l in enumerate(self.labels)}
+        out = 0
+        for key, v in self.snapshot().items():
+            if all(key[idx[l]] == str(val) for l, val in want.items()):
+                out += v
+        return out
+
+
+class Histogram:
+    """Fixed-bucket histogram with Prometheus ``_bucket{le=...}`` /
+    ``_sum`` / ``_count`` exposition."""
+
+    __slots__ = ("name", "buckets", "_counts", "_sum", "_count", "_lock")
+
+    def __init__(self, name: str, buckets):
+        self.name = name
+        self.buckets = tuple(sorted(float(b) for b in buckets))
+        if not self.buckets:
+            raise ValueError("histogram needs at least one bucket bound")
+        # per-bucket (non-cumulative) counts; +Inf bucket is the tail slot
+        self._counts = [0] * (len(self.buckets) + 1)
+        self._sum = 0.0
+        self._count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        i = bisect_left(self.buckets, v)
+        with self._lock:
+            self._counts[i] += 1
+            self._sum += v
+            self._count += 1
+
+    def snapshot(self):
+        """(cumulative bucket counts aligned with self.buckets + [+Inf],
+        sum, count) — one consistent view."""
+        with self._lock:
+            counts = list(self._counts)
+            s, c = self._sum, self._count
+        cum = []
+        run = 0
+        for n in counts:
+            run += n
+            cum.append(run)
+        return cum, s, c
+
+
+class MetricsRegistry:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counters: Dict[str, Counter] = {}
+        self._gauges: Dict[str, Gauge] = {}
+        self._labeled: Dict[str, LabeledCounter] = {}
+        self._multilabeled: Dict[str, MultiLabeledCounter] = {}
+        self._histograms: Dict[str, Histogram] = {}
+
+    def counter(self, name: str) -> Counter:
+        with self._lock:
+            c = self._counters.get(name)
+            if c is None:
+                c = self._counters[name] = Counter(name)
+            return c
+
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            g = self._gauges.get(name)
+            if g is None:
+                g = self._gauges[name] = Gauge(name)
+            return g
+
+    def labeled(self, name: str, label: str = "predicate") -> LabeledCounter:
+        with self._lock:
+            l = self._labeled.get(name)
+            if l is None:
+                l = self._labeled[name] = LabeledCounter(name, label)
+            return l
+
+    def multilabeled(self, name: str, labels) -> MultiLabeledCounter:
+        with self._lock:
+            c = self._multilabeled.get(name)
+            if c is None:
+                c = self._multilabeled[name] = MultiLabeledCounter(name, labels)
+            return c
+
+    def histogram(self, name: str, buckets) -> Histogram:
+        with self._lock:
+            h = self._histograms.get(name)
+            if h is None:
+                h = self._histograms[name] = Histogram(name, buckets)
+            return h
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition format."""
+        lines = []
+        with self._lock:
+            counters = list(self._counters.values())
+            gauges = list(self._gauges.values())
+            labeled = list(self._labeled.values())
+            multilabeled = list(self._multilabeled.values())
+            histograms = list(self._histograms.values())
+
+        def _esc(s: str) -> str:
+            return s.replace("\\", "\\\\").replace('"', '\\"')
+
+        for c in sorted(counters, key=lambda c: c.name):
+            lines.append(f"# TYPE {c.name} counter")
+            lines.append(f"{c.name} {c.value()}")
+        for g in sorted(gauges, key=lambda g: g.name):
+            lines.append(f"# TYPE {g.name} gauge")
+            lines.append(f"{g.name} {g.value()}")
+        for l in sorted(labeled, key=lambda l: l.name):
+            lines.append(f"# TYPE {l.name} counter")
+            for k, v in sorted(l.snapshot().items()):
+                lines.append(f'{l.name}{{{l.label}="{_esc(k)}"}} {v}')
+        for ml in sorted(multilabeled, key=lambda m: m.name):
+            lines.append(f"# TYPE {ml.name} counter")
+            for key, v in sorted(ml.snapshot().items()):
+                pairs = ",".join(
+                    f'{lab}="{_esc(val)}"' for lab, val in zip(ml.labels, key)
+                )
+                lines.append(f"{ml.name}{{{pairs}}} {v}")
+        for h in sorted(histograms, key=lambda h: h.name):
+            cum, s, c = h.snapshot()
+            lines.append(f"# TYPE {h.name} histogram")
+            for b, n in zip(h.buckets, cum):
+                lines.append(f'{h.name}_bucket{{le="{b:g}"}} {n}')
+            lines.append(f'{h.name}_bucket{{le="+Inf"}} {c}')
+            lines.append(f"{h.name}_sum {s:g}")
+            lines.append(f"{h.name}_count {c}")
+        return "\n".join(lines) + "\n"
+
+
+# Global registry; components fetch these by name.
+metrics = MetricsRegistry()
+
+PENDING_QUERIES = metrics.gauge("dgraph_pending_queries")
+NUM_QUERIES = metrics.counter("dgraph_num_queries_total")
+
+# latency bucket ladder shared by the serving histograms (seconds):
+# sub-ms through 10s, roughly ×2.5 steps — the client_golang DefBuckets
+_LATENCY_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+    0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+
+# cohort scheduler surface (sched/scheduler.py): how full cohorts ride,
+# why they flushed, how long requests queued
+SCHED_QUEUE_WAIT = metrics.histogram(
+    "dgraph_sched_queue_wait_seconds", _LATENCY_BUCKETS
+)
+SCHED_COHORT_OCCUPANCY = metrics.histogram(
+    "dgraph_sched_cohort_occupancy", (1, 2, 4, 8, 16, 32, 64, 128)
+)
+SCHED_FLUSHES = metrics.labeled("dgraph_sched_flushes_total", label="reason")
+SCHED_SHED = metrics.labeled("dgraph_sched_shed_total", label="reason")
+SCHED_MERGED_HOPS = metrics.counter("dgraph_sched_merged_hops_total")
+SCHED_COALESCED = metrics.counter("dgraph_sched_coalesced_requests_total")
+SCHED_QUEUE_DEPTH = metrics.gauge("dgraph_sched_queue_depth")
+
+# multi-tenant QoS surface (sched/qos.py): every cancelled query lands
+# in QUERY_CANCELLED with {reason ∈ deadline/disconnect, tenant};
+# per-tenant sheds (quota / overload / deadline) in TENANT_SHED
+QUERY_CANCELLED = metrics.multilabeled(
+    "dgraph_query_cancelled_total", ("reason", "tenant")
+)
+TENANT_SHED = metrics.multilabeled(
+    "dgraph_tenant_shed_total", ("tenant", "reason")
+)
+
+# segment seams (sched/segments.py): segmented runs per fused hop
+# loop, seams that yielded (cancel), and how long a higher-priority
+# cohort waited for the running query's next seam
+SEGMENT_DISPATCHES = metrics.labeled(
+    "dgraph_segment_dispatches_total", label="loop"
+)
+SEGMENT_YIELDS = metrics.labeled(
+    "dgraph_segment_yields_total", label="reason"
+)
+SEGMENT_PREEMPT_US = metrics.histogram(
+    "dgraph_segment_preempt_us",
+    (100.0, 500.0, 1000.0, 5000.0, 25000.0, 100000.0, 500000.0, 2000000.0),
+)
+
+# two-tier query cache surface (dgraph_tpu_torch/cache/): per-tier event
+# counters (hit / miss / stale / evicted / rejected), occupancy-bytes
+# gauges, and the shared hit-age histogram
+QCACHE_HOP_EVENTS = metrics.labeled(
+    "dgraph_qcache_hop_events_total", label="event"
+)
+QCACHE_RESULT_EVENTS = metrics.labeled(
+    "dgraph_qcache_result_events_total", label="event"
+)
+QCACHE_HOP_BYTES = metrics.gauge("dgraph_qcache_hop_bytes")
+QCACHE_RESULT_BYTES = metrics.gauge("dgraph_qcache_result_bytes")
+QCACHE_HIT_AGE = metrics.histogram(
+    "dgraph_qcache_hit_age_seconds",
+    (0.001, 0.01, 0.1, 1.0, 10.0, 60.0, 600.0),
+)
+
+# deliberately swallowed exceptions: "correct to drop" never means
+# "correct to drop invisibly"
+SWALLOWED_EXC = metrics.labeled(
+    "dgraph_swallowed_exceptions_total", label="site"
+)
+FAILPOINTS_FIRED = metrics.labeled(
+    "dgraph_failpoints_fired_total", label="site"
+)
+
+
+def note_swallowed(site: str, exc: BaseException) -> None:
+    """Count an intentionally-dropped exception at ``site``.  The
+    exception TYPE rides in the label so a sudden shift (OSError →
+    ValueError) is visible without logs."""
+    SWALLOWED_EXC.add(f"{site}:{type(exc).__name__}")

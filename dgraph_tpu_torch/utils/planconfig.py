@@ -15,6 +15,13 @@ DGRAPH_TPU_KWAY_DEVICE_MIN    262144   min total elements of a k-way
                                        yields to the intersect kernel
 DGRAPH_TPU_CHAIN_THRESHOLD    262144   min estimated fan-out of a uid chain
                                        before it fuses (query/chain.py)
+DGRAPH_TPU_SEGMENT            auto     segment seams in the fused hop loops
+                                       (sched/segments.py): '0' never,
+                                       'force' every DGRAPH_TPU_SEGMENT_K
+                                       hops, 'auto' never (the reference
+                                       prices it with its calibrated
+                                       planner, which the port lacks)
+DGRAPH_TPU_SEGMENT_K          4        hops per segment under 'force'
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import os
 EXPAND_DEVICE_MIN_DEFAULT = 262144
 KWAY_DEVICE_MIN_DEFAULT = 262144
 CHAIN_THRESHOLD_DEFAULT = 262144
+SEGMENT_K_DEFAULT = 4
 
 
 def _int(name: str, default: int) -> int:
@@ -54,3 +62,13 @@ def chain_threshold() -> int:
     """Static min estimated fan-out before a uid chain fuses."""
     return _int("DGRAPH_TPU_CHAIN_THRESHOLD", CHAIN_THRESHOLD_DEFAULT)
 
+
+
+def segment_mode() -> str:
+    """DGRAPH_TPU_SEGMENT: '0', 'auto' or 'force'."""
+    return os.environ.get("DGRAPH_TPU_SEGMENT", "auto")
+
+
+def segment_k() -> int:
+    """Hops per segment under DGRAPH_TPU_SEGMENT=force."""
+    return _int("DGRAPH_TPU_SEGMENT_K", SEGMENT_K_DEFAULT)

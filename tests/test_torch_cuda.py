@@ -1,9 +1,9 @@
 """The port's kernels on the card: each CUDA kernel (gather, slot-map,
 intersect) against its plain PyTorch version on CUDA tensors, one launch
 per wrapper call, the batched 2-hop pipeline on the card against the
-numpy oracle, and the order-by's torch ops and the multi-hop pass
-(one gather launch a hop) on the card against the same calls on the
-CPU.  Every test is marked ``cuda`` and skips
+numpy oracle, the order-by's torch ops and the multi-hop pass (one
+gather launch a hop) on the card against the same calls on the CPU, and
+a hop merged across four engine shells as one gather launch.  Every test is marked ``cuda`` and skips
 where no GPU is visible.  The file imports neither JAX nor the JAX
 package, so on the card's machine (no JAX there) it runs alone:
 
@@ -214,3 +214,49 @@ def test_multi_hop_on_the_card_matches_the_cpu(track_visited, start):
     assert int(want[1][0]) > 0
     if start == "drains":
         assert (want[0][1:] == tops.SENT).all() and int(want[1][1]) == 0
+
+
+def test_merged_hop_is_one_gather_launch():
+    """4 threads, each an engine shell over one ArenaManager on the card,
+    submit the same predicate's hop through one HopMerger: one gather
+    launch expands the union, and each member's (out, seg_ptr) equals
+    its solo expansion."""
+    _need_gpu()
+    import threading
+
+    from dgraph_tpu_torch.models import PostingStore
+    from dgraph_tpu_torch.query import QueryEngine
+    from dgraph_tpu_torch.sched import HopMerger
+
+    src, dst = bench2hop.gen_edges(20_000, 200_000)
+    st = PostingStore()
+    st.bulk_set_uid_edges("e", src, dst)
+    base = QueryEngine(st, device="cuda")
+    base.arenas.hop_cache = None
+    base.expand_device_min = 1
+    arena = base.arenas.data("e")
+    rng = np.random.default_rng(61)
+    srcs = [np.unique(rng.integers(1, 20_001, size=3000)) for _ in range(4)]
+    solo = [base.expander._expand_one(arena, s) for s in srcs]
+    merger = HopMerger(expected=4, window_s=30.0)  # fires by quorum
+    shells = []
+    for _ in srcs:
+        sh = QueryEngine(st, arenas=base.arenas)
+        sh.expander.hop_merger = merger
+        shells.append(sh)
+    got = [None] * 4
+
+    def run(i):
+        got[i] = shells[i].expander.expand(arena, srcs[i], attr="e")
+
+    torch.cuda.synchronize()
+    n0 = tgather.KERNEL.launches
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=60)
+    torch.cuda.synchronize()
+    assert tgather.KERNEL.launches == n0 + 1
+    for (go, gs), (so, ss) in zip(got, solo):
+        assert np.array_equal(go, so) and np.array_equal(gs, ss)
