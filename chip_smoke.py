@@ -131,10 +131,40 @@ Phases, each fatal (exit code 1, no result line):
    which a read cached whole (result cache) and a twin read served from
    the hop cache both show the new edges, byte-identical to the host
    route.  The counts are read right after.
-13. dense — the same generated edges as a dense CSR arena on cuda in the
+13. mxu join — the tile join tier on a graph of its own, served by a
+   second ``DgraphServer`` on cuda (both query caches detached, the k-way
+   gate at 1): ``friend: uid @reverse .`` on uids 1..65,535, each uid 64
+   targets drawn uniformly (seed 61) from the uids of its own 128-block
+   and the two beside it, duplicates and self-loops dropped (about 3.86
+   million edges in some 1,534 stored 128×128 blocks: tiles about
+   128 MiB, a mask 65,536 lanes).  Every kernel's launch count is set to
+   0, then four queries from seeds of ``default_rng(67)``, each served
+   12 times a route over HTTP with ``?debug=true``, the routes
+   alternating request by request — ``DGRAPH_TPU_MXU_JOIN`` 1 (the tile
+   route) and 0 (the gather tier: the fused chain for m1 and m2; level by
+   level for the triangles, whose ``uid(w)`` filter the chain cannot
+   fuse): (m1) a var-block 2-hop count from
+   1,024 seeds, (m2) a var-block 3-hop count from 256 seeds, (m3) the
+   triangle from 1,024 seeds (``w as ~friend``, then ``friend { t as
+   friend @filter(uid(w)) }``) and (m4) the same triangle closed by
+   ``uid(w) AND has(friend)`` (its AND launches the intersect kernel).
+   Every body must equal a host-route engine's; each route-1 request
+   must record exactly one ``mxu`` decision (``chain`` for m1 and m2,
+   ``triangle`` for m3 and m4) and ``mxu_join_ms > 0``.  Then a mutation
+   adds 64 ``friend`` edges inside stored blocks and deletes 64; (m1)
+   again must equal the host route, with the tiles repaired in place
+   (``IVM_REPAIRS{tile,repaired}`` up by one, no tile build).  The
+   counts are read right after.  Then, launching none of the kernels:
+   ``expand_mask_batch`` and ``triangle_mask_batch`` on the card against
+   the same calls on the CPU at bench_ops.py's shape (512 nodes, 32,768
+   edges, 48 roots, B 64), and ``run_mask_chain`` at (m1)'s shape timed
+   (``mask_chain_timing``: CUDA events per call, 30 back-to-back calls,
+   device ms of every op by name) beside its bytes bound (the stored
+   tiles read once a level and the masks, at 3.35 TB/s).
+14. dense — the same generated edges as a dense CSR arena on cuda in the
    skey-grouped inline-head layout; 1000 query frontiers of 4096 drawn
    seeds (bench.py's draw, seed 3) and the pipeline's capacity plan.
-14. slotmap kernels — the slot-map kernel against its plain version on
+15. slotmap kernels — the slot-map kernel against its plain version on
    the card, exactly: the pipeline's real (cs, cd) at both hops of one
    200-query chunk, random grouped batches, totals at block boundaries,
    zero-cd rows between productive ones, truncation at capc, an
@@ -142,7 +172,7 @@ Phases, each fatal (exit code 1, no result line):
    pcap of three shared-memory tiles plus one row, one row owning more
    slots than capc, Q 1, Q 20,000 at pcap 64, totals and capc at tile
    boundaries.
-15. batched 2-hop — every kernel's launch count is set to 0, then the
+16. batched 2-hop — every kernel's launch count is set to 0, then the
    device-dedup batched 2-hop (``bench2hop.run_device_dedup``) runs the
    1000 queries in chunks of 200 (a warm pass, then best of 4); every
    query's edge count and checksum and the last query's set must equal
@@ -150,7 +180,7 @@ Phases, each fatal (exit code 1, no result line):
    twice per chunk in every pass plus twice for the last set.  The counts
    are read right after.  Edges/s, the numpy baseline and the caps are
    printed.
-16. report — the device time of one 200-query chunk by stage (hop 1,
+17. report — the device time of one 200-query chunk by stage (hop 1,
    dedup, hop 2, checksum; CUDA events); one pass of the 1000 queries
    under ``torch.profiler``: the card's busy time (the union of its
    kernel and copy intervals) over the pass's host wall time, and device
@@ -175,7 +205,8 @@ Exits non-zero without a CUDA GPU, or when the package is not beside it.
 
 ``python3 chip_smoke.py --serving-only`` runs phases 1-3, the names of
 phase 5 and phase 12 alone (the serving plane on the caches' first
-use).  ``python3 chip_smoke.py --gather-only`` runs phases 1-3 and the
+use).  ``python3 chip_smoke.py --mxu-only`` runs phase 1 and phase 13
+alone (the tile join tier on its own graph, about a minute).  ``python3 chip_smoke.py --gather-only`` runs phases 1-3 and the
 gather's timing line alone.  It goes through wrapper calls only, so an older tree
 with this script and ``tests/torch_cases.py`` copied in runs it too: that
 is how two trees' gathers are compared in one call.
@@ -234,15 +265,23 @@ CHAIN_REPEATS, CHAIN_REPEATS_BULKY, CHAIN_P99_MIN = 24, 3, 20
 # the seed of the mix's draws
 SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_ROUNDS, SERVE_SEED = 16, 8, 1, 59
 
+# the tile join tier: its graph (uids, targets a uid, seed), the seeds'
+# seed, requests a route, and the draws of its ops check (bench_ops.py's
+# triangle shape: nodes, edges, roots a set, sets)
+MXU_UIDS, MXU_FANOUT, MXU_GRAPH_SEED, MXU_SEED = 65_535, 64, 61, 67
+MXU_REPEATS, MXU_DELTA = 12, 64
+TRI_NODES, TRI_EDGES, TRI_ROOTS, TRI_B = 512, 32_768, 48, 64
+
 # kernels: (name, wrapper module, TPU kernel it replaces, paths that run it)
 KERNELS = [
     ("gather_packed", "dgraph_tpu_torch.ops.gather",
      "dgraph_tpu/ops/pallas_gather.py:48",
-     ("main_path", "query_surface", "chain", "serving_plane")),
+     ("main_path", "query_surface", "chain", "serving_plane", "mxu_join")),
     ("slotmap", "dgraph_tpu_torch.ops.slotmap",
      "dgraph_tpu/ops/pallas_slotmap.py:46", ("batched_2hop",)),
     ("intersect", "dgraph_tpu_torch.ops.kway",
-     "dgraph_tpu/ops/pallas_intersect.py:35", ("join_path", "chain", "serving_plane")),
+     "dgraph_tpu/ops/pallas_intersect.py:35",
+     ("join_path", "chain", "serving_plane", "mxu_join")),
 ]
 
 
@@ -1492,7 +1531,344 @@ def phase_serving_plane(store, srv, card: str) -> dict:
     return out
 
 
-# -- phases 13-15: the batched 2-hop -----------------------------------------
+# -- phase 13: the tile join tier ----------------------------------------------
+
+
+def mxu_graph():
+    """Phase 13's community graph: each uid of 1..MXU_UIDS takes
+    MXU_FANOUT targets drawn uniformly from the uids of its own 128-block
+    and the two beside it (clipped to the range); duplicates and
+    self-loops dropped.  Returns (src, dst), sorted unique."""
+    rng = np.random.default_rng(MXU_GRAPH_SEED)
+    u = np.repeat(np.arange(1, MXU_UIDS + 1, dtype=np.int64), MXU_FANOUT)
+    b = u // 128
+    lo = np.maximum((b - 1) * 128, 1)
+    hi = np.minimum((b + 2) * 128, MXU_UIDS + 1)
+    v = lo + (rng.random(len(u)) * (hi - lo)).astype(np.int64)
+    keys = np.unique((u << 20) | v)
+    src, dst = keys >> 20, keys & ((1 << 20) - 1)
+    keep = src != dst
+    return src[keep], dst[keep]
+
+
+def mxu_queries(rng) -> list:
+    """(name, query text, decision shape) of phase 13."""
+    s1, s2, s3 = (np.unique(rng.integers(1, MXU_UIDS + 1, size=k))
+                  for k in (1024, 256, 1024))
+    tri = ("{ var(func: uid(%s)) { w as ~friend } "
+           "var(func: uid(%s)) { friend { t as friend @filter(%s) } } "
+           "q(func: uid(t)) { count() } }")
+    return [
+        ("m1_varblock_2hop_count",
+         "{ var(func: uid(%s)) { friend { f as friend } } "
+         "q(func: uid(f)) { count() } }" % uid_list(s1), "chain"),
+        ("m2_varblock_3hop_count",
+         "{ var(func: uid(%s)) { friend { friend { f as friend } } } "
+         "q(func: uid(f)) { count() } }" % uid_list(s2), "chain"),
+        ("m3_triangle", tri % (uid_list(s3), uid_list(s3), "uid(w)"), "triangle"),
+        ("m4_triangle_and", tri % (uid_list(s3), uid_list(s3),
+                                   "uid(w) AND has(friend)"), "triangle"),
+    ]
+
+
+@contextlib.contextmanager
+def mxu_mode(mode: str):
+    """DGRAPH_TPU_MXU_JOIN for the requests sent inside (read per call)."""
+    old = os.environ.get("DGRAPH_TPU_MXU_JOIN")
+    os.environ["DGRAPH_TPU_MXU_JOIN"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("DGRAPH_TPU_MXU_JOIN", None)
+        else:
+            os.environ["DGRAPH_TPU_MXU_JOIN"] = old
+
+
+def serve_mxu(srv, name: str, q: str, want: str, shape: str) -> dict:
+    """Serve ``q`` MXU_REPEATS times a route, routes 1 and 0 alternating
+    request by request, every request with ``?debug=true``: each body is
+    held against ``want``, each route-1 request's stats must hold one
+    ``mxu`` decision of ``shape`` and ``mxu_join_ms > 0``."""
+    from dgraph_tpu_torch.ops import gather, kway
+
+    lat = {"1": [], "0": []}
+    launches = {"1": [0, 0], "0": [0, 0]}
+    stats = {"1": [], "0": []}
+    for _ in range(MXU_REPEATS):
+        for mode in ("1", "0"):
+            n0 = (gather.KERNEL.launches, kway.KERNEL.launches)
+            with mxu_mode(mode):
+                status, raw, secs = post(srv.addr, q, "?debug=true")
+            n1 = (gather.KERNEL.launches, kway.KERNEL.launches)
+            check(status == 200, f"{name} (mxu {mode}): HTTP {status}: {raw[:300]!r}")
+            check(strip_latency(raw) == want,
+                  f"{name} (mxu {mode}): body differs from the host route")
+            eng = json.loads(raw)["server_latency"]["engine"]
+            routes = eng.get("join_routes", [])
+            if mode == "1":
+                check(len(routes) == 1 and routes[0]["route"] == "mxu"
+                      and routes[0]["shape"] == shape and eng["mxu_join_ms"] > 0,
+                      f"{name}: route 1 took {routes} (mxu_join_ms "
+                      f"{eng['mxu_join_ms']}, rejects {eng['chain_reject']})")
+            else:
+                check(not routes and eng["mxu_join_ms"] == 0,
+                      f"{name}: route 0 still reached the tile tier: {routes}")
+            lat[mode].append(secs * 1e3)
+            launches[mode] = [c + y - x for c, x, y in zip(launches[mode], n0, n1)]
+            stats[mode].append(eng)
+    out = {}
+    for mode, key in (("1", "mxu"), ("0", "gather")):
+        ms, st = lat[mode], stats[mode]
+        out[key] = {
+            "requests": len(ms), "min_ms": min(ms),
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "max_ms": max(ms),
+            "gather_launches_per_query": launches[mode][0] / MXU_REPEATS,
+            "intersect_launches_per_query": launches[mode][1] / MXU_REPEATS,
+            "mxu_join_ms_p50": float(np.median([e["mxu_join_ms"] for e in st])),
+            "tile_build_ms_first": st[0]["tile_build_ms"],
+            "tile_build_ms_p50": float(np.median([e["tile_build_ms"] for e in st])),
+            "chain_ms_p50": float(np.median([e["chain_ms"] for e in st])),
+            "chain_fused_levels": st[0]["chain_fused_levels"],
+            "fused_gathers": st[0]["fused_gathers"],
+            "kway_device": st[0]["kway_device"],
+            "decision": (st[0].get("join_routes") or [None])[0],
+        }
+    return out
+
+
+def mxu_mutation(arena, rng) -> tuple:
+    """MXU_DELTA new ``friend`` edges inside stored blocks (a target in the
+    source's own 128-block that it lacks) and MXU_DELTA existing ones to
+    delete, as one mutation's text."""
+    h_dst = arena.host_dst()
+    adds, dels = [], []
+    rows = rng.choice(arena.n_rows, size=4 * MXU_DELTA, replace=False)
+    for r in rows.tolist():
+        u = int(arena.h_src[r])
+        out = h_dst[arena.h_offsets[r]:arena.h_offsets[r + 1]]
+        have = set(out.tolist())
+        base = (u // 128) * 128
+        for v in range(max(base, 1), min(base + 128, MXU_UIDS + 1)):
+            if v != u and v not in have:
+                if len(adds) < MXU_DELTA:
+                    adds.append((u, v))
+                break
+        if len(dels) < MXU_DELTA and len(out):
+            dels.append((u, int(out[0])))
+    check(len(adds) == MXU_DELTA and len(dels) == MXU_DELTA,
+          "phase mxu_join: could not draw the mutation")
+    fmt = lambda es: " ".join("<0x%x> <friend> <0x%x> ." % e for e in es)  # noqa: E731
+    return "mutation { set { %s } delete { %s } }" % (fmt(adds), fmt(dels)), adds, dels
+
+
+def phase_mxu_join(card: str, served_done) -> dict:
+    """Phase 13 on a server of its own, stopped at the end.  The caller
+    zeroes the launch counts just before; ``served_done()`` reads them
+    right after the served queries and the mutation, before the ops
+    check and the timing (which launch none of the kernels)."""
+    from dgraph_tpu_torch.models import PostingStore
+    from dgraph_tpu_torch.serve.server import DgraphServer
+
+    t0 = time.perf_counter()
+    src, dst = mxu_graph()
+    store = PostingStore()
+    store.apply_schema("friend: uid @reverse .")
+    store.bulk_set_uid_edges("friend", src, dst)
+    srv = DgraphServer(store, device="cuda")
+    srv.start()
+    try:
+        rows, queries = _serve_mxu_phase(srv, store, card, t0)
+        served_done()
+        ops_check = mxu_ops_check()
+        log(dict(phase="spgemm_ops", **ops_check))
+        timing = mask_chain_timing(srv, queries)
+        log(dict(phase="mask_chain_timing", card=card, **timing))
+    finally:
+        srv.stop()
+    return {"rows": rows, "spgemm_ops": ops_check, "mask_chain_timing": timing}
+
+
+def _serve_mxu_phase(srv, store, card: str, t0: float):
+    """Phase 13's config line, its four queries by route and the write;
+    returns (the rows, the queries)."""
+    from dgraph_tpu_torch.ops import spgemm
+    from dgraph_tpu_torch.utils.metrics import IVM_REPAIRS, JOIN_TILE_BUILDS
+
+    eng = srv.engine
+    # every repeat executes: no result or hop cache in front
+    eng.arenas.hop_cache = None
+    srv.scheduler.result_cache = None
+    # (m4)'s AND goes to the intersect kernel whatever its size
+    eng.arenas.kway_device_min = 1
+    arena = eng.arenas.data("friend")
+    eng.arenas.reverse("friend")
+    k, uni = arena.tile_blocks()
+    t = spgemm.tile_size()
+    config = {"uids": MXU_UIDS, "edges": arena.n_edges, "source_rows": arena.n_rows,
+              "tile": t, "stored_blocks": k, "universe": uni,
+              "tile_bytes": spgemm.est_tile_bytes(k, t),
+              "tile_budget": spgemm.tile_budget(),
+              "mask_lanes": spgemm.mask_lanes(uni, t),
+              "one_hot_bytes_reference": spgemm.bucket(max(1, k))
+              * (spgemm.mask_lanes(uni, t) // t) * 4,
+              "load_s": time.perf_counter() - t0}
+    check(k >= 1 and config["tile_bytes"] <= config["tile_budget"],
+          f"phase mxu_join: the tiles do not fit the budget: {config}")
+    log(dict(phase="mxu_join_config", **config))
+    ref = host_engine(store)
+    rows = {}
+    queries = mxu_queries(np.random.default_rng(MXU_SEED))
+    for name, q, shape in queries:
+        want = json.dumps(ref.run(q))
+        row = {"query": name, "seeds": q.split(")")[0].count("0x"), "card": card,
+               "count": json.loads(want)["q"][0]["count"]}
+        row.update(serve_mxu(srv, name, q, want, shape))
+        check(row["mxu"]["gather_launches_per_query"] == 0,
+              f"{name}: the tile route launched the gather")
+        check(row["gather"]["gather_launches_per_query"] >= 1,
+              f"{name}: the gather tier launched no gather")
+        if name.startswith("m4"):
+            check(row["mxu"]["intersect_launches_per_query"] >= 1,
+                  f"{name}: the keep-set AND did not launch the intersect kernel")
+        rows[name] = row
+        log(dict(phase="mxu_join", **row))
+    # the mutation: the tiles must be repaired in place, not rebuilt
+    text, adds, dels = mxu_mutation(arena, np.random.default_rng(MXU_SEED + 1))
+    rep0 = IVM_REPAIRS.snapshot().get(("tile", "repaired"), 0)
+    builds0 = JOIN_TILE_BUILDS.value()
+    status, raw, _secs = post(srv.addr, text)
+    check(status == 200, f"phase mxu_join mutation: HTTP {status}: {raw[:300]!r}")
+    # served first: the served arenas take the store's journal of the
+    # write; a host-route engine built after it reads the store afresh
+    served = {}
+    for name, q, _shape in queries[:2]:
+        with mxu_mode("1"):
+            status, raw, secs = post(srv.addr, q, "?debug=true")
+        check(status == 200, f"{name} after the mutation: HTTP {status}")
+        served[name] = (raw, secs)
+    rep1 = IVM_REPAIRS.snapshot().get(("tile", "repaired"), 0)
+    builds1 = JOIN_TILE_BUILDS.value()
+    ref = host_engine(store)
+    after = {"adds": len(adds), "dels": len(dels), "tile_repairs": rep1 - rep0,
+             "tile_builds": builds1 - builds0}
+    for name, q, _shape in queries[:2]:
+        raw, secs = served[name]
+        want = json.dumps(ref.run(q))
+        check(strip_latency(raw) == want,
+              f"{name} after the mutation: body differs from the host route")
+        eng_st = json.loads(raw)["server_latency"]["engine"]
+        check([d["route"] for d in eng_st.get("join_routes", [])] == ["mxu"],
+              f"{name} after the mutation did not take the tile route")
+        after[name] = {"ms": secs * 1e3, "mxu_join_ms": eng_st["mxu_join_ms"],
+                       "tile_build_ms": eng_st["tile_build_ms"],
+                       "count": json.loads(want)["q"][0]["count"]}
+    check(rep1 == rep0 + 1 and builds1 == builds0,
+          f"the mutation's tiles: {rep1 - rep0} repairs, "
+          f"{builds1 - builds0} builds (want 1, 0)")
+    # the repaired tiles equal a fresh build over the post-delta CSR
+    arena = eng.arenas.data("friend")
+    pt = arena.tiles()
+    fresh = spgemm.build_tiles(arena.h_src, arena.h_offsets, arena.host_dst(),
+                               device=pt.tiles.device)
+    check(all(bool((getattr(pt, f) == getattr(fresh, f)).all())
+              for f in ("bi", "bj", "tiles", "degs")),
+          "the repaired tiles differ from a fresh build")
+    rows["after_mutation"] = after
+    log(dict(phase="mxu_join_mutation", **rows["after_mutation"]))
+    return rows, queries
+
+
+def tri_graph(seed: int):
+    """bench.py's generator at bench_ops.py's triangle shape (its seed)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(1, TRI_NODES + 1, size=TRI_EDGES)
+    pop = rng.pareto(1.2, size=TRI_EDGES).astype(np.float64) + 1.0
+    dst = (np.clip(pop / pop.max(), 1e-9, 1.0) * (TRI_NODES - 1)).astype(np.int64) + 1
+    half = TRI_EDGES // 2
+    dst[:half] = rng.integers(1, TRI_NODES + 1, size=half)
+    return src, dst
+
+
+def mxu_ops_check() -> dict:
+    """expand_mask_batch and triangle_mask_batch on the card against the
+    same calls on the CPU (masks equal) at bench_ops.py's shape."""
+    import torch
+
+    from dgraph_tpu_torch.models.arena import csr_from_edges
+    from dgraph_tpu_torch.ops import spgemm
+
+    built = {}
+    for dev in ("cpu", "cuda"):
+        pts = []
+        for seed in (5, 6):
+            a = csr_from_edges(*tri_graph(seed), "cpu")
+            pts.append(spgemm.build_tiles(a.h_src, a.h_offsets, a.host_dst(),
+                                          device=dev))
+        built[dev] = pts
+    pt, pr = built["cpu"]
+    m = spgemm.mask_lanes(max(pt.universe, pr.universe))
+    rng = np.random.default_rng(17)
+    xm = np.zeros((TRI_B, m), np.float32)
+    for i in range(TRI_B):
+        xm[i, np.unique(rng.integers(1, TRI_NODES, size=TRI_ROOTS))] = 1.0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        a, r = built[dev]
+        x = torch.from_numpy(xm).to(dev)
+        exp = spgemm.expand_mask_batch(a.bi, a.bj, a.tiles, x)
+        tri = spgemm.triangle_mask_batch(a.bi, a.bj, a.tiles, a.bi, a.bj, a.tiles,
+                                         r.bi, r.bj, r.tiles, x)
+        out[dev] = (exp.cpu(), tri.cpu())
+    for g, w, what in zip(out["cuda"], out["cpu"], ("expand_mask_batch",
+                                                     "triangle_mask_batch")):
+        check(torch.equal(g, w), f"spgemm_ops: {what} on the card differs from the CPU")
+    res = {"nodes": TRI_NODES, "edges": TRI_EDGES, "roots": TRI_ROOTS, "B": TRI_B,
+           "mask_lanes": m, "tiles": [pt.n_tiles, pr.n_tiles],
+           "expand_ones": int(out["cpu"][0].sum()),
+           "triangle_ones": int(out["cpu"][1].sum()), "equal": True}
+    check(res["expand_ones"] > 0 and res["triangle_ones"] > 0,
+          "spgemm_ops: the check's masks are empty")
+    return res
+
+
+def mask_chain_timing(srv, queries) -> dict:
+    """run_mask_chain at (m1)'s shape (the served tiles, (m1)'s seeds, two
+    levels, no keep) three ways, beside its bound: the bytes the chain
+    must move (the K stored tiles read once a level, each level's input
+    and output mask) and its float32 operations (2·T·T a stored tile a
+    level) at the card's peaks."""
+    import torch
+
+    from dgraph_tpu_torch.ops import spgemm
+
+    arena = srv.engine.arenas.data("friend")
+    pt = arena.tiles()
+    _name, q, _shape = queries[0]
+    seeds = np.array([int(x, 16) for x in q.split("uid(")[1].split(")")[0].split(", ")])
+    m = spgemm.mask_lanes(pt.universe, pt.t)
+    x0 = spgemm.uids_to_mask(torch.from_numpy(seeds.astype(np.int32)).cuda(), m)
+    levels = 2
+    ops_ = ((pt.bi, pt.bj, pt.tiles),) * levels
+
+    def call():
+        return spgemm.run_mask_chain(ops_, (None,) * levels, (pt.degs,) * levels, x0)
+
+    t = kernel_times(call)
+    bytes_ = levels * (pt.n_tiles * pt.t * pt.t * 4 + 2 * m * 4)
+    flops = levels * pt.n_tiles * pt.t * pt.t * 2
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / 67e12 * 1e3  # float32 outside the tensor cores
+    return {**t, "levels": levels, "stored_tiles": pt.n_tiles,
+            "padded_tiles": int(pt.tiles.shape[0]), "mask_lanes": m,
+            "seeds": len(seeds), "bytes": bytes_, "flops": flops,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
+
+# -- phases 14-16: the batched 2-hop -----------------------------------------
 
 
 def _sync(dev) -> None:
@@ -1928,6 +2304,7 @@ def gather_timing(arena, rng) -> dict:
 def main(argv) -> int:
     gather_only = "--gather-only" in argv
     serving_only = "--serving-only" in argv
+    mxu_only = "--mxu-only" in argv
     try:
         import torch
     except ImportError:
@@ -1953,9 +2330,32 @@ def main(argv) -> int:
         t_phase[0] = time.perf_counter()
         return name
 
+    wrappers = {}
+    launches = {}
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.KERNEL.launches = 0
+
+    def read_counts(path):
+        counts = {n: w.KERNEL.launches for n, w in wrappers.items()}
+        for n, _m, _r, paths in KERNELS:
+            if path in paths:
+                check(counts[n] > 0, f"kernel {n} was not launched on {path}")
+                launches.setdefault(n, {})[path] = counts[n]
+
     try:
         t_start = time.perf_counter()
         info = phase_build()
+        wrappers.update(
+            (n, importlib.import_module(m)) for n, m, _r, _p in KERNELS)
+        if mxu_only:
+            phase = mark("mxu_join")
+            zero_counts()
+            phase_mxu_join(info["nvidia_smi"], lambda: read_counts("mxu_join"))
+            mark("done")
+            log({"phase_seconds": phase_s, "launches": launches})
+            return 0
         phase = mark("graph")
         store, srv, (src, dst) = phase_graph("cuda", N_NODES, N_EDGES)
         arena = srv.engine.arenas.data("e")
@@ -1974,20 +2374,6 @@ def main(argv) -> int:
             mark("done")
             log({"phase_seconds": phase_s})
             return 0
-        wrappers = {n: importlib.import_module(m) for n, m, _r, _p in KERNELS}
-        launches = {}
-
-        def zero_counts():
-            for w in wrappers.values():
-                w.KERNEL.launches = 0
-
-        def read_counts(path):
-            counts = {n: w.KERNEL.launches for n, w in wrappers.items()}
-            for n, _m, _r, paths in KERNELS:
-                if path in paths:
-                    check(counts[n] > 0, f"kernel {n} was not launched on {path}")
-                    launches.setdefault(n, {})[path] = counts[n]
-
         # phases 4-11 run with both query caches detached: their repeats
         # must execute for their launch checks
         caches = contextlib.ExitStack()
@@ -2034,6 +2420,9 @@ def main(argv) -> int:
         zero_counts()
         serving = phase_serving_plane(store, srv, info["nvidia_smi"])
         read_counts("serving_plane")
+        phase = mark("mxu_join")
+        zero_counts()
+        mxu = phase_mxu_join(info["nvidia_smi"], lambda: read_counts("mxu_join"))
         phase = mark("dense")
         dense, frontiers, fcap, plan = phase_dense("cuda", src, dst, N_NODES)
         del src, dst
@@ -2113,6 +2502,15 @@ def main(argv) -> int:
                  "requests_per_s_scheduled", "requests_per_s_serial",
                  "p50_ms_scheduled", "p50_ms_serial", "p99_ms_scheduled",
                  "p99_ms_serial", "busy_share_scheduled", "busy_share_serial")},
+             "mxu_join": {
+                 **{n: {route: {k: r[route][k] for k in (
+                     "p50_ms", "p99_ms", "mxu_join_ms_p50", "tile_build_ms_first",
+                     "gather_launches_per_query", "intersect_launches_per_query")}
+                     for route in ("mxu", "gather")}
+                    for n, r in mxu["rows"].items() if n != "after_mutation"},
+                 "after_mutation": mxu["rows"]["after_mutation"],
+                 "mask_chain": {k: mxu["mask_chain_timing"][k] for k in (
+                     "ms", "b2b_ms", "device_ms", "bound_ms", "bound_by")}},
              "batched_2hop": {k: batched[k] for k in (
                  "queries", "edges", "edges_per_s", "numpy_edges_per_s",
                  "vs_baseline", "chunk_q", "caps")}})

@@ -10,9 +10,9 @@ both cache tiers (cache/hop.py, cache/result.py) share:
   (ivm/versions.py), the store's global mutation ``version`` under
   ``DGRAPH_TPU_IVM=0``.  A probe carries the *current* version; an
   entry recorded under any older version can never match, so
-  invalidation is O(1): no flush stall, no lockstep with writers.  The
-  reference's in-place repair of entries (``repair_where``,
-  ``rekey_where``) is not ported yet.
+  invalidation is O(1): no flush stall, no lockstep with writers.
+  ``repair_where`` lets the IVM layer transform-and-re-key entries a
+  delta can fix in place.
 
 - **Generation sweeping.**  Dead-version entries still occupy budget
   until reclaimed.  Rather than a stop-the-world flush (a latency
@@ -39,7 +39,7 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 
 def cache_enabled() -> bool:
@@ -169,6 +169,70 @@ class VersionedLFUCache:
             for _ in range(evicted):
                 hook("evicted", None)
         return True
+
+    def repair_where(
+        self,
+        pred: Callable[[object], bool],
+        old_version: int,
+        new_version: int,
+        fix: Callable,
+    ) -> Tuple[int, int]:
+        """IVM delta repair (dgraph_tpu/ivm/): for every entry whose KEY
+        satisfies ``pred``, entries recorded at exactly ``old_version``
+        are transformed by ``fix(value) -> (new_value, nbytes) | None``
+        and RE-KEYED to ``new_version`` (heat and age preserved — the
+        repaired entry IS the same logical entry); entries at any other
+        version, and entries ``fix`` declines, are dropped.  Returns
+        (repaired, dropped).
+
+        ``fix`` runs under the tier lock — callers gate repair to small
+        deltas (query/planner.py repair_route), so the hold is bounded
+        the same way the eviction scan is."""
+        repaired = dropped = 0
+        with self._lock:
+            for k in [k for k in self._m if pred(k)]:
+                e = self._m[k]
+                out = None
+                if e.version == old_version:
+                    out = fix(e.value)
+                if out is None:
+                    del self._m[k]
+                    self._bytes -= e.nbytes
+                    dropped += 1
+                    continue
+                value, nbytes = out
+                self._bytes += int(nbytes) - e.nbytes
+                e.value = value
+                e.nbytes = int(nbytes)
+                e.version = new_version
+                repaired += 1
+        return repaired, dropped
+
+    def rekey_where(
+        self,
+        pred: Callable[[object], bool],
+        keyfn: Callable[[object], object],
+    ) -> int:
+        """Move every entry whose KEY satisfies ``pred`` to
+        ``keyfn(key)``, preserving value/version/heat/age (the moved
+        entry IS the same logical entry — used by the arena-epoch flip,
+        which changes WHERE a hop result is keyed, not whether it is
+        still correct).  A collision with an existing destination key
+        keeps the moved entry (the mover has strictly fresher context).
+        Returns how many entries moved."""
+        moved = 0
+        with self._lock:
+            for k in [k for k in self._m if pred(k)]:
+                nk = keyfn(k)
+                if nk == k:
+                    continue
+                e = self._m.pop(k)
+                old = self._m.get(nk)
+                if old is not None:
+                    self._bytes -= old.nbytes
+                self._m[nk] = e
+                moved += 1
+        return moved
 
     def drop_where(self, pred: Callable[[object], bool]) -> int:
         """Remove every entry whose KEY satisfies ``pred`` (explicit

@@ -1,5 +1,5 @@
 """Tier 1: hop-expansion memoization at the DeviceExpander seam (copy of
-``dgraph_tpu/cache/hop.py`` without the in-place delta repair).
+``dgraph_tpu/cache/hop.py``).
 
 The engine's per-level expansion — ``(arena, predicate, direction,
 frontier) → (out_flat, seg_ptr)`` — is deterministic over an immutable
@@ -13,11 +13,13 @@ device work: no gather launch, no host<->device copy.
 The version is the PREDICATE's last-mutation version
 (ivm/versions.py::hop_version — the global ``store.version`` under
 ``DGRAPH_TPU_IVM=0``), so writes to other predicates never touch this
-tier's entries.  A write to the entry's own predicate makes it stale;
-the reference's in-place repair of such entries is not ported yet, so
-``ArenaManager`` drops every entry of an arena a delta patched
-(``drop_stale_epoch``) and of an arena it evicts or rebuilds
-(``drop_arena``), so an id()-keyed entry never outlives its arena.
+tier's entries.  A small delta to the entry's own predicate REPAIRS it
+in place (``repair_pred``, driven by ``ArenaManager._try_apply_delta``
+under the repair-vs-rebuild gate) — the entry carries its frontier for
+exactly this purpose; an entry the repair cannot carry to the arena's
+new epoch is dropped (``drop_stale_epoch``), as is every entry of an
+arena the manager evicts or rebuilds (``drop_arena``), so an id()-keyed
+entry never outlives its arena.
 
 Entries hold host numpy arrays — the one fetch every device route
 already makes — never device tensors: a hit pays no device interaction
@@ -129,24 +131,85 @@ class HopCache:
     ) -> None:
         if key is None:
             key = self.key_for(arena, attr, reverse, src)
-        # the reference keeps the frontier beside the expansion for its
-        # delta repair; its bytes are charged here too, so both tiers
-        # admit and evict the same entries
+        # the FRONTIER rides in the entry beside the expansion: delta
+        # repair (repair_pred below) must know which rows an edge delta
+        # touches, and the digest in the key is one-way.  Its bytes are
+        # charged to the budget like the payload's.
         frontier = np.ascontiguousarray(src, dtype=np.int64)
         nbytes = (
             int(out.nbytes) + int(seg_ptr.nbytes) + int(frontier.nbytes) + 64
         )
-        self._c.put(key, version, (out, seg_ptr), nbytes)
+        self._c.put(key, version, (out, seg_ptr, frontier), nbytes)
         # admissions and sweeps change occupancy without a get-event
         QCACHE_HOP_BYTES.set(self._c.occupancy_bytes)
+
+    # -- delta repair (ivm/repair.py) -----------------------------------------
+
+    def repair_pred(
+        self,
+        arena_id: int,
+        attr: str,
+        reverse: bool,
+        adds: np.ndarray,
+        dels: np.ndarray,
+        old_version: int,
+        new_version: int,
+        old_epoch: int = 0,
+        new_epoch: int = 0,
+    ):
+        """Apply a predicate's edge deltas to every cached entry for
+        ``(arena_id, attr, reverse)`` recorded at ``old_version``,
+        re-keying survivors to ``new_version`` — entries the delta
+        cannot repair (or that sit at any other version) drop.  Called
+        from ``ArenaManager._try_apply_delta`` after the arena's own
+        host mirrors were updated, under the repair cost gate
+        (query/planner.py).  Returns (repaired, dropped).
+
+        ``old_epoch → new_epoch``: the delta that drives this repair
+        also bumped the arena's epoch (a key element), so entries at the
+        pre-delta epoch are MOVED to the post-delta key first — otherwise
+        the value repair would strand them at a key no probe can ever
+        form again.  The defaults (0, 0) move nothing."""
+        from dgraph_tpu_torch.ivm.repair import repair_hop_entry
+
+        def match(k):
+            return k[0] == arena_id and k[1] == attr and k[2] == bool(reverse)
+
+        if new_epoch != old_epoch:
+            self._c.rekey_where(
+                lambda k: match(k) and k[3] == old_epoch,
+                lambda k: k[:3] + (new_epoch,) + k[4:],
+            )
+
+        def fix(value):
+            out, seg_ptr, frontier = value
+            fixed = repair_hop_entry(out, seg_ptr, frontier, adds, dels)
+            if fixed is None:
+                return None
+            out2, seg2 = fixed
+            nbytes = (
+                int(out2.nbytes) + int(seg2.nbytes)
+                + int(frontier.nbytes) + 64
+            )
+            return (out2, seg2, frontier), nbytes
+
+        res = self._c.repair_where(
+            match,
+            old_version,
+            new_version,
+            fix,
+        )
+        QCACHE_HOP_BYTES.set(self._c.occupancy_bytes)
+        return res
 
     # -- invalidation --------------------------------------------------------
 
     def drop_stale_epoch(self, arena_id: int, epoch: int) -> int:
         """Drop every entry for ``arena_id`` NOT keyed at ``epoch`` —
-        the post-delta sweep (``ArenaManager._try_apply_delta``): such
-        an entry describes a snapshot that no longer exists, and must
-        not squat in the budget waiting for its generation sweep."""
+        the post-delta sweep (``ArenaManager._try_apply_delta``): any
+        entry the repair pass did not carry forward describes a snapshot
+        that no longer exists, and must not squat in the budget waiting
+        for its generation sweep."""
         n = self._c.drop_where(
             lambda k: k[0] == arena_id and k[3] != epoch
         )

@@ -22,13 +22,19 @@ planning —
   ``topm_deg_cumsum``): the dense uid->row table on the device and the
   host bounds the fused chain (``query/chain.py``) plans capacities
   with; all three are dropped by every applied delta.
+- **join tier** (``CSRArena.tiles``, ``tile_blocks``,
+  ``degree_histogram``): the adjacency as blocked boolean tiles on the
+  device (``ops/spgemm.py``), their block count, and the log2 degree
+  histogram the join planner reads for skew.
 
 Arenas are rebuilt per dirty predicate from the host store, or patched
-in place from the store's delta journal (``ArenaManager.refresh``).  The
-manager owns the tier-1 hop cache (``cache/hop.py``) and drops an
-arena's entries when a delta patches it or the arena is evicted or
-rebuilt.  Not ported yet: the chunked layout, MXU tiles, IVM repair of
-hop-cache entries and mesh sharding.
+in place from the store's delta journal (``ArenaManager.refresh``).  A
+patch repairs what it can in place (IVM): the degree histogram always,
+the tiles and the tier-1 hop-cache entries (``cache/hop.py``) behind one
+repair-vs-rebuild gate (``_ivm_repair_gate``); what is not repaired is
+dropped.  The manager drops an arena's hop-cache entries when the arena
+is evicted or rebuilt.  Not ported yet: the chunked layout and mesh
+sharding.
 """
 
 from __future__ import annotations
@@ -48,8 +54,15 @@ from dgraph_tpu_torch.device import resolve
 from dgraph_tpu_torch.models.store import PostingStore
 from dgraph_tpu_torch.models.types import numeric
 from dgraph_tpu_torch.obs import ledger as _ledger
+from dgraph_tpu_torch.ops import spgemm
 from dgraph_tpu_torch.ops.sets import SENT
 from dgraph_tpu_torch.utils import planconfig
+from dgraph_tpu_torch.utils.metrics import (
+    IVM_REPAIR_EDGES,
+    IVM_REPAIRS,
+    JOIN_TILE_BUILDS,
+    JOIN_TILE_BYTES,
+)
 
 # Shared lock for the lazy resident build and for host-mirror deltas
 # (a build that sampled the mirrors pre-delta must not cache a torn view).
@@ -128,6 +141,8 @@ class CSRArena:
                 n += sum(_nbytes(t) for t in pair)
         if self._resident is not None:
             n += self._resident.device_bytes()
+        if self._tiles is not None:
+            n += self._tiles.device_bytes()
         return n
 
     def rows_for_uids_host(self, uids: np.ndarray) -> np.ndarray:
@@ -178,6 +193,103 @@ class CSRArena:
             deg = np.sort(self.h_offsets[1:] - self.h_offsets[:-1])[::-1]
             self._topm_deg = np.concatenate([[0], np.cumsum(deg)])
         return self._topm_deg
+
+    # -- join tier (ops/spgemm.py) --------------------------------------------
+
+    _tiles: Optional[spgemm.PredTiles] = None  # lazy blocked adjacency
+    _tile_blocks: Optional[tuple] = None      # (t, block count, universe)
+    _deg_hist: Optional[np.ndarray] = None
+
+    def tile_blocks(self) -> Tuple[int, int]:
+        """(non-empty adjacency block count, universe) at the current
+        tile size: the join planner's byte estimate, without building
+        the tiles (one O(E) unique pass, cached per tile size until the
+        next applied delta)."""
+        t = spgemm.tile_size()
+        cached = self._tile_blocks
+        if cached is not None and cached[0] == t:
+            return cached[1], cached[2]
+        if self.n_edges == 0:
+            k, uni = 0, 0
+        else:
+            k, uni = spgemm.count_tile_blocks(
+                self.h_src, self.h_offsets, self.host_dst(), t
+            )
+        self._tile_blocks = (t, k, uni)
+        return k, uni
+
+    def tiles(self) -> Optional[spgemm.PredTiles]:
+        """Blocked boolean adjacency tiles on the arena's device, built
+        lazily from the host mirrors and cached (``device_bytes`` counts
+        them, so the manager's budget governs them).  None — never
+        cached — when the footprint exceeds DGRAPH_TPU_TILE_BUDGET or the
+        arena has no edge; the planner then stays on the gather tier."""
+        pt = self._tiles
+        t = spgemm.tile_size()
+        if pt is not None and pt.t == t:
+            return pt
+        if self.n_edges == 0:
+            return None
+        k, _uni = self.tile_blocks()
+        if spgemm.est_tile_bytes(k, t) > spgemm.tile_budget():
+            return None
+        with _BUILD_LOCK:
+            pt = self._tiles
+            if pt is not None and pt.t == t:
+                return pt
+            pt = spgemm.build_tiles(
+                self.h_src, self.h_offsets, self.host_dst(), t=t,
+                device=self.device,
+            )
+            if pt is not None:
+                self._tiles = pt
+                JOIN_TILE_BUILDS.add()
+                JOIN_TILE_BYTES.add(pt.device_bytes())
+            return pt
+
+    def degree_histogram(self) -> np.ndarray:
+        """Log2-bucketed out-degree histogram: slot c counts rows with
+        ⌈log2(degree)⌉ == c (degree ≥ 1; slot 0 holds degree-1 rows).
+        Cached, and moved row by row on a delta; the join planner reads
+        it to spot heavy-tailed predicates."""
+        h = self._deg_hist
+        if h is None:
+            deg = (self.h_offsets[1:] - self.h_offsets[:-1]).astype(np.int64)
+            deg = deg[deg > 0]
+            if len(deg):
+                c = np.ceil(np.log2(deg, where=deg > 1, out=np.zeros(len(deg))))
+                h = np.bincount(c.astype(np.int64), minlength=32)
+            else:
+                h = np.zeros(32, dtype=np.int64)
+            self._deg_hist = h
+        return h
+
+    def _degrees_of_uids(self, uids: np.ndarray) -> np.ndarray:
+        """Out-degree per ROW-KEY uid (0 where the uid has no row) — the
+        histogram repair's before/after probe."""
+        if not len(uids):
+            return np.zeros(0, dtype=np.int64)
+        if self.n_rows == 0:
+            return np.zeros(len(uids), dtype=np.int64)
+        pos = np.searchsorted(self.h_src, uids)
+        pos = np.clip(pos, 0, self.n_rows - 1)
+        hit = self.h_src[pos] == uids
+        deg = self.h_offsets[pos + 1] - self.h_offsets[pos]
+        return np.where(hit, deg, 0).astype(np.int64)
+
+    def _hist_move(self, old_deg: int, new_deg: int) -> None:
+        """Shift one row between log2 degree buckets (degree-0 rows are
+        uncounted)."""
+        h = self._deg_hist
+        for deg, step in ((old_deg, -1), (new_deg, +1)):
+            if deg <= 0:
+                continue
+            b = (int(deg) - 1).bit_length()
+            if b >= len(h):
+                h = self._deg_hist = np.concatenate(
+                    [h, np.zeros(b + 1 - len(h), dtype=h.dtype)]
+                )
+            h[b] += step
 
     # -- inline-head layouts (ops/sets.py expand_inline*) --------------------
 
@@ -316,6 +428,17 @@ class CSRArena:
 
     def _apply_delta_locked(self, adds: np.ndarray, dels: np.ndarray) -> None:
         pre_rows = self.n_rows  # new source rows shift every row index
+        # degree-histogram repair: the touched rows' PRE-delta degrees,
+        # so their log2 buckets move instead of the histogram dropping
+        hist = self._deg_hist
+        touched = old_degs = None
+        if hist is not None:
+            touched = np.unique(np.concatenate(
+                [np.empty(0, np.int64)]
+                + [np.asarray(a[:, 0], dtype=np.int64) for a in (adds, dels)
+                   if len(a)]
+            ))
+            old_degs = self._degrees_of_uids(touched)
         h_dst = self.host_dst().astype(np.int64, copy=False)
         # absolute edge positions via the composite (row, dst) key — the
         # CSR flat dst IS sorted by it
@@ -360,6 +483,27 @@ class CSRArena:
         self._lut = None
         self._n_distinct_dst = None
         self._topm_deg = None
+        self._tile_blocks = None
+        if touched is not None:
+            new_degs = self._degrees_of_uids(touched)
+            for od, nd in zip(old_degs.tolist(), new_degs.tolist()):
+                if od != nd:
+                    self._hist_move(od, nd)
+        # tile repair: a small delta sets lanes of the stored blocks in
+        # place; a structurally impossible repair (new block, grown
+        # universe) or a closed gate drops the tiles for a rebuild
+        pt = self._tiles
+        if pt is not None:
+            repaired = None
+            n_delta = len(adds) + len(dels)
+            if n_delta > 0 and _ivm_repair_gate(n_delta, self.n_edges):
+                repaired = spgemm.apply_tile_delta(pt, adds, dels)
+                IVM_REPAIRS.add(
+                    ("tile", "repaired" if repaired is not None else "rebuild")
+                )
+                if repaired is not None:
+                    IVM_REPAIR_EDGES.add(n_delta)
+            self._tiles = repaired
         if len(adds) or len(dels):
             self.epoch += 1
             ra = self._resident
@@ -418,6 +562,17 @@ class CSRArena:
                     _nbytes(self.src) + _nbytes(self.offsets)
                     + _nbytes(self.dst)
                 )
+
+
+def _ivm_repair_gate(n_delta: int, entry_edges: float) -> bool:
+    """The repair-vs-rebuild decision for one derived view: off when the
+    IVM gate is, else ``planner.repair_route`` (its static half)."""
+    from dgraph_tpu_torch.ivm import ivm_enabled
+    from dgraph_tpu_torch.query import planner
+
+    if not ivm_enabled():
+        return False
+    return planner.repair_route(n_delta, entry_edges)
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -824,9 +979,13 @@ class ArenaManager:
                 self._lru_total = 0
                 dirty.discard("*")
             deltas = self.store.delta
+            bases = self.store.delta_base
             for p in list(dirty):
                 delta = deltas.pop(p, None)
-                if delta is not None and self._try_apply_delta(p, delta):
+                # the journal window's repair base is consumed WITH the
+                # journal: a stale base must never re-key a later window
+                base = bases.pop(p, None)
+                if delta is not None and self._try_apply_delta(p, delta, base):
                     dirty.discard(p)
                     continue
                 for key in [k for k in self._data if k == p or k.startswith(p + "\x00")]:
@@ -841,16 +1000,28 @@ class ArenaManager:
                 self._lru_drop(self._values, p)
                 dirty.discard(p)
 
-    def _try_apply_delta(self, pred: str, delta: list) -> bool:
+    def _try_apply_delta(self, pred: str, delta: list, base=None) -> bool:
         """Incrementally update the cached data (and reverse) arena for
         ``pred``.  False when no cached arena exists (the next access
         builds fresh anyway), a has-rows variant is cached (its row
-        universe can shift), or delete churn left too many empty rows."""
+        universe can shift), or delete churn left too many empty rows.
+
+        After the arenas absorb the delta, the predicate's cached hop
+        expansions absorb it too: repaired in place and re-keyed from
+        ``base`` (the pred version every live entry carries, recorded
+        when the journal window opened) to the post-mutation version,
+        behind the repair-vs-rebuild gate.  Entries a repair cannot fix
+        are dropped."""
         a = self._data.get(pred)
         if a is None or (pred + "\x00has") in self._data:
             return False
+        _E = np.zeros((0, 2), dtype=np.int64)
         if not delta:
-            return True  # facet-only touches: arenas unaffected
+            # facet-only touches: arenas unaffected, and the cached
+            # expansions still exact — a zero-delta repair re-keys them
+            # to the new pred version
+            self._repair_hop_entries(pred, a, _E, _E, base, gate=True)
+            return True
         zero_rows = int(np.count_nonzero(np.diff(a.h_offsets) == 0))
         if zero_rows > max(4096, a.n_rows // 4):
             return False
@@ -867,14 +1038,63 @@ class ArenaManager:
         r = self._reverse.get(pred)
         if r is not None:
             r.apply_delta(adds[:, ::-1], dels[:, ::-1])
-        if self.hop_cache is not None:
-            # the delta flipped each patched arena's epoch: entries keyed
-            # at an older one describe a snapshot that no longer exists
-            # (the reference repairs the ones it can; the port drops all)
+        n_delta = len(adds) + len(dels)
+        self._repair_hop_entries(
+            pred, a, adds, dels, base,
+            # the gate prices a typical warm entry as a 32-row frontier
+            # at this arena's mean fan-out
+            gate=(n_delta > 0 and _ivm_repair_gate(
+                n_delta, max(1.0, a.avg_degree) * 32.0
+            )),
+        )
+        # entries the repair did not carry to the new epoch describe a
+        # snapshot that no longer exists: drop them now
+        if self.hop_cache is not None and n_delta > 0:
             for x in (a, r):
                 if x is not None:
                     self.hop_cache.drop_stale_epoch(id(x), x.epoch)
         return True
+
+    def _repair_hop_entries(
+        self, pred: str, a: CSRArena, adds, dels, base, gate: bool
+    ) -> None:
+        """Repair (or zero-delta re-key) the tier-1 entries for ``pred``
+        on both directions' arenas.  Skips entirely when the gate said
+        rebuild, IVM is off (entries are keyed on the global version),
+        the journal window carried no base, or a change that cannot be
+        scoped to predicates (the floor) landed inside the window."""
+        if self.hop_cache is None or not gate or base is None:
+            return
+        from dgraph_tpu_torch.ivm import ivm_enabled
+
+        if not ivm_enabled():
+            return
+        new_v = self.store.pred_versions.get(pred, 0)
+        if new_v <= base or self.store.pred_floor > base:
+            return
+        repaired = dropped = 0
+        for arena, ad, dl in (
+            (a, adds, dels),
+            (self._reverse.get(pred), adds[:, ::-1], dels[:, ::-1]),
+        ):
+            if arena is None:
+                continue
+            rev = arena is not a
+            # the delta that drives this repair bumped the arena epoch
+            # exactly once (zero-delta re-keys bump nothing)
+            ne = arena.epoch
+            oe = ne - 1 if (len(adds) or len(dels)) else ne
+            rep, drop = self.hop_cache.repair_pred(
+                id(arena), pred, rev, ad, dl, base, new_v,
+                old_epoch=oe, new_epoch=ne,
+            )
+            repaired += rep
+            dropped += drop
+        if repaired:
+            IVM_REPAIRS.add(("hop", "repaired"))
+            IVM_REPAIR_EDGES.add((len(adds) + len(dels)) * repaired)
+        if dropped:
+            IVM_REPAIRS.add(("hop", "rebuild"))
 
     # -- data / reverse ----------------------------------------------------
 

@@ -171,9 +171,13 @@ class PostingStore:
         # cannot be scoped to predicates (a schema mutation).  Cache
         # tiers key entries on max(floor, max(pred_versions[footprint]))
         # instead of the global version, so a mutation only invalidates
-        # entries that read its predicates.
+        # entries that read its predicates.  delta_base records, per
+        # journaled predicate, the pred version BEFORE the journal's first
+        # delta — the version every live cache entry for that predicate
+        # carries, which the delta repair (models/arena.py) re-keys from.
         self.pred_versions: Dict[str, int] = {}
         self.pred_floor = 0
+        self.delta_base: Dict[str, int] = {}
 
     # -- access ------------------------------------------------------------
 
@@ -218,6 +222,10 @@ class PostingStore:
         d = self.delta.get(pred, [])
         if d is None:
             return  # already overflowed
+        if pred not in self.delta:
+            # fresh journal window: remember the pred version its views
+            # were built at (repair re-keys entries FROM this version)
+            self.delta_base[pred] = self.pred_versions.get(pred, 0)
         if len(d) >= self.DELTA_MAX:
             self.delta[pred] = None
             return
@@ -227,8 +235,10 @@ class PostingStore:
     def _journal_touch(self, pred: str) -> None:
         """Journal a no-op/facet-only touch: arenas are unaffected, so
         an EMPTY entry lets refresh skip the rebuild (an overflow None
-        is preserved)."""
-        self.delta.setdefault(pred, [])
+        is preserved) — but the window still needs its repair base."""
+        if pred not in self.delta:
+            self.delta_base[pred] = self.pred_versions.get(pred, 0)
+            self.delta[pred] = []
 
     def _delta_overflow(self, pred: str) -> None:
         self.delta[pred] = None

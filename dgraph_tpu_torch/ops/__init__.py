@@ -8,7 +8,10 @@ slot-map kernel's wrapper lives in ``ops.slotmap`` (``slotmap``,
 (``gather_ranks``, ``segmented_sort_perm``) is plain torch ops.
 ``expand_ascending`` and ``multi_hop`` (``ops.batch``) walk hops through
 the gather; the reference's batched set ops of ``ops.batch`` are not
-ported, and ``intersect_batch`` here is the k-way intersect wrapper."""
+ported, and ``intersect_batch`` here is the k-way intersect wrapper.
+The tile join tier (``ops.spgemm``: blocked boolean tile products over
+a predicate's adjacency, the mask chain and the triangle) is torch ops
+on the card, as the reference leaves it to XLA."""
 
 from dgraph_tpu_torch.ops.sets import (  # noqa: F401
     SENT,
@@ -53,4 +56,25 @@ from dgraph_tpu_torch.ops.order import (  # noqa: F401
 from dgraph_tpu_torch.ops.batch import (  # noqa: F401
     expand_ascending,
     multi_hop,
+)
+from dgraph_tpu_torch.ops.spgemm import (  # noqa: F401
+    PredTiles,
+    apply_tile_delta,
+    build_tiles,
+    count_tile_blocks,
+    est_tile_bytes,
+    expand_counts,
+    expand_mask,
+    expand_mask_batch,
+    intersect_masks,
+    intersect_stack,
+    intersect_stack_batch,
+    mask_lanes,
+    mask_to_uids,
+    run_mask_chain,
+    tile_budget,
+    tile_size,
+    triangle_mask,
+    triangle_mask_batch,
+    uids_to_mask,
 )

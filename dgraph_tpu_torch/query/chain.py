@@ -19,9 +19,11 @@ facets, groupby, expand or var functions, optionally decorated with
   per-parent segmented rank sort and window on the device.
 
 Anything else runs per level, the general implementation.  A light
-(var-block), same-arena, undecorated chain runs the multi-hop pass
-(``ops.multi_hop``, ``_try_chain_scan``); every other chain the staged
-pass ``_run_fused``.
+(var-block) chain may first be taken by the tile join tier
+(``joinplan.try_mxu_route``: a mask chain over adjacency tiles, where
+its cost model picks it).  Otherwise a light, same-arena, undecorated
+chain runs the multi-hop pass (``ops.multi_hop``, ``_try_chain_scan``);
+every other chain the staged pass ``_run_fused``.
 
 Layout.  The reference expands each level through its inline-head layout
 (``expand_inline_seg``), which serves the TPU gather's 32-byte index
@@ -244,6 +246,14 @@ def try_run_chain(
         # an order-by at the root permutes dest_uids: the stashed
         # matrices are aligned with an ascending-distinct frontier
         return reject("frontier not ascending-distinct")
+    # the tile join tier (query/joinplan.py): light chains — the cyclic
+    # triangle shape included (two legs + a globally resolvable closing
+    # @filter) — may run as one mask chain over adjacency tiles when the
+    # per-query cost model picks it over pairwise expansion.  Declines
+    # fall through to the gather passes below; every decision lands in
+    # engine.stats["join_routes"]
+    if joinplan.try_mxu_route(engine, child, src, resolver):
+        return True
     levels = collect_chain(engine, child)
     if len(levels) < 2:
         return reject("chain shorter than 2 levels")

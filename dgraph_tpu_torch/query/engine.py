@@ -16,8 +16,10 @@ one fetch for all of them, and its levels are consumed from their
 ``chain_stash``.  ``@recurse`` (``query/recurse.py``; an internal
 single-template one as one fused BFS), ``shortest``
 (``query/shortest.py``) and ``@groupby`` (``query/groupby.py``) expand
-through the same ``DeviceExpander``.  The join tier's k-way half is
-ported (``query/joinplan.py``): an ``@filter`` AND with at least two
+through the same ``DeviceExpander``.  The join tier
+(``query/joinplan.py``): a light chain may run as one mask chain over
+adjacency tiles (``try_mxu_route``, called by the fused chain), and,
+unless ``DGRAPH_TPU_MXU_JOIN=0``, an ``@filter`` AND with at least two
 leaves that resolve without the frontier intersects them with the
 candidates in one ``kway_intersect`` call, on the intersect kernel
 above ``kway_device_min``.  Order-by on a numeric, date or bool
@@ -30,9 +32,9 @@ the routing, each expansion probes the tier-1 hop cache
 (``sched/scheduler.py``), merges with the same hop of other requests
 into one union expansion (``DeviceExpander.submit_hop``); every hop is
 a cancellation checkpoint (``QueryEngine.checkpoint``).  The
-reference's tile route, classed route and mesh are execution
-strategies over the same semantics and are not ported; filters other
-than the k-way AND and a fused chain's keep-sets fold on the host.
+reference's classed route and mesh are execution strategies over the
+same semantics and are not ported; filters other than the k-way AND and
+a fused chain's keep-sets fold on the host.
 """
 
 from __future__ import annotations
@@ -75,7 +77,9 @@ def _fresh_stats() -> dict:
     with their planning, k-way intersections, device order-by, JSON-tree
     encoding), the count of each expansion route and each k-way route
     taken, the count of order-by sorts run on the device, the join-route
-    decisions (query/joinplan.py), the levels consumed from fused chains,
+    decisions of the tile join tier (query/joinplan.py) with its tile
+    builds and mask chains (``tile_build_ms``, ``mxu_join_ms``), the
+    levels consumed from fused chains,
     why chain attempts fell back to per-level execution (bounded), and
     the gather calls the fused chain, multi-hop pass and fused
     @recurse made (``fused_gathers``; per-level gathers count under
@@ -97,6 +101,8 @@ def _fresh_stats() -> dict:
         "chain_fused_levels": 0,
         "chain_reject": [],
         "fused_gathers": 0,
+        "tile_build_ms": 0.0,
+        "mxu_join_ms": 0.0,
     }
 
 
@@ -793,7 +799,7 @@ class QueryEngine:
             glob = [
                 c for c in ft.children
                 if c.func is not None and joinplan.filter_leaf_global(c.func)
-            ]
+            ] if joinplan.mxu_mode() != "0" else []
             if len(glob) >= 2:
                 sets = [resolver.resolve(c.func, None) for c in glob]
                 out = joinplan.kway_intersect(

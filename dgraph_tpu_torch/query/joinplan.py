@@ -1,22 +1,40 @@
-"""Join-route choice (the PyTorch port of ``dgraph_tpu/query/joinplan.py``),
-for now its k-way half.
+"""Join-route choice (the PyTorch port of ``dgraph_tpu/query/joinplan.py``):
+dense tile products or pairwise expansion, per query.
 
+- **`try_mxu_route`** — the pattern entry: a light (var-block) uid chain
+  whose levels are plain expansions or globally resolvable ``@filter``
+  levels (index functions, ``uid(var)`` cycle-closing sets) may run as
+  one mask chain over the predicates' adjacency tiles
+  (``ops.spgemm.run_mask_chain``).  Triangle-shaped subqueries — two
+  legs plus a closing keep-set — are exactly this shape.  The route is
+  costed from arena degree statistics (``CSRArena.avg_degree``,
+  ``degree_histogram``) against the gather tier's per-level dispatch and
+  per-edge cost; tiles must fit ``DGRAPH_TPU_TILE_BUDGET``, the mask
+  ``DGRAPH_TPU_MXU_MASK_MAX``.
 - **`kway_intersect`** — the k-way set-intersection router: the host
   ``np.intersect1d`` fold below the size gate (``kway_device_min``,
   ``DGRAPH_TPU_KWAY_DEVICE_MIN``), one call of the intersect kernel
   (``ops.kway.intersect_batch``) above it.  The engine's ``@filter``
-  AND and the resolver's token / trigram folds (term ``eq``,
-  ``allofterms`` / ``alloftext``, ``regexp``) route through here.
-- **decision recording** — every route choice lands in the per-request
-  ``engine.stats["join_routes"]`` (bounded) and a process-level ring
-  with counts (``debug_summary``).
+  AND, the fused chain's and this tier's keep-set ANDs and the
+  resolver's token / trigram folds route through here.
+- **decision recording** — every route decision of the tile tier lands
+  in the per-request ``engine.stats["join_routes"]`` (bounded), a
+  process-level ring with counts (``debug_summary``, served at
+  ``/debug/store``) and the ``dgraph_join_route_total`` /
+  ``dgraph_kway_intersect_total`` counters.
 
-The reference's ``DGRAPH_TPU_MXU_JOIN`` knob is not read: it gates the
-tile route, which is not ported, and the size gate alone picks host or
-device.  The reference's device guard, failpoints and metrics belong to
-the serving plane and are not ported: a device fault propagates.
-``try_mxu_route`` (the fused tile route for var-block chains) comes
-with the port of ``query/chain.py``, its only caller.
+Gate: ``DGRAPH_TPU_MXU_JOIN`` — ``0`` disables the tier (and sends every
+k-way intersection to the host fold), ``1`` (default) arms it behind the
+cost model, ``force`` skips the cost comparison (structural eligibility
+still applies) and sends every k-way intersection of at most
+``KWAY_K_MAX`` sets to the device.
+
+The port has no calibrated planner: the cost compare is the reference's
+``DGRAPH_TPU_PLANNER=0`` branch (its static rate table,
+``_STATIC_RATES``), so the decisions equal the reference's under that
+setting.  The reference's
+device guard, spans and failpoints around the dispatch are not ported: a
+device fault propagates.
 """
 
 from __future__ import annotations
@@ -30,27 +48,56 @@ import torch
 
 from dgraph_tpu_torch import device as devmod
 from dgraph_tpu_torch import obs, ops
+from dgraph_tpu_torch.ops import spgemm
 from dgraph_tpu_torch.ops.kway import intersect_batch
 from dgraph_tpu_torch.ops.sets import SENT
 from dgraph_tpu_torch.utils import planconfig
+from dgraph_tpu_torch.utils.metrics import JOIN_ROUTES, KWAY_INTERSECTS
 
 _EMPTY = np.empty(0, dtype=np.int64)
 
 # the reference's bound on the sets of one device k-way call
 KWAY_K_MAX = 16
 
+# Cost rates (µs) of the reference's planner-off compare, verbatim:
+# the decision only has to be right about which side of a ~100× shape
+# gap a query sits on, and every decision is recorded with both
+# estimates.  gather_edge_us is the gather tier's per-edge cost
+# including host conversion.
+_STATIC_RATES = {
+    "dispatch_us": 120.0,
+    "tile_mac_us": 1.2e-4,
+    "combine_us_per_mac": 2e-5,
+    "tile_build_us_per_lane": 1.8e-4,
+    "tile_build_amortize": 8.0,
+}
+_GATHER_EDGE_US = 0.02
+
+
+def mxu_mode() -> str:
+    """DGRAPH_TPU_MXU_JOIN: '0' off, '1' auto (default), 'force' always
+    (structural eligibility permitting).  Read per call."""
+    return planconfig.mxu_mode()
+
+
+def mask_max_lanes() -> int:
+    """Largest frontier-mask length the tile route may allocate."""
+    return planconfig.mask_max_lanes()
+
 
 # -- decision recording -------------------------------------------------------
 
 _ROUTE_LOCK = threading.Lock()
 _RECENT: "deque[dict]" = deque(maxlen=16)
-_COUNTS = {"kway_device": 0, "kway_host": 0}
+_COUNTS = {"mxu": 0, "pairwise": 0, "kway_device": 0, "kway_host": 0}
 
 
 def record_route(stats: Optional[dict], decision: dict) -> None:
-    """Log one join-route decision where it must be visible: the
-    per-request engine stats (bounded) and the process ring."""
+    """Log one tile-tier route decision where it must be visible: the
+    per-request engine stats (bounded), the process ring and the
+    counter."""
     route = decision["route"]
+    JOIN_ROUTES.add(route)
     with _ROUTE_LOCK:
         _RECENT.append(decision)
         _COUNTS[route] = _COUNTS.get(route, 0) + 1
@@ -82,11 +129,13 @@ def kway_intersect(
     device=None,
     device_min: Optional[int] = None,
 ) -> np.ndarray:
-    """Intersection of k sorted-unique uid sets, size-routed: one call of
-    the intersect kernel on ``device`` (default cuda) when the total size
-    reaches ``device_min`` (default ``planconfig.kway_device_min()``) and
-    there are at most ``KWAY_K_MAX`` sets, the numpy fold otherwise.
-    Byte-identical either way (sorted-unique int64)."""
+    """Intersection of k sorted-unique uid sets, routed by
+    ``DGRAPH_TPU_MXU_JOIN``: '0' or more than ``KWAY_K_MAX`` sets fold on
+    the host; 'force' takes the intersect kernel on ``device`` (default
+    cuda); '1' takes it when the total size reaches ``device_min``
+    (default ``planconfig.kway_device_min()``).  Byte-identical either
+    way (sorted-unique int64); each route is counted in ``stats``, the
+    process counts and the ``dgraph_kway_intersect_total`` counter."""
     sets = [np.asarray(s, dtype=np.int64) for s in sets]
     if not sets:
         return _EMPTY
@@ -96,10 +145,15 @@ def kway_intersect(
         return _EMPTY
     total = sum(len(s) for s in sets)
     k = len(sets)
-    gate = planconfig.kway_device_min() if device_min is None else device_min
-    use_device = k <= KWAY_K_MAX and total >= gate
+    mode = mxu_mode()
+    if mode == "0" or k > KWAY_K_MAX:
+        use_device = False
+    elif mode == "force":
+        use_device = True
+    else:
+        gate = planconfig.kway_device_min() if device_min is None else device_min
+        use_device = total >= gate
     st = stats if stats is not None else {}
-    route = "kway_device" if use_device else "kway_host"
     if use_device:
         dev = devmod.resolve(device)
         with obs.stage(st, "kway_ms"):
@@ -108,23 +162,27 @@ def kway_intersect(
             out = intersect_batch(torch.from_numpy(mat).to(dev)[None])[0]
             out = out.cpu().numpy()
             res = out[out != SENT].astype(np.int64)
+        route = "kway_device"
     else:
         with obs.stage(st, "kway_ms"):
             res = sets[0]
             for s in sets[1:]:
                 res = np.intersect1d(res, s)
+        route = "kway_host"
+    KWAY_INTERSECTS.add(route[len("kway_"):])
+    with _ROUTE_LOCK:
+        _COUNTS[route] += 1
     if stats is not None:
         stats[route] = stats.get(route, 0) + 1
-    record_route(stats, {"route": route, "k": k, "units": int(total)})
     return res
 
 
 def filter_leaf_global(fn) -> bool:
     """Does this filter Function resolve to a uid set WITHOUT the
     candidate frontier?  Index functions, ``has()`` and ``uid(...)`` —
-    a bound uid variable is a global set, it only looks
-    frontier-dependent — but not value-variable compares, counts,
-    functions that read variables, ``uid_in`` or ``checkpwd``."""
+    a bound uid variable is a global set (the cycle-closing shape), it
+    only looks frontier-dependent — but not value-variable compares,
+    counts, functions that read variables, ``uid_in`` or ``checkpwd``."""
     if fn.name == "uid":
         return True
     return not (
@@ -133,3 +191,307 @@ def filter_leaf_global(fn) -> bool:
         or fn.needs_vars
         or fn.name in ("uid_in", "checkpwd")
     )
+
+
+def _mxu_filter_ok(ft) -> bool:
+    """Filter tree resolvable to one global keep-set (no 'not': it needs
+    the candidate universe)."""
+    if ft.func is not None:
+        return filter_leaf_global(ft.func)
+    if ft.op == "not":
+        return False
+    return all(_mxu_filter_ok(c) for c in ft.children)
+
+
+# -- the tile chain / triangle route ------------------------------------------
+
+
+def _mxu_level_ok(engine, sg) -> bool:
+    """A chain level the mask tier can run: plain uid expansion, with at
+    most a globally resolvable @filter; no ordering, windowing or facets
+    (they need the uid matrix the masks drop)."""
+    from dgraph_tpu_torch.models.types import TypeID
+
+    p = sg.params
+    if sg.attr in ("", "_uid_", "uid", "val", "math", "_predicate_"):
+        return False
+    if sg.func is not None:
+        return False
+    if p.do_count or p.is_groupby or p.expand:
+        return False
+    if p.facets is not None or p.facets_filter is not None:
+        return False
+    if p.order_attr or p.first or p.offset or p.after:
+        return False
+    if sg.filter is not None and not _mxu_filter_ok(sg.filter):
+        return False
+    tid = engine.store.schema.type_of(sg.attr)
+    pd = engine.store.peek(sg.attr)
+    return tid == TypeID.UID or (pd is not None and bool(pd.edges))
+
+
+def _collect_mxu_chain(engine, child) -> List:
+    levels = [child]
+    node = child
+    while True:
+        nxt = [c for c in node.children if _mxu_level_ok(engine, c)]
+        if len(nxt) != 1:
+            break
+        levels.append(nxt[0])
+        node = nxt[0]
+    return levels
+
+
+def _resolve_keep(engine, ft, resolver) -> np.ndarray:
+    """Resolve a global filter tree to ONE sorted keep-set (leaves
+    pre-checked by _mxu_filter_ok; AND folds route through the k-way
+    intersection router)."""
+    if ft.func is not None:
+        return np.asarray(resolver.resolve(ft.func, None), dtype=np.int64)
+    if ft.op == "and":
+        parts = [_resolve_keep(engine, c, resolver) for c in ft.children]
+        return kway_intersect(
+            parts, stats=engine.stats, device=engine.device,
+            device_min=engine.arenas.kway_device_min,
+        )
+    if ft.op == "or":
+        out = _resolve_keep(engine, ft.children[0], resolver)
+        for c in ft.children[1:]:
+            out = np.union1d(out, _resolve_keep(engine, c, resolver))
+        return out
+    raise ValueError(f"filter op {ft.op!r} is not globally resolvable")
+
+
+def _mask_of(uids: np.ndarray, m: int, dev) -> torch.Tensor:
+    padded = ops.pad_to(uids, ops.bucket(max(1, len(uids))))
+    return spgemm.uids_to_mask(torch.from_numpy(padded).to(dev), m)
+
+
+def try_mxu_route(engine, child, src: np.ndarray, resolver) -> bool:
+    """Attempt the tile route for the chain rooted at ``child``: a
+    per-query choice between a mask chain over the predicates' tiles and
+    pairwise expansion, costed from arena degree statistics and recorded
+    in ``engine.stats["join_routes"]``.  On success, stages light-mode
+    chain stashes on every level (the contract ``query/chain.py``'s
+    passes produce) and returns True; a device fault propagates."""
+    mode = mxu_mode()
+    if mode == "0" or len(src) == 0:
+        return False
+    # light (var-block) chains only: masks carry SETS, not uid matrices,
+    # so any level whose results must be encoded cannot ride this tier
+    if not engine._cur_block_internal:
+        return False
+    if not _mxu_level_ok(engine, child):
+        return False
+    levels = _collect_mxu_chain(engine, child)
+    if any(sg.params.cascade for sg in levels):
+        return False
+    arenas = []
+    for sg in levels:
+        a = (
+            engine.arenas.reverse(sg.attr)
+            if sg.reverse
+            else engine.arenas.data(sg.attr)
+        )
+        if a.n_edges == 0:
+            break
+        arenas.append(a)
+    levels = levels[: len(arenas)]
+    if len(levels) < 2:
+        return False
+
+    # --- fan-out estimate (the chain tier's own threshold discipline) ---
+    from dgraph_tpu_torch.query import planner
+
+    rows0 = arenas[0].rows_for_uids_host(np.asarray(src))
+    est_edges = int(arenas[0].degree_of_rows(rows0).sum())
+    est_total = est_u = est_edges
+    for a in arenas[1:]:
+        est_u = min(est_u, a.n_rows)
+        lvl = int(est_u * a.avg_degree)
+        est_total += lvl
+        est_u = lvl
+    if mode != "force" and not planner.mxu_fanout_ok(
+        engine, est_total, len(levels)
+    ):
+        return False
+
+    # --- structural feasibility: tiles + mask sizes ---
+    t = spgemm.tile_size()
+    blocks = []
+    universe = 0
+    for a in arenas:
+        k, uni = a.tile_blocks()
+        if spgemm.est_tile_bytes(k, t) > spgemm.tile_budget():
+            record_route(engine.stats, _decision(
+                "pairwise", levels, est_total, 0.0, 0.0,
+                reason=f"tile budget exceeded for {a.n_edges}-edge arena",
+            ))
+            return False
+        blocks.append(k)
+        universe = max(universe, uni)
+    m = spgemm.mask_lanes(universe, t)
+    if m > mask_max_lanes():
+        record_route(engine.stats, _decision(
+            "pairwise", levels, est_total, 0.0, 0.0,
+            reason=f"mask {m} lanes over DGRAPH_TPU_MXU_MASK_MAX",
+        ))
+        return False
+    # the reference's structural bound on its one-hot combine operand (a
+    # dense [K, NB] float32), checked even under 'force'.  The port's
+    # index_add_ combine materialises no such operand; the check stays
+    # so the two packages decide alike.
+    for k in blocks:
+        if ops.bucket(max(1, k)) * (m // t) * 4 > spgemm.tile_budget():
+            record_route(engine.stats, _decision(
+                "pairwise", levels, est_total, 0.0, 0.0,
+                reason="one-hot combine operand over tile budget",
+            ))
+            return False
+
+    # --- cost model: gather tier vs one fused tile pass ---
+    # degree-histogram skew: the gather tier plans capacity from top-m
+    # degree sums, so a heavy-tailed predicate pads its buckets far past
+    # the real work; dense tiles are immune
+    pad = 1.2
+    for a in arenas:
+        h = a.degree_histogram()
+        nz = np.nonzero(h)[0]
+        if len(nz) and h.sum():
+            mean_cls = float((nz * h[nz]).sum()) / float(h.sum())
+            if nz[-1] >= mean_cls + 4:
+                pad = 2.0
+                break
+    r = _STATIC_RATES
+    est_pairwise = len(levels) * r["dispatch_us"] + est_total * (
+        _GATHER_EDGE_US * pad
+    )
+    nbm = m // t
+    per_pass = sum(
+        k * t * t * r["tile_mac_us"] + k * nbm * t * r["combine_us_per_mac"]
+        for k in blocks
+    )
+    build = sum(
+        k * t * t * r["tile_build_us_per_lane"]
+        for a, k in zip(arenas, blocks)
+        if a._tiles is None
+    )
+    est_mxu = r["dispatch_us"] + per_pass + build / r["tile_build_amortize"]
+    if mode != "force" and est_mxu >= est_pairwise:
+        record_route(engine.stats, _decision(
+            "pairwise", levels, est_total, est_pairwise, est_mxu,
+            reason="cost model favors gather tier",
+        ))
+        return False
+
+    # --- resolve fused keep-sets (host, once) ---
+    from dgraph_tpu_torch.query.functions import QueryError
+
+    keeps_np: List[Optional[np.ndarray]] = []
+    try:
+        for sg in levels:
+            keeps_np.append(
+                _resolve_keep(engine, sg.filter, resolver)
+                if sg.filter is not None
+                else None
+            )
+    except (QueryError, ValueError):
+        record_route(engine.stats, _decision(
+            "pairwise", levels, est_total, est_pairwise, est_mxu,
+            reason="keep-set resolution failed",
+        ))
+        return False
+
+    # --- build tiles (cached per arena) BEFORE recording the route: a
+    # build can still refuse, and one query logs exactly ONE decision ---
+    with obs.stage(engine.stats, "tile_build_ms"):
+        tiles = [a.tiles() for a in arenas]
+    if any(pt is None for pt in tiles):
+        record_route(engine.stats, _decision(
+            "pairwise", levels, est_total, est_pairwise, est_mxu,
+            reason="tile build refused (budget)",
+        ))
+        return False
+    record_route(engine.stats, _decision(
+        "mxu", levels, est_total, est_pairwise, est_mxu,
+        reason="generic join over densified tiles",
+    ))
+
+    dev = engine.device
+    src64 = np.asarray(src, dtype=np.int64)
+    tile_ops = tuple((pt.bi, pt.bj, pt.tiles) for pt in tiles)
+    degvs = tuple(pt.degs for pt in tiles)
+    # the dest sets the engine needs back: a level binding a var, feeding
+    # several children, or the last one; the other masks stay on the card
+    need = [
+        bool(sg.params.var) or len(sg.children) > 1 or i == len(levels) - 1
+        for i, sg in enumerate(levels)
+    ]
+    # segment seams (sched/segments): k levels of the mask chain per
+    # run, the frontier mask threaded on the device between segments and
+    # a scheduler yield point at every seam; k = 0 runs one segment
+    from dgraph_tpu_torch.sched import segments
+
+    seg_k = segments.plan(
+        len(levels), max(1, est_total // max(1, len(levels))), "mask_chain"
+    )
+    if seg_k <= 0:
+        seg_k = len(levels)
+    dests: List[Optional[np.ndarray]] = [None] * len(levels)
+    totals = np.zeros(len(levels), dtype=np.int64)
+    with obs.stage(engine.stats, "mxu_join_ms"):
+        x = _mask_of(src64, m, dev)
+        keep_masks = [
+            None if ks is None else _mask_of(ks, m, dev) for ks in keeps_np
+        ]
+        lo = 0
+        while lo < len(levels):
+            if lo:
+                segments.seam("mask_chain")
+            hi = min(lo + seg_k, len(levels))
+            masks, tot = spgemm.run_mask_chain(
+                tile_ops[lo:hi], keep_masks[lo:hi], degvs[lo:hi], x
+            )
+            totals[lo:hi] = tot.cpu().numpy()
+            for i in range(lo, hi):
+                if need[i]:
+                    dests[i] = spgemm.mask_to_uids(masks[i - lo])
+            x = masks[-1]
+            lo = hi
+            if lo < len(levels) and not bool(x.any()):
+                # drained frontier: every remaining level is an empty
+                # mask with a zero total — stop dispatching
+                segments.early_exit("mask_chain")
+                for i in range(lo, len(levels)):
+                    if need[i]:
+                        dests[i] = _EMPTY
+                break
+
+    # --- stage light-mode stashes (the chain consumer's contract) ---
+    src_list: Optional[np.ndarray] = src64
+    for i, sg in enumerate(levels):
+        dest = dests[i]
+        sg.chain_filtered = sg.filter is not None
+        sg.chain_ordered = False
+        sg.chain_stash = ("light", dest, src_list, int(totals[i]))
+        src_list = dest
+    return True
+
+
+def _decision(
+    route: str, levels, est_total: int, est_pairwise: float,
+    est_mxu: float, reason: str,
+) -> dict:
+    shape = "triangle" if (
+        len(levels) == 2 and levels[-1].filter is not None
+    ) else "chain"
+    return {
+        "route": route,
+        "shape": shape,
+        "levels": len(levels),
+        "preds": [sg.attr for sg in levels],
+        "est_edges": int(est_total),
+        "est_pairwise_us": round(float(est_pairwise), 1),
+        "est_mxu_us": round(float(est_mxu), 1),
+        "reason": reason,
+    }

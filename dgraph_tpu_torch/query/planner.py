@@ -16,7 +16,11 @@ keeps only those static compares:
   reaches ``expand_device_min`` (``merge_gate``);
 - a fused hop loop yields at a segment seam every
   ``DGRAPH_TPU_SEGMENT_K`` hops under ``DGRAPH_TPU_SEGMENT=force``,
-  never otherwise (``segment_route``).
+  never otherwise (``segment_route``);
+- the tile join tier admits a chain by the chain's own compare
+  (``mxu_fanout_ok``);
+- a mutation's edge delta repairs a derived view in place when it is
+  within ``DGRAPH_TPU_IVM_REPAIR_MAX_DELTA`` (``repair_route``).
 """
 
 from __future__ import annotations
@@ -51,3 +55,21 @@ def segment_route(n_steps: int, est_step_units: int, loop: str) -> int:
     if planconfig.segment_mode() != "force" or n_steps <= 1:
         return 0
     return max(1, min(planconfig.segment_k(), n_steps))
+
+
+def mxu_fanout_ok(engine, est_total: int, n_levels: int) -> bool:
+    """The tile join tier's fan-out admission: is this chain big enough
+    to leave the host at all?  The chain tier's compare."""
+    return chain_route(est_total, engine.chain_threshold)
+
+
+def repair_route(n_delta: int, avg_entry_edges: float) -> bool:
+    """Repair a cached derived view in place with an edge delta of
+    ``n_delta`` (True), or drop it and let the next read rebuild?
+    DGRAPH_TPU_IVM_REPAIR '0' never; '1' and 'force' within
+    DGRAPH_TPU_IVM_REPAIR_MAX_DELTA (the reference prices '1' against
+    the expected refills when its planner is armed; ``avg_entry_edges``
+    is that price's input, unused here)."""
+    if planconfig.ivm_repair_mode() == "0":
+        return False
+    return n_delta <= planconfig.ivm_repair_max_delta()

@@ -824,6 +824,22 @@ class CohortScheduler:
         finally:
             self._donation.depth -= 1
 
+    # -- introspection -----------------------------------------------------
+
+    def qos_state(self) -> Optional[dict]:
+        """The /debug/store "qos" snapshot: tenant table, live per-tenant
+        queue depth and in-flight counts.  None when QoS is off."""
+        if self.qos is None:
+            return None
+        with self._cond:
+            depth = dict(self._tenant_depth)
+            inflight = dict(self._tenant_inflight)
+        return {
+            "tenants": self.qos.snapshot(),
+            "queued": depth,
+            "inflight": inflight,
+        }
+
     # -- lifecycle ---------------------------------------------------------
 
     def stop(self) -> None:

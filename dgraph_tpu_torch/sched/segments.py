@@ -20,9 +20,9 @@ k > 0.  One seam does three things, in order:
 The context is thread-local and activated by the scheduler around
 ``engine.run_parsed`` (token + preempt hook + stats), or by the engine
 itself token-only when no scheduler is driving.  ``seam()`` with no
-active context is a cheap no-op.  The reference's mesh drain-and-resume
-(``resume``) and its early exit of a drained frontier (``early_exit``:
-the port's hop loops never read the device back) have no counterpart.
+active context is a cheap no-op.  ``early_exit`` counts a segmented
+mask chain (``query/joinplan.py``) that stopped at a drained frontier;
+the reference's mesh drain-and-resume (``resume``) has no counterpart.
 """
 
 from __future__ import annotations
@@ -93,6 +93,12 @@ def seam(loop: str) -> None:
             raise
     if ctx.preempt is not None:
         ctx.preempt()
+
+
+def early_exit(loop: str) -> None:
+    """Record an early exit: the frontier drained mid-chain, and the
+    remaining segments are never dispatched."""
+    SEGMENT_YIELDS.add("early_exit")
 
 
 def plan(n_steps: int, est_step_units: int, loop: str) -> int:

@@ -13,6 +13,10 @@
 - ``GET /health`` — ``OK`` while serving.
 - ``GET /metrics`` (and ``/debug/prometheus_metrics``) — the Prometheus
   text exposition of ``utils/metrics.py``.
+- ``GET /debug/store`` — predicates with their edge and value counts,
+  the query caches' occupancy (``qcache``), the predicate versions
+  (``ivm``), the QoS tenant table (``qos``) and the join tier's route
+  counts and recent decisions (``join``).
 - ``GET /admin/shutdown`` — stops the server.
 
 Reads go through the cohort scheduler (``sched/scheduler.py``, gated by
@@ -336,6 +340,20 @@ def _make_handler(srv: DgraphServer):
             elif path in ("/metrics", "/debug/prometheus_metrics"):
                 self._reply(200, metrics.prometheus_text().encode(),
                             "text/plain; version=0.0.4; charset=utf-8")
+            elif path == "/debug/store":
+                from dgraph_tpu_torch.query import joinplan
+
+                with srv._engine_lock.read():
+                    stats = _store_stats(srv.store)
+                stats["qcache"] = _qcache_stats(srv)
+                stats["ivm"] = _ivm_stats(srv)
+                stats["qos"] = (
+                    srv.scheduler.qos_state()
+                    if srv.scheduler is not None
+                    else None
+                )
+                stats["join"] = joinplan.debug_summary()
+                self._reply(200, json.dumps(stats).encode())
             elif path == "/admin/shutdown":
                 self._reply(200, json.dumps(
                     {"code": "Success", "message": "Server is shutting down"}
@@ -398,3 +416,57 @@ def _make_handler(srv: DgraphServer):
             self._reply(200, json.dumps(out).encode())
 
     return Handler
+
+
+def _ivm_stats(srv: DgraphServer) -> Optional[dict]:
+    """/debug/store "ivm" section: the predicate-version spread (how much
+    invalidation scoping buys).  None when IVM is off.  The reference's
+    delta stream and subscription table are not ported: null."""
+    from dgraph_tpu_torch.ivm import ivm_enabled
+
+    store = srv.store
+    if not ivm_enabled():
+        return None
+    return {
+        "version": store.version,
+        "pred_floor": store.pred_floor,
+        "tracked_preds": len(store.pred_versions),
+        "stream": None,
+        "subs": None,
+    }
+
+
+def _qcache_stats(srv: DgraphServer) -> dict:
+    """Both query cache tiers' occupancy (None under DGRAPH_TPU_CACHE=0)."""
+    hop = srv.engine.arenas.hop_cache
+    rc = srv.scheduler.result_cache if srv.scheduler is not None else None
+    return {
+        "hop": (
+            {"entries": len(hop), "bytes": hop.occupancy_bytes}
+            if hop is not None
+            else None
+        ),
+        "result": (
+            {"entries": len(rc), "bytes": rc.occupancy_bytes}
+            if rc is not None
+            else None
+        ),
+    }
+
+
+def _store_stats(store: PostingStore) -> dict:
+    """/debug/store's store section: per predicate its edges and values."""
+    preds = {}
+    for p in store.predicates():
+        pd = store.peek(p)
+        if pd is None:
+            continue
+        preds[p] = {
+            "edges": sum(len(s) for s in pd.edges.values()),
+            "values": len(pd.values),
+        }
+    return {
+        "predicates": preds,
+        "uids": len(store.uids),
+        "max_uid": store.uids.max_uid,
+    }

@@ -4,7 +4,8 @@
 The counter, gauge and histogram types of the reference and the
 instruments the serving plane bumps: query counts, the cohort
 scheduler's, QoS sheds and cancellations, segment seams, the two query
-cache tiers, failpoint fires and deliberately swallowed exceptions.
+cache tiers, the tile join tier's routes and builds, IVM repairs,
+failpoint fires and deliberately swallowed exceptions.
 ``GET /metrics`` (and ``/debug/prometheus_metrics``) serve
 ``metrics.prometheus_text()``.  The reference's exemplars, OpenMetrics
 exposition and the instruments of its unported layers (cluster, WAL,
@@ -298,6 +299,23 @@ QCACHE_HIT_AGE = metrics.histogram(
     "dgraph_qcache_hit_age_seconds",
     (0.001, 0.01, 0.1, 1.0, 10.0, 60.0, 600.0),
 )
+
+# the tile join tier (ops/spgemm.py + query/joinplan.py): every route
+# decision (mxu vs pairwise) and every k-way intersection's host or
+# device choice is counted; tile builds and the bytes they densified
+JOIN_ROUTES = metrics.labeled("dgraph_join_route_total", label="route")
+KWAY_INTERSECTS = metrics.labeled(
+    "dgraph_kway_intersect_total", label="route"
+)
+JOIN_TILE_BUILDS = metrics.counter("dgraph_join_tile_builds_total")
+JOIN_TILE_BYTES = metrics.counter("dgraph_join_tile_built_bytes_total")
+
+# incremental view maintenance: each repair-or-rebuild outcome per
+# derived view (hop-cache entries, tiles) and the edges repairs absorbed
+IVM_REPAIRS = metrics.multilabeled(
+    "dgraph_ivm_repairs_total", ("kind", "outcome")
+)
+IVM_REPAIR_EDGES = metrics.counter("dgraph_ivm_repair_edges_total")
 
 # deliberately swallowed exceptions: "correct to drop" never means
 # "correct to drop invisibly"

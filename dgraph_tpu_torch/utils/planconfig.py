@@ -22,6 +22,23 @@ DGRAPH_TPU_SEGMENT            auto     segment seams in the fused hop loops
                                        prices it with its calibrated
                                        planner, which the port lacks)
 DGRAPH_TPU_SEGMENT_K          4        hops per segment under 'force'
+DGRAPH_TPU_MXU_JOIN           1        tile join tier (query/joinplan.py):
+                                       '0' off, '1' behind the cost model,
+                                       'force' skips the cost compare
+                                       (structural checks still apply)
+DGRAPH_TPU_MXU_MASK_MAX       1<<22    largest frontier-mask lane count the
+                                       tile route may allocate
+DGRAPH_TPU_TILE               128      adjacency tile edge length
+DGRAPH_TPU_TILE_BUDGET        1<<28    per-arena tile byte budget
+DGRAPH_TPU_IVM_REPAIR         1        in-place repair of hop-cache entries
+                                       and tiles after a delta: '0' drop
+                                       only, '1' within the cap below (the
+                                       reference's static gate), 'force'
+                                       the same
+DGRAPH_TPU_IVM_REPAIR_MAX_DELTA 512    largest edge delta repaired in place
+
+Every knob is read per call, so a test or an operator flips it without
+rebuilding the engine.
 """
 
 from __future__ import annotations
@@ -32,6 +49,10 @@ EXPAND_DEVICE_MIN_DEFAULT = 262144
 KWAY_DEVICE_MIN_DEFAULT = 262144
 CHAIN_THRESHOLD_DEFAULT = 262144
 SEGMENT_K_DEFAULT = 4
+MXU_MASK_MAX_DEFAULT = 1 << 22
+TILE_DEFAULT = 128
+TILE_BUDGET_DEFAULT = 1 << 28
+IVM_REPAIR_MAX_DELTA_DEFAULT = 512
 
 
 def _int(name: str, default: int) -> int:
@@ -63,7 +84,6 @@ def chain_threshold() -> int:
     return _int("DGRAPH_TPU_CHAIN_THRESHOLD", CHAIN_THRESHOLD_DEFAULT)
 
 
-
 def segment_mode() -> str:
     """DGRAPH_TPU_SEGMENT: '0', 'auto' or 'force'."""
     return os.environ.get("DGRAPH_TPU_SEGMENT", "auto")
@@ -72,3 +92,38 @@ def segment_mode() -> str:
 def segment_k() -> int:
     """Hops per segment under DGRAPH_TPU_SEGMENT=force."""
     return _int("DGRAPH_TPU_SEGMENT_K", SEGMENT_K_DEFAULT)
+
+
+def mxu_mode() -> str:
+    """DGRAPH_TPU_MXU_JOIN: '0' off, '1' cost-modeled (default), 'force'
+    always (structural eligibility permitting)."""
+    return os.environ.get("DGRAPH_TPU_MXU_JOIN", "1")
+
+
+def mask_max_lanes() -> int:
+    """Largest frontier-mask length the tile route may allocate (float32
+    lanes; the default 1<<22 is 16 MiB a mask)."""
+    return _int("DGRAPH_TPU_MXU_MASK_MAX", MXU_MASK_MAX_DEFAULT)
+
+
+def tile_size() -> int:
+    """Adjacency tile edge length (uids per block side)."""
+    return _int("DGRAPH_TPU_TILE", TILE_DEFAULT)
+
+
+def tile_budget() -> int:
+    """Per-arena tile byte budget."""
+    return _int("DGRAPH_TPU_TILE_BUDGET", TILE_BUDGET_DEFAULT)
+
+
+def ivm_repair_mode() -> str:
+    """DGRAPH_TPU_IVM_REPAIR: '0' never repair (drop only), '1' (default)
+    and 'force' repair a delta within the cap."""
+    return os.environ.get("DGRAPH_TPU_IVM_REPAIR", "1")
+
+
+def ivm_repair_max_delta() -> int:
+    """Largest edge delta a derived view is repaired with in place."""
+    return _int(
+        "DGRAPH_TPU_IVM_REPAIR_MAX_DELTA", IVM_REPAIR_MAX_DELTA_DEFAULT
+    )

@@ -5,8 +5,8 @@ reference's: ``VersionedLFUCache`` admission and eviction equal to
 ``store.pred_versions`` / ``pred_floor`` and the derived hop / result
 versions equal after the same mutations; then the port's own contracts —
 a hop-cache hit launches nothing, a write to another predicate keeps the
-hit while a write to the same one misses, an arena delta or eviction
-drops the arena's entries, and the result cache answers repeats and
+hit while a write to the same one is repaired in place (or misses with
+the repair off), an arena eviction drops the arena's entries, and the result cache answers repeats and
 never serves a response older than a write to what it read.
 
 Tolerance 0 throughout (equal values, equal bytes)."""
@@ -189,7 +189,10 @@ def test_hop_cache_other_predicate_write_keeps_the_hit(hop_engine):
     assert len(calls) == 1 and eng.stats["routes"] == {"cache": 1}
 
 
-def test_hop_cache_same_predicate_write_misses(hop_engine):
+def test_hop_cache_same_predicate_write_misses(hop_engine, monkeypatch):
+    # DGRAPH_TPU_IVM_REPAIR=0 pins the drop contract; the in-place repair
+    # is test_hop_cache_same_predicate_write_repairs below
+    monkeypatch.setenv("DGRAPH_TPU_IVM_REPAIR", "0")
     eng, calls, q = hop_engine
     eng.run(q)
     seed = int(q.split("uid(")[1].split(",")[0], 16)
@@ -201,6 +204,23 @@ def test_hop_cache_same_predicate_write_misses(hop_engine):
     # the delta patched the arena in place: its older-epoch entry is gone
     hc = eng.arenas.hop_cache
     assert len(hc) == 1
+
+
+def test_hop_cache_same_predicate_write_repairs(hop_engine):
+    """A small delta to the entry's own predicate repairs it in place:
+    the next read is a hit, launches nothing, and equals an engine built
+    after the write."""
+    eng, calls, q = hop_engine
+    eng.run(q)
+    seed = int(q.split("uid(")[1].split(",")[0], 16)
+    eng.run("mutation { set { <0x%x> <e> <0x%x> . } }" % (seed, N_NODES + 5))
+    out = eng.run(q)
+    assert len(calls) == 1 and eng.stats["routes"] == {"cache": 1}
+    assert len(eng.arenas.hop_cache) == 1
+    fresh = QueryEngine(eng.store, device="cpu")
+    assert json.dumps(out) == json.dumps(fresh.run(q))
+    kids = {k.get("uid", k.get("_uid_")) for k in out["q"][0]["e"]}
+    assert "0x%x" % (N_NODES + 5) in kids
 
 
 def test_hop_cache_dropped_on_arena_eviction(hop_engine):

@@ -4,8 +4,9 @@ the reference's, query by query.
 Each graph is built in the reference's store and carried into the port
 with ``port_store_of``.  Three engines answer every query: the
 reference and the port with every fusable chain fused
-(``chain_threshold`` 0; the reference with ``DGRAPH_TPU_MXU_JOIN=0``, so
-that it takes its gather chain, not the tile route), and the port with
+(``chain_threshold`` 0; both with ``DGRAPH_TPU_MXU_JOIN=0``, so that they
+take the gather chain under test, not the tile route of
+``tests/test_torch_mxu.py``), and the port with
 the chain pinned off (its per-level path).  The three bodies must be
 equal, and where the reference fused a level the port must have fused
 one too.  The port's chain runs on its resident route (the gather

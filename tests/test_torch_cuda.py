@@ -1,15 +1,17 @@
 """The port's kernels on the card: each CUDA kernel (gather, slot-map,
 intersect) against its plain PyTorch version on CUDA tensors, one launch
 per wrapper call, the batched 2-hop pipeline on the card against the
-numpy oracle, the order-by's torch ops and the multi-hop pass (one
-gather launch a hop) on the card against the same calls on the CPU, and
-a hop merged across four engine shells as one gather launch.  Every test is marked ``cuda`` and skips
+numpy oracle, the order-by's torch ops, the multi-hop pass (one
+gather launch a hop) and the tile join tier's mask chain on the card
+against the same calls on the CPU, and a hop merged across four engine
+shells as one gather launch.  Every test is marked ``cuda`` and skips
 where no GPU is visible.  The file imports neither JAX nor the JAX
 package, so on the card's machine (no JAX there) it runs alone:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: none (int32 outputs, equal)."""
+Tolerance: none (int32 outputs, and 0/1 float32 masks whose integer
+sums are exact in any order: equal)."""
 
 import numpy as np
 import pytest
@@ -260,3 +262,59 @@ def test_merged_hop_is_one_gather_launch():
     assert tgather.KERNEL.launches == n0 + 1
     for (go, gs), (so, ss) in zip(got, solo):
         assert np.array_equal(go, so) and np.array_equal(gs, ss)
+
+
+def _community_arena(n_uids, per_row, seed):
+    """The tile tier's design point at a small size: each uid's targets
+    drawn from the uids of its own and the neighbouring 128-blocks."""
+    rng = np.random.default_rng(seed)
+    u = np.repeat(np.arange(1, n_uids + 1), per_row)
+    b = np.clip(u // 128 + rng.integers(-1, 2, size=len(u)), 0, n_uids // 128)
+    v = np.clip(b * 128 + rng.integers(0, 128, size=len(u)), 1, n_uids)
+    keep = u != v
+    return csr_from_edges(u[keep], v[keep], "cpu")
+
+
+def test_mask_chain_on_the_card_matches_the_cpu():
+    """ops.spgemm on CUDA tensors (the tiles built on the card by one
+    index_put_) against the same calls on CPU tensors: build_tiles, a
+    3-level run_mask_chain with a keep mask, triangle_mask_batch and an
+    in-place apply_tile_delta; masks, totals and tiles equal."""
+    _need_gpu()
+    from dgraph_tpu_torch.ops import spgemm
+
+    a = _community_arena(8192, 16, 71)
+    h = (a.h_src, a.h_offsets, a.host_dst())
+    cpu = spgemm.build_tiles(*h, t=128, device="cpu")
+    gpu = spgemm.build_tiles(*h, t=128, device="cuda")
+    for f in ("bi", "bj", "tiles", "degs"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f))
+    m = spgemm.mask_lanes(cpu.universe, 128)
+    rng = np.random.default_rng(73)
+    seeds = np.unique(rng.integers(1, 8193, size=64)).astype(np.int32)
+    keep = np.unique(rng.integers(1, 8193, size=3000)).astype(np.int32)
+    outs = []
+    for pt, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        x0 = spgemm.uids_to_mask(torch.from_numpy(seeds).to(dev), m)
+        km = spgemm.uids_to_mask(torch.from_numpy(keep).to(dev), m)
+        ops_ = ((pt.bi, pt.bj, pt.tiles),) * 3
+        masks, totals = spgemm.run_mask_chain(ops_, (None, km, None),
+                                              (pt.degs,) * 3, x0)
+        xb = torch.stack([x0, km])
+        tri = spgemm.triangle_mask_batch(*ops_[0], *ops_[0], *ops_[0], xb)
+        outs.append([masks.cpu(), totals.cpu(), tri.cpu()])
+    for g, w in zip(outs[1], outs[0]):
+        assert torch.equal(g, w)
+    assert int(outs[0][1][0]) > 0
+    # a delta inside stored blocks, repaired in place on both devices
+    bi, bj = cpu.bi[:cpu.n_tiles].numpy(), cpu.bj[:cpu.n_tiles].numpy()
+    adds = np.array([[int(bi[i]) * 128 + 5, int(bj[i]) * 128 + 7]
+                     for i in range(0, cpu.n_tiles, 7)], np.int64)
+    have = set(zip(np.repeat(a.h_src, np.diff(a.h_offsets)).tolist(),
+                   a.host_dst().tolist()))
+    adds = adds[[tuple(e) not in have for e in adds.tolist()]]
+    dels = np.array(sorted(have)[:9], np.int64)
+    assert spgemm.apply_tile_delta(cpu, adds, dels) is cpu
+    assert spgemm.apply_tile_delta(gpu, adds, dels) is gpu
+    for f in ("tiles", "degs"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f))

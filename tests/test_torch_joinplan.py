@@ -90,16 +90,40 @@ def test_kway_route_gates_on_size_and_k(monkeypatch):
         tjoin.kway_intersect(sets_, stats=stats, device="cpu",
                              device_min=device_min)
         assert stats[route] == 1 and stats["kway_ms"] >= 0
-        assert stats["join_routes"] == [{
-            "route": route, "k": len(sets_),
-            "units": sum(len(s) for s in sets_)}]
+        # as in the reference, a k-way route is counted, not logged among
+        # the tile tier's decisions
+        assert "join_routes" not in stats
     # without an argument the gate is DGRAPH_TPU_KWAY_DEVICE_MIN
     monkeypatch.setenv("DGRAPH_TPU_KWAY_DEVICE_MIN", str(total))
     stats = {}
     tjoin.kway_intersect(sets, stats=stats, device="cpu")
     assert stats["kway_device"] == 1
-    assert tjoin.debug_summary()["counts"] == {"kway_device": 2, "kway_host": 2}
-    assert len(tjoin.debug_summary()["recent"]) == 4
+    assert tjoin.debug_summary() == {
+        "counts": {"mxu": 0, "pairwise": 0, "kway_device": 2, "kway_host": 2},
+        "recent": []}
+
+
+@pytest.mark.parametrize("mode", ["0", "1", "force"])
+def test_kway_route_honours_the_mxu_mode(mode, monkeypatch):
+    """DGRAPH_TPU_MXU_JOIN '0' folds on the host whatever the size,
+    'force' takes the device below the gate, '1' is the size gate — in
+    both packages alike, with the same bytes."""
+    sets = _sets(8, 3)
+    total = sum(len(s) for s in sets)
+    for k, v in REFERENCE_ENV.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("DGRAPH_TPU_PLANNER", "0")
+    monkeypatch.setenv("DGRAPH_TPU_MXU_JOIN", mode)
+    for gate in (1, total + 1):
+        monkeypatch.setenv("DGRAPH_TPU_KWAY_DEVICE_MIN", str(gate))
+        jstats, stats = {}, {}
+        want = jjoin.kway_intersect(sets, stats=jstats)
+        got = tjoin.kway_intersect(sets, stats=stats, device="cpu")
+        assert got.tobytes() == want.tobytes()
+        route = {"0": "kway_host", "force": "kway_device"}.get(
+            mode, "kway_device" if gate == 1 else "kway_host")
+        assert stats[route] == jstats[route] == 1
+        assert set(stats) & {"kway_device", "kway_host"} == {route}
 
 
 # -- engine parity ------------------------------------------------------------

@@ -220,7 +220,9 @@ def test_cancel_stops_shortest_at_next_checkpoint(graph_store, monkeypatch):
 def test_cancel_stops_a_fused_chain_at_its_seam(graph_store, monkeypatch):
     """A var-block 4-hop chain fused at threshold 0, a seam every hop
     (DGRAPH_TPU_SEGMENT=force, k 1): a token flipped during the first
-    hop's gather stops the chain at the next seam."""
+    hop's gather stops the chain at the next seam.  The tile join tier
+    is pinned off: the gather chain's seams are the route under test."""
+    monkeypatch.setenv("DGRAPH_TPU_MXU_JOIN", "0")
     monkeypatch.setenv("DGRAPH_TPU_SEGMENT", "force")
     monkeypatch.setenv("DGRAPH_TPU_SEGMENT_K", "1")
     monkeypatch.setenv("DGRAPH_TPU_RESIDENT", "force")
