@@ -180,7 +180,43 @@ Phases, each fatal (exit code 1, no result line):
    twice per chunk in every pass plus twice for the last set.  The counts
    are read right after.  Edges/s, the numpy baseline and the caps are
    printed.
-17. report — the device time of one 200-query chunk by stage (hop 1,
+17. durability — every kernel's launch count is set to 0, then, all
+   in a git-ignored ``_smoke/`` removed at the end: (a) the generated
+   edges journaled as one bulk record by a ``DgraphServer`` on cuda over
+   a ``DurableStore(sync_writes=True)`` (its snapshotter held off below
+   1 GB of log: a snapshot is one record per edge, so this directory is
+   only journaled and recovered); over HTTP its var-block 2-hop
+   count from 8192 seeds (``default_rng(73)``) must launch the gather and
+   equal numpy's 2-hop; one acknowledged mutation adds 256 edges from 64
+   seeds; the count again (numpy's with the new edges) and the
+   materialised 2-hop from the 64 seeds (every node's children equal to
+   numpy's, the new edges present) are recorded; the server is abandoned
+   without closing its store.  (b) ``python -m
+   dgraph_tpu_torch.cli.server --p d1 --arena_budget_mb 8192
+   --snapshot_wal_mb 1024`` (query caches off, so that repeats execute)
+   must replay its 4 WAL records and answer both bodies byte for byte,
+   the count on the card (``?debug=true``); printed: the recovery
+   line, ``dgraph_recovery_records`` / ``_seconds``, the time to recover
+   (from the spawn to the first correct count body) and the count's
+   p50 / p99 over 10 requests.  (c) a second CLI server on d2 with
+   ``--sync --snapshot_wal_records 100`` is loaded by ``python -m
+   dgraph_tpu_torch.cli.loader`` (batch 1000, ``-c 4``) from a gzipped
+   file of 200,000 N-Quads (``default_rng(71)``: 150,000 ``f`` edges
+   drawn from the generated edges of sources 1..50,000 and 50,000 3-word
+   ``name`` literals, shuffled) under ``name: string @index(term) .`` /
+   ``f: uid .``: the native bulk path must take every quad
+   (``dgraph_bulk_set_quads_total``), the snapshotter must fire under
+   the load; a snapshot is then taken on demand and timed (records/s),
+   16 edges are written after it, and a materialised 2-hop over ``f``
+   from 64 seeds and an ``allofterms`` count (each against numpy) and
+   ``/admin/export``'s line count are recorded before a SIGKILL.
+   (d) d2 booted again must give the same bodies and export count from
+   its snapshot and WAL tail; booted once more with
+   ``DGRAPH_TPU_FAILPOINTS=wal.append=error(n=1)``, a mutation must
+   answer 503 with ``Retry-After`` while a read answers 200 as before,
+   and once the probe re-arms, a mutation answers 200 and shows up in
+   the next read.  The counts are read right after.
+18. report — the device time of one 200-query chunk by stage (hop 1,
    dedup, hop 2, checksum; CUDA events); one pass of the 1000 queries
    under ``torch.profiler``: the card's busy time (the union of its
    kernel and copy intervals) over the pass's host wall time, and device
@@ -203,6 +239,8 @@ Phases, each fatal (exit code 1, no result line):
 
 Exits non-zero without a CUDA GPU, or when the package is not beside it.
 
+``python3 chip_smoke.py --durability-only`` runs phase 1, the graph's
+generation (no server) and phase 17 (about three minutes).
 ``python3 chip_smoke.py --serving-only`` runs phases 1-3, the names of
 phase 5 and phase 12 alone (the serving plane on the caches' first
 use).  ``python3 chip_smoke.py --mxu-only`` runs phase 1 and phase 13
@@ -272,11 +310,26 @@ MXU_UIDS, MXU_FANOUT, MXU_GRAPH_SEED, MXU_SEED = 65_535, 64, 61, 67
 MXU_REPEATS, MXU_DELTA = 12, 64
 TRI_NODES, TRI_EDGES, TRI_ROOTS, TRI_B = 512, 32_768, 48, 64
 
+# the durability phase: its seeds' seed; the write of (a), DUR_EDGES
+# edges from DUR_SEEDS seeds; the recovered CLI server's arena budget;
+# the loaded server's file (edges drawn from the generated edges of
+# sources 1..LOAD_SOURCES, names on uids 1..LOAD_NAMES, seed LOAD_SEED),
+# its snapshot threshold in WAL records (the native path journals about
+# two records a batch of 1000 quads) and the sources of its tail write
+DUR_SEED, DUR_SEEDS, DUR_EDGES, DUR_ARENA_MB = 73, 64, 256, 8192
+# d1's snapshot threshold, above its 336 MB log: a snapshot is written
+# one record per edge, and the default 64 MB would fold the 21M edges
+# into 16.2M records (a minute and a half to replay on the card's host)
+D1_SNAPSHOT_WAL_MB = 1024
+LOAD_SEED, LOAD_EDGES, LOAD_NAMES, LOAD_SOURCES = 71, 150_000, 50_000, 50_000
+LOAD_SNAPSHOT_RECORDS, LOAD_TAIL = 100, 16
+
 # kernels: (name, wrapper module, TPU kernel it replaces, paths that run it)
 KERNELS = [
     ("gather_packed", "dgraph_tpu_torch.ops.gather",
      "dgraph_tpu/ops/pallas_gather.py:48",
-     ("main_path", "query_surface", "chain", "serving_plane", "mxu_join")),
+     ("main_path", "query_surface", "chain", "serving_plane", "mxu_join",
+      "durability")),
     ("slotmap", "dgraph_tpu_torch.ops.slotmap",
      "dgraph_tpu/ops/pallas_slotmap.py:46", ("batched_2hop",)),
     ("intersect", "dgraph_tpu_torch.ops.kway",
@@ -1868,6 +1921,377 @@ def mask_chain_timing(srv, queries) -> dict:
 
 
 
+
+# -- phase 17: durability ----------------------------------------------------
+
+
+def np_csr(src, dst):
+    """The generated edges as a host CSR (sorted sources, their targets)
+    for numpy's hops."""
+    order = np.argsort(src, kind="stable")
+    return src[order], dst[order]
+
+
+def np_hop(csr, frontier, extra=None) -> np.ndarray:
+    """Sorted distinct targets of ``frontier`` in the host CSR, and in
+    ``extra`` (src, dst arrays of edges written since) when given."""
+    s, d = csr
+    lo = np.searchsorted(s, frontier, "left")
+    n = np.searchsorted(s, frontier, "right") - lo
+    idx = np.repeat(lo - np.cumsum(n) + n, n) + np.arange(int(n.sum()))
+    out = d[idx]
+    if extra is not None:
+        out = np.concatenate([out, extra[1][np.isin(extra[0], frontier)]])
+    return np.unique(out)
+
+
+def check_materialised(body: bytes, seeds, csr, extra) -> None:
+    """A ``two_hop(seeds)`` body against numpy: every seed in order, its
+    ``e`` children and theirs, each list the sorted distinct targets."""
+    nodes = json.loads(body)["q"]
+    check([n["_uid_"] for n in nodes] == ["0x%x" % u for u in seeds],
+          "materialised 2-hop: the root nodes differ from the seeds")
+    for n in nodes:
+        kids = n.get("e", [])
+        want = np_hop(csr, np.array([int(n["_uid_"], 16)]), extra)
+        check([k["_uid_"] for k in kids] == ["0x%x" % u for u in want.tolist()],
+              f"materialised 2-hop: the children of {n['_uid_']} differ from numpy's")
+        for k in kids:
+            want = np_hop(csr, np.array([int(k["_uid_"], 16)]), extra)
+            check([g["_uid_"] for g in k.get("e", [])] == ["0x%x" % u for u in want.tolist()],
+                  f"materialised 2-hop: the children of {k['_uid_']} differ from numpy's")
+
+
+def metric(addr: str, name: str) -> float:
+    """One unlabeled series of GET /metrics."""
+    with urllib.request.urlopen(addr + "/metrics", timeout=60) as r:
+        for line in r.read().decode().splitlines():
+            if line.startswith(name + " "):
+                return float(line.split()[1])
+    raise SmokeFailure(f"/metrics has no {name}")
+
+
+def get_json(addr: str, path: str) -> dict:
+    with urllib.request.urlopen(addr + path, timeout=900) as r:
+        return json.loads(r.read())
+
+
+def boot_cli(device, p_dir, log_path, *flags, env=None):
+    """Start ``python -m dgraph_tpu_torch.cli.server`` on ``device`` as a
+    subprocess; returns (process, address, its recovery line, seconds
+    from the spawn to ``serving on``).  Its stderr goes to ``log_path``."""
+    cmd = [sys.executable, "-m", "dgraph_tpu_torch.cli.server", "--p", str(p_dir),
+           "--port", "0", "--device", str(device), *flags]
+    penv = dict(os.environ if env is None else env)
+    penv["PYTHONPATH"] = str(ROOT) + os.pathsep + penv.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    with open(log_path, "ab") as err:
+        proc = subprocess.Popen(cmd, cwd=str(ROOT), stdout=subprocess.PIPE,
+                                stderr=err, text=True, env=penv)
+    lines = []
+    while True:
+        line = proc.stdout.readline()
+        if not line:
+            proc.wait(timeout=60)
+            tail = Path(log_path).read_text()[-3000:]
+            raise SmokeFailure(f"server on {p_dir} exited ({proc.returncode}) "
+                               f"before serving: {lines} {tail}")
+        lines.append(line.strip())
+        if line.startswith("serving on "):
+            rec = [ln for ln in lines if ln.startswith("recovered ")]
+            check(len(rec) == 1, f"no recovery line before serving: {lines}")
+            return proc, line.split()[2], rec[0], time.perf_counter() - t0
+
+
+def end_proc(proc, sig) -> None:
+    """Send ``sig`` and reap the process (a kill after 60 s)."""
+    if proc.poll() is None:
+        proc.send_signal(sig)
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=60)
+
+
+def served_on_device(stats: dict) -> bool:
+    """A request's engine stats show a gather on the card: a fused pass's
+    or a per-level resident hop's."""
+    return (stats.get("fused_gathers", 0) > 0
+            or stats.get("routes", {}).get("resident", 0) > 0)
+
+
+def durability_load_file(work: Path, src, dst):
+    """The loaded server's RDF file and schema (``default_rng(71)``):
+    LOAD_EDGES edges ``<0x…> <f> <0x…> .`` drawn from the generated edges
+    of sources 1..LOAD_SOURCES, LOAD_NAMES 3-word ``name`` literals on
+    uids 1..LOAD_NAMES, shuffled together.  Returns the paths and the
+    edges and names written."""
+    import gzip
+
+    rng = np.random.default_rng(LOAD_SEED)
+    pool = np.flatnonzero(src <= LOAD_SOURCES)
+    pick = pool[rng.choice(len(pool), size=LOAD_EDGES, replace=False)]
+    fs, fd = src[pick], dst[pick]
+    words = rng.integers(0, len(VOCAB), size=(LOAD_NAMES, NAME_WORDS))
+    names = [" ".join(VOCAB[w] for w in row) for row in words]
+    lines = ["<0x%x> <f> <0x%x> ." % (a, b) for a, b in zip(fs.tolist(), fd.tolist())]
+    lines += ['<0x%x> <name> "%s" .' % (u + 1, n) for u, n in enumerate(names)]
+    rdf = work / "load.rdf.gz"
+    with gzip.open(rdf, "wt") as f:
+        for k in rng.permutation(len(lines)).tolist():
+            f.write(lines[k] + "\n")
+    schema = work / "schema.txt"
+    schema.write_text("name: string @index(term) .\nf: uid .\n")
+    return rdf, schema, (fs, fd), words
+
+
+def phase_durability(device, src, dst, card: str) -> dict:
+    """The storage plane on ``device``: (a) the generated edges journaled
+    by an in-process server on a ``--sync`` DurableStore, served, written
+    to, abandoned; (b) recovered by the CLI server; (c) a second CLI
+    server loaded by the loader and snapshotted, then SIGKILLed; (d) it
+    recovered, then booted with a disk fault.  The caller zeroes the
+    launch counts just before and reads them just after."""
+    import gc
+    import shutil
+    import signal
+
+    import torch
+
+    from dgraph_tpu_torch.models.wal import DurableStore
+    from dgraph_tpu_torch.ops import gather
+    from dgraph_tpu_torch.serve.server import DgraphServer
+
+    work = ROOT / "_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir()
+    d1, d2, log_path = work / "d1", work / "d2", work / "servers.log"
+    procs = []
+    out = {"card": card}
+    try:
+        # a. journal the generated edges in-process, serve, write, abandon
+        t0 = time.perf_counter()
+        store = DurableStore(str(d1), sync_writes=True)
+        store.apply_schema("e: uid .")
+        store.bulk_set_uid_edges("e", src, dst)
+        out["journal_s"] = time.perf_counter() - t0
+        out["d1_wal_bytes"] = os.path.getsize(d1 / "wal.log")
+        srv = DgraphServer(store, device=device)
+        srv.snapshotter.wal_bytes = D1_SNAPSHOT_WAL_MB << 20
+        srv.start()
+        csr = np_csr(src, dst)
+        rng = np.random.default_rng(DUR_SEED)
+        seeds = np.unique(rng.integers(1, int(src.max()) + 1, size=LARGE_SEEDS))
+        count_q = two_hop_count(seeds)
+        n0 = gather.KERNEL.launches
+        t0 = time.perf_counter()
+        status, raw, _ = post(srv.addr, count_q, "?debug=true")
+        out["a_first_count_s"] = time.perf_counter() - t0
+        check(status == 200, f"durability (a) count: HTTP {status}")
+        out["a_first_count_latency"] = json.loads(raw)["server_latency"]
+        check(gather.KERNEL.launches > n0, "durability (a): the 2-hop count launched no gather")
+        want = len(np_hop(csr, np_hop(csr, seeds)))
+        check(json.loads(raw)["q"] == [{"count": want}],
+              f"durability (a) count {raw[:120]!r} != numpy's {want}")
+        movers = np.unique(rng.integers(1, int(src.max()) + 1, size=DUR_SEEDS))
+        new_dst = rng.integers(1, int(src.max()) + 1,
+                               size=(len(movers), DUR_EDGES // DUR_SEEDS))
+        new = [(int(a), int(b)) for a, row in zip(movers, new_dst) for b in row]
+        mu = "mutation { set {\n%s\n} }" % "\n".join("<0x%x> <e> <0x%x> ." % e for e in new)
+        status, raw, secs = post(srv.addr, mu)
+        check(status == 200 and json.loads(raw).get("code") == "Success",
+              f"durability (a) mutation: HTTP {status} {raw[:200]!r}")
+        out["a_mutation_ms"] = secs * 1e3
+        extra = (np.array([a for a, _ in new]), np.array([b for _, b in new]))
+        status, count_body, _ = post(srv.addr, count_q)
+        want = len(np_hop(csr, np_hop(csr, seeds, extra), extra))
+        check(status == 200 and json.loads(count_body)["q"] == [{"count": want}],
+              "durability (a) count after the write differs from numpy's")
+        mat_q = two_hop(movers)
+        status, mat_body, _ = post(srv.addr, mat_q)
+        check(status == 200, f"durability (a) materialised 2-hop: HTTP {status}")
+        check_materialised(mat_body, movers, csr, extra)
+        by_uid = {n["_uid_"]: n for n in json.loads(mat_body)["q"]}
+        for a, b in new:
+            kids = {k["_uid_"] for k in by_uid["0x%x" % a].get("e", [])}
+            check("0x%x" % b in kids, f"durability (a): new edge 0x{a:x} -> 0x{b:x} missing")
+        bodies = {"count": strip_latency(count_body), "materialised": strip_latency(mat_body)}
+        store.close = lambda: None  # abandoned: the WAL is never closed
+        srv.stop()
+        del srv, store, csr
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        out["d1_wal_bytes_after_write"] = os.path.getsize(d1 / "wal.log")
+        log({"phase": "durability_journal", **{k: out[k] for k in (
+            "journal_s", "d1_wal_bytes", "a_first_count_s", "a_first_count_latency",
+            "a_mutation_ms", "d1_wal_bytes_after_write")}, "seeds": len(seeds),
+            "new_edges": len(new), "count": want})
+
+        # b. recover d1 on the real entry point
+        env = dict(os.environ, DGRAPH_TPU_CACHE="0")  # every repeat executes
+        t_spawn = time.perf_counter()
+        proc, addr, rec_line, boot_s = boot_cli(
+            device, d1, log_path, "--arena_budget_mb", str(DUR_ARENA_MB),
+            "--snapshot_wal_mb", str(D1_SNAPSHOT_WAL_MB), env=env)
+        procs.append(proc)
+        status, raw, first_s = post(addr, count_q, "?debug=true")
+        recover_s = time.perf_counter() - t_spawn
+        check(status == 200 and strip_latency(raw) == bodies["count"],
+              f"recovered d1: the 2-hop count differs ({status} {raw[:200]!r})")
+        first_latency = json.loads(raw)["server_latency"]
+        status, raw, _ = post(addr, mat_q)
+        check(status == 200 and strip_latency(raw) == bodies["materialised"],
+              "recovered d1: the materialised 2-hop differs from before the crash")
+        status, raw, _ = post(addr, count_q, "?debug=true")
+        stats = json.loads(raw)["server_latency"]["engine"]
+        check(served_on_device(stats), f"recovered d1: the count was not served on the card: {stats}")
+        lat = []
+        for _ in range(10):
+            status, raw, secs = post(addr, count_q)
+            check(status == 200 and strip_latency(raw) == bodies["count"],
+                  "recovered d1: a repeat of the count differs")
+            lat.append(secs)
+        out["d1"] = {
+            "recovery_line": rec_line, "boot_to_serving_s": boot_s,
+            "first_count_s": first_s, "first_count_latency": first_latency,
+            "time_to_recover_s": recover_s,
+            "dgraph_recovery_records": metric(addr, "dgraph_recovery_records"),
+            "dgraph_recovery_seconds": metric(addr, "dgraph_recovery_seconds"),
+            "count_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "count_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "debug_engine": {k: stats.get(k) for k in ("routes", "fused_gathers",
+                                                        "chain_fused_levels", "edges")},
+        }
+        check(rec_line.startswith(f"recovered {d1}: records=4 (snapshot 0, segments 0, wal 4)"),
+              f"d1 must recover from its WAL alone: {rec_line}")
+        log(dict(phase="durability_recover_d1", card=card, **out["d1"]))
+        end_proc(proc, signal.SIGTERM)
+
+        # c. load and snapshot a second server
+        rdf, schema, (fs, fd), words = durability_load_file(work, src, dst)
+        proc, addr, rec_line, _ = boot_cli(
+            device, d2, log_path, "--sync", "--snapshot_wal_records", str(LOAD_SNAPSHOT_RECORDS),
+            "--arena_budget_mb", "1024", "--export", str(work / "export"))
+        procs.append(proc)
+        check("records=0 " in rec_line, f"d2 is not empty: {rec_line}")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "dgraph_tpu_torch.cli.loader", "-r", str(rdf),
+             "-s", str(schema), "-d", addr, "--batch", "1000", "-c", "4"],
+            cwd=str(ROOT), capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        load_s = time.perf_counter() - t0
+        check(r.returncode == 0, f"loader failed: {r.stderr[-2000:]}")
+        n_quads = LOAD_EDGES + LOAD_NAMES
+        check(f"loaded {n_quads} quads" in r.stdout, f"loader: {r.stdout!r}")
+        with urllib.request.urlopen(addr + "/metrics", timeout=60) as resp:
+            routes = [ln for ln in resp.read().decode().splitlines()
+                      if ln.startswith("dgraph_bulk_set_quads_total{")]
+        check(routes == ['dgraph_bulk_set_quads_total{route="native"} %d' % n_quads],
+              f"the native bulk path did not take the whole load: {routes}")
+        deadline = time.monotonic() + 30
+        while metric(addr, "dgraph_snapshots_total") < 1 and time.monotonic() < deadline:
+            time.sleep(0.2)
+        snaps_under_load = metric(addr, "dgraph_snapshots_total")
+        check(snaps_under_load >= 1, "the snapshotter never fired under the load")
+        t0 = time.perf_counter()
+        check(get_json(addr, "/admin/snapshot?wait=1")["code"] == "Success",
+              "/admin/snapshot failed")
+        snap_s = time.perf_counter() - t0
+        st = get_json(addr, "/debug/store")["predicates"]
+        stored = st["f"]["edges"] + st["name"]["values"]
+        # a tail after the snapshot: it must come back from the WAL
+        tail_src = np.unique(fs[:LOAD_TAIL])
+        tail = [(int(a), int(a) % LOAD_SOURCES + 1) for a in tail_src]
+        mu = "mutation { set {\n%s\n} }" % "\n".join("<0x%x> <f> <0x%x> ." % e for e in tail)
+        status, raw, _ = post(addr, mu)
+        check(status == 200, f"d2 tail mutation: HTTP {status}")
+        csr2 = np_csr(np.concatenate([fs, [a for a, _ in tail]]),
+                      np.concatenate([fd, [b for _, b in tail]]))
+        seeds2 = np.unique(np.random.default_rng(LOAD_SEED + 1).integers(
+            1, LOAD_SOURCES + 1, size=DUR_SEEDS))
+        hop_q = "{ q(func: uid(%s)) { uid f { uid f { uid } } } }" % uid_list(seeds2)
+        status, hop_body, _ = post(addr, hop_q)
+        got = {k["_uid_"] for n in json.loads(hop_body)["q"] for c in n.get("f", [])
+               for k in c.get("f", [])}
+        want2 = {"0x%x" % u for u in np_hop(csr2, np_hop(csr2, seeds2)).tolist()}
+        check(status == 200 and got == want2, "d2: the 2-hop over f differs from numpy's")
+        w0, w1 = VOCAB[0], VOCAB[1]
+        terms_q = '{ q(func: allofterms(name, "%s %s")) { count() } }' % (w0, w1)
+        status, terms_body, _ = post(addr, terms_q)
+        want_terms = int(((words == 0).any(1) & (words == 1).any(1)).sum())
+        check(status == 200 and json.loads(terms_body)["q"] == [{"count": want_terms}],
+              f"d2: allofterms count {terms_body[:120]!r} != numpy's {want_terms}")
+        exported = get_json(addr, "/admin/export")["nquads"]
+        n_edges = len(np.unique((csr2[0] << 32) | csr2[1]))
+        check(exported == n_edges + LOAD_NAMES,
+              f"d2: export wrote {exported} lines, not {n_edges + LOAD_NAMES}")
+        d2_bodies = {"hop": strip_latency(hop_body), "terms": strip_latency(terms_body)}
+        out["d2_load"] = {
+            "quads": n_quads, "load_s": load_s, "quads_per_s": n_quads / load_s,
+            "loader_line": r.stdout.strip().splitlines()[-1],
+            "snapshots_under_load": snaps_under_load,
+            "snapshot_s": snap_s, "snapshot_records": stored,
+            "snapshot_edges_per_s": stored / snap_s,
+            "wal_bytes_before_kill": os.path.getsize(d2 / "wal.log"),
+            "export_lines": exported,
+        }
+        log(dict(phase="durability_load_d2", card=card, **out["d2_load"]))
+        end_proc(proc, signal.SIGKILL)
+
+        # d. recover the snapshot, then the read-only mode
+        t_spawn = time.perf_counter()
+        proc, addr, rec_line, _ = boot_cli(device, d2, log_path, "--arena_budget_mb", "1024",
+                                           "--export", str(work / "export"))
+        procs.append(proc)
+        status, raw, _ = post(addr, hop_q)
+        recover_s = time.perf_counter() - t_spawn
+        check(status == 200 and strip_latency(raw) == d2_bodies["hop"],
+              "recovered d2: the 2-hop over f differs")
+        status, raw, _ = post(addr, terms_q)
+        check(status == 200 and strip_latency(raw) == d2_bodies["terms"],
+              "recovered d2: the allofterms count differs")
+        check(get_json(addr, "/admin/export")["nquads"] == exported,
+              "recovered d2: the export's line count differs")
+        last = get_json(addr, "/health?detail=1")["storage"]["last_recovery"]
+        check(last["snapshot_records"] > 0 and last["wal_records"] > 0,
+              f"recovered d2 read no snapshot or no WAL tail: {last}")
+        out["d2_recover"] = {"recovery_line": rec_line, "time_to_recover_s": recover_s,
+                             "last_recovery": last}
+        log(dict(phase="durability_recover_d2", card=card, **out["d2_recover"]))
+        end_proc(proc, signal.SIGTERM)
+        env = dict(os.environ, DGRAPH_TPU_FAILPOINTS="wal.append=error(n=1)")
+        proc, addr, _, _ = boot_cli(device, d2, log_path, "--arena_budget_mb", "1024", env=env)
+        procs.append(proc)
+        ro_mu = "mutation { set {\n<0x1> <f> <0x%x> .\n} }" % (LOAD_SOURCES + 7)
+        status, raw, headers, _ = post_any(addr, ro_mu)
+        check(status == 503 and int(headers.get("Retry-After", "0")) >= 1,
+              f"read-only: the mutation answered {status} {headers}")
+        status, raw, _ = post(addr, hop_q)
+        check(status == 200 and strip_latency(raw) == d2_bodies["hop"],
+              "read-only: the read did not answer as before")
+        t0 = time.perf_counter()
+        while get_json(addr, "/health?detail=1")["storage"]["readonly"]:
+            check(time.perf_counter() - t0 < 60, "read-only: the probe never re-armed")
+            time.sleep(0.1)
+        rearm_s = time.perf_counter() - t0
+        status, raw, _ = post(addr, ro_mu)
+        check(status == 200, f"re-armed: the mutation answered {status}")
+        status, raw, _ = post(addr, "{ q(func: uid(0x1)) { f { uid } } }")
+        check("0x%x" % (LOAD_SOURCES + 7) in raw.decode(),
+              "re-armed: the write is missing from the next read")
+        out["readonly"] = {"shed_status": 503, "read_status": 200, "rearm_s": rearm_s}
+        log(dict(phase="durability_readonly", **out["readonly"]))
+        end_proc(proc, signal.SIGTERM)
+        return out
+    finally:
+        for p in procs:
+            end_proc(p, signal.SIGKILL)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # -- phases 14-16: the batched 2-hop -----------------------------------------
 
 
@@ -2303,6 +2727,7 @@ def gather_timing(arena, rng) -> dict:
 
 def main(argv) -> int:
     gather_only = "--gather-only" in argv
+    durability_only = "--durability-only" in argv
     serving_only = "--serving-only" in argv
     mxu_only = "--mxu-only" in argv
     try:
@@ -2353,6 +2778,18 @@ def main(argv) -> int:
             phase = mark("mxu_join")
             zero_counts()
             phase_mxu_join(info["nvidia_smi"], lambda: read_counts("mxu_join"))
+            mark("done")
+            log({"phase_seconds": phase_s, "launches": launches})
+            return 0
+        if durability_only:
+            from dgraph_tpu_torch.bench2hop import gen_edges
+
+            phase = mark("graph")
+            src, dst = gen_edges(N_NODES, N_EDGES)
+            phase = mark("durability")
+            zero_counts()
+            phase_durability("cuda", src, dst, info["nvidia_smi"])
+            read_counts("durability")
             mark("done")
             log({"phase_seconds": phase_s, "launches": launches})
             return 0
@@ -2425,7 +2862,6 @@ def main(argv) -> int:
         mxu = phase_mxu_join(info["nvidia_smi"], lambda: read_counts("mxu_join"))
         phase = mark("dense")
         dense, frontiers, fcap, plan = phase_dense("cuda", src, dst, N_NODES)
-        del src, dst
         phase = mark("slotmap_kernels")
         errs["slotmap"] = phase_slotmap_kernels(dense, frontiers, plan,
                                                 np.random.default_rng(17))
@@ -2433,6 +2869,11 @@ def main(argv) -> int:
         zero_counts()
         batched = phase_batched_2hop(dense, frontiers, fcap, plan, info["nvidia_smi"])
         read_counts("batched_2hop")
+        phase = mark("durability")
+        zero_counts()
+        dur = phase_durability("cuda", src, dst, info["nvidia_smi"])
+        read_counts("durability")
+        del src, dst
         phase = mark("gather_timing")
         t = gather_timing(srv.engine.arenas.data("e"), np.random.default_rng(13))
         log(dict(phase="gather_timing", **t))
@@ -2513,7 +2954,17 @@ def main(argv) -> int:
                      "ms", "b2b_ms", "device_ms", "bound_ms", "bound_by")}},
              "batched_2hop": {k: batched[k] for k in (
                  "queries", "edges", "edges_per_s", "numpy_edges_per_s",
-                 "vs_baseline", "chunk_q", "caps")}})
+                 "vs_baseline", "chunk_q", "caps")},
+             "durability": {
+                 "d1_time_to_recover_s": dur["d1"]["time_to_recover_s"],
+                 "d1_recovery_seconds": dur["d1"]["dgraph_recovery_seconds"],
+                 "d1_count_p50_ms": dur["d1"]["count_p50_ms"],
+                 "d1_count_p99_ms": dur["d1"]["count_p99_ms"],
+                 "d1_wal_bytes": dur["d1_wal_bytes"],
+                 "d2_time_to_recover_s": dur["d2_recover"]["time_to_recover_s"],
+                 "loader_quads_per_s": dur["d2_load"]["quads_per_s"],
+                 "snapshot_edges_per_s": dur["d2_load"]["snapshot_edges_per_s"],
+                 "rearm_s": dur["readonly"]["rearm_s"]}})
         log({"kernels": kernels})
         log(info["nvidia_smi"])
         log({"ok": True, "device": {

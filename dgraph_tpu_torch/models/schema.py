@@ -66,6 +66,23 @@ class SchemaState:
                 return t
         return None
 
+    def to_text(self) -> str:
+        """Render in schema-language form (worker/export.go toSchema
+        analog): the SCHEMA record of a snapshot and the export's schema
+        file."""
+        out = []
+        for name in self.predicates():
+            s = self._preds[name]
+            line = f"{name}: {s.tid.name.lower()}"
+            if s.tokenizers:
+                line += f" @index({', '.join(s.tokenizers)})"
+            if s.reverse:
+                line += " @reverse"
+            if s.count:
+                line += " @count"
+            out.append(line + " .")
+        return "\n".join(out) + ("\n" if out else "")
+
 _DEFAULT_TOKENIZER = {
     TypeID.INT: "int",
     TypeID.FLOAT: "float",

@@ -178,6 +178,10 @@ class PostingStore:
         self.pred_versions: Dict[str, int] = {}
         self.pred_floor = 0
         self.delta_base: Dict[str, int] = {}
+        # cluster membership carried by MEMBER records (models/wal.py);
+        # member_hook fires on their replay
+        self.members: Dict[str, tuple] = {}
+        self.member_hook = None
 
     # -- access ------------------------------------------------------------
 
@@ -376,6 +380,44 @@ class PostingStore:
                 edges[u] = set(d[b0:b1].tolist())
             else:
                 tgt.update(d[b0:b1].tolist())
+        self._note_pred_mutation(pred)
+
+    def bulk_set_values(self, pred: str, items) -> None:
+        """Vectorized ingest of plain (facet-less) value edges: ONE dict
+        update pass per predicate group instead of an Edge object +
+        apply() dispatch per value.  ``items`` = [(src, lang, TypedValue)]
+        in input order — last-write-wins per (src, lang) is preserved by
+        insertion order.  Semantics identical to apply(set) per edge."""
+        if not items:
+            return
+        p = self.pred(pred)
+        self.dirty.add(pred)
+        self.version += 1
+        p._wdmirror = None
+        self._delta_overflow(pred)  # value/index arenas rebuild
+        vals = p.values
+        any_untagged = any_lang = False
+        for src, lang, v in items:
+            vals[(src, lang)] = v
+            if lang:
+                any_lang = True
+            else:
+                any_untagged = True
+        if any_untagged:
+            p._untagged = None
+        if any_lang:
+            try:
+                del p._has_langs
+            except AttributeError:
+                pass
+        self._note_pred_mutation(pred)
+
+    def delete_predicate(self, pred: str) -> None:
+        """posting.DeletePredicate analog (posting/index.go:666)."""
+        self._preds.pop(pred, None)
+        self.dirty.add(pred)
+        self.version += 1
+        self._delta_overflow(pred)
         self._note_pred_mutation(pred)
 
     def apply_schema(self, text: str) -> None:

@@ -12,7 +12,7 @@ through this dictionary exactly like the reference's client-side allocator
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 # Hard ceiling of the dense id space: uids are int32 row indexes into
 # device arenas (ops/sets.py uses int32 throughout; SENT = 2^31-1 is
@@ -72,6 +72,9 @@ class UidMap:
             self._next += 1
             self._xid_to_uid[xid] = uid
         return uid
+
+    def assign_many(self, xids: Iterable[str]) -> List[int]:
+        return [self.assign(x) for x in xids]
 
     def lookup(self, xid: str) -> Optional[int]:
         return self._xid_to_uid.get(xid)

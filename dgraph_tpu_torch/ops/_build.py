@@ -1,24 +1,32 @@
-"""Build and bind the port's hand-written CUDA kernels.
+"""Build and bind the port's hand-written native code.
 
 Each ``csrc/<name>.cu`` exports plain C entry points and may include the
 shared ``csrc/*.cuh`` headers.  ``nvcc`` compiles it for Hopper
 (``sm_90a``) into ``_build/<name>-<hash>.so``, keyed by the hash of the
 source, the headers and the flags, at first use; the library is loaded
-with ``ctypes``.  Nothing here runs at import time: this module is
+with ``ctypes``.  Host C++ sources (the N-Quad scanner,
+``native/nquad_scan.cpp``) are compiled the same way with ``g++``
+(:func:`host_lib`).  Nothing here runs at import time: this module is
 imported on hosts without ``nvcc`` or a GPU, where only the kernels'
 plain PyTorch versions run.
 
-A build failure raises; there is no fallback to another implementation.
+Builds take an exclusive file lock on ``_build/.lock`` (parallel test
+workers and a server subprocess beside its parent build once, the rest
+find the library made; the lock dies with its holder) and move the
+finished library into place by an atomic rename.  A build failure
+raises; there is no fallback to another implementation.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable, List
 
@@ -32,9 +40,23 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",  # registers / spills per kernel, kept in the log
 ]
 
+GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
+
 _lock = threading.Lock()
 # name -> ptxas/nvcc output of the build made by this process
 build_logs: Dict[str, str] = {}
+
+
+@contextmanager
+def _build_lock():
+    """Exclusive across this process's threads and across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _lock, open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def nvcc() -> str:
@@ -62,12 +84,13 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     ``nvcc`` process per source, all started together; returns
     name -> library path.  Raises RuntimeError naming each failure."""
     names = list(names)
-    with _lock:
-        out = {n: lib_path(n) for n in names}
+    out = {n: lib_path(n) for n in names}
+    if all(p.exists() for p in out.values()):
+        return out
+    with _build_lock():
         todo = [n for n in names if not out[n].exists()]
         if not todo:
             return out
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         exe = nvcc()
         procs = []
         for n in todo:
@@ -88,6 +111,33 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         if errors:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
         return out
+
+
+def host_lib(src: Path) -> Path:
+    """Compile the host C++ source ``src`` (plain C entry points) with
+    ``g++`` into ``_build/<stem>-<hash>.so``, keyed by the hash of the
+    source and the flags, unless that library exists; returns its path.
+    Raises RuntimeError with the compiler's output when the build
+    fails."""
+    h = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode())
+    out = BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    with _build_lock():
+        if out.exists():
+            return out
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found: cannot build {src.name}")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        r = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],
+                           capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed to build {src.name} (exit "
+                               f"{r.returncode}):\n{r.stdout}{r.stderr}")
+        os.replace(tmp, out)  # atomic: a reader never sees half a .so
+    return out
 
 
 class CudaKernel:

@@ -17,6 +17,7 @@ from dgraph_tpu_torch.models.password import hash_password
 from dgraph_tpu_torch.models.store import Edge, PostingStore
 from dgraph_tpu_torch.models.types import TypeID, TypedValue, convert
 from dgraph_tpu_torch.rdf import NQuad, parse_nquads
+from dgraph_tpu_torch.utils.metrics import BULK_QUADS
 
 
 def resolve_uid(store: PostingStore, ref: str, blanks: Dict[str, int]) -> int:
@@ -89,23 +90,32 @@ def apply_mutation(store: PostingStore, mu: Mutation) -> Dict[str, int]:
     if mu.schema:
         from dgraph_tpu_torch.models.schema import split_entries
 
-        store.apply_schema(mu.schema)
+        store.apply_schema(mu.schema)  # journaled when the store is durable
         # schema changes may alter index/reverse arenas for those preds
         for entry in split_entries(mu.schema):
             if ":" in entry:
                 store.dirty.add(entry.split(":", 1)[0].strip())
     # parse AND convert deletes up front: a malformed delete (bad quad or
-    # unconvertible uid ref) must fail the request before any set
-    # applies.  Star-deletes therefore expand against the pre-mutation
-    # store (conversion happens before apply_many).
+    # unconvertible uid ref) must fail the request before the fast path
+    # durably applies any sets.  Star-deletes therefore expand against the
+    # pre-mutation store, which matches the Python-only path (conversion
+    # happens before apply_many there too).
     del_quads = parse_nquads(mu.del_nquads) if mu.del_nquads else []
     _reserve_explicit_uids(store, del_quads)
     del_edges: List[Edge] = []
     for nq in del_quads:
         del_edges.extend(nquad_to_edge(store, nq, blanks, "del"))
-    edges: List[Edge] = []
+    applied = None
     if mu.set_nquads:
+        from dgraph_tpu_torch.serve.bulk import fast_apply_set
+
+        applied = fast_apply_set(store, mu.set_nquads, blanks)
+        if applied is not None:
+            BULK_QUADS.add("native", applied)
+    edges: List[Edge] = []
+    if applied is None and mu.set_nquads:
         set_quads = parse_nquads(mu.set_nquads)
+        BULK_QUADS.add("python", len(set_quads))
         # reserve the whole explicit uid range BEFORE assigning blank-node
         # uids, or a fresh uid can alias an explicit uid named later in
         # the same block (the reference assigns uids in a pre-pass too,

@@ -10,7 +10,10 @@
   byte-identical.  Sheds answer 429 with ``Retry-After`` (the global
   admission queue or the tenant's quota is full), an exhausted budget
   504, a client that hung up 499.
-- ``GET /health`` — ``OK`` while serving.
+- ``GET /health`` — ``OK`` while serving; ``?detail=1`` a JSON object
+  with the storage plane's state (``storage``: read-only latch, WAL
+  bytes and records, sealed segments, snapshot age, the last recovery)
+  when the store is durable.
 - ``GET /metrics`` (and ``/debug/prometheus_metrics``) — the Prometheus
   text exposition of ``utils/metrics.py``.
 - ``GET /debug/store`` — predicates with their edge and value counts,
@@ -18,6 +21,17 @@
   (``ivm``), the QoS tenant table (``qos``) and the join tier's route
   counts and recent decisions (``join``).
 - ``GET /admin/shutdown`` — stops the server.
+- ``GET /admin/snapshot`` (``?wait=1`` blocks until the round is done)
+  — one seal + compaction round of a durable store's WAL now.
+- ``GET /admin/export`` — the store as gzipped N-Quads and a schema
+  file under the server's export directory (``serve/export.py``).
+
+Over a ``DurableStore`` (``models/wal.py``) every mutation is journaled
+before it applies; with ``--sync`` its ack waits for a shared fsync
+taken after the write lock is released (group commit), and a background
+``Snapshotter`` keeps the WAL bounded.  A disk fault latches the store
+read-only: mutations answer 503 with ``Retry-After`` before they queue
+on the write lock, while reads keep flowing.
 
 Reads go through the cohort scheduler (``sched/scheduler.py``, gated by
 ``DGRAPH_TPU_SCHED``, default on): concurrent requests are admitted into
@@ -27,8 +41,8 @@ their same-predicate hops merged into one gather launch, a tier-2 result
 cache in front.  Mutations take the write side and run on the server's
 engine.  ``DGRAPH_TPU_SCHED=0`` restores the serial path: every request
 under the write side on the server's engine, one at a time.  The
-reference's tracing, subscriptions, gRPC, cluster and durable storage
-are not ported yet.
+reference's tracing, subscriptions, gRPC and cluster are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -43,6 +57,11 @@ from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
 from dgraph_tpu_torch import gql
+from dgraph_tpu_torch.models.durability import (
+    ReadOnlyError,
+    Snapshotter,
+    StorageFaultError,
+)
 from dgraph_tpu_torch.models.store import PostingStore
 from dgraph_tpu_torch.obs import ledger as _ledger
 from dgraph_tpu_torch.query.engine import QueryEngine
@@ -54,6 +73,7 @@ from dgraph_tpu_torch.sched.cohort import (
 )
 from dgraph_tpu_torch.sched.qos import QueryCancelledError
 from dgraph_tpu_torch.sched.scheduler import CohortScheduler, sched_enabled
+from dgraph_tpu_torch.serve.export import export as export_rdf
 from dgraph_tpu_torch.utils.metrics import (
     NUM_QUERIES,
     PENDING_QUERIES,
@@ -128,8 +148,10 @@ class DgraphServer:
         bind: str = "127.0.0.1",
         device=None,
         arena_budget_mb: int = 0,
+        export_path: str = "export",
     ):
         self.store = store
+        self.export_path = export_path
         self.engine = QueryEngine(
             store, device=device,
             arena_budget_bytes=(arena_budget_mb * (1 << 20)) or None,
@@ -139,6 +161,9 @@ class DgraphServer:
         # the exclusive side
         self._engine_lock = RWLock()
         self._stop_lock = threading.Lock()
+        # exports write a minute-stamped file; two concurrent exports
+        # would interleave gzip streams into one path
+        self._export_lock = threading.Lock()
         self._serving = False
         self._stopped = False
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -148,6 +173,19 @@ class DgraphServer:
         # cohort scheduler (sched/): gated by DGRAPH_TPU_SCHED (default
         # on); =0 restores the serial per-request path
         self.scheduler = CohortScheduler(self) if sched_enabled() else None
+        # storage plane (models/wal.py + models/durability.py), for a
+        # DurableStore: group commit moves the --sync fsync out of the
+        # exclusive write section into a shared post-lock barrier, so
+        # concurrent writers amortize one fsync; the snapshotter's
+        # seal/compact loop keeps the WAL bounded under sustained writes
+        # (the reference's DGRAPH_TPU_GROUP_COMMIT / DGRAPH_TPU_SNAPSHOTTER
+        # off switches are not ported)
+        self.snapshotter = None
+        if hasattr(store, "seal_segment"):
+            store.enable_group_commit()
+            self.snapshotter = Snapshotter(
+                store, exclusive=self._engine_lock.write
+            )
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -165,6 +203,8 @@ class DgraphServer:
             target=self._httpd.serve_forever, name="dgraph-http", daemon=True
         )
         self._thread.start()
+        if self.snapshotter is not None:
+            self.snapshotter.start()
         self._serving = True
 
     @property
@@ -179,8 +219,9 @@ class DgraphServer:
         return self._serving
 
     def stop(self) -> None:
-        """Stop accepting, wait for the listener thread, and mark the
-        server stopped (idempotent)."""
+        """Stop accepting, wait for the listener thread, close a durable
+        store (its WAL flushed and synced) and mark the server stopped
+        (idempotent)."""
         with self._stop_lock:
             if self._stopped:
                 return
@@ -195,7 +236,13 @@ class DgraphServer:
                 # before the write lock: queued cohorts must drain (fail
                 # fast) or they would wait on a read lock that never comes
                 self.scheduler.stop()
+            if self.snapshotter is not None:
+                # likewise before the write lock: a mid-seal snapshotter
+                # holds it and must finish (or be told to stop) first
+                self.snapshotter.stop()
             with self._engine_lock.write():  # in-flight requests finish
+                if hasattr(self.store, "close"):
+                    self.store.close()
                 self._stopped = True
 
     def wait(self) -> None:
@@ -245,6 +292,19 @@ class DgraphServer:
         try:
             parsed = gql.parse(text, variables)
             lat.record_parsing()
+            if parsed.mutation is not None:
+                # disk-fault read-only mode: shed mutations BEFORE they
+                # queue on the write lock (reads keep flowing); the
+                # handler maps this to 503 + Retry-After
+                ro = getattr(self.store, "storage_readonly", None)
+                if ro is not None and ro():
+                    st = self.store.health
+                    raise ReadOnlyError(
+                        "storage is in read-only mode "
+                        f"({st.last_site}: {st.last_error}); "
+                        "mutations shed until the re-arm probe clears",
+                        retry_after=st.probe_interval_s,
+                    )
             out: dict = {}
             if sched is not None and parsed.mutation is None:
                 # read-only: ride a cohort (the member thread sets
@@ -267,6 +327,15 @@ class DgraphServer:
                         stats = self.engine.stats
                 finally:
                     outputnode.DEBUG_UIDS.reset(debug_token)
+                if parsed.mutation is not None:
+                    # group-commit durability barrier, OUTSIDE the write
+                    # lock: the mutation is applied and journaled; the
+                    # ack (this response) waits for a shared fsync that
+                    # concurrent writers amortize (no-op unless
+                    # enable_group_commit ran)
+                    barrier = getattr(self.store, "sync_barrier", None)
+                    if barrier is not None:
+                        barrier()
                 led.merge_engine_stats(stats)
             lat.record_processing()
             lat.record_json()
@@ -331,8 +400,17 @@ def _make_handler(srv: DgraphServer):
             self._reply(200, b"")
 
         def do_GET(self):
-            path = urlparse(self.path).path
-            if path == "/health":
+            u = urlparse(self.path)
+            path = u.path
+            qs = parse_qs(u.query)
+            if path == "/health" and qs.get("detail", ["0"])[0] in ("1", "true"):
+                detail = {"ok": srv.healthy()}
+                status = getattr(srv.store, "storage_status", None)
+                if status is not None:
+                    detail["storage"] = status()
+                self._reply(200 if srv.healthy() else 503,
+                            json.dumps(detail).encode())
+            elif path == "/health":
                 if srv.healthy():
                     self._reply(200, b"OK", "text/plain")
                 else:
@@ -354,6 +432,26 @@ def _make_handler(srv: DgraphServer):
                 )
                 stats["join"] = joinplan.debug_summary()
                 self._reply(200, json.dumps(stats).encode())
+            elif path == "/admin/export":
+                try:
+                    with srv._export_lock, srv._engine_lock.read():
+                        info = export_rdf(srv.store, srv.export_path)
+                except OSError as e:
+                    return self._err(500, str(e), "ErrorInternal")
+                self._reply(200, json.dumps(
+                    {"code": "Success", "message": "Export completed.", **info}
+                ).encode())
+            elif path == "/admin/snapshot":
+                if srv.snapshotter is None:
+                    return self._err(404, "store has no snapshotter")
+                wait = qs.get("wait", ["0"])[0] in ("1", "true")
+                if not srv.snapshotter.trigger(wait=wait):
+                    return self._err(500, "snapshot failed; see /health?detail=1",
+                                     "ErrorInternal")
+                self._reply(200, json.dumps(
+                    {"code": "Success",
+                     "message": "Snapshot completed." if wait else "Snapshot triggered."}
+                ).encode())
             elif path == "/admin/shutdown":
                 self._reply(200, json.dumps(
                     {"code": "Success", "message": "Server is shutting down"}
@@ -404,6 +502,13 @@ def _make_handler(srv: DgraphServer):
                 except OSError:
                     self.close_connection = True
                     return None
+            except StorageFaultError as e:
+                # disk fault / read-only mode: the mutation was NOT
+                # acknowledged; retriable once the re-arm probe clears
+                # (503 + Retry-After sized to the probe interval)
+                return self._err(503, str(e), "ErrorServiceUnavailable",
+                                 headers={"Retry-After": str(
+                                     max(1, int(round(e.retry_after))))})
             except ValueError as e:
                 # parse, query and mutation errors (ParseError, QueryError,
                 # bad variables) are the client's: 400 as in the reference

@@ -317,6 +317,32 @@ IVM_REPAIRS = metrics.multilabeled(
 )
 IVM_REPAIR_EDGES = metrics.counter("dgraph_ivm_repair_edges_total")
 
+# storage plane (models/wal.py + models/durability.py), under the
+# reference's names: a disk fault latches read-only mode (the gauge)
+# until the re-arm probe clears it, every fault counted per site;
+# recovery gauges describe the LAST boot replay; WAL gauges + snapshot
+# age say whether the background snapshotter keeps the log bounded; the
+# group-commit pair's ratio (writes / syncs) is the fsync batching
+# factor under --sync
+STORAGE_ERRORS = metrics.labeled(
+    "dgraph_storage_errors_total", label="site"
+)
+STORAGE_READONLY = metrics.gauge("dgraph_storage_readonly")
+RECOVERY_RECORDS = metrics.gauge("dgraph_recovery_records")
+RECOVERY_TORN_BYTES = metrics.gauge("dgraph_recovery_torn_bytes")
+RECOVERY_SECONDS = metrics.gauge("dgraph_recovery_seconds")
+SNAPSHOT_AGE = metrics.gauge("dgraph_snapshot_age_seconds")
+SNAPSHOTS = metrics.counter("dgraph_snapshots_total")
+WAL_BYTES = metrics.gauge("dgraph_wal_bytes")
+WAL_SEGMENTS = metrics.gauge("dgraph_wal_sealed_segments")
+GROUP_COMMIT_SYNCS = metrics.counter("dgraph_group_commit_syncs_total")
+GROUP_COMMIT_WRITES = metrics.counter("dgraph_group_commit_writes_total")
+
+# set-mutation quads by parser route (serve/mutations.py): "native", the
+# C++ scanner's bulk path (serve/bulk.py), or "python", the Python
+# parser (DGRAPH_TPU_NO_NATIVE=1, or a body the scanner declines)
+BULK_QUADS = metrics.labeled("dgraph_bulk_set_quads_total", label="route")
+
 # deliberately swallowed exceptions: "correct to drop" never means
 # "correct to drop invisibly"
 SWALLOWED_EXC = metrics.labeled(

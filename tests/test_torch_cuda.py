@@ -3,8 +3,9 @@ intersect) against its plain PyTorch version on CUDA tensors, one launch
 per wrapper call, the batched 2-hop pipeline on the card against the
 numpy oracle, the order-by's torch ops, the multi-hop pass (one
 gather launch a hop) and the tile join tier's mask chain on the card
-against the same calls on the CPU, and a hop merged across four engine
-shells as one gather launch.  Every test is marked ``cuda`` and skips
+against the same calls on the CPU, a hop merged across four engine
+shells as one gather launch, and a durable directory recovered on the
+card answering its 2-hop through the gather.  Every test is marked ``cuda`` and skips
 where no GPU is visible.  The file imports neither JAX nor the JAX
 package, so on the card's machine (no JAX there) it runs alone:
 
@@ -318,3 +319,43 @@ def test_mask_chain_on_the_card_matches_the_cpu():
     assert spgemm.apply_tile_delta(gpu, adds, dels) is gpu
     for f in ("tiles", "degs"):
         assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f))
+
+
+def test_recovered_store_serves_the_two_hop_through_the_gather(tmp_path):
+    """A durable directory (a bulk edge record, then a journaled point
+    mutation), recovered on the card with the device gate at 1: the
+    2-hop launches the gather kernel and answers with the same bytes as
+    the same directory recovered on the CPU."""
+    _need_gpu()
+    import json
+
+    from dgraph_tpu_torch.models.wal import DurableStore
+    from dgraph_tpu_torch.query import QueryEngine
+
+    d = str(tmp_path / "p")
+    src, dst = bench2hop.gen_edges(20_000, 200_000)
+    st = DurableStore(d, sync_writes=True)
+    st.apply_schema("e: uid .")
+    st.bulk_set_uid_edges("e", src, dst)
+    rng = np.random.default_rng(67)
+    mu = " ".join("<0x%x> <e> <0x%x> ." % (int(a), int(b))
+                  for a, b in rng.integers(1, 20_001, size=(64, 2)))
+    QueryEngine(st, device="cpu").run("mutation { set { %s } }" % mu)
+    st.close()
+    seeds = np.unique(rng.integers(1, 20_001, size=256))
+    q = "{ q(func: uid(%s)) { uid e { uid e { uid } } } }" % ", ".join(
+        "0x%x" % int(s) for s in seeds)
+    cpu_store = DurableStore(d)
+    want = json.dumps(QueryEngine(cpu_store, device="cpu").run(q))
+    cpu_store.close()
+    gpu_store = DurableStore(d)
+    eng = QueryEngine(gpu_store, device="cuda")
+    eng.expand_device_min = 1
+    eng.arenas.hop_cache = None
+    n0 = tgather.KERNEL.launches
+    got = json.dumps(eng.run(q))
+    torch.cuda.synchronize()
+    assert tgather.KERNEL.launches >= n0 + 2  # both levels on the card
+    assert got == want
+    assert gpu_store.recovery["wal_records"] >= 2
+    gpu_store.close()
