@@ -88,7 +88,8 @@ Phases, each fatal (exit code 1, no result line):
    (uids that own no row).
 11. chain — every kernel's launch count is set to 0, then, over HTTP at
    the default chain threshold, each query served a few times and held
-   byte for byte against the host-route engine, from seeds of their own
+   byte for byte against the host-route engine (the cheap ones, (a), (e)
+   and (f), 6 times a route), from seeds of their own
    (seed 53): (a) the main path's var-block 2-hop count from 8192 seeds,
    which must take the multi-hop pass (2 levels fused, 2 gather
    launches a request); (b) the materialised 2-hop (a staged full-mode
@@ -106,15 +107,14 @@ Phases, each fatal (exit code 1, no result line):
 12. serving plane — phases 4-11 run with both query caches detached
    (the scheduler's result cache and the arenas' hop cache), so that
    their repeats execute; here they are attached again, every kernel's
-   launch count is set to 0, and 16 client threads each send 8 requests
-   (128 in all) over HTTP to the server at its default knobs (the cohort
+   launch count is set to 0, and 16 client threads each send 5 requests
+   (80 in all) over HTTP to the server at its default knobs (the cohort
    scheduler on): per client a var-block ``@recurse(depth: 2)`` count
    from 8192 seeds (level by level: the fused BFS's bound rejects 8192
-   seeds, and level 2 is above the merge gate), the main path's var-block
-   2-hop count from 8192 seeds (the chain tier), join query (a), and
-   ``shortest`` k 1 from one source to three nodes two hops away (the
-   later two hit the hop cache), then repeats of its own first two
-   (25 %); seeds from ``default_rng(59)``.  Every body must equal a
+   seeds, and level 2 is above the merge gate), join query (a), and
+   ``shortest`` k 1 from one source to two nodes two hops away (the
+   second hits the hop cache), then a repeat of its own first; seeds
+   from ``default_rng(59)``.  Every body must equal a
    host-route engine's, computed before the load.  One round on the
    scheduled server, then one on the serial path (the scheduler
    detached: ``DGRAPH_TPU_SCHED=0``), both caches emptied before each
@@ -139,7 +139,7 @@ Phases, each fatal (exit code 1, no result line):
    million edges in some 1,534 stored 128×128 blocks: tiles about
    128 MiB, a mask 65,536 lanes).  Every kernel's launch count is set to
    0, then four queries from seeds of ``default_rng(67)``, each served
-   12 times a route over HTTP with ``?debug=true``, the routes
+   6 times a route over HTTP with ``?debug=true``, the routes
    alternating request by request — ``DGRAPH_TPU_MXU_JOIN`` 1 (the tile
    route) and 0 (the gather tier: the fused chain for m1 and m2; level by
    level for the triangles, whose ``uid(w)`` filter the chain cannot
@@ -216,7 +216,37 @@ Phases, each fatal (exit code 1, no result line):
    answer 503 with ``Retry-After`` while a read answers 200 as before,
    and once the probe re-arms, a mutation answers 200 and shows up in
    the next read.  The counts are read right after.
-18. report — the device time of one 200-query chunk by stage (hop 1,
+18. cluster — every kernel's launch count is set to 0, then, every
+   server in this process on the card, each with its own engine and
+   arenas, raft logs in the git-ignored ``_smoke/cluster`` (removed at
+   the end), under the group rules ``1: e`` / ``2: name`` / ``default:
+   fp % 2 + 1``: (t) three servers each serving groups 0, 1 and 2 (3
+   replicas of every predicate): the schema, then the generated edges
+   in source-ascending ``BULKEDGES`` records of 262,144 edges and phase
+   5's names in ``BULKVALS`` records of 131,072, one proposal each,
+   submitted through a follower of its group (forwarded to the leader);
+   seconds from the first proposal to the last applied on every
+   replica, per group.  With both query caches detached, the three
+   servers are asked the var-block 2-hop count from phase 4's 8192
+   seeds together (each one's seconds to it: the read snapshot, the
+   arena seed, the first gather), then each in turn that count 10
+   times, the materialised 2-hop from those seeds once and join (a) 10
+   times, every body equal to a host-route engine over a single-node
+   store of the same data, each server's requests launching the gather
+   and (a)'s the intersect.  Then 64 added and 64 deleted ``e`` edges
+   written through the third server: the group-1 leader must answer the
+   new count at once, the followers within a bounded wait.  Then the
+   group-1 leader's server is stopped: a new leader must be elected, a
+   64-edge write acknowledged, both survivors answer the new count.
+   (p) two servers, server 1 placing groups 0 and 1 (``e``: the first
+   1/64 of the generated edges), server 2 groups 0 and 2 (``name`` on
+   uids 1..125,000): a materialised 2-hop with a ``name`` child from
+   the 8192 seeds, sent to server 2 with its gate at 1, pulls ``e`` from
+   server 1 through ``/pred-snapshot``, must equal the host route and
+   launch the gather on server 2; its first fetch's seconds and bytes.
+   Each line carries the card's name and power limit; launches by node.
+   The counts are read right after.
+19. report — the device time of one 200-query chunk by stage (hop 1,
    dedup, hop 2, checksum; CUDA events); one pass of the 1000 queries
    under ``torch.profiler``: the card's busy time (the union of its
    kernel and copy intervals) over the pass's host wall time, and device
@@ -227,7 +257,9 @@ Phases, each fatal (exit code 1, no result line):
    served matrices and bench_ops.py's K 2/4/8 at L 8192) timed three
    ways: CUDA events around each call, events around 30 back-to-back
    calls, and the device time of every device op in the profiler window
-   of a call (split by name); beside them the plain version, the bytes
+   of a call (split by name; the gather's window must hold all 30 of its
+   launches, else it is recorded again with host activity too, and after
+   that its device time is null); beside them the plain version, the bytes
    bound and, for the intersect, the port's ``intersect_many`` tree; the
    order-by at the query surface's two sorted shapes (the two torch ops
    on the card, the engine's device branch and its numpy branch); a
@@ -241,6 +273,8 @@ Exits non-zero without a CUDA GPU, or when the package is not beside it.
 
 ``python3 chip_smoke.py --durability-only`` runs phase 1, the graph's
 generation (no server) and phase 17 (about three minutes).
+``python3 chip_smoke.py --cluster-only`` runs phase 1, the graph's
+generation and phase 18.
 ``python3 chip_smoke.py --serving-only`` runs phases 1-3, the names of
 phase 5 and phase 12 alone (the serving plane on the caches' first
 use).  ``python3 chip_smoke.py --mxu-only`` runs phase 1 and phase 13
@@ -272,7 +306,9 @@ N_NODES, N_EDGES, GRAPH_SEED = 2_000_000, 21_000_000, 7
 # second-level edges, below the engine's default device gate (262144);
 # 8192 seeds about 410,000, so the served query crosses it (the config
 # line prints both counts)
-SMALL_SEEDS, LARGE_SEEDS, REPEATS = 64, 8192, 20
+# (10 repeats, not 20: with the cluster phase the run must still fit its
+# time limit)
+SMALL_SEEDS, LARGE_SEEDS, REPEATS = 64, 8192, 10
 # the batched 2-hop: bench.py's defaults (BENCH_SEEDS, BENCH_ITERS) and
 # its chunk of queries per batched program
 BATCH_SEEDS, BATCH_QUERIES, CHUNK_Q = 4096, 1000, 200
@@ -288,7 +324,7 @@ VOCAB = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf",
 # (ties); each served query repeated SURFACE_REPEATS times (the @recurse,
 # whose body holds some 470,000 nodes, RECURSE_REPEATS times)
 N_RANKED, RANK_RANGE, RANK_SEED, SURFACE_SEED = 1_000_000, 1 << 16, 43, 47
-SURFACE_REPEATS, RECURSE_REPEATS = 5, 3
+SURFACE_REPEATS, RECURSE_REPEATS = 3, 2  # (5, 3 before the cluster phase)
 RECURSE_MAX_EDGES = 1_000_000  # the reference's recursion cap (query/recurse.py)
 
 # the chain phase: its own seeds; requests a route of each cheap query
@@ -296,18 +332,22 @@ RECURSE_MAX_EDGES = 1_000_000  # the reference's recursion cap (query/recurse.py
 # the fewest requests a p99 is reported over; the threshold that pins
 # the chain off
 CHAIN_SEED, PINNED_OFF = 53, 1 << 62
-CHAIN_REPEATS, CHAIN_REPEATS_BULKY, CHAIN_P99_MIN = 24, 3, 20
+# (6 cheap requests a route, not 24: with the cluster phase the run
+# must still fit its time limit; p99 needs CHAIN_P99_MIN requests)
+CHAIN_REPEATS, CHAIN_REPEATS_BULKY, CHAIN_P99_MIN = 6, 3, 20
 
-# the serving plane: client threads, requests each (the last two repeat
-# the client's first two), rounds of each path (scheduled, serial), and
-# the seed of the mix's draws
-SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_ROUNDS, SERVE_SEED = 16, 8, 1, 59
+# the serving plane: client threads, requests each (the last repeats
+# the client's first; 5, not 8: with the cluster phase the run must
+# still fit its time limit), shortest paths each, rounds of each path
+# (scheduled, serial), and the seed of the mix's draws
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_SHORTEST = 16, 5, 2
+SERVE_ROUNDS, SERVE_SEED = 1, 59
 
 # the tile join tier: its graph (uids, targets a uid, seed), the seeds'
 # seed, requests a route, and the draws of its ops check (bench_ops.py's
 # triangle shape: nodes, edges, roots a set, sets)
 MXU_UIDS, MXU_FANOUT, MXU_GRAPH_SEED, MXU_SEED = 65_535, 64, 61, 67
-MXU_REPEATS, MXU_DELTA = 12, 64
+MXU_REPEATS, MXU_DELTA = 6, 64  # (12 requests a route before the cluster phase)
 TRI_NODES, TRI_EDGES, TRI_ROOTS, TRI_B = 512, 32_768, 48, 64
 
 # the durability phase: its seeds' seed; the write of (a), DUR_EDGES
@@ -324,17 +364,43 @@ D1_SNAPSHOT_WAL_MB = 1024
 LOAD_SEED, LOAD_EDGES, LOAD_NAMES, LOAD_SOURCES = 71, 150_000, 50_000, 50_000
 LOAD_SNAPSHOT_RECORDS, LOAD_TAIL = 100, 16
 
+# the cluster phase: the group rules of both deployments (the upstream
+# documented ``N: pred`` / ``default: fp % N + k`` form); the pair's cut
+# (1/PAIR_EDGE_SHARE of the generated edges, names on uids
+# 1..PAIR_NAMED: one interpreter holds both servers, and the run has a
+# time limit); the write's seed and size; the requests of each timed
+# query; every bounded wait (and the proposal patience), seconds
+CLUSTER_CONF = "1: e\n2: name\ndefault: fp % 2 + 1"
+# (1/64, not 1/8: a read of another group's predicate pulls it through
+# /pred-snapshot within the read plane's 10 s budget, three attempts of
+# 3.3 s, and the owner encodes one Python record an edge, so at 1/8 no
+# attempt finished and the read answered 503)
+PAIR_EDGE_SHARE, PAIR_NAMED = 64, 125_000
+# the trio's load in per-range records (uids ascending, as the loader's
+# batches are) of at most this many edges / names, one proposal each:
+# a raft frame crosses the transport's 2 s send window, and the leader
+# re-sends every unacknowledged entry each heartbeat, so one 336 MB
+# entry neither crosses it nor stays bounded in memory
+CLUSTER_RECORD_EDGES, CLUSTER_RECORD_NAMES = 1 << 18, 1 << 17
+# the raft tick, ms (an election timeout of 10-20 ticks): the library's
+# 15 ms default makes a 150-300 ms election timeout, which every
+# record's apply on the leader's loop outlasts, so the group changed
+# leaders through the whole load; 100 ms (a 1-2 s timeout, etcd's
+# default scale) outlasts an apply
+CLUSTER_TICK_MS = 100
+CLUSTER_SEED, CLUSTER_DELTA, CLUSTER_REPEATS, CLUSTER_WAIT_S = 79, 64, 10, 600
+
 # kernels: (name, wrapper module, TPU kernel it replaces, paths that run it)
 KERNELS = [
     ("gather_packed", "dgraph_tpu_torch.ops.gather",
      "dgraph_tpu/ops/pallas_gather.py:48",
      ("main_path", "query_surface", "chain", "serving_plane", "mxu_join",
-      "durability")),
+      "durability", "cluster")),
     ("slotmap", "dgraph_tpu_torch.ops.slotmap",
      "dgraph_tpu/ops/pallas_slotmap.py:46", ("batched_2hop",)),
     ("intersect", "dgraph_tpu_torch.ops.kway",
      "dgraph_tpu/ops/pallas_intersect.py:35",
-     ("join_path", "chain", "serving_plane", "mxu_join")),
+     ("join_path", "chain", "serving_plane", "mxu_join", "cluster")),
 ]
 
 
@@ -448,7 +514,7 @@ def cuda_ms(fn, iters: int = 30, warm: int = 3) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in evs]))
 
 
-def kernel_times(fn, iters: int = 30) -> dict:
+def kernel_times(fn, iters: int = 30, kernel: str = "") -> dict:
     """A wrapper call's time three ways, ms: ``ms``, the median of CUDA
     events around each call (for a call of a few µs mostly the host's
     enqueue while the card waits); ``b2b_ms``, events around ``iters``
@@ -456,7 +522,14 @@ def kernel_times(fn, iters: int = 30) -> dict:
     call of every device op (kernel, memset, copy) in the profiler window
     of the calls (None if it records none), with its split by name, so
     that a design that does its work in several ops and one that does it
-    in one are timed alike."""
+    in one are timed alike.
+
+    ``kernel`` names the timed kernel's function: then the window must
+    hold ``iters`` launches of it (``device_window_launches``, one count
+    a window).  A CUDA-only window can lose device events (the profiler
+    keeps only part of a run of calls at times), so a short window is
+    retried with host activity recorded too, and after that
+    ``device_ms`` is None: a partial window is never averaged."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -472,17 +545,31 @@ def kernel_times(fn, iters: int = 30) -> dict:
     torch.cuda.synchronize()
     out["b2b_ms"] = a.elapsed_time(b) / iters
     by_name: dict = {}
-    for _attempt in range(2):  # the profiler has returned no device events at times
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    windows = []
+    tries = ([[ProfilerActivity.CUDA]] * 2 if not kernel else
+             [[ProfilerActivity.CUDA]] + [[ProfilerActivity.CPU, ProfilerActivity.CUDA]] * 2)
+    for acts in tries:  # the profiler has returned no device events at times
+        by_name = {}
+        with profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        n = 0
         for ev in prof.events():
             if ev.device_type == DeviceType.CUDA:
                 by_name[ev.name] = by_name.get(ev.name, 0.0) + (
                     ev.time_range.end - ev.time_range.start) / 1e3 / iters
-        if by_name:
+                n += kernel != "" and kernel in ev.name
+        if kernel:
+            windows.append({"activities": [str(x).rsplit(".", 1)[-1] for x in acts],
+                            "launches": n})
+            if n >= iters:
+                break
+            by_name = {}
+        elif by_name:
             break
+    if kernel:
+        out["device_window_launches"] = windows
     out["device_ms"] = sum(by_name.values()) if by_name else None
     out["device_ms_by_kernel"] = by_name
     return out
@@ -1305,12 +1392,11 @@ def shortest_fan(arena, seeds, n: int):
 
 
 def serving_mix(arena, rng):
-    """Each client's request texts: six fresh ones — a per-level
-    @recurse count and the main path's var-block 2-hop count (the chain
-    tier) from 8192 seeds, join query (a), and ``shortest`` k 1 from one
-    source to three nodes two hops away (the later two re-expand the
-    first's rings: hop-cache hits) — then repeats of its own first two
-    (25 % of the requests).  Every text reads only ``e``, so all share
+    """Each client's request texts: four fresh ones — a per-level
+    @recurse count from 8192 seeds, join query (a), and ``shortest`` k 1
+    from one source to two nodes two hops away (the second re-expands
+    the first's rings: hop-cache hits) — then a repeat of its own
+    first.  Every text reads only ``e``, so all share
     one cache version (the caches' generation sweep reclaims entries of
     any other version, live ones included)."""
     def seeds():
@@ -1320,9 +1406,8 @@ def serving_mix(arena, rng):
     clients = []
     for _c in range(SERVE_CLIENTS):
         src, dsts = shortest_fan(arena, np.unique(
-            rng.integers(1, N_NODES + 1, size=SMALL_SEEDS)), 3)
-        fresh = [recurse_count(seeds()), two_hop_count(seeds()),
-                 join_filter_query(seeds(), g)]
+            rng.integers(1, N_NODES + 1, size=SMALL_SEEDS)), SERVE_SHORTEST)
+        fresh = [recurse_count(seeds()), join_filter_query(seeds(), g)]
         fresh += ["{ shortest(from: 0x%x, to: 0x%x, numpaths: 1) { e } }" % (src, d)
                   for d in dsts]
         clients.append(fresh + fresh[:SERVE_PER_CLIENT - len(fresh)])
@@ -2292,6 +2377,452 @@ def phase_durability(device, src, dst, card: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phase 18: the cluster ----------------------------------------------------
+
+
+def host_used_g() -> int:
+    """The host's used memory, GiB (``free -g``'s Mem line)."""
+    out = subprocess.run(["free", "-g"], capture_output=True, text=True).stdout
+    return int(next(ln for ln in out.splitlines() if ln.startswith("Mem:")).split()[2])
+
+
+def free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def wait_until(cond, timeout: float, msg: str, step: float = 0.05) -> float:
+    """Poll ``cond`` until true; returns the seconds it took, fails the
+    phase after ``timeout``."""
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout, msg)
+        time.sleep(step)
+    return time.perf_counter() - t0
+
+
+def post_retry(addr: str, text: str, timeout: float = CLUSTER_WAIT_S):
+    """POST a write to a cluster server, retrying the answers a leader
+    change produces (no leader yet, a proposal timed out, a peer down:
+    400 with a retry message, 409, 5xx) under one bounded deadline; a
+    deterministic error fails at once."""
+    t0 = time.perf_counter()
+    while True:
+        status, raw, _h, secs = post_any(addr, text)
+        if status == 200:
+            return raw, secs
+        msg = raw.decode("utf-8", "replace").lower()
+        transient = status == 409 or status >= 500 or (status == 400 and any(
+            w in msg for w in ("leader", "retry", "timed out", "unavailable",
+                               "no known server")))
+        check(transient and time.perf_counter() - t0 < timeout,
+              f"cluster write to {addr}: HTTP {status} {raw[:300]!r}")
+        time.sleep(0.5)
+
+
+def boot_cluster(device, base: Path, groups_by_node, peer_groups: str = ""):
+    """Servers on ``device``, one ``ClusterService`` each under ``base``
+    (node ids 1..n, every one in this process: each server's engine owns
+    its arenas on the card), the groups ``CLUSTER_CONF`` places;
+    returns them once every group of every server knows a leader."""
+    from dgraph_tpu_torch.cluster.groups import GroupConfig
+    from dgraph_tpu_torch.cluster.service import ClusterService, parse_peer_groups
+    from dgraph_tpu_torch.serve.server import DgraphServer
+
+    ports = free_ports(len(groups_by_node))
+    peers = {str(i + 1): f"http://127.0.0.1:{p}" for i, p in enumerate(ports)}
+    servers = []
+    for i, gids in enumerate(groups_by_node):
+        nid = str(i + 1)
+        svc = ClusterService(
+            node_id=nid, my_addr=peers[nid], peers=peers, group_ids=gids,
+            directory=str(base / f"n{nid}"),
+            group_config=GroupConfig.parse(CLUSTER_CONF),
+            peer_groups=parse_peer_groups(peer_groups), tick_ms=CLUSTER_TICK_MS)
+        svc.start()
+        srv = DgraphServer(svc.store, port=ports[i], device=device, cluster=svc)
+        srv.start()
+        servers.append(srv)
+    wait_until(lambda: all(s.cluster.has_leader() for s in servers), 60,
+               "cluster: no raft leader elected")
+    return servers
+
+
+def group_leader(servers, gid: int):
+    return next((s for s in servers if s.cluster.groups[gid].node.is_leader), None)
+
+
+def group_follower(servers, gid: int):
+    wait_until(lambda: group_leader(servers, gid) is not None, 60,
+               f"cluster: group {gid} has no leader")
+    return next(s for s in servers if not s.cluster.groups[gid].node.is_leader)
+
+
+def name_items(n_named: int):
+    """phase 5's names (the same words on the same uids) as BULKVALS items."""
+    from dgraph_tpu_torch.models.types import TypeID, TypedValue
+
+    rng = np.random.default_rng(NAME_SEED)
+    words = np.asarray(VOCAB)[rng.integers(0, len(VOCAB), size=(n_named, NAME_WORDS))]
+    return [(u, "", TypedValue(TypeID.STRING, " ".join(w)))
+            for u, w in enumerate(words.tolist(), 1)]
+
+
+def propose_retry(fn, retries: list, timeout: float = CLUSTER_WAIT_S) -> None:
+    """Run one proposal ``fn`` as a client does: retry what a leader
+    change answers (no leader known, leadership lost, a proposal or a
+    peer timed out) under one bounded deadline, each retry's error
+    appended to ``retries``; anything else fails."""
+    from dgraph_tpu_torch.cluster.raft import NotLeaderError
+
+    t0 = time.perf_counter()
+    while True:
+        try:
+            return fn()
+        except (NotLeaderError, TimeoutError, OSError) as e:
+            check(time.perf_counter() - t0 < timeout, f"cluster proposal: {e!r}")
+            retries.append(type(e).__name__)
+        except RuntimeError as e:
+            if "leadership lost" not in str(e):
+                raise
+            check(time.perf_counter() - t0 < timeout, f"cluster proposal: {e!r}")
+            retries.append("leadership lost")
+        time.sleep(0.2)
+
+
+def replicate(servers, gid: int, pred: str, propose) -> float:
+    """Run ``propose`` (writes submitted through a follower of ``gid``,
+    which forwards each to the leader); returns the seconds until every
+    replica of ``gid`` applied them (the same raft index last touched
+    ``pred`` everywhere)."""
+    t0 = time.perf_counter()
+    propose()
+
+    def everywhere():
+        vs = {s.cluster.groups[gid].pred_version(pred) for s in servers}
+        return len(vs) == 1 and vs.pop() > 0
+
+    wait_until(everywhere, CLUSTER_WAIT_S, f"cluster: {pred} never applied everywhere")
+    return time.perf_counter() - t0
+
+
+def serve_node(srv, q: str, want: str, repeats: int, name: str) -> dict:
+    """``q`` on one server ``repeats`` times, every body equal to
+    ``want``; returns p50/p99 and each kernel's launches a request."""
+    from dgraph_tpu_torch.ops import gather, kway
+
+    g0, k0 = gather.KERNEL.launches, kway.KERNEL.launches
+    lat = []
+    for _ in range(repeats):
+        status, raw, secs = post(srv.addr, q)
+        check(status == 200, f"cluster {name} on node {srv.cluster.node_id}: HTTP {status}")
+        check(strip_latency(raw) == want,
+              f"cluster {name} on node {srv.cluster.node_id} differs from the host route")
+        lat.append(secs)
+    return {"requests": repeats,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "gather_launches": gather.KERNEL.launches - g0,
+            "intersect_launches": kway.KERNEL.launches - k0}
+
+
+def delta_edges(store, seeds, n: int, rng):
+    """``n`` edges to add and ``n`` to delete, from first-level nodes of
+    ``seeds``, so that the 2-hop count from ``seeds`` moves."""
+    edges = store.peek("e").edges
+    f1 = sorted({t for s in seeds.tolist() for t in edges.get(s, ())})
+    adds, dels = [], []
+    for s in rng.permutation(f1).tolist():
+        if len(adds) == n:
+            break
+        if not edges.get(s):
+            continue
+        dels.append((s, min(edges[s])))
+        t = int(rng.integers(1, N_NODES + 1))
+        while t in edges[s]:
+            t = int(rng.integers(1, N_NODES + 1))
+        adds.append((s, t))
+    check(len(adds) == n, "cluster: too few first-level nodes for the write")
+    return adds, dels
+
+
+def edge_mutation(adds, dels) -> str:
+    body = "mutation { set { %s } " % " ".join("<0x%x> <e> <0x%x> ." % e for e in adds)
+    if dels:
+        body += "delete { %s } " % " ".join("<0x%x> <e> <0x%x> ." % e for e in dels)
+    return body + "}"
+
+
+def apply_edges(store, adds, dels) -> None:
+    from dgraph_tpu_torch.models.store import Edge
+
+    store.apply_many([Edge("e", s, dst=t) for s, t in adds]
+                     + [Edge("e", s, dst=t, op="del") for s, t in dels])
+
+
+def answers_exactly(srv, q: str, want: str) -> bool:
+    status, raw, _ = post(srv.addr, q)
+    return status == 200 and strip_latency(raw) == want
+
+
+def exact_everywhere(servers, q: str, want: str, at_once=(), what: str = "") -> dict:
+    """``q`` asked of every server at once (one client thread each, as
+    clients of a deployment ask): a server in ``at_once`` must answer
+    ``want`` on its first request, the others within CLUSTER_WAIT_S;
+    returns each node's seconds to its first exact answer.  A server's
+    first read after a replica apply rebuilds its arena, so the three
+    rebuilds overlap."""
+    import threading
+
+    out, errs = {}, []
+
+    def ask(srv):
+        t0 = time.perf_counter()
+        try:
+            if srv in at_once:
+                check(answers_exactly(srv, q, want),
+                      f"cluster {what}: node {srv.cluster.node_id}'s first answer is wrong")
+            else:
+                wait_until(lambda: answers_exactly(srv, q, want), CLUSTER_WAIT_S,
+                           f"cluster {what}: node {srv.cluster.node_id} never "
+                           "answered exactly", step=0.5)
+            out[srv.cluster.node_id] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 — re-raised below, in order
+            errs.append(e)
+
+    threads = [threading.Thread(target=ask, args=(s,)) for s in servers]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return out
+
+
+def phase_cluster(device, src, dst, card: str) -> dict:
+    """(t) a replicated trio and (p) a sharded pair on ``device``, every
+    server in this process; the caller zeroes the launch counts just
+    before and reads them just after."""
+    import gc
+    import shutil
+    from collections import Counter
+
+    from dgraph_tpu_torch.models import PostingStore
+    from dgraph_tpu_torch.ops import gather
+
+    work = ROOT / "_smoke" / "cluster"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    patience = os.environ.get("DGRAPH_TPU_PROPOSE_TIMEOUT")
+    # a forwarded proposal of the whole graph commits and applies in
+    # tens of seconds: the proposer must outwait it, or the forwarder
+    # re-posts a duplicate behind the running original
+    os.environ["DGRAPH_TPU_PROPOSE_TIMEOUT"] = str(CLUSTER_WAIT_S)
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True).stdout
+    log({"phase": "cluster_host", "free_g": free.strip().splitlines()})
+    servers = []
+    out = {"card": card}
+    try:
+        rng = np.random.default_rng(GRAPH_SEED)
+        rng.integers(1, N_NODES + 1, size=SMALL_SEEDS)
+        seeds = np.unique(rng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+        jrng = np.random.default_rng(JOIN_SEED)
+        s1, s2 = (np.unique(jrng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+                  for _ in range(2))
+        items = name_items(N_NAMED)
+        schema = "e: uid .\nname: string @index(term) ."
+
+        # -- (t): the replicated trio ------------------------------------
+        t0 = time.perf_counter()
+        ref_store = PostingStore()
+        ref_store.apply_schema(schema)
+        ref_store.bulk_set_uid_edges("e", src, dst)
+        ref_store.bulk_set_values("name", items)
+        ref = host_engine(ref_store)
+        queries = {"count": two_hop_count(seeds), "materialised": two_hop(seeds),
+                   "join_a": join_filter_query(s1, s2)}
+        want = {n: json.dumps(ref.run(q)) for n, q in queries.items()}
+        check(json.loads(want["join_a"]).get("q"), "cluster: join (a) matched nothing")
+        ref_s = time.perf_counter() - t0
+        servers = boot_cluster(device, work / "t", [[0, 1, 2]] * 3)
+        post_retry(group_follower(servers, 0).addr,
+                   "mutation { schema { %s } }" % schema.replace("\n", " "))
+        order = np.argsort(src, kind="stable")
+        bsrc, bdst = src[order], dst[order]
+        edge_cuts = range(0, len(bsrc), CLUSTER_RECORD_EDGES)
+        name_cuts = range(0, len(items), CLUSTER_RECORD_NAMES)
+        f1 = group_follower(servers, 1)
+        retries = {"1": [], "2": []}
+        apply_s = {"1": replicate(servers, 1, "e", lambda: [propose_retry(
+            lambda i=i: f1.store.bulk_set_uid_edges(
+                "e", bsrc[i:i + CLUSTER_RECORD_EDGES], bdst[i:i + CLUSTER_RECORD_EDGES]),
+            retries["1"]) for i in edge_cuts])}
+        f2 = group_follower(servers, 2)
+        apply_s["2"] = replicate(servers, 2, "name", lambda: [propose_retry(
+            lambda i=i: f2.store.bulk_set_values("name", items[i:i + CLUSTER_RECORD_NAMES]),
+            retries["2"]) for i in name_cuts])
+        del bsrc, bdst, order
+        out["replicate_s"] = apply_s
+        log({"phase": "cluster_replicate", "servers": 3, "groups": [0, 1, 2],
+             "conf": CLUSTER_CONF, "edges_generated": len(src),
+             "edges_stored": sum(len(v) for v in ref_store.peek("e").edges.values()),
+             "named": len(items), "via_follower": {"1": f1.cluster.node_id,
+                                                   "2": f2.cluster.node_id},
+             "records": {"1": len(edge_cuts), "2": len(name_cuts)},
+             "retried": {g: dict(Counter(v)) for g, v in retries.items()},
+             "tick_ms": CLUSTER_TICK_MS,
+             "proposal_to_applied_s": apply_s, "host_reference_s": ref_s,
+             "card": card})
+        caches = contextlib.ExitStack()
+        for srv in servers:
+            caches.enter_context(no_caches(srv))
+        g0 = gather.KERNEL.launches
+        first = exact_everywhere(servers, queries["count"], want["count"],
+                                 at_once=servers, what="first count")
+        check(gather.KERNEL.launches > g0, "cluster: the first counts launched no gather")
+        nodes = {}
+        for srv in servers:  # one server at a time: each line its own latency
+            nid = srv.cluster.node_id
+            row = {"first_answer_s": first[nid]}
+            row["count"] = serve_node(srv, queries["count"], want["count"],
+                                      CLUSTER_REPEATS, "count")
+            row["materialised"] = serve_node(srv, queries["materialised"],
+                                             want["materialised"], 1, "materialised")
+            row["join_a"] = serve_node(srv, queries["join_a"], want["join_a"],
+                                       CLUSTER_REPEATS, "join (a)")
+            check(row["count"]["gather_launches"] > 0
+                  and row["materialised"]["gather_launches"] > 0,
+                  f"cluster: node {nid}'s requests launched no gather")
+            check(row["join_a"]["intersect_launches"] >= CLUSTER_REPEATS,
+                  f"cluster: node {nid}'s join (a) did not launch the intersect")
+            nodes[nid] = row
+            log(dict(phase="cluster_node", node=nid, card=card, **row))
+        out["nodes"] = nodes
+
+        # the write through the third server: the group-1 leader answers
+        # the new count at once, the followers within a bounded wait
+        adds, dels = delta_edges(ref_store, seeds, CLUSTER_DELTA,
+                                 np.random.default_rng(CLUSTER_SEED))
+        writer = servers[2]
+        _raw, write_s = post_retry(writer.addr, edge_mutation(adds, dels))
+        apply_edges(ref_store, adds, dels)
+        new_count = json.dumps(ref.run(queries["count"]))
+        check(new_count != want["count"], "cluster: the write left the count unchanged")
+        leader = group_leader(servers, 1)
+        check(leader is not None, "cluster: group 1 lost its leader at the write")
+        converge = exact_everywhere(servers, queries["count"], new_count,
+                                    at_once=(leader,), what="count after the write")
+        # every replica now holds its store, a snapshot copy and arenas
+        out["write"] = {"added": len(adds), "deleted": len(dels), "via": writer.cluster.node_id,
+                        "ack_s": write_s, "leader": leader.cluster.node_id,
+                        "exact_after_s": converge, "host_used_g": host_used_g()}
+        log(dict(phase="cluster_write", card=card, **out["write"]))
+
+        # failover: stop the group-1 leader's server
+        survivors = [s for s in servers if s is not leader]
+        t0 = time.perf_counter()
+        leader.stop()  # a graceful stop: it hands its leaderships over
+        stop_s = time.perf_counter() - t0
+        servers.remove(leader)
+        wait_until(lambda: group_leader(survivors, 1) is not None,
+                   CLUSTER_WAIT_S, "failover: no new group-1 leader")
+        elect_s = time.perf_counter() - t0
+        adds2, _ = delta_edges(ref_store, seeds, CLUSTER_DELTA,
+                               np.random.default_rng(CLUSTER_SEED + 1))
+        post_retry(survivors[0].addr, edge_mutation(adds2, []))
+        ack_s = time.perf_counter() - t0
+        apply_edges(ref_store, adds2, [])
+        fail_count = json.dumps(ref.run(queries["count"]))
+        exact = exact_everywhere(survivors, queries["count"], fail_count,
+                                 what="count after the failover")
+        out["failover"] = {"stopped": leader.cluster.node_id, "stop_s": stop_s,
+                           "elected_s": elect_s,
+                           "new_leader": group_leader(survivors, 1).cluster.node_id,
+                           "acknowledged_write_s": ack_s, "exact_after_s": exact}
+        log(dict(phase="cluster_failover", card=card, **out["failover"]))
+        caches.close()
+        for srv in survivors:
+            srv.stop()
+        servers = []
+        del ref, ref_store, survivors, leader, writer, f1, f2
+        gc.collect()
+
+        # -- (p): the sharded pair (1/PAIR_EDGE_SHARE of the edges) -------
+        n_e = len(src) // PAIR_EDGE_SHARE
+        ps, pd_ = src[:n_e], dst[:n_e]
+        pitems = items[:PAIR_NAMED]
+        ref_store = PostingStore()
+        ref_store.apply_schema(schema)
+        ref_store.bulk_set_uid_edges("e", ps, pd_)
+        ref_store.bulk_set_values("name", pitems)
+        ref = host_engine(ref_store)
+        q = "{ q(func: uid(%s)) { uid e { uid e { uid name } } } }" % uid_list(seeds)
+        want_p = json.dumps(ref.run(q))
+        servers = boot_cluster(device, work / "p", [[0, 1], [0, 2]], "1=0,1;2=0,2")
+        owner, reader = servers
+        post_retry(owner.addr, "mutation { schema { %s } }" % schema.replace("\n", " "))
+        propose_retry(lambda: owner.store.bulk_set_uid_edges("e", ps, pd_), [])
+        propose_retry(lambda: reader.store.bulk_set_values("name", pitems), [])
+        fetches = []
+        fetch = reader.cluster.fetch_pred_snapshot
+
+        def recorded(pred, gid, since, timeout=10.0):
+            t0 = time.perf_counter()
+            ver, payload = fetch(pred, gid, since, timeout)
+            fetches.append((pred, time.perf_counter() - t0,
+                            0 if payload is None else len(payload)))
+            return ver, payload
+
+        reader.cluster.fetch_pred_snapshot = recorded
+        reader.engine.expand_device_min = 1  # the 1/64 graph's 2-hop is below the gate
+        with no_caches(reader):
+            g0 = gather.KERNEL.launches
+            t0 = time.perf_counter()
+            status, raw, _ = post(reader.addr, q)
+            first_s = time.perf_counter() - t0
+            check(status == 200 and strip_latency(raw) == want_p,
+                  "pair: the cross-server 2-hop differs from the host route")
+            row = serve_node(reader, q, want_p, 3, "pair 2-hop")
+        launches = gather.KERNEL.launches - g0
+        check(launches > 0, "pair: the cross-server 2-hop launched no gather on node 2")
+        e_fetch = [f for f in fetches if f[0] == "e" and f[2] > 0]
+        check(e_fetch, "pair: node 2 never fetched e from node 1")
+        owned = {n: sorted(p for g in s.cluster.groups.values() for p in g.store._preds)
+                 for n, s in (("1", owner), ("2", reader))}
+        check("e" in owned["1"] and "e" not in owned["2"], f"pair: placement {owned}")
+        out["pair"] = {"edges": n_e, "named": len(pitems), "seeds": len(seeds),
+                       "first_request_s": first_s, "first_fetch_s": e_fetch[0][1],
+                       "first_fetch_bytes": e_fetch[0][2], "gather_launches": launches,
+                       "p50_ms": row["p50_ms"], "p99_ms": row["p99_ms"],
+                       "placement": owned, "body_bytes": len(want_p)}
+        log(dict(phase="cluster_pair", card=card, **out["pair"]))
+        out["launches_by_node"] = {
+            **{f"t{n}": {"gather": r["count"]["gather_launches"]
+                         + r["materialised"]["gather_launches"]
+                         + r["join_a"]["gather_launches"],
+                         "intersect": r["join_a"]["intersect_launches"]}
+               for n, r in nodes.items()},
+            "p2": {"gather": launches}}
+        log({"phase": "cluster_launches_by_node", "card": card, **out["launches_by_node"]})
+        return out
+    finally:
+        for srv in servers:
+            srv.stop()
+        if patience is None:
+            os.environ.pop("DGRAPH_TPU_PROPOSE_TIMEOUT", None)
+        else:
+            os.environ["DGRAPH_TPU_PROPOSE_TIMEOUT"] = patience
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # -- phases 14-16: the batched 2-hop -----------------------------------------
 
 
@@ -2717,7 +3248,8 @@ def gather_timing(arena, rng) -> dict:
             "B": len(rows), "live_rows": len(live), "total": total, "cap": cap,
             "bytes": nbytes,
             **kernel_times(lambda off=off, dst=dst, rt=rt, cap=cap:
-                           gather.gather_packed(off, dst, rt, cap)),
+                           gather.gather_packed(off, dst, rt, cap),
+                           kernel="gather_fused"),
             "plain_ms": cuda_ms(lambda off=off, dst=dst, rt=rt, cap=cap:
                                 gather.gather_packed_plain(off, dst, rt, cap)),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -2730,6 +3262,7 @@ def main(argv) -> int:
     durability_only = "--durability-only" in argv
     serving_only = "--serving-only" in argv
     mxu_only = "--mxu-only" in argv
+    cluster_only = "--cluster-only" in argv
     try:
         import torch
     except ImportError:
@@ -2778,6 +3311,18 @@ def main(argv) -> int:
             phase = mark("mxu_join")
             zero_counts()
             phase_mxu_join(info["nvidia_smi"], lambda: read_counts("mxu_join"))
+            mark("done")
+            log({"phase_seconds": phase_s, "launches": launches})
+            return 0
+        if cluster_only:
+            from dgraph_tpu_torch.bench2hop import gen_edges
+
+            phase = mark("graph")
+            src, dst = gen_edges(N_NODES, N_EDGES)
+            phase = mark("cluster")
+            zero_counts()
+            phase_cluster("cuda", src, dst, info["nvidia_smi"])
+            read_counts("cluster")
             mark("done")
             log({"phase_seconds": phase_s, "launches": launches})
             return 0
@@ -2873,6 +3418,10 @@ def main(argv) -> int:
         zero_counts()
         dur = phase_durability("cuda", src, dst, info["nvidia_smi"])
         read_counts("durability")
+        phase = mark("cluster")
+        zero_counts()
+        clu = phase_cluster("cuda", src, dst, info["nvidia_smi"])
+        read_counts("cluster")
         del src, dst
         phase = mark("gather_timing")
         t = gather_timing(srv.engine.arenas.data("e"), np.random.default_rng(13))
@@ -2964,7 +3513,15 @@ def main(argv) -> int:
                  "d2_time_to_recover_s": dur["d2_recover"]["time_to_recover_s"],
                  "loader_quads_per_s": dur["d2_load"]["quads_per_s"],
                  "snapshot_edges_per_s": dur["d2_load"]["snapshot_edges_per_s"],
-                 "rearm_s": dur["readonly"]["rearm_s"]}})
+                 "rearm_s": dur["readonly"]["rearm_s"]},
+             "cluster": {
+                 "proposal_to_applied_s": clu["replicate_s"],
+                 "first_answer_s": {n: r["first_answer_s"] for n, r in clu["nodes"].items()},
+                 "count_p50_ms": {n: r["count"]["p50_ms"] for n, r in clu["nodes"].items()},
+                 "join_a_p50_ms": {n: r["join_a"]["p50_ms"] for n, r in clu["nodes"].items()},
+                 "failover_s": clu["failover"]["acknowledged_write_s"],
+                 "pair_first_fetch_s": clu["pair"]["first_fetch_s"],
+                 "pair_first_fetch_bytes": clu["pair"]["first_fetch_bytes"]}})
         log({"kernels": kernels})
         log(info["nvidia_smi"])
         log({"ok": True, "device": {

@@ -967,6 +967,11 @@ class ArenaManager:
         bounded journal) patch cached data/reverse arenas in place; value
         mutations, bulk loads and journal overflow rebuild."""
         with self._cache_lock:
+            # never blanket-clear the dirty set: a ClusterStore's
+            # ``dirty`` drains replica marks under its own locks
+            # (_cache_lock → _snap_lock → the group's _lock), and marks
+            # added between this read and the loop below must survive
+            # for the next refresh — only processed marks are discarded
             dirty = self.store.dirty
             if not dirty:
                 return
@@ -978,8 +983,10 @@ class ArenaManager:
                 self._lru.clear()
                 self._lru_total = 0
                 dirty.discard("*")
-            deltas = self.store.delta
-            bases = self.store.delta_base
+            # a store with no mutation journal (ClusterStore: replica
+            # applies only mark predicates dirty) takes the rebuild path
+            deltas = getattr(self.store, "delta", {})
+            bases = getattr(self.store, "delta_base", {})
             for p in list(dirty):
                 delta = deltas.pop(p, None)
                 # the journal window's repair base is consumed WITH the

@@ -85,8 +85,9 @@ _SEG_RE = re.compile(r"^wal-(\d+)\.seg$")
 class Wal:
     """Append-only CRC-framed record log (raftwal analog).
 
-    Appends must be serialized by the caller (the engine write lock or
-    a batch context) — appends are NOT internally locked.  :meth:`sync_upto` is safe from any thread."""
+    Appends must be serialized by the caller (the engine write lock, the
+    raft loop thread, or a batch context) — appends are NOT internally
+    locked.  :meth:`sync_upto` is safe from any thread."""
 
     def __init__(self, path: str, sync: bool = False):
         self.path = path
@@ -160,6 +161,15 @@ class Wal:
             # close must still leave everything durable
             os.fsync(self._f.fileno())
         self._f.close()
+
+    def reset(self) -> None:
+        """Truncate in place (raft log rewrite after a raft snapshot;
+        the store WAL compacts via seal/compact instead)."""
+        with self._sync_lock:
+            self._f.close()
+            self._f = open(self.path, "wb")
+            self.count = 0
+        self.flush()
 
     def seal(self, seg_path: str) -> None:
         """Durably rename the active log to ``seg_path`` and reopen
@@ -282,9 +292,10 @@ def replay_records(
 
 def apply_record(store: PostingStore, payload: bytes):
     """Apply one record to a store WITHOUT journaling — used for WAL/
-    snapshot replay (the processMutation → posting apply path,
-    draft.go:514).  Returns the touched predicate name (or None for
-    non-predicate records)."""
+    snapshot replay, Raft committed-entry application, and replica
+    catch-up (the processMutation → posting apply path, draft.go:514).
+    Returns the touched predicate name (or None for non-predicate
+    records) so replicas can version predicates individually."""
     tag = payload[0]
     if tag == codec.EDGE:
         e = codec.decode_edge(payload)

@@ -46,7 +46,7 @@ import torch
 
 from dgraph_tpu_torch import gql, ivm, obs, ops
 from dgraph_tpu_torch.obs import ledger as _ledger
-from dgraph_tpu_torch.gql.ast import FilterTree, MathTree
+from dgraph_tpu_torch.gql.ast import FilterTree, MathTree, referenced_preds
 from dgraph_tpu_torch.models.arena import ArenaManager
 from dgraph_tpu_torch.models.store import PostingStore
 from dgraph_tpu_torch.models.types import TypeID, TypedValue, numeric, sort_key
@@ -414,6 +414,19 @@ class QueryEngine:
             out["schema"] = self._schema_response(parsed.schema_request)
         if parsed.queries:
             out.update(self.execute(parsed))
+            # graceful degradation (ClusterStore.degraded_info): when any
+            # owner group's snapshots are served from cache because the
+            # owners are unreachable, the response says so — stale-but-
+            # correct data WITH a freshness disclosure instead of an
+            # error page.  Scoped to the predicates THIS query can read
+            # (None = not statically knowable, e.g. expand(): node-wide
+            # view); passed as a thunk so the AST walk only runs when
+            # something IS degraded
+            deg = getattr(self.store, "degraded_info", None)
+            if deg is not None:
+                info = deg(preds=lambda: referenced_preds(parsed.queries))
+                if info:
+                    out["degraded"] = info
         elif parsed.mutation is not None and "schema" not in out:
             out["code"] = "Success"
             out["message"] = "Done"

@@ -26,6 +26,19 @@
 - ``GET /admin/export`` — the store as gzipped N-Quads and a schema
   file under the server's export directory (``serve/export.py``).
 
+A clustered server (``cluster=`` a ``ClusterService``, serving its
+``ClusterStore``) also answers the intra-cluster plane, each endpoint
+as the reference answers it: ``POST /raft/<g>`` (a raft frame),
+``/raft-propose/<g>`` (a forwarded proposal; 409 with the leader hint
+from a non-leader), ``/assign-uids`` and ``/join``; ``GET
+/pred-snapshot?name=&since=`` (a predicate's CRC-framed record stream,
+204 when unchanged since ``since``) and ``/predlist?group=``.  With a
+cluster secret every one of them requires it (403 otherwise).
+``/health?detail=1`` adds the peers' breakers, each group's raft state
+and the degraded-read summary; ``/admin/snapshot`` compacts every
+group's raft log; a read whose owner group is unreachable with nothing
+cached answers 503 with ``Retry-After``.
+
 Over a ``DurableStore`` (``models/wal.py``) every mutation is journaled
 before it applies; with ``--sync`` its ack waits for a shared fsync
 taken after the write lock is released (group commit), and a background
@@ -41,8 +54,7 @@ their same-predicate hops merged into one gather launch, a tier-2 result
 cache in front.  Mutations take the write side and run on the server's
 engine.  ``DGRAPH_TPU_SCHED=0`` restores the serial path: every request
 under the write side on the server's engine, one at a time.  The
-reference's tracing, subscriptions, gRPC and cluster are not ported
-yet.
+reference's tracing, subscriptions, gRPC and TLS are not ported yet.
 """
 
 from __future__ import annotations
@@ -57,6 +69,8 @@ from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
 from dgraph_tpu_torch import gql
+from dgraph_tpu_torch.cluster.peerclient import StaleUnavailableError
+from dgraph_tpu_torch.cluster.raft import NotLeaderError
 from dgraph_tpu_torch.models.durability import (
     ReadOnlyError,
     Snapshotter,
@@ -74,6 +88,7 @@ from dgraph_tpu_torch.sched.cohort import (
 from dgraph_tpu_torch.sched.qos import QueryCancelledError
 from dgraph_tpu_torch.sched.scheduler import CohortScheduler, sched_enabled
 from dgraph_tpu_torch.serve.export import export as export_rdf
+from dgraph_tpu_torch.utils.health import HealthGate
 from dgraph_tpu_torch.utils.metrics import (
     NUM_QUERIES,
     PENDING_QUERIES,
@@ -139,7 +154,9 @@ class Latency:
 
 class DgraphServer:
     """Owns the store + engine and serves the HTTP surface.  ``device``
-    is the engine's device: ``cuda`` by default (raises without a GPU)."""
+    is the engine's device: ``cuda`` by default (raises without a GPU).
+    ``cluster`` is the ``ClusterService`` whose ``ClusterStore`` is
+    ``store`` on a clustered server, else None."""
 
     def __init__(
         self,
@@ -149,7 +166,9 @@ class DgraphServer:
         device=None,
         arena_budget_mb: int = 0,
         export_path: str = "export",
+        cluster=None,
     ):
+        self.cluster = cluster
         self.store = store
         self.export_path = export_path
         self.engine = QueryEngine(
@@ -164,7 +183,9 @@ class DgraphServer:
         # exports write a minute-stamped file; two concurrent exports
         # would interleave gzip streams into one path
         self._export_lock = threading.Lock()
-        self._serving = False
+        # the readiness bit behind /health: set once serving, cleared
+        # at stop (the reference's HealthGate)
+        self.health = HealthGate()
         self._stopped = False
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
@@ -205,7 +226,7 @@ class DgraphServer:
         self._thread.start()
         if self.snapshotter is not None:
             self.snapshotter.start()
-        self._serving = True
+        self.health.set_ok(True)
 
     @property
     def port(self) -> int:
@@ -216,7 +237,7 @@ class DgraphServer:
         return f"http://{self._bind}:{self._port}"
 
     def healthy(self) -> bool:
-        return self._serving
+        return self.health.ok()
 
     def stop(self) -> None:
         """Stop accepting, wait for the listener thread, close a durable
@@ -225,7 +246,7 @@ class DgraphServer:
         with self._stop_lock:
             if self._stopped:
                 return
-            self._serving = False
+            self.health.set_ok(False)
             if self._httpd is not None:
                 self._httpd.shutdown()
                 self._httpd.server_close()
@@ -241,6 +262,8 @@ class DgraphServer:
                 # holds it and must finish (or be told to stop) first
                 self.snapshotter.stop()
             with self._engine_lock.write():  # in-flight requests finish
+                if self.cluster is not None:
+                    self.cluster.stop()
                 if hasattr(self.store, "close"):
                     self.store.close()
                 self._stopped = True
@@ -405,6 +428,10 @@ def _make_handler(srv: DgraphServer):
             qs = parse_qs(u.query)
             if path == "/health" and qs.get("detail", ["0"])[0] in ("1", "true"):
                 detail = {"ok": srv.healthy()}
+                if srv.cluster is not None:
+                    # peer/breaker/raft-leader summary (cluster/
+                    # peerclient.py); the bare /health stays OK/503
+                    detail.update(srv.cluster.health_summary())
                 status = getattr(srv.store, "storage_status", None)
                 if status is not None:
                     detail["storage"] = status()
@@ -441,6 +468,14 @@ def _make_handler(srv: DgraphServer):
                 self._reply(200, json.dumps(
                     {"code": "Success", "message": "Export completed.", **info}
                 ).encode())
+            elif path == "/admin/snapshot" and srv.cluster is not None:
+                # clustered: compact every group's raft log (same
+                # trigger machinery as the store WAL's snapshotter)
+                srv.cluster.snapshot_all()
+                self._reply(200, json.dumps(
+                    {"code": "Success",
+                     "message": "Raft snapshot requested for all groups."}
+                ).encode())
             elif path == "/admin/snapshot":
                 if srv.snapshotter is None:
                     return self._err(404, "store has no snapshotter")
@@ -457,12 +492,142 @@ def _make_handler(srv: DgraphServer):
                     {"code": "Success", "message": "Server is shutting down"}
                 ).encode())
                 threading.Thread(target=srv.stop, daemon=True).start()
+            elif path == "/pred-snapshot":
+                # cross-server read plane (ServeTask analog): versioned
+                # predicate snapshot for groups other servers don't place
+                if srv.cluster is None:
+                    return self._err(404, "not clustered")
+                if not self._cluster_authorized():
+                    return self._err(403, "cluster secret required")
+                name = qs.get("name", [""])[0]
+                since = int(qs.get("since", ["-1"])[0])
+                gid = srv.cluster.conf.belongs_to(name)
+                g = srv.cluster.groups.get(gid)
+                if g is None:
+                    return self._err(404, f"group {gid} not served here")
+                from dgraph_tpu_torch.cluster.replica import pred_to_bytes
+
+                with g._lock:
+                    ver = g.pred_version(name)
+                    body = (
+                        b"" if ver == since else pred_to_bytes(g.store, name)
+                    )
+                try:
+                    self.send_response(204 if ver == since else 200)
+                    self.send_header("X-Pred-Version", str(ver))
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    if ver != since:
+                        self.wfile.write(body)
+                except (BrokenPipeError, ConnectionResetError):
+                    # the reader's attempt timed out while the snapshot
+                    # was encoded: it retries (or degrades) on its side
+                    self.close_connection = True
+            elif path == "/predlist":
+                if srv.cluster is None:
+                    return self._err(404, "not clustered")
+                if not self._cluster_authorized():
+                    return self._err(403, "cluster secret required")
+                gid = int(qs.get("group", ["-1"])[0])
+                g = srv.cluster.groups.get(gid)
+                if g is None:
+                    return self._err(404, f"group {gid} not served here")
+                with g._lock:
+                    names = sorted(g.store._preds.keys())
+                self._reply(200, json.dumps(names).encode())
             else:
                 self._err(404, "no such endpoint")
+
+        def _cluster_authorized(self) -> bool:
+            """Gate for the intra-cluster plane (/raft*, /assign-uids,
+            /join, /pred-snapshot, /predlist): with a shared secret
+            configured every peer request must carry it — these endpoints
+            share the public port, and an unauthenticated one would let
+            anyone with network reach inject forged raft frames or
+            arbitrary proposals."""
+            secret = srv.cluster.auth.secret if srv.cluster else ""
+            if not secret:
+                return True
+            import hmac
+
+            from dgraph_tpu_torch.cluster.transport import SECRET_HEADER
+
+            got = self.headers.get(SECRET_HEADER, "")
+            # bytes, not str: compare_digest raises on non-ASCII strings
+            return hmac.compare_digest(got.encode("utf-8"), secret.encode("utf-8"))
+
+        def _cluster_post(self, path: str, raw: bytes, length: int):
+            """The intra-cluster POST endpoints; each answers what the
+            reference's answers, code and body.  A peer that hung up
+            mid-request (its body cut short of Content-Length, or gone
+            before the answer) is dropped without a traceback: the raft
+            plane retries on its own."""
+            try:
+                if len(raw) != length:
+                    self.close_connection = True
+                    return self._err(400, "truncated request body")
+                return self._cluster_answer(path, raw)
+            except (BrokenPipeError, ConnectionResetError):
+                self.close_connection = True
+                return None
+
+        def _cluster_answer(self, path: str, raw: bytes):
+            if srv.cluster is None:
+                return self._err(404, "not clustered")
+            if not self._cluster_authorized():
+                return self._err(403, "bad cluster secret")
+            if path == "/assign-uids":
+                # leader-only uid leasing (AssignUidsOverNetwork target)
+                try:
+                    want = int(raw or b"1")
+                    if want < 0:  # negative = reserve an explicit uid
+                        start, end = srv.cluster.reserve_local(-want)
+                    else:
+                        start, end = srv.cluster.assign_local(want)
+                except NotLeaderError as e:
+                    return self._reply(409, (e.leader or "").encode(), "text/plain")
+                except Exception as e:  # noqa: BLE001 — the reference's 400
+                    return self._err(400, str(e))
+                return self._reply(
+                    200, json.dumps({"start": start, "end": end}).encode()
+                )
+            if path == "/join":
+                # runtime membership: a new server announces itself
+                # (grpc JoinCluster analog, draft.go:1049).  Like the
+                # reference, the joiner's group list is not read here.
+                try:
+                    req = json.loads(raw)
+                    peers = srv.cluster.handle_join(str(req["id"]), str(req["addr"]))
+                except Exception as e:  # noqa: BLE001 — the reference's 400
+                    return self._err(400, str(e))
+                return self._reply(200, json.dumps({"peers": peers}).encode())
+            # raft plane: binary frames, no engine lock (RaftMessage /
+            # proposeOrSend endpoints, draft.go:1017, mutation.go:319)
+            try:
+                gid = int(path.rsplit("/", 1)[1])
+            except ValueError:
+                return self._err(400, "bad group")
+            if path.startswith("/raft/"):
+                try:
+                    srv.cluster.deliver(gid, raw)
+                except Exception as e:  # noqa: BLE001 — a bad frame: 400
+                    return self._err(400, str(e))
+                return self._reply(200, b"{}")
+            try:
+                srv.cluster.propose_local(gid, raw)
+            except NotLeaderError as e:
+                return self._reply(409, (e.leader or "").encode(), "text/plain")
+            except Exception as e:  # noqa: BLE001 — the reference's 500
+                return self._err(500, str(e))
+            return self._reply(200, b"{}")
 
         def do_POST(self):
             u = urlparse(self.path)
             n = int(self.headers.get("Content-Length", 0))
+            if u.path in ("/assign-uids", "/join") or u.path.startswith(
+                ("/raft/", "/raft-propose/")
+            ):
+                return self._cluster_post(u.path, self.rfile.read(n), n)
             body = self.rfile.read(n).decode("utf-8", "replace")
             if u.path != "/query":
                 return self._err(404, "no such endpoint")
@@ -509,6 +674,23 @@ def _make_handler(srv: DgraphServer):
                 return self._err(503, str(e), "ErrorServiceUnavailable",
                                  headers={"Retry-After": str(
                                      max(1, int(round(e.retry_after))))})
+            except StaleUnavailableError as e:
+                # owner group unreachable AND no cached snapshot to
+                # degrade to: a retriable service condition, 503 +
+                # Retry-After sized to the breaker cooldown
+                return self._err(503, str(e), "ErrorServiceUnavailable",
+                                 headers={"Retry-After": str(
+                                     max(1, int(round(e.retry_after))))})
+            except (NotLeaderError, TimeoutError, OSError) as e:
+                if srv.cluster is None:
+                    traceback.print_exc(file=sys.stderr)
+                    return self._err(500, f"{type(e).__name__}: {e}",
+                                     "ErrorInternal")
+                # a clustered write that could not reach its group's
+                # leader (no leader yet, proposal timed out, owner not
+                # announced, peer unreachable): the reference's 400 with
+                # the error's message, which says to retry
+                return self._err(400, str(e))
             except ValueError as e:
                 # parse, query and mutation errors (ParseError, QueryError,
                 # bad variables) are the client's: 400 as in the reference

@@ -1,13 +1,88 @@
-"""Background re-prove loop shared by the port's latches (the
-``CooldownProbeLoop`` of ``dgraph_tpu/utils/health.py``; the storage
-plane's read-only latch, ``models/durability.StorageHealth``, is its one
-user in the port)."""
+"""Health primitives shared across the port's fault domains (copy of
+``dgraph_tpu/utils/health.py``):
+
+- :class:`HealthGate` — the boot-readiness bit behind ``/health``;
+- :class:`HalfOpenGate` — the probe-slot discipline of the per-(peer, op)
+  circuit breaker (``cluster/peerclient.py``): after a cooldown exactly
+  one caller at a time holds the half-open probe slot, owns it via a
+  token, and hands it back on every exit path;
+- :class:`CooldownProbeLoop` — the background re-prove loop of the
+  storage plane's read-only latch (``models/durability.StorageHealth``).
+"""
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
+
+
+class HealthGate:
+    def __init__(self):
+        self._ok = threading.Event()
+
+    def set_ok(self, ok: bool = True) -> None:
+        if ok:
+            self._ok.set()
+        else:
+            self._ok.clear()
+
+    def ok(self) -> bool:
+        return self._ok.is_set()
+
+
+class HalfOpenGate:
+    """Single-probe admission for an OPEN/SICK circuit.
+
+    NOT thread-safe on its own: the owner calls every method under its
+    own state lock (the gate is a few fields of that state, not a new
+    lock — a second lock here would buy deadlock risk for nothing).
+
+    Lifecycle: ``open(now)`` (re)starts the cooldown and clears the
+    probe slot; ``admit(now, cooldown, half_open)`` grants the slot to
+    exactly one caller once the cooldown elapsed (``half_open=True``
+    skips the cooldown check — the circuit already transitioned, only
+    the slot matters); ``release(token)`` frees the slot WITHOUT
+    judging the resource, stale tokens are no-ops.
+    """
+
+    __slots__ = ("opened_at", "probe_inflight", "probe_token")
+
+    def __init__(self):
+        self.opened_at = 0.0
+        self.probe_inflight = False
+        self.probe_token = 0  # ownership of the half-open probe slot
+
+    def open(self, now: float) -> None:
+        """(Re-)enter the open state: restart the cooldown clock and
+        clear the probe slot (the failed prober's release becomes a
+        stale-token no-op)."""
+        self.opened_at = now
+        self.probe_inflight = False
+
+    def admit(
+        self, now: float, cooldown: float, half_open: bool
+    ) -> Tuple[bool, float, Optional[int]]:
+        """(granted, retry_after, probe_token).  A non-None token means
+        the caller HOLDS the probe slot and must hand it back to
+        :meth:`release` on every exit path, or the circuit wedges
+        shedding forever."""
+        if not half_open:
+            waited = now - self.opened_at
+            if waited < cooldown:
+                return False, cooldown - waited, None
+        if self.probe_inflight:
+            return False, cooldown, None
+        self.probe_inflight = True
+        self.probe_token += 1
+        return True, 0.0, self.probe_token
+
+    def release(self, token: Optional[int]) -> None:
+        """Free the probe slot without judging the resource.  A stale
+        token (the slot was re-granted to a newer probe after
+        :meth:`open` cleared it) is a no-op."""
+        if token is not None and self.probe_token == token:
+            self.probe_inflight = False
 
 
 class CooldownProbeLoop:

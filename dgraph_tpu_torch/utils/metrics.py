@@ -110,6 +110,28 @@ class MultiLabeledCounter:
         return out
 
 
+class LabeledGauge:
+    """Gauge family keyed by one label (per-peer breaker state)."""
+
+    def __init__(self, name: str, label: str):
+        self.name = name
+        self.label = label
+        self._m: Dict[str, float] = {}
+        self._lock = threading.Lock()
+
+    def set(self, key: str, v: float) -> None:
+        with self._lock:
+            self._m[key] = v
+
+    def value(self, key: str) -> float:
+        with self._lock:
+            return self._m.get(key, 0.0)
+
+    def snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._m)
+
+
 class Histogram:
     """Fixed-bucket histogram with Prometheus ``_bucket{le=...}`` /
     ``_sum`` / ``_count`` exposition."""
@@ -155,6 +177,7 @@ class MetricsRegistry:
         self._gauges: Dict[str, Gauge] = {}
         self._labeled: Dict[str, LabeledCounter] = {}
         self._multilabeled: Dict[str, MultiLabeledCounter] = {}
+        self._labeled_gauges: Dict[str, LabeledGauge] = {}
         self._histograms: Dict[str, Histogram] = {}
 
     def counter(self, name: str) -> Counter:
@@ -185,6 +208,13 @@ class MetricsRegistry:
                 c = self._multilabeled[name] = MultiLabeledCounter(name, labels)
             return c
 
+    def labeled_gauge(self, name: str, label: str) -> LabeledGauge:
+        with self._lock:
+            g = self._labeled_gauges.get(name)
+            if g is None:
+                g = self._labeled_gauges[name] = LabeledGauge(name, label)
+            return g
+
     def histogram(self, name: str, buckets) -> Histogram:
         with self._lock:
             h = self._histograms.get(name)
@@ -200,6 +230,7 @@ class MetricsRegistry:
             gauges = list(self._gauges.values())
             labeled = list(self._labeled.values())
             multilabeled = list(self._multilabeled.values())
+            labeled_gauges = list(self._labeled_gauges.values())
             histograms = list(self._histograms.values())
 
         def _esc(s: str) -> str:
@@ -222,6 +253,10 @@ class MetricsRegistry:
                     f'{lab}="{_esc(val)}"' for lab, val in zip(ml.labels, key)
                 )
                 lines.append(f"{ml.name}{{{pairs}}} {v}")
+        for lg in sorted(labeled_gauges, key=lambda g: g.name):
+            lines.append(f"# TYPE {lg.name} gauge")
+            for k, v in sorted(lg.snapshot().items()):
+                lines.append(f'{lg.name}{{{lg.label}="{_esc(k)}"}} {v:g}')
         for h in sorted(histograms, key=lambda h: h.name):
             cum, s, c = h.snapshot()
             lines.append(f"# TYPE {h.name} histogram")
@@ -350,6 +385,34 @@ SWALLOWED_EXC = metrics.labeled(
 )
 FAILPOINTS_FIRED = metrics.labeled(
     "dgraph_failpoints_fired_total", label="site"
+)
+
+# cluster plane (cluster/peerclient.py, cluster/transport.py,
+# cluster/service.py): every peer RPC lands in PEER_RPC as {peer, op,
+# outcome} — outcome "ok", "http_error" (the peer answered with an
+# application error: alive), "unavailable" (retries/budget exhausted),
+# "open" (shed by the circuit breaker without touching the network).
+# BREAKER_STATE is the at-a-glance gauge (0 closed, 1 half-open, 2 open),
+# one series per "peer:op" because breakers are scoped per (peer, op).
+PEER_RPC = metrics.multilabeled(
+    "dgraph_peer_rpc_total", ("peer", "op", "outcome")
+)
+PEER_RPC_ATTEMPTS = metrics.histogram(
+    "dgraph_peer_rpc_attempts", (1, 2, 3, 4, 6, 8)
+)
+PEER_BACKOFF = metrics.histogram(
+    "dgraph_peer_backoff_seconds",
+    (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.0),
+)
+BREAKER_STATE = metrics.labeled_gauge(
+    "dgraph_peer_breaker_state", label="peer"
+)
+BREAKER_TRANSITIONS = metrics.multilabeled(
+    "dgraph_peer_breaker_transitions_total", ("peer", "op", "to")
+)
+DEGRADED_READS = metrics.counter("dgraph_degraded_reads_total")
+RAFT_DROPPED = metrics.labeled(
+    "dgraph_raft_frames_dropped_total", label="peer"
 )
 
 

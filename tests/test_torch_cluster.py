@@ -1,0 +1,562 @@
+"""The port's cluster layer (``dgraph_tpu_torch.cluster``: groups, lease,
+raft, replica, the raft wire codec) against the reference's
+(``dgraph_tpu.cluster``).
+
+The first fourteen cases are those of tests/test_cluster.py, run on the
+port's modules.  Then the two packages side by side, tolerance 0
+(everything is bytes or integers), on inputs drawn from numpy seeds:
+
+- ``fingerprint64`` and ``GroupConfig.belongs_to`` over 1,000 names;
+- ``encode_msg`` of every raft message type, ``encode_batch``, and
+  ``state_to_bytes`` / ``pred_to_bytes`` of one store, each decoder
+  reading either package's bytes;
+- a single-node group in each package, given the same proposals,
+  writes byte-identical ``hardstate.bin``, ``raft.log``,
+  ``snapshot.meta`` and ``snapshot.bin``;
+- ``Wal.reset`` (the raft log's in-place truncate).
+"""
+
+import time
+
+import numpy as np
+import pytest
+
+from dgraph_tpu.cluster import groups as jgroups
+from dgraph_tpu.cluster import raft as jraft
+from dgraph_tpu.cluster import replica as jreplica
+from dgraph_tpu.cluster import transport as jtransport
+from dgraph_tpu.models import codec as jcodec
+from dgraph_tpu.models import store as jstore
+from dgraph_tpu.models import types as jtypes
+from dgraph_tpu.models import wal as jwal
+from dgraph_tpu_torch.cluster import groups as tgroups
+from dgraph_tpu_torch.cluster import raft as traft
+from dgraph_tpu_torch.cluster import replica as treplica
+from dgraph_tpu_torch.cluster import transport as ttransport
+from dgraph_tpu_torch.cluster.groups import GroupConfig, fingerprint64
+from dgraph_tpu_torch.cluster.lease import LeaseManager
+from dgraph_tpu_torch.cluster.raft import InMemoryTransport, NotLeaderError
+from dgraph_tpu_torch.cluster.replica import ReplicatedGroup
+from dgraph_tpu_torch.models import codec as tcodec
+from dgraph_tpu_torch.models import store as tstore
+from dgraph_tpu_torch.models import types as ttypes
+from dgraph_tpu_torch.models import wal as twal
+from dgraph_tpu_torch.models.store import Edge
+
+
+def wait_for(cond, timeout=5.0, step=0.02):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if cond():
+            return True
+        time.sleep(step)
+    return False
+
+
+def _nb(store, pred, uid):
+    """The sorted neighbours of ``uid`` under ``pred`` (the reference
+    store's ``neighbors``)."""
+    p = store.peek(pred)
+    return [] if p is None else sorted(p.edges.get(uid, ()))
+
+
+# -- the reference's cases (tests/test_cluster.py) on the port ----------------
+
+def test_group_config_rules():
+    cfg = GroupConfig.parse(
+        """
+        # comment
+        1: name, film.*
+        2: friend
+        default: fp % 3 + 10
+        """
+    )
+    assert cfg.belongs_to("name") == 1
+    assert cfg.belongs_to("film.director") == 1
+    assert cfg.belongs_to("friend") == 2
+    g = cfg.belongs_to("other")
+    assert 10 <= g < 13
+    assert cfg.belongs_to("other") == g  # stable
+
+
+def test_group_config_default_only():
+    cfg = GroupConfig.single_group()
+    assert cfg.belongs_to("anything") == fingerprint64("anything") % 1 + 1 == 1
+
+
+def test_group_config_requires_default():
+    with pytest.raises(ValueError):
+        GroupConfig.parse("1: name")
+
+
+def test_lease_batches_proposals():
+    calls = []
+    lm = LeaseManager(calls.append, min_lease=100)
+    s, e = lm.assign(5)
+    assert (s, e) == (1, 5)
+    assert calls == [101]
+    for _ in range(10):
+        lm.assign(9)
+    assert calls == [101]  # still under the first lease
+    lm.assign(50)
+    assert calls == [101, 201]
+
+
+def test_lease_recovery_never_reuses():
+    calls = []
+    lm = LeaseManager(calls.append, min_lease=100)
+    lm.assign(5)
+    lm2 = LeaseManager(calls.append, min_lease=100)
+    lm2.init_from_recovery(next_uid=101)
+    s, _ = lm2.assign(1)
+    assert s == 101
+
+
+def _cluster(tmp_path, n=3, threshold=10_000):
+    tr = InMemoryTransport()
+    ids = [f"n{i}" for i in range(n)]
+    groups = []
+    for i in ids:
+        g = ReplicatedGroup(
+            node_id=i, group=1, peers=ids, directory=str(tmp_path / i),
+            transport=tr, snapshot_threshold=threshold,
+        )
+        tr.register(g.node)
+        groups.append(g)
+    for g in groups:
+        g.start()
+    return tr, groups
+
+
+def _leader(groups):
+    ls = [g for g in groups if g.node.is_leader]
+    return ls[0] if ls else None
+
+
+def test_raft_elects_and_replicates(tmp_path):
+    tr, groups = _cluster(tmp_path)
+    try:
+        assert wait_for(lambda: _leader(groups) is not None)
+        ld = _leader(groups)
+        ld.propose_edges([Edge(pred="p", src=1, dst=2)])
+        ld.propose_edges([Edge(pred="p", src=1, dst=3)])
+        assert wait_for(
+            lambda: all(_nb(g.store, "p", 1) == [2, 3] for g in groups)
+        )
+    finally:
+        for g in groups:
+            g.stop()
+
+
+def test_raft_follower_rejects_proposals(tmp_path):
+    tr, groups = _cluster(tmp_path)
+    try:
+        assert wait_for(lambda: _leader(groups) is not None)
+        follower = next(g for g in groups if not g.node.is_leader)
+        with pytest.raises(NotLeaderError):
+            follower.propose_edges([Edge(pred="p", src=1, dst=2)], timeout=2)
+    finally:
+        for g in groups:
+            g.stop()
+
+
+def test_raft_reelection_after_partition(tmp_path):
+    tr, groups = _cluster(tmp_path)
+    try:
+        assert wait_for(lambda: _leader(groups) is not None)
+        old = _leader(groups)
+        others = [g for g in groups if g is not old]
+        for g in others:
+            tr.cut(old.node.node_id, g.node.node_id)
+        assert wait_for(lambda: _leader(others) is not None, timeout=10)
+        new_leader = _leader(others)
+        new_leader.propose_edges([Edge(pred="q", src=7, dst=8)])
+        tr.heal()
+        assert wait_for(
+            lambda: all(_nb(g.store, "q", 7) == [8] for g in groups),
+            timeout=10,
+        )
+    finally:
+        for g in groups:
+            g.stop()
+
+
+def test_raft_restart_recovers_state(tmp_path):
+    tr, groups = _cluster(tmp_path, n=1)
+    try:
+        assert wait_for(lambda: _leader(groups) is not None)
+        groups[0].propose_edges([Edge(pred="p", src=1, dst=2)])
+    finally:
+        groups[0].stop()
+    tr2 = InMemoryTransport()
+    g = ReplicatedGroup(
+        node_id="n0", group=1, peers=["n0"], directory=str(tmp_path / "n0"),
+        transport=tr2,
+    )
+    tr2.register(g.node)
+    g.start()
+    try:
+        assert wait_for(lambda: g.node.is_leader, timeout=10)
+        assert wait_for(lambda: _nb(g.store, "p", 1) == [2])
+    finally:
+        g.stop()
+
+
+def test_raft_snapshot_catchup(tmp_path):
+    tr, groups = _cluster(tmp_path, n=2, threshold=5)
+    g3 = None
+    try:
+        assert wait_for(lambda: _leader(groups) is not None)
+        ld = _leader(groups)
+        for i in range(1, 12):
+            ld.propose_edges([Edge(pred="p", src=i, dst=i + 1)])
+        assert ld.node.storage.snap_index > 0  # compacted
+        g3 = ReplicatedGroup(
+            node_id="n9", group=1, peers=["n0", "n1", "n9"],
+            directory=str(tmp_path / "n9"), transport=tr,
+        )
+        tr.register(g3.node)
+        for g in groups:
+            g.node.peers.append("n9")
+            g.node.next_index["n9"] = g.node.storage.last_index() + 1
+            g.node.match_index["n9"] = 0
+        g3.start()
+        assert wait_for(
+            lambda: _nb(g3.store, "p", 1) == [2] and _nb(g3.store, "p", 11) == [12],
+            timeout=10,
+        )
+    finally:
+        for g in groups:
+            g.stop()
+        if g3 is not None:
+            g3.stop()
+
+
+def test_raft_apply_error_resolves_future_and_continues(tmp_path):
+    """An apply_fn exception fails that proposal's future and later
+    entries still apply."""
+    applied = []
+
+    def apply_fn(idx, data):
+        if data == b"boom":
+            raise ValueError("bad entry")
+        applied.append(data)
+
+    tr = InMemoryTransport()
+    node = traft.RaftNode(
+        node_id="solo", group=1, peers=["solo"],
+        storage=traft.RaftStorage(str(tmp_path / "solo")),
+        transport=tr, apply_fn=apply_fn,
+    )
+    tr.register(node)
+    node.start()
+    try:
+        assert wait_for(lambda: node.is_leader)
+        assert node.propose_and_wait(b"ok1", timeout=5) > 0
+        with pytest.raises(ValueError):
+            node.propose_and_wait(b"boom", timeout=5)
+        assert node.propose_and_wait(b"ok2", timeout=5) > 0
+        assert applied == [b"ok1", b"ok2"]
+    finally:
+        node.stop()
+
+
+def test_raft_prevote_rejoin_does_not_disrupt(tmp_path):
+    """A partitioned follower timing out repeatedly must not inflate the
+    cluster term (pre-vote); on heal the leader keeps its term."""
+    tr, groups = _cluster(tmp_path)
+    try:
+        assert wait_for(lambda: _leader(groups) is not None)
+        ld = _leader(groups)
+        term0 = ld.node.storage.term
+        isolated = next(g for g in groups if g is not ld)
+        for g in groups:
+            if g is not isolated:
+                tr.cut(isolated.node.node_id, g.node.node_id)
+        time.sleep(isolated.node.tick_s * isolated.node.election_ticks * 8)
+        assert isolated.node.storage.term == term0
+        tr.heal()
+        time.sleep(isolated.node.tick_s * isolated.node.election_ticks * 3)
+        assert ld.node.is_leader
+        assert ld.node.storage.term == term0
+        ld.propose_edges([Edge(pred="pv", src=1, dst=2)])
+        assert wait_for(
+            lambda: all(_nb(g.store, "pv", 1) == [2] for g in groups)
+        )
+    finally:
+        for g in groups:
+            g.stop()
+
+
+def test_raft_leadership_transfer_on_graceful_stop(tmp_path):
+    """A planned stop hands leadership off with no election-timeout gap."""
+    tr, groups = _cluster(tmp_path)
+    try:
+        assert wait_for(lambda: _leader(groups) is not None)
+        old = _leader(groups)
+        survivors = [g for g in groups if g is not old]
+        old.stop()
+        t0 = time.time()
+        assert wait_for(lambda: _leader(survivors) is not None, timeout=2)
+        handoff_s = time.time() - t0
+        new_leader = _leader(survivors)
+        new_leader.propose_edges([Edge(pred="xfer", src=3, dst=4)])
+        assert wait_for(
+            lambda: all(_nb(g.store, "xfer", 3) == [4] for g in survivors)
+        )
+        assert handoff_s < old.node.tick_s * old.node.election_ticks
+    finally:
+        for g in groups:
+            g.stop()
+
+
+def test_raft_wire_codec_roundtrips_new_messages():
+    """encode_msg/decode_msg round-trip pre-vote and TimeoutNow frames and
+    read frames without the trailing pre byte as plain votes."""
+    from dgraph_tpu_torch.cluster.raft import TimeoutNow, VoteReq, VoteResp
+    from dgraph_tpu_torch.cluster.transport import decode_msg, encode_msg
+
+    for msg in (
+        VoteReq(7, "n1", 42, 6, pre=True),
+        VoteReq(7, "n1", 42, 6, pre=False),
+        VoteResp(7, True, "n2", pre=True),
+        VoteResp(7, False, "n2", pre=False),
+        TimeoutNow(9, "n3"),
+    ):
+        assert decode_msg(encode_msg(msg)) == msg
+    old_req = encode_msg(VoteReq(7, "n1", 42, 6, pre=False))[:-1]
+    assert decode_msg(old_req) == VoteReq(7, "n1", 42, 6, pre=False)
+    old_resp = encode_msg(VoteResp(7, True, "n2", pre=False))[:-1]
+    assert decode_msg(old_resp) == VoteResp(7, True, "n2", pre=False)
+
+
+# -- the port against the reference, byte for byte ----------------------------
+
+_CONF = """
+    1: name, knows
+    2: film.*, city
+    7: geo.*, lives_in
+    default: fp % 5 + 3
+"""
+
+
+def _names(n: int, seed: int):
+    """``n`` predicate-like names from a numpy seed: ascii words, dotted
+    prefixes, digits and a few non-ascii letters (utf-8 multi-byte)."""
+    rng = np.random.default_rng(seed)
+    alphabet = list("abcdefghijklmnopqrstuvwxyz_.0123456789") + ["é", "ø", "名", "ß"]
+    heads = ["", "film.", "geo.", "name", "city", "knows"]
+    out = []
+    for _ in range(n):
+        k = int(rng.integers(1, 16))
+        word = "".join(alphabet[i] for i in rng.integers(0, len(alphabet), size=k))
+        out.append(heads[int(rng.integers(0, len(heads)))] + word)
+    return out
+
+
+def test_fingerprint_and_placement_equal_reference():
+    names = _names(1000, 101)
+    jconf = jgroups.GroupConfig.parse(_CONF)
+    tconf = tgroups.GroupConfig.parse(_CONF)
+    assert [tgroups.fingerprint64(s) for s in names] == [
+        jgroups.fingerprint64(s) for s in names]
+    got = [tconf.belongs_to(s) for s in names]
+    assert got == [jconf.belongs_to(s) for s in names]
+    assert len(set(got)) >= 5  # the rules and the default both placed names
+    assert tconf.known_groups() == jconf.known_groups()
+
+
+def _msgs(pkg, rng):
+    """One message of each raft type, fields drawn from ``rng``."""
+    r = lambda: int(rng.integers(0, 1 << 40))  # noqa: E731
+    data = [bytes(rng.integers(0, 256, size=int(rng.integers(0, 300)), dtype=np.uint8))
+            for _ in range(4)]
+    return {
+        "VoteReq": pkg.VoteReq(r(), "n1", r(), r(), pre=bool(rng.integers(0, 2))),
+        "VoteResp": pkg.VoteResp(r(), True, "nøde-2", pre=True),
+        "TimeoutNow": pkg.TimeoutNow(r(), "n3"),
+        "AppendReq": pkg.AppendReq(
+            r(), "leader", r(), r(),
+            [pkg.Entry(r(), r(), d) for d in data], r()),
+        "AppendResp": pkg.AppendResp(r(), False, r(), "n4"),
+        "SnapshotReq": pkg.SnapshotReq(r(), "n5", r(), r(), data[0] * 7),
+        "SnapshotResp": pkg.SnapshotResp(r(), "n6", r()),
+    }
+
+
+@pytest.mark.parametrize("kind", ["VoteReq", "VoteResp", "TimeoutNow", "AppendReq",
+                                  "AppendResp", "SnapshotReq", "SnapshotResp"])
+def test_encode_msg_equals_reference(kind):
+    tm = _msgs(traft, np.random.default_rng(7))[kind]
+    jm = _msgs(jraft, np.random.default_rng(7))[kind]
+    tb, jb = ttransport.encode_msg(tm), jtransport.encode_msg(jm)
+    assert tb == jb
+    # each decoder reads the other package's frame
+    assert ttransport.decode_msg(jb) == tm
+    assert jtransport.decode_msg(tb) == jm
+
+
+def _edges(pkg_store, pkg_types, rng, n=400):
+    """Edges of every record shape the replicas apply: uid edges with and
+    without facets, values with and without a language, value facets."""
+    E, TV, T = pkg_store.Edge, pkg_types.TypedValue, pkg_types.TypeID
+    out = []
+    for i in range(n):
+        s, d = (int(x) for x in rng.integers(1, 200, size=2))
+        kind = i % 5
+        if kind == 0:
+            out.append(E(pred="knows", src=s, dst=d))
+        elif kind == 1:
+            out.append(E(pred="knows", src=s, dst=d,
+                         facets={"w": TV(T.INT, int(rng.integers(0, 9)))}))
+        elif kind == 2:
+            out.append(E(pred="name", src=s, value=TV(T.STRING, f"n{d}")))
+        elif kind == 3:
+            out.append(E(pred="name", src=s, value=TV(T.STRING, f"m{d}"), lang="fr"))
+        else:
+            out.append(E(pred="age", src=s, value=TV(T.INT, d),
+                         facets={"since": TV(T.INT, 2000 + d)}))
+    return out
+
+
+def _records(codec, pkg_store, pkg_types, seed):
+    rng = np.random.default_rng(seed)
+    recs = [codec.encode_schema("name: string @index(term) .\nage: int .\nknows: uid .")]
+    recs += [codec.encode_edge(e) for e in _edges(pkg_store, pkg_types, rng)]
+    src = rng.integers(1, 500, size=300)
+    dst = rng.integers(1, 500, size=300)
+    recs.append(codec.encode_bulk_edges("follows", src, dst))
+    recs.append(codec.encode_bulk_values(
+        "nick", [(int(u), "", pkg_types.TypedValue(pkg_types.TypeID.STRING, f"k{u}"))
+                 for u in rng.integers(1, 300, size=50)]))
+    recs.append(codec.encode_xid("alice", 7))
+    recs.append(codec.encode_lease(10_001))
+    recs.append(codec.encode_member("2", "http://127.0.0.1:9002", (0, 1)))
+    recs.append(codec.encode_edge(pkg_store.Edge(pred="knows", src=3, dst=4, op="del")))
+    return recs
+
+
+def _stores(seed=17):
+    jrec = _records(jcodec, jstore, jtypes, seed)
+    trec = _records(tcodec, tstore, ttypes, seed)
+    js, ts = jstore.PostingStore(), tstore.PostingStore()
+    for r in jrec:
+        jwal.apply_record(js, r)
+    for r in trec:
+        twal.apply_record(ts, r)
+    return jrec, trec, js, ts
+
+
+def test_encode_batch_equals_reference():
+    jrec, trec, _js, _ts = _stores()
+    assert trec == jrec
+    tb, jb = treplica.encode_batch(trec), jreplica.encode_batch(jrec)
+    assert tb == jb
+    assert treplica.decode_batch(jb) == jrec
+    assert jreplica.decode_batch(tb) == trec
+
+
+def test_state_and_pred_bytes_equal_reference():
+    _jrec, _trec, js, ts = _stores()
+    tstate, jstate = treplica.state_to_bytes(ts), jreplica.state_to_bytes(js)
+    assert tstate == jstate
+    for pred in ("knows", "name", "age", "follows", "nick", "absent"):
+        tb, jb = treplica.pred_to_bytes(ts, pred), jreplica.pred_to_bytes(js, pred)
+        assert tb == jb, pred
+        if pred == "absent":
+            assert tb == b""
+            continue
+        # each decoder reads the other package's stream
+        got = treplica.bytes_to_pred(jb, pred)
+        ref = jreplica.bytes_to_pred(tb, pred)
+        assert got.edges == ts.peek(pred).edges
+        assert ref.edges == js.peek(pred).edges
+        assert sorted(got.values) == sorted(ts.peek(pred).values)
+    # a full state restored from the other package's snapshot bytes
+    # re-serializes to the same bytes
+    ts2, js2 = tstore.PostingStore(), jstore.PostingStore()
+    treplica.bytes_to_state(jstate, ts2)
+    jreplica.bytes_to_state(tstate, js2)
+    assert treplica.state_to_bytes(ts2) == jstate
+    assert jreplica.state_to_bytes(js2) == tstate
+
+
+def _single_node_run(pkg, pkg_store, pkg_types, directory, seed):
+    """A one-node group of ``pkg`` given the proposals of ``seed`` (a
+    snapshot every 4 entries); returns its directory's files."""
+    tr = pkg.InMemoryTransport()
+    g = (jreplica if pkg is jraft else treplica).ReplicatedGroup(
+        node_id="n0", group=1, peers=["n0"], directory=str(directory),
+        transport=tr, snapshot_threshold=4,
+    )
+    tr.register(g.node)
+    g.start()
+    try:
+        assert wait_for(lambda: g.node.is_leader, timeout=10)
+        rng = np.random.default_rng(seed)
+        edges = _edges(pkg_store, pkg_types, rng, n=60)
+        for i in range(0, len(edges), 6):
+            g.propose_edges(edges[i:i + 6], timeout=10)
+        g.propose_schema("knows: uid @reverse .", timeout=10)
+        # a tail past the last snapshot, so raft.log holds entries
+        g.propose_edges(edges[:2], timeout=10)
+        assert g.node.storage.snap_index > 0 and g.node.storage.entries
+    finally:
+        g.stop()
+    d = directory / "raft-g1"
+    return {n: (d / n).read_bytes() for n in
+            ("hardstate.bin", "raft.log", "snapshot.meta", "snapshot.bin")}
+
+
+def test_single_node_raft_files_equal_reference(tmp_path):
+    got = _single_node_run(traft, tstore, ttypes, tmp_path / "port", 23)
+    want = _single_node_run(jraft, jstore, jtypes, tmp_path / "ref", 23)
+    for name in want:
+        assert got[name] == want[name], name
+    assert len(got["raft.log"]) > 0 and len(got["snapshot.bin"]) > 0
+    # either package's storage loads the other's directory
+    st = traft.RaftStorage(str(tmp_path / "ref" / "raft-g1"))
+    js = jraft.RaftStorage(str(tmp_path / "port" / "raft-g1"))
+    try:
+        assert (st.term, st.voted_for, st.snap_index, st.snap_term) == (
+            js.term, js.voted_for, js.snap_index, js.snap_term)
+        assert [(e.term, e.index, e.data) for e in st.entries] == [
+            (e.term, e.index, e.data) for e in js.entries]
+    finally:
+        st.close()
+        js.close()
+
+
+def test_wal_reset_equals_reference(tmp_path):
+    rng = np.random.default_rng(31)
+    recs = [bytes(rng.integers(0, 256, size=int(rng.integers(1, 90)), dtype=np.uint8))
+            for _ in range(12)]
+    files = {}
+    for name, pkg in (("port", twal), ("ref", jwal)):
+        path = str(tmp_path / f"{name}.log")
+        w = pkg.Wal(path)
+        for r in recs[:8]:
+            w.append(r)
+        w.flush()
+        w.reset()
+        assert w.count == 0
+        for r in recs[8:]:
+            w.append(r)
+        w.flush()
+        w.close()
+        files[name] = (tmp_path / f"{name}.log").read_bytes()
+        assert list(pkg.replay_records(path)) == recs[8:]
+    assert files["port"] == files["ref"]
+
+
+def test_truncated_frame_is_refused_not_shortened():
+    """A raft frame cut short (a sender that timed out mid-body) raises
+    in the port's decoder instead of decoding into a shorter entry under
+    the right term and index (the reference's slice shortens it)."""
+    msg = traft.AppendReq(3, "n1", 4, 3, [traft.Entry(3, 5, b"x" * 1000)], 4)
+    frame = ttransport.encode_msg(msg)
+    assert ttransport.decode_msg(frame) == msg
+    for cut in (len(frame) - 1, len(frame) - 500, 20):
+        with pytest.raises(ValueError, match="truncated"):
+            ttransport.decode_msg(frame[:cut])
+    assert len(jtransport.decode_msg(frame[:-500]).entries[0].data) == 500

@@ -359,3 +359,100 @@ def test_recovered_store_serves_the_two_hop_through_the_gather(tmp_path):
     assert got == want
     assert gpu_store.recovery["wal_records"] >= 2
     gpu_store.close()
+
+
+def _cluster3(tmp_path, device):
+    """Three port servers on ``device`` in one cluster (groups 0 and 1 on
+    every server, real HTTP between them, one process)."""
+    import socket
+
+    from dgraph_tpu_torch.cluster.service import ClusterService
+    from dgraph_tpu_torch.serve.server import DgraphServer
+
+    socks = [socket.socket() for _ in range(3)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    peers = {str(i + 1): f"http://127.0.0.1:{p}" for i, p in enumerate(ports)}
+    servers = []
+    for i, p in enumerate(ports):
+        nid = str(i + 1)
+        svc = ClusterService(node_id=nid, my_addr=peers[nid], peers=peers,
+                             group_ids=[0, 1], directory=str(tmp_path / nid))
+        svc.start()
+        srv = DgraphServer(svc.store, port=p, cluster=svc, device=device)
+        srv.start()
+        servers.append(srv)
+    return servers
+
+
+def _post_json(addr, text, timeout=120):
+    import json
+    import time
+    import urllib.error
+    import urllib.request
+
+    deadline = time.monotonic() + timeout
+    while True:
+        req = urllib.request.Request(addr + "/query", data=text.encode())
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                out = json.loads(r.read())
+            out.pop("server_latency", None)
+            return out
+        except (urllib.error.HTTPError, OSError):
+            # no leader yet / a proposal timed out: retried to a deadline
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.5)
+
+
+def test_cluster_two_hop_on_the_card_matches_the_cpu_cluster(tmp_path, monkeypatch):
+    """A three-server port cluster on the card, loaded through a server
+    with one bulk write, answers the 2-hop with the same bytes as the
+    same cluster on the CPU, every server launching the gather."""
+    _need_gpu()
+    import json
+    import time
+
+    monkeypatch.setenv("DGRAPH_TPU_PROPOSE_TIMEOUT", "45")
+    src, dst = bench2hop.gen_edges(20_000, 200_000)
+    rng = np.random.default_rng(83)
+    seeds = np.unique(rng.integers(1, 20_001, size=256))
+    q = "{ q(func: uid(%s)) { uid e { uid e { uid } } } }" % ", ".join(
+        "0x%x" % int(s) for s in seeds)
+    bodies = {}
+    for device in ("cpu", "cuda"):
+        servers = _cluster3(tmp_path / device, device)
+        try:
+            deadline = time.monotonic() + 60
+            while not all(s.cluster.has_leader() for s in servers):
+                assert time.monotonic() < deadline, "no leader elected"
+                time.sleep(0.05)
+            _post_json(servers[1].addr, "mutation { schema { e: uid . } }")
+            servers[1].store.bulk_set_uid_edges("e", src, dst)
+            deadline = time.monotonic() + 120
+            # every replica applied the write (one raft index everywhere)
+            while len({s.cluster.groups[1].pred_version("e") for s in servers}
+                      - {0}) != 1 or any(
+                    s.cluster.groups[1].pred_version("e") == 0 for s in servers):
+                assert time.monotonic() < deadline, "a replica never applied"
+                time.sleep(0.1)
+            got = []
+            for srv in servers:
+                srv.engine.expand_device_min = 1
+                srv.engine.arenas.hop_cache = None
+                n0 = tgather.KERNEL.launches
+                got.append(json.dumps(_post_json(srv.addr, q)))
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    assert tgather.KERNEL.launches > n0, srv.cluster.node_id
+            assert len(set(got)) == 1
+            bodies[device] = got[0]
+        finally:
+            for s in servers:
+                s.stop()
+    assert bodies["cuda"] == bodies["cpu"]
+    assert '"e"' in bodies["cpu"]

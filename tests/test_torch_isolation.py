@@ -40,7 +40,8 @@ def test_importing_every_subpackage_loads_no_jax():
     subpackages = sorted(
         m.name for m in pkgutil.walk_packages([str(PKG)], "dgraph_tpu_torch.")
     )
-    for m in ("query.engine", "query.joinplan", "ops.kway"):
+    for m in ("query.engine", "query.joinplan", "ops.kway",
+              "cluster.service", "cluster.raft"):
         assert f"dgraph_tpu_torch.{m}" in subpackages
     code = (
         "import sys, importlib\n"
