@@ -4,7 +4,9 @@ NVIDIA GPU.  Run from the root of a checkout:
 
     python3 chip_smoke.py
 
-Phases, each fatal (exit code 1, no result line):
+Phases, each fatal (exit code 1, no result line).  Every printed p99 is
+null where a figure rests on fewer than ``P99_MIN`` (20) requests: over
+fewer it is no more than the largest one.
 
 1. build — compile every kernel source under ``dgraph_tpu_torch/csrc``
    with nvcc for sm_90a, one process per source, all started together;
@@ -61,6 +63,35 @@ Phases, each fatal (exit code 1, no result line):
    the intersect kernel at least once and of (b) twice; p50/p99 and the
    ``kway_ms`` of one ``?debug=true`` request are printed.  The counts
    are read right after.
+7a. flight recorder — every kernel's launch count is set to 0, then, on
+   the same server (both query caches detached, the per-level route),
+   from 8192 seeds of ``default_rng(83)`` and phase 7's seed sets: the
+   var-block 2-hop count and join (a) once each at trace ratio 0 (the
+   bodies every later request must equal byte for byte); (o1) at ratio
+   1, each 3 times with a ``Traceparent`` of the phase's own: the trace's
+   tree must be query → parsing, processing → sched.queue, sched.flush,
+   engine → hop (and join (a)'s device ``kway`` step); every hop on
+   predicate ``e``, the device hops on the resident route with
+   ``device_sync_ms`` > 0 and within the hop's duration; the gather's
+   launches equal to the device hops the spans name and the intersect's
+   to the ``kway`` spans; ``?format=chrome`` one event a span; (o2) at
+   ratio 0, 10 counts (every other one with a sampled ``Traceparent``)
+   allocate no span and record no trace; (o3) with a slow threshold of
+   0.001 ms each request lands in ``/debug/slow_queries`` with a
+   tail-sampled trace that resolves; (o4) a sampled count held by
+   ``engine.hop=delay(ms=500)`` with its own ``Traceparent`` and tenant
+   ``flight``: ``POST /admin/cancel?trace_id=`` answers 200, the count
+   499, ``dgraph_query_cancelled_total{reason="admin"}`` rises by one,
+   a second cancel answers 404; (o5) ``/debug/device`` says ``cuda`` and
+   the card's name as nvidia-smi gives it, its resident bytes equal the
+   ``ArenaManager``'s running total and are at most
+   ``torch.cuda.memory_allocated()``, its kernel builds equal
+   ``ops/_build``'s builds in this process; ``/debug/bundle`` has the
+   reference's keys; the OpenMetrics ``/metrics`` carries latency
+   exemplars whose trace ids resolve; (o6) the count 10 times at ratio 0
+   and 10 at ratio 1, alternating: p50 of each and the mean
+   ``device_sync_ms`` of a device hop (no limit is set on the cost).
+   The counts are read right after.
 8. ranks — the schema ``rank: int .`` and an int per node for uids
    1..1,000,000, drawn from [0, 2^16) (seed 43: about 15 uids a value),
    written into the served store; the server's value arena is built.
@@ -89,7 +120,7 @@ Phases, each fatal (exit code 1, no result line):
 11. chain — every kernel's launch count is set to 0, then, over HTTP at
    the default chain threshold, each query served a few times and held
    byte for byte against the host-route engine (the cheap ones, (a), (e)
-   and (f), 6 times a route), from seeds of their own
+   and (f), 4 times a route), from seeds of their own
    (seed 53): (a) the main path's var-block 2-hop count from 8192 seeds,
    which must take the multi-hop pass (2 levels fused, 2 gather
    launches a request); (b) the materialised 2-hop (a staged full-mode
@@ -139,7 +170,7 @@ Phases, each fatal (exit code 1, no result line):
    million edges in some 1,534 stored 128×128 blocks: tiles about
    128 MiB, a mask 65,536 lanes).  Every kernel's launch count is set to
    0, then four queries from seeds of ``default_rng(67)``, each served
-   6 times a route over HTTP with ``?debug=true``, the routes
+   4 times a route over HTTP with ``?debug=true``, the routes
    alternating request by request — ``DGRAPH_TPU_MXU_JOIN`` 1 (the tile
    route) and 0 (the gather tier: the fused chain for m1 and m2; level by
    level for the triangles, whose ``uid(w)`` filter the chain cannot
@@ -221,16 +252,19 @@ Phases, each fatal (exit code 1, no result line):
    arenas, raft logs in the git-ignored ``_smoke/cluster`` (removed at
    the end), under the group rules ``1: e`` / ``2: name`` / ``default:
    fp % 2 + 1``: (t) three servers each serving groups 0, 1 and 2 (3
-   replicas of every predicate): the schema, then the generated edges
-   in source-ascending ``BULKEDGES`` records of 262,144 edges and phase
-   5's names in ``BULKVALS`` records of 131,072, one proposal each,
+   replicas of every predicate), their device and k-way gates at 1: the
+   schema, then every fourth generated edge (a stride sample: both the
+   uniform and the pareto-skewed halves of the targets) in
+   source-ascending ``BULKEDGES`` records of 262,144 edges and phase 5's
+   names on uids 1..250,000 in ``BULKVALS`` records of 131,072, one
+   proposal each,
    submitted through a follower of its group (forwarded to the leader);
    seconds from the first proposal to the last applied on every
    replica, per group.  With both query caches detached, the three
    servers are asked the var-block 2-hop count from phase 4's 8192
    seeds together (each one's seconds to it: the read snapshot, the
-   arena seed, the first gather), then each in turn that count 10
-   times, the materialised 2-hop from those seeds once and join (a) 10
+   arena seed, the first gather), then each in turn that count 6
+   times, the materialised 2-hop from those seeds once and join (a) 6
    times, every body equal to a host-route engine over a single-node
    store of the same data, each server's requests launching the gather
    and (a)'s the intersect.  Then 64 added and 64 deleted ``e`` edges
@@ -243,7 +277,11 @@ Phases, each fatal (exit code 1, no result line):
    uids 1..125,000): a materialised 2-hop with a ``name`` child from
    the 8192 seeds, sent to server 2 with its gate at 1, pulls ``e`` from
    server 1 through ``/pred-snapshot``, must equal the host route and
-   launch the gather on server 2; its first fetch's seconds and bytes.
+   launch the gather on server 2; its first fetch's seconds and bytes;
+   then the same read once more with a sampled ``Traceparent`` (the
+   remote snapshot's TTL passed, so it is re-validated with server 1):
+   spans on both servers under one trace id, server 1's
+   ``peer.pred-snapshot`` among them.
    Each line carries the card's name and power limit; launches by node.
    The counts are read right after.
 19. report — the device time of one 200-query chunk by stage (hop 1,
@@ -275,6 +313,8 @@ Exits non-zero without a CUDA GPU, or when the package is not beside it.
 generation (no server) and phase 17 (about three minutes).
 ``python3 chip_smoke.py --cluster-only`` runs phase 1, the graph's
 generation and phase 18.
+``python3 chip_smoke.py --trace-only`` runs phases 1 and 2, the names of
+phase 5 (join (a) needs them) and phase 7a.
 ``python3 chip_smoke.py --serving-only`` runs phases 1-3, the names of
 phase 5 and phase 12 alone (the serving plane on the caches' first
 use).  ``python3 chip_smoke.py --mxu-only`` runs phase 1 and phase 13
@@ -295,6 +335,7 @@ import os
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -306,9 +347,9 @@ N_NODES, N_EDGES, GRAPH_SEED = 2_000_000, 21_000_000, 7
 # second-level edges, below the engine's default device gate (262144);
 # 8192 seeds about 410,000, so the served query crosses it (the config
 # line prints both counts)
-# (10 repeats, not 20: with the cluster phase the run must still fit its
-# time limit)
-SMALL_SEEDS, LARGE_SEEDS, REPEATS = 64, 8192, 10
+# (6 repeats: 20 before the cluster phase, 10 before the flight
+# recorder's; the run must still fit its time limit)
+SMALL_SEEDS, LARGE_SEEDS, REPEATS = 64, 8192, 6
 # the batched 2-hop: bench.py's defaults (BENCH_SEEDS, BENCH_ITERS) and
 # its chunk of queries per batched program
 BATCH_SEEDS, BATCH_QUERIES, CHUNK_Q = 4096, 1000, 200
@@ -324,17 +365,18 @@ VOCAB = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf",
 # (ties); each served query repeated SURFACE_REPEATS times (the @recurse,
 # whose body holds some 470,000 nodes, RECURSE_REPEATS times)
 N_RANKED, RANK_RANGE, RANK_SEED, SURFACE_SEED = 1_000_000, 1 << 16, 43, 47
-SURFACE_REPEATS, RECURSE_REPEATS = 3, 2  # (5, 3 before the cluster phase)
+SURFACE_REPEATS, RECURSE_REPEATS = 2, 1  # (5, 3 before the cluster phase; 3, 2 before the flight recorder)
 RECURSE_MAX_EDGES = 1_000_000  # the reference's recursion cap (query/recurse.py)
 
 # the chain phase: its own seeds; requests a route of each cheap query
 # ((a), (e), (f)) and of each query with a body of megabytes ((b)-(d));
-# the fewest requests a p99 is reported over; the threshold that pins
-# the chain off
+# the fewest requests any phase reports a p99 over (below it the p99
+# is null); the threshold that pins the chain off
 CHAIN_SEED, PINNED_OFF = 53, 1 << 62
-# (6 cheap requests a route, not 24: with the cluster phase the run
-# must still fit its time limit; p99 needs CHAIN_P99_MIN requests)
-CHAIN_REPEATS, CHAIN_REPEATS_BULKY, CHAIN_P99_MIN = 6, 3, 20
+# (4 cheap requests a route and 2 bulky ones: 24 and 3 before the
+# cluster phase, 6 and 3 before the flight recorder's; the run must
+# still fit its time limit; p99 needs P99_MIN requests)
+CHAIN_REPEATS, CHAIN_REPEATS_BULKY, P99_MIN = 4, 2, 20
 
 # the serving plane: client threads, requests each (the last repeats
 # the client's first; 5, not 8: with the cluster phase the run must
@@ -347,7 +389,7 @@ SERVE_ROUNDS, SERVE_SEED = 1, 59
 # seed, requests a route, and the draws of its ops check (bench_ops.py's
 # triangle shape: nodes, edges, roots a set, sets)
 MXU_UIDS, MXU_FANOUT, MXU_GRAPH_SEED, MXU_SEED = 65_535, 64, 61, 67
-MXU_REPEATS, MXU_DELTA = 6, 64  # (12 requests a route before the cluster phase)
+MXU_REPEATS, MXU_DELTA = 4, 64  # (12 a route before the cluster phase, 6 before the flight recorder)
 TRI_NODES, TRI_EDGES, TRI_ROOTS, TRI_B = 512, 32_768, 48, 64
 
 # the durability phase: its seeds' seed; the write of (a), DUR_EDGES
@@ -376,6 +418,17 @@ CLUSTER_CONF = "1: e\n2: name\ndefault: fp % 2 + 1"
 # 3.3 s, and the owner encodes one Python record an edge, so at 1/8 no
 # attempt finished and the read answered 503)
 PAIR_EDGE_SHARE, PAIR_NAMED = 64, 125_000
+# the trio's cut: every TRIO_EDGE_SHARE-th generated edge, a stride
+# sample that keeps both halves of the targets' distribution (uniform and
+# pareto-skewed; gen_edges puts them in the first and the second half),
+# and names on uids 1..TRIO_NAMED (whole before the flight recorder's phase:
+# each replica apply makes the next read copy the predicate and rebuild
+# its arena, three at once in one interpreter, and at full size the
+# phase took 346-445 s of a run that came within 4 s of its 1200 s
+# limit); at this size the count's second hop is below the default
+# device gate, so the trio's servers run both gates at 1, as the pair's
+# reader does
+TRIO_EDGE_SHARE, TRIO_NAMED = 4, 250_000
 # the trio's load in per-range records (uids ascending, as the loader's
 # batches are) of at most this many edges / names, one proposal each:
 # a raft frame crosses the transport's 2 s send window, and the leader
@@ -388,19 +441,27 @@ CLUSTER_RECORD_EDGES, CLUSTER_RECORD_NAMES = 1 << 18, 1 << 17
 # leaders through the whole load; 100 ms (a 1-2 s timeout, etcd's
 # default scale) outlasts an apply
 CLUSTER_TICK_MS = 100
-CLUSTER_SEED, CLUSTER_DELTA, CLUSTER_REPEATS, CLUSTER_WAIT_S = 79, 64, 10, 600
+# (6 timed requests a query and server: 10 before the flight recorder)
+CLUSTER_SEED, CLUSTER_DELTA, CLUSTER_REPEATS, CLUSTER_WAIT_S = 79, 64, 6, 600
+
+# the flight recorder: its seed (seeds, trace ids), traced requests of
+# each query, unsampled requests, the hop delay that holds the cancelled
+# query, and the timed requests at each ratio
+FLIGHT_SEED, FLIGHT_TRACED, FLIGHT_UNSAMPLED = 83, 3, 10
+FLIGHT_HOLD_MS, FLIGHT_COST_REQUESTS = 500, 10
 
 # kernels: (name, wrapper module, TPU kernel it replaces, paths that run it)
 KERNELS = [
     ("gather_packed", "dgraph_tpu_torch.ops.gather",
      "dgraph_tpu/ops/pallas_gather.py:48",
-     ("main_path", "query_surface", "chain", "serving_plane", "mxu_join",
-      "durability", "cluster")),
+     ("main_path", "flight_recorder", "query_surface", "chain", "serving_plane",
+      "mxu_join", "durability", "cluster")),
     ("slotmap", "dgraph_tpu_torch.ops.slotmap",
      "dgraph_tpu/ops/pallas_slotmap.py:46", ("batched_2hop",)),
     ("intersect", "dgraph_tpu_torch.ops.kway",
      "dgraph_tpu/ops/pallas_intersect.py:35",
-     ("join_path", "chain", "serving_plane", "mxu_join", "cluster")),
+     ("join_path", "flight_recorder", "chain", "serving_plane", "mxu_join",
+      "cluster")),
 ]
 
 
@@ -748,7 +809,7 @@ def phase_main_path(store, srv, rng, card: str) -> dict:
     out["large"] = {
         "seeds": len(seeds), "repeats": REPEATS, "edges_per_query": edges,
         "hops": hops, "p50_ms": p50 * 1e3,
-        "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "p99_ms": p99([x * 1e3 for x in lat]),
         "edges_per_s_at_p50": edges / p50,
         "launches_per_query": per_query,
         "count": json.loads(want)["q"][0]["count"],
@@ -1000,7 +1061,7 @@ def phase_join_path(store, srv, s1, s2, card: str) -> dict:
         out[name] = {
             "seeds": len(s1), "repeats": REPEATS,
             "p50_ms": float(np.percentile(lat, 50)) * 1e3,
-            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "p99_ms": p99([x * 1e3 for x in lat]),
             "request_ms": [x * 1e3 for x in lat],
             "launches_per_query": per_query, "uids_in_body": len(found),
             "body_bytes": len(want), "kway_ms": eng["kway_ms"],
@@ -1014,6 +1075,279 @@ def phase_join_path(store, srv, s1, s2, card: str) -> dict:
         log(dict(phase="join_path", route="per_level", query=name, **out[name]))
     log(dict(phase="join_routes", **joinplan.debug_summary()))
     return out
+
+
+# -- phase 7a: the flight recorder ---------------------------------------------
+
+
+def span_tree_ok(spans) -> tuple:
+    """(parent name by span name for the request's own spans, missing
+    names): the request tree query → parsing, processing → sched.queue,
+    sched.flush, engine → hop / kway."""
+    by_id = {s["span_id"]: s for s in spans}
+    parent = {}
+    for s in spans:
+        p = by_id.get(s["parent_id"])
+        parent.setdefault(s["name"], set()).add(p["name"] if p else None)
+    want = {"query": {None}, "parsing": {"query"}, "processing": {"query"},
+            "sched.queue": {"processing"}, "sched.flush": {"processing"},
+            "engine": {"processing"}, "hop": {"engine"}}
+    missing = [n for n, ps in want.items() if parent.get(n) != ps]
+    return parent, missing
+
+
+def settled_trace(rec, tid: str, names=("sched.flush",), timeout: float = 10.0):
+    """The recorder's trace ``tid`` once every span in ``names`` landed
+    (the cohort's flush span is finished by the flush worker after it
+    deals the results, so it may land after the response)."""
+    out = {}
+
+    def ready():
+        t = rec.trace(tid)
+        if t is None or not all(any(s["name"] == n for s in t["spans"]) for n in names):
+            return False
+        out["t"] = t
+        return all(s["dur_us"] is not None for s in t["spans"])
+
+    wait_until(ready, timeout, f"flight recorder: trace {tid} never settled")
+    return out["t"]
+
+
+def phase_flight_recorder(store, srv, s1, s2, card: str) -> dict:
+    """Phase 7a on the main path's server (the graph, phase 5's names,
+    both query caches detached, the per-level route); the caller zeroes
+    the launch counts just before and reads them just after."""
+    import threading
+
+    import torch
+
+    from dgraph_tpu_torch import obs
+    from dgraph_tpu_torch.ops import _build, gather, kway
+    from dgraph_tpu_torch.utils.failpoints import fail
+    from dgraph_tpu_torch.utils.metrics import QUERY_CANCELLED, SPANS_RECORDED
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(FLIGHT_SEED)
+    seeds = np.unique(rng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+    queries = {"count": two_hop_count(seeds), "join_a": join_filter_query(s1, s2)}
+    ids = iter(int(x) for x in rng.integers(1, 1 << 62, size=64))
+
+    def traceparent():
+        n = next(ids)
+        return f"{n:032x}", f"00-{n:032x}-{n:016x}-01"
+
+    out = {"card": card}
+    # ONE recorder for the phase, its sampler and slow threshold set per
+    # step: a new recorder would drop the ring the exemplars point into
+    rec = obs.configure(ratio=0.0, seed=FLIGHT_SEED)
+
+    def arm(ratio: float, slow_ms: float = 0.0):
+        rec.sampler.ratio, rec.slow_ms = ratio, slow_ms
+
+    try:
+        # the bodies at ratio 0: what every traced request must answer
+        want = {}
+        for name, q in queries.items():
+            status, raw, _secs = post(srv.addr, q)
+            check(status == 200, f"flight recorder: {name} at ratio 0: HTTP {status}")
+            want[name] = strip_latency(raw)
+
+        # (o1) sampled traces: the tree, the hop spans, the launches
+        arm(1.0)
+        rows = {}
+        for name, q in queries.items():
+            rows[name] = []
+            for _ in range(FLIGHT_TRACED):
+                tid, tp = traceparent()
+                g0, k0 = gather.KERNEL.launches, kway.KERNEL.launches
+                status, raw, _h, secs = post_any(srv.addr, q, {"Traceparent": tp})
+                check(status == 200, f"flight recorder: traced {name}: HTTP {status}")
+                check(strip_latency(raw) == want[name],
+                      f"flight recorder: traced {name}'s body differs from ratio 0")
+                g1, k1 = gather.KERNEL.launches - g0, kway.KERNEL.launches - k0
+                t = settled_trace(rec, tid)
+                spans = t["spans"]
+                _parent, missing = span_tree_ok(spans)
+                check(not missing, f"flight recorder: {name}'s tree lacks {missing}")
+                hops = [s for s in spans if s["name"] == "hop"]
+                dev = [s for s in hops if s["attrs"]["route"] in ("resident", "csr")]
+                check(all(s["attrs"]["pred"] == "e" for s in hops),
+                      f"flight recorder: {name}: a hop off predicate e")
+                check(dev and all(s["attrs"]["route"] == "resident" for s in dev),
+                      f"flight recorder: {name}: no resident hop in {hops}")
+                for s in dev:
+                    check(0.0 < s["attrs"]["device_sync_ms"] <= s["dur_us"] / 1e3,
+                          f"flight recorder: {name}: device_sync_ms out of its hop: {s}")
+                check(g1 == len(dev), f"flight recorder: {name}: {g1} gather launches "
+                      f"for {len(dev)} device hops")
+                kw = [s for s in spans if s["name"] == "kway"]
+                check(k1 == len(kw), f"flight recorder: {name}: {k1} intersect "
+                      f"launches for {len(kw)} kway spans")
+                if name == "join_a":
+                    check(kw and all(s["attrs"]["device_sync_ms"] > 0 for s in kw),
+                          "flight recorder: join (a)'s trace holds no device k-way step")
+                chrome = get_json(srv.addr, f"/debug/traces/{tid}?format=chrome")
+                xs = [e for e in chrome["traceEvents"] if e["ph"] == "X"]
+                check(len(xs) == len(spans),
+                      f"flight recorder: chrome export {len(xs)} events, {len(spans)} spans")
+                rows[name].append({
+                    "ms": secs * 1e3, "spans": len(spans), "hops": len(hops),
+                    "device_hops": len(dev), "gather_launches": g1,
+                    "kway_spans": len(kw), "intersect_launches": k1,
+                    "device_sync_ms": [s["attrs"]["device_sync_ms"] for s in dev + kw],
+                    "hop_ms": [s["dur_us"] / 1e3 for s in dev]})
+            log(dict(phase="flight_traces", query=name, card=card,
+                     names=sorted({s["name"] for s in spans}), requests=rows[name]))
+        out["traced"] = rows
+
+        # (o2) ratio 0 allocates no span, a sampled header forces none
+        arm(0.0)
+        s0 = SPANS_RECORDED.value()
+        forced = []
+        for i in range(FLIGHT_UNSAMPLED):
+            tid, tp = traceparent()
+            status, raw, _h, _s = post_any(srv.addr, queries["count"],
+                                           {"Traceparent": tp} if i % 2 else None)
+            check(status == 200 and strip_latency(raw) == want["count"],
+                  "flight recorder: an unsampled count differs")
+            forced.append(tid)
+        check(SPANS_RECORDED.value() == s0,
+              f"flight recorder: ratio 0 allocated {SPANS_RECORDED.value() - s0} spans")
+        check(all(rec.trace(t) is None for t in forced),
+              "flight recorder: a sampled header forced a trace at ratio 0")
+        out["unsampled"] = {"requests": FLIGHT_UNSAMPLED, "spans_allocated": 0}
+
+        # (o3) tail sampling: a threshold every request crosses
+        arm(0.0, slow_ms=0.001)
+        for name, q in queries.items():
+            status, _raw, _s = post(srv.addr, q)
+            check(status == 200, f"flight recorder: slow {name}: HTTP {status}")
+        slow = get_json(srv.addr, "/debug/slow_queries")
+        check(len(slow) == len(queries), f"flight recorder: {len(slow)} slow queries")
+        for e in slow:
+            t = get_json(srv.addr, f"/debug/traces/{e['trace_id']}")
+            check(t["spans"][0]["attrs"].get("tail_sampled") is True,
+                  "flight recorder: a slow query's trace is not tail-sampled")
+        out["slow_queries"] = [e["duration_ms"] for e in slow]
+
+        # (o4) cancel a live query held at its hops (armed: the header
+        # decides)
+        arm(1e-9)
+        tid, tp = traceparent()
+        c0 = QUERY_CANCELLED.total(reason="admin", tenant="flight")
+        res = {}
+
+        def held():
+            res["got"] = post_any(srv.addr, queries["count"],
+                                  {"Traceparent": tp, "X-Dgraph-Tenant": "flight"})
+
+        h0 = fail.hits("engine.hop")
+        fail.arm("engine.hop", f"delay(ms={FLIGHT_HOLD_MS})")
+        try:
+            th = threading.Thread(target=held)
+            t0 = time.perf_counter()
+            th.start()
+            # cancel while the query is held inside its first hop: live
+            # and executing, not merely admitted
+            wait_until(lambda: fail.hits("engine.hop") > h0, 30,
+                       "flight recorder: the held query never reached a hop",
+                       step=0.005)
+
+            def cancelled():
+                req = urllib.request.Request(
+                    srv.addr + "/admin/cancel?trace_id=" + tid, data=b"", method="POST")
+                try:
+                    with urllib.request.urlopen(req, timeout=30) as r:
+                        return r.status == 200
+                except urllib.error.HTTPError as e:
+                    check(e.code == 404, f"flight recorder: /admin/cancel HTTP {e.code}")
+                    return False
+
+            cancel_s = wait_until(cancelled, 30, "flight recorder: the held query "
+                                  "never became cancellable", step=0.01)
+            th.join(timeout=60)
+            answer_s = time.perf_counter() - t0
+        finally:
+            fail.disarm("engine.hop")
+        status, raw, _h, _s = res["got"]
+        check(status == 499, f"flight recorder: the cancelled query answered {status}")
+        hops_run = fail.hits("engine.hop") - h0
+        check(hops_run == 1, f"flight recorder: the cancelled count ran {hops_run} hops")
+        check(QUERY_CANCELLED.total(reason="admin", tenant="flight") == c0 + 1,
+              "flight recorder: the admin cancellation was not counted")
+        req = urllib.request.Request(srv.addr + "/admin/cancel?trace_id=" + tid,
+                                     data=b"", method="POST")
+        try:
+            urllib.request.urlopen(req, timeout=30)
+            check(False, "flight recorder: a second cancel answered 200")
+        except urllib.error.HTTPError as e:
+            check(e.code == 404, f"flight recorder: a second cancel answered {e.code}")
+        out["cancel"] = {"hold_ms": FLIGHT_HOLD_MS, "cancel_s": cancel_s,
+                         "answered_499_s": answer_s, "hops_run": hops_run}
+        log(dict(phase="flight_checks", card=card, unsampled=out["unsampled"],
+                 slow_queries_ms=out["slow_queries"], cancel=out["cancel"]))
+
+        # (o5) the device report
+        dev = get_json(srv.addr, "/debug/device")
+        arenas = srv.engine.arenas
+        check(dev["backend"] == "cuda", f"flight recorder: backend {dev['backend']}")
+        check(dev["device_name"] == card.split(",")[0].strip(),
+              f"flight recorder: device {dev['device_name']!r} against {card!r}")
+        res_b = dev["arenas"]["resident_bytes"]
+        check(res_b == arenas._lru_total and 0 < res_b <= torch.cuda.memory_allocated(),
+              f"flight recorder: resident bytes {res_b}, running total "
+              f"{arenas._lru_total}, allocated {torch.cuda.memory_allocated()}")
+        builds = {n: _build.built.count(n) for n in _build.built}
+        check(dev["compiles"]["builds"] == builds
+              and dev["compiles"]["total"] == len(_build.built),
+              f"flight recorder: builds {dev['compiles']} against {_build.built}")
+        bundle = get_json(srv.addr, "/debug/bundle")
+        check(set(bundle) == {"generated_unix", "traces", "slow_queries", "planner",
+                              "qos", "ivm", "qcache", "device", "ledger"},
+              f"flight recorder: bundle keys {sorted(bundle)}")
+        req = urllib.request.Request(srv.addr + "/metrics",
+                                     headers={"Accept": "application/openmetrics-text"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            om = r.read().decode()
+        check(om.rstrip().endswith("# EOF"), "flight recorder: OpenMetrics without # EOF")
+        ex = sorted({ln.split('trace_id="')[1].split('"')[0] for ln in om.splitlines()
+                     if ln.startswith("dgraph_query_latency_seconds_bucket")
+                     and 'trace_id="' in ln})
+        check(ex, "flight recorder: no exemplars on dgraph_query_latency_seconds")
+        for t in ex:
+            check(get_json(srv.addr, f"/debug/traces/{t}")["trace_id"] == t,
+                  f"flight recorder: exemplar {t} does not resolve")
+        out["device"] = {k: dev[k] for k in ("backend", "device_name", "torch", "cuda")}
+        out["device"].update(resident_bytes=res_b, compiles=dev["compiles"],
+                             memory_allocated=torch.cuda.memory_allocated(),
+                             exemplars=len(ex))
+        log(dict(phase="flight_device", card=card, **out["device"]))
+
+        # (o6) the cost of tracing: the count at ratio 0 and 1, alternating
+        lat = {0: [], 1: []}
+        syncs = []
+        for i in range(2 * FLIGHT_COST_REQUESTS):
+            ratio = i % 2
+            arm(float(ratio))
+            status, raw, secs = post(srv.addr, queries["count"])
+            check(status == 200 and strip_latency(raw) == want["count"],
+                  "flight recorder: a timed count differs")
+            lat[ratio].append(secs * 1e3)
+            if ratio:
+                tid = rec.traces()[-1]["trace_id"]
+                syncs += [s["attrs"]["device_sync_ms"]
+                          for s in settled_trace(rec, tid)["spans"]
+                          if s["name"] == "hop" and "device_sync_ms" in s["attrs"]]
+        out["cost"] = {"requests_each": FLIGHT_COST_REQUESTS,
+                       "p50_ms_ratio0": float(np.percentile(lat[0], 50)),
+                       "p50_ms_ratio1": float(np.percentile(lat[1], 50)),
+                       "mean_device_sync_ms": float(np.mean(syncs)),
+                       "device_hops": len(syncs)}
+        log(dict(phase="flight_cost", card=card, **out["cost"]))
+        out["seconds"] = time.perf_counter() - t_phase
+        return out
+    finally:
+        obs.configure()
 
 
 # -- phases 8-9: the query surface --------------------------------------------
@@ -1078,7 +1412,7 @@ def serve_surface(srv, ref, name: str, q: str, repeats: int, card: str) -> dict:
     eng = json.loads(raw)["server_latency"]["engine"]
     row = {"query": name, "repeats": repeats,
            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
-           "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+           "p99_ms": p99([x * 1e3 for x in lat]),
            "request_ms": [x * 1e3 for x in lat], "body_bytes": len(want),
            "objects": {k: len(v) for k, v in json.loads(want).items()},
            "gather_launches": launches, "gather_launches_per_query": launches / repeats,
@@ -1229,15 +1563,21 @@ def phase_multi_hop_kernels(arena, large, rseeds, rcap) -> int:
     return max_err
 
 
+def p99(ms):
+    """The p99 of request times ``ms``, or None below P99_MIN requests,
+    where it would be no more than the largest one."""
+    return float(np.percentile(ms, 99)) if len(ms) >= P99_MIN else None
+
+
 def latency_summary(lat) -> dict:
     """ms figures of a list of request seconds: every request, min, p50,
     max, and p99 only where there are enough requests
-    (CHAIN_P99_MIN) for it to be more than the largest one."""
+    (P99_MIN) for it to be more than the largest one."""
     ms = [x * 1e3 for x in lat]
     out = {"requests": len(ms), "min_ms": min(ms),
            "p50_ms": float(np.percentile(ms, 50)), "max_ms": max(ms)}
-    if len(ms) >= CHAIN_P99_MIN:
-        out["p99_ms"] = float(np.percentile(ms, 99))
+    if len(ms) >= P99_MIN:
+        out["p99_ms"] = p99(ms)
     return {**out, "request_ms": ms}
 
 
@@ -1484,7 +1824,7 @@ def serve_round(srv, clients, want, mode: str) -> dict:
     ms = sorted(x * 1e3 for x in lat)
     return {"mode": mode, "requests": n_req, "wall_s": wall,
             "requests_per_s": n_req / wall,
-            "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+            "p50_ms": float(np.percentile(ms, 50)), "p99_ms": p99(ms),
             "min_ms": ms[0], "max_ms": ms[-1],
             "gather_launches": d[0], "intersect_launches": d[1],
             "merged_hops": d[2], "coalesced": d[3],
@@ -1761,7 +2101,7 @@ def serve_mxu(srv, name: str, q: str, want: str, shape: str) -> dict:
         out[key] = {
             "requests": len(ms), "min_ms": min(ms),
             "p50_ms": float(np.percentile(ms, 50)),
-            "p99_ms": float(np.percentile(ms, 99)), "max_ms": max(ms),
+            "p99_ms": p99(ms), "max_ms": max(ms),
             "gather_launches_per_query": launches[mode][0] / MXU_REPEATS,
             "intersect_launches_per_query": launches[mode][1] / MXU_REPEATS,
             "mxu_join_ms_p50": float(np.median([e["mxu_join_ms"] for e in st])),
@@ -2245,7 +2585,7 @@ def phase_durability(device, src, dst, card: str) -> dict:
             "dgraph_recovery_records": metric(addr, "dgraph_recovery_records"),
             "dgraph_recovery_seconds": metric(addr, "dgraph_recovery_seconds"),
             "count_p50_ms": float(np.percentile(lat, 50)) * 1e3,
-            "count_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "count_p99_ms": p99([x * 1e3 for x in lat]),
             "debug_engine": {k: stats.get(k) for k in ("routes", "fused_gathers",
                                                         "chain_fused_levels", "edges")},
         }
@@ -2528,7 +2868,7 @@ def serve_node(srv, q: str, want: str, repeats: int, name: str) -> dict:
         lat.append(secs)
     return {"requests": repeats,
             "p50_ms": float(np.percentile(lat, 50)) * 1e3,
-            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "p99_ms": p99([x * 1e3 for x in lat]),
             "gather_launches": gather.KERNEL.launches - g0,
             "intersect_launches": kway.KERNEL.launches - k0}
 
@@ -2607,6 +2947,48 @@ def exact_everywhere(servers, q: str, want: str, at_once=(), what: str = "") -> 
     return out
 
 
+def pair_trace(owner, reader, q: str, want: str) -> dict:
+    """One sampled cross-group read on the pair: the reader's request
+    (the remote snapshot re-validated with the owner, its TTL passed)
+    records spans on both servers under one trace id, the owner's
+    ``peer.pred-snapshot`` among them."""
+    from dgraph_tpu_torch import obs
+
+    rec = obs.configure(ratio=1e-9)  # armed: the header decides
+    try:
+        tid = "%032x" % (FLIGHT_SEED << 40 | 0x7A)
+        time.sleep(2 * reader.store.remote_ttl)
+        with no_caches(reader):
+            status, raw, _h, secs = post_any(
+                reader.addr, q, {"Traceparent": f"00-{tid}-{tid[16:]}-01"})
+        check(status == 200 and strip_latency(raw) == want,
+              "pair: the traced cross-server 2-hop differs from the host route")
+        got = {}
+
+        def legs():
+            t = rec.trace(tid)
+            if t is None:
+                return False
+            got["spans"] = t["spans"]
+            nodes = {s["attrs"].get("node") for s in t["spans"]}
+            return {"1", "2"} <= nodes and any(
+                s["name"] == "peer.pred-snapshot" and s["attrs"]["node"] == "1"
+                for s in t["spans"])
+
+        wait_until(legs, 30, "pair: the traced read recorded no span on the owner")
+        spans = got["spans"]
+        check(all(s["trace_id"] == tid for s in spans), "pair: a span off the trace")
+        snap = [s for s in spans if s["name"] == "peer.pred-snapshot"]
+        return {"trace_id": tid, "spans": len(spans), "ms": secs * 1e3,
+                "names": sorted({s["name"] for s in spans}),
+                "nodes": sorted({s["attrs"]["node"] for s in spans
+                                 if "node" in s["attrs"]}),
+                "pred_snapshot": [{k: s["attrs"].get(k) for k in ("node", "pred", "bytes")}
+                                  for s in snap]}
+    finally:
+        obs.configure()
+
+
 def phase_cluster(device, src, dst, card: str) -> dict:
     """(t) a replicated trio and (p) a sharded pair on ``device``, every
     server in this process; the caller zeroes the launch counts just
@@ -2640,12 +3022,14 @@ def phase_cluster(device, src, dst, card: str) -> dict:
         items = name_items(N_NAMED)
         schema = "e: uid .\nname: string @index(term) ."
 
-        # -- (t): the replicated trio ------------------------------------
+        # -- (t): the replicated trio (every TRIO_EDGE_SHARE-th edge) -----
+        tsrc, tdst = src[::TRIO_EDGE_SHARE], dst[::TRIO_EDGE_SHARE]
+        n_t, titems = len(tsrc), items[:TRIO_NAMED]
         t0 = time.perf_counter()
         ref_store = PostingStore()
         ref_store.apply_schema(schema)
-        ref_store.bulk_set_uid_edges("e", src, dst)
-        ref_store.bulk_set_values("name", items)
+        ref_store.bulk_set_uid_edges("e", tsrc, tdst)
+        ref_store.bulk_set_values("name", titems)
         ref = host_engine(ref_store)
         queries = {"count": two_hop_count(seeds), "materialised": two_hop(seeds),
                    "join_a": join_filter_query(s1, s2)}
@@ -2653,12 +3037,15 @@ def phase_cluster(device, src, dst, card: str) -> dict:
         check(json.loads(want["join_a"]).get("q"), "cluster: join (a) matched nothing")
         ref_s = time.perf_counter() - t0
         servers = boot_cluster(device, work / "t", [[0, 1, 2]] * 3)
+        for srv in servers:
+            srv.engine.expand_device_min = 1
+            srv.engine.arenas.kway_device_min = 1
         post_retry(group_follower(servers, 0).addr,
                    "mutation { schema { %s } }" % schema.replace("\n", " "))
-        order = np.argsort(src, kind="stable")
-        bsrc, bdst = src[order], dst[order]
+        order = np.argsort(tsrc, kind="stable")
+        bsrc, bdst = tsrc[order], tdst[order]
         edge_cuts = range(0, len(bsrc), CLUSTER_RECORD_EDGES)
-        name_cuts = range(0, len(items), CLUSTER_RECORD_NAMES)
+        name_cuts = range(0, len(titems), CLUSTER_RECORD_NAMES)
         f1 = group_follower(servers, 1)
         retries = {"1": [], "2": []}
         apply_s = {"1": replicate(servers, 1, "e", lambda: [propose_retry(
@@ -2667,14 +3054,15 @@ def phase_cluster(device, src, dst, card: str) -> dict:
             retries["1"]) for i in edge_cuts])}
         f2 = group_follower(servers, 2)
         apply_s["2"] = replicate(servers, 2, "name", lambda: [propose_retry(
-            lambda i=i: f2.store.bulk_set_values("name", items[i:i + CLUSTER_RECORD_NAMES]),
+            lambda i=i: f2.store.bulk_set_values("name", titems[i:i + CLUSTER_RECORD_NAMES]),
             retries["2"]) for i in name_cuts])
         del bsrc, bdst, order
         out["replicate_s"] = apply_s
         log({"phase": "cluster_replicate", "servers": 3, "groups": [0, 1, 2],
-             "conf": CLUSTER_CONF, "edges_generated": len(src),
+             "conf": CLUSTER_CONF, "edges_generated": n_t,
+             "edge_sample": f"every {TRIO_EDGE_SHARE}th generated edge",
              "edges_stored": sum(len(v) for v in ref_store.peek("e").edges.values()),
-             "named": len(items), "via_follower": {"1": f1.cluster.node_id,
+             "named": len(titems), "gates": 1, "via_follower": {"1": f1.cluster.node_id,
                                                    "2": f2.cluster.node_id},
              "records": {"1": len(edge_cuts), "2": len(name_cuts)},
              "retried": {g: dict(Counter(v)) for g, v in retries.items()},
@@ -2793,6 +3181,7 @@ def phase_cluster(device, src, dst, card: str) -> dict:
             row = serve_node(reader, q, want_p, 3, "pair 2-hop")
         launches = gather.KERNEL.launches - g0
         check(launches > 0, "pair: the cross-server 2-hop launched no gather on node 2")
+        trace = pair_trace(owner, reader, q, want_p)
         e_fetch = [f for f in fetches if f[0] == "e" and f[2] > 0]
         check(e_fetch, "pair: node 2 never fetched e from node 1")
         owned = {n: sorted(p for g in s.cluster.groups.values() for p in g.store._preds)
@@ -2802,7 +3191,8 @@ def phase_cluster(device, src, dst, card: str) -> dict:
                        "first_request_s": first_s, "first_fetch_s": e_fetch[0][1],
                        "first_fetch_bytes": e_fetch[0][2], "gather_launches": launches,
                        "p50_ms": row["p50_ms"], "p99_ms": row["p99_ms"],
-                       "placement": owned, "body_bytes": len(want_p)}
+                       "placement": owned, "body_bytes": len(want_p),
+                       "trace": trace}
         log(dict(phase="cluster_pair", card=card, **out["pair"]))
         out["launches_by_node"] = {
             **{f"t{n}": {"gather": r["count"]["gather_launches"]
@@ -3263,6 +3653,7 @@ def main(argv) -> int:
     serving_only = "--serving-only" in argv
     mxu_only = "--mxu-only" in argv
     cluster_only = "--cluster-only" in argv
+    trace_only = "--trace-only" in argv
     try:
         import torch
     except ImportError:
@@ -3348,6 +3739,22 @@ def main(argv) -> int:
             log(dict(phase="gather_timing", card=info["nvidia_smi"],
                      **gather_timing(arena, np.random.default_rng(13))))
             return 0
+        if trace_only:
+            phase = mark("names")
+            tidx = phase_names(store, srv, N_NAMED)
+            del tidx
+            jrng = np.random.default_rng(JOIN_SEED)
+            s1, s2 = (np.unique(jrng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+                      for _ in range(2))
+            phase = mark("flight_recorder")
+            zero_counts()
+            with no_caches(srv), per_level(srv.engine):
+                flight = phase_flight_recorder(store, srv, s1, s2, info["nvidia_smi"])
+            read_counts("flight_recorder")
+            mark("done")
+            log({"phase_seconds": phase_s, "launches": launches,
+                 "flight_recorder": flight["cost"]})
+            return 0
         if serving_only:
             phase = mark("names")
             phase_names(store, srv, N_NAMED)
@@ -3380,6 +3787,11 @@ def main(argv) -> int:
         with per_level(srv.engine):
             join = phase_join_path(store, srv, s1, s2, info["nvidia_smi"])
         read_counts("join_path")
+        phase = mark("flight_recorder")
+        zero_counts()
+        with per_level(srv.engine):
+            flight = phase_flight_recorder(store, srv, s1, s2, info["nvidia_smi"])
+        read_counts("flight_recorder")
         phase = mark("ranks")
         phase_ranks(store, srv, N_RANKED)
         phase = mark("query_surface")
@@ -3477,6 +3889,8 @@ def main(argv) -> int:
              "join_path": {n: {k: j[k] for k in ("p50_ms", "p99_ms", "kway_ms",
                                                  "launches_per_query")}
                            for n, j in join.items()},
+             "flight_recorder": {"seconds": flight["seconds"], **flight["cost"],
+                                 "cancel": flight["cancel"]},
              "query_surface": {n: {k: r[k] for k in (
                  "p50_ms", "p99_ms", "gather_launches_per_query", "device_order",
                  "device_order_ms")} for n, r in surface["rows"].items()},
@@ -3515,13 +3929,21 @@ def main(argv) -> int:
                  "snapshot_edges_per_s": dur["d2_load"]["snapshot_edges_per_s"],
                  "rearm_s": dur["readonly"]["rearm_s"]},
              "cluster": {
-                 "proposal_to_applied_s": clu["replicate_s"],
-                 "first_answer_s": {n: r["first_answer_s"] for n, r in clu["nodes"].items()},
-                 "count_p50_ms": {n: r["count"]["p50_ms"] for n, r in clu["nodes"].items()},
-                 "join_a_p50_ms": {n: r["join_a"]["p50_ms"] for n, r in clu["nodes"].items()},
-                 "failover_s": clu["failover"]["acknowledged_write_s"],
+                 # the trio's figures under its cut's name: a stride sample
+                 # of the edges, names on uids 1..TRIO_NAMED, gates at 1
+                 # (not comparable with a full-size trio's)
+                 f"trio_stride{TRIO_EDGE_SHARE}_named{TRIO_NAMED}_gates1": {
+                     "proposal_to_applied_s": clu["replicate_s"],
+                     "first_answer_s": {n: r["first_answer_s"]
+                                        for n, r in clu["nodes"].items()},
+                     "count_p50_ms": {n: r["count"]["p50_ms"]
+                                      for n, r in clu["nodes"].items()},
+                     "join_a_p50_ms": {n: r["join_a"]["p50_ms"]
+                                       for n, r in clu["nodes"].items()},
+                     "failover_s": clu["failover"]["acknowledged_write_s"]},
                  "pair_first_fetch_s": clu["pair"]["first_fetch_s"],
-                 "pair_first_fetch_bytes": clu["pair"]["first_fetch_bytes"]}})
+                 "pair_first_fetch_bytes": clu["pair"]["first_fetch_bytes"],
+                 "pair_trace": clu["pair"]["trace"]}})
         log({"kernels": kernels})
         log(info["nvidia_smi"])
         log({"ok": True, "device": {

@@ -22,6 +22,9 @@ named counterpart:
               and multi-tenant QoS.
 - ``cache``, ``ivm``  the result and hop caches, keyed by per-predicate
               store versions.
+- ``obs``     the flight recorder (sampled spans with the device wait of
+              each hop, the trace ring, slow queries), the per-request
+              ledger and the device snapshot.
 - ``serve``   mutations and the HTTP ``/query`` surface.
 - ``cli``     ``python -m dgraph_tpu_torch.cli.server``.
 

@@ -106,7 +106,15 @@ class VersionedLFUCache:
         """Return (value, age_seconds) on a live hit, else None.  An
         entry recorded under an older version counts as stale (dead),
         is reclaimed immediately, and reads as a miss."""
+        return self.get_ev(key, version)[0]
+
+    def get_ev(self, key, version: int):
+        """``(hit_or_None, event, nbytes)`` — the probe plus WHICH event
+        it was (hit / miss / stale) and the hit entry's stored byte
+        size, for callers that record the outcome on a trace span or the
+        request's ledger (cache/hop.py, cache/result.py)."""
         hit = None
+        nbytes = 0
         with self._lock:
             e = self._m.get(key)
             if e is None:
@@ -120,11 +128,12 @@ class VersionedLFUCache:
                 self._seq += 1
                 e.seq = self._seq
                 ev = "hit"
+                nbytes = e.nbytes
                 hit = (e.value, time.monotonic() - e.born)
         hook = self._hook
         if hook is not None:
             hook(ev, e if hit is not None else None)
-        return hit
+        return hit, ev, nbytes
 
     def contains(self, key, version: int) -> bool:
         """Live-entry probe with NO side effects (no heat, no reclaim,

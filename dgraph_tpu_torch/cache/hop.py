@@ -40,7 +40,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from dgraph_tpu_torch import obs
 from dgraph_tpu_torch.cache.core import VersionedLFUCache, env_bytes
+from dgraph_tpu_torch.obs import ledger
 from dgraph_tpu_torch.utils.metrics import (
     QCACHE_HIT_AGE,
     QCACHE_HOP_BYTES,
@@ -111,7 +113,22 @@ class HopCache:
     ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         if key is None:
             key = self.key_for(arena, attr, reverse, src)
-        hit = self._c.get(key, version)
+        sp = obs.current_span()
+        if sp is None:  # unsampled hot path: probe only
+            hit, ev, nb = self._c.get_ev(key, version)
+        else:
+            # sampled: the probe records its outcome (hit/miss/stale) and
+            # the stored payload size, so a trace shows WHICH hops the
+            # cache absorbed and how many bytes each hit saved
+            with sp.child("cache.hop") as cs:
+                hit, ev, nb = self._c.get_ev(key, version)
+                cs.set_attr("pred", attr)
+                cs.set_attr("outcome", ev)
+                if hit is not None:
+                    cs.set_attr("bytes", nb)
+        led = ledger.current()
+        if led is not None:
+            led.note_cache("hop", ev, nb or 0)
         if hit is None:
             return None
         value, age = hit

@@ -36,7 +36,9 @@ from __future__ import annotations
 import hashlib
 from typing import Optional, Tuple
 
+from dgraph_tpu_torch import obs
 from dgraph_tpu_torch.cache.core import VersionedLFUCache, env_bytes
+from dgraph_tpu_torch.obs import ledger
 from dgraph_tpu_torch.utils.metrics import (
     QCACHE_HIT_AGE,
     QCACHE_RESULT_BYTES,
@@ -127,7 +129,24 @@ class ResultCache:
     def get(self, key, version: int) -> Optional[Tuple[dict, dict]]:
         """(response, stats) for the request ``key`` at ``version``, or
         None.  The returned response is SHARED — read-only downstream."""
-        hit = self._c.get(request_digest(key), version)
+        sp = obs.current_span()
+        if sp is None:  # unsampled hot path: probe only
+            hit, ev, nb = self._c.get_ev(request_digest(key), version)
+        else:
+            # sampled: a tier-2 hit is the most latency-deciding event a
+            # request can have — the span says so (outcome + the STORED
+            # size: re-walking the response would add O(response) work
+            # to the fastest path there is)
+            with sp.child("cache.result") as cs:
+                hit, ev, nb = self._c.get_ev(request_digest(key), version)
+                cs.set_attr("outcome", ev)
+                if hit is not None:
+                    cs.set_attr("bytes", nb)
+        led = ledger.current()
+        if led is not None:
+            # a tier-2 hit is the whole request's account: no engine
+            # numbers ever merge in
+            led.note_cache("result", ev, nb or 0)
         if hit is None:
             return None
         value, age = hit

@@ -27,18 +27,24 @@ travel over HTTP: ``--raft_transport grpc`` and an ``https://`` peer
 exit 2 with a message (the port has neither gRPC nor TLS).
 
 Serves ``/query``, ``/health``, ``/metrics``, ``/admin/snapshot``,
-``/admin/export`` and ``/admin/shutdown``.  The engine runs on ``cuda``
+``/admin/export``, ``/admin/cancel``, ``/admin/shutdown`` and the
+``/debug/*`` surfaces.  ``--trace R`` samples a share R of requests into
+the flight recorder (and the ``/debug/requests`` ring;
+``DGRAPH_TPU_TRACE_RATIO`` wins when set); ``--expose_trace`` serves
+``/debug/traces``, ``/debug/slow_queries`` and ``/debug/requests``
+(403 otherwise).  The engine runs on ``cuda``
 unless ``--device cpu`` is given; without a GPU the default fails at
 start-up.  Reads go through the cohort scheduler, steered by the
 reference's environment knobs (``DGRAPH_TPU_SCHED``,
 ``DGRAPH_TPU_SCHED_*``, ``DGRAPH_TPU_QOS*``, ``DGRAPH_TPU_CACHE*``,
-``DGRAPH_TPU_IVM``, ``DGRAPH_TPU_SEGMENT*``).  The reference's gRPC,
-TLS and tracing flags are not ported yet.
+``DGRAPH_TPU_IVM``, ``DGRAPH_TPU_SEGMENT*``).  The reference's gRPC
+and TLS flags are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
 
@@ -86,6 +92,12 @@ def main(argv=None) -> int:
                     help="shared secret required on intra-cluster endpoints "
                          "(/raft*, /assign-uids, /join, /pred-snapshot, "
                          "/predlist); empty disables the gate")
+    ap.add_argument("--trace", dest="trace_ratio", type=float, default=0.0,
+                    help="share of requests sampled into the flight recorder "
+                         "(DGRAPH_TPU_TRACE_RATIO wins when set)")
+    ap.add_argument("--expose_trace", action="store_true",
+                    help="serve /debug/traces, /debug/slow_queries and "
+                         "/debug/requests")
     ap.add_argument("--raft_transport", default="http",
                     help="raft frame carrier between servers: http (grpc "
                          "is not ported and exits 2)")
@@ -116,10 +128,17 @@ def main(argv=None) -> int:
               f"(snapshot {r['snapshot_records']}, segments {r['segment_records']}, "
               f"wal {r['wal_records']}) torn_bytes={r['torn_bytes']} "
               f"seconds={r['duration_s']}", flush=True)
+    from dgraph_tpu_torch import obs
+
+    if opts.trace_ratio > 0 and not os.environ.get("DGRAPH_TPU_TRACE_RATIO"):
+        obs.configure(ratio=opts.trace_ratio)
+    # one knob for both samplers: the /debug/requests ring samples at the
+    # flight recorder's ratio (--trace, or DGRAPH_TPU_TRACE_RATIO when set)
     srv = DgraphServer(
         store, port=opts.port, bind=opts.bind, device=device,
         arena_budget_mb=opts.arena_budget_mb, export_path=opts.export_path,
-        cluster=cluster,
+        cluster=cluster, trace_ratio=obs.get_recorder().sampler.ratio,
+        expose_trace=opts.expose_trace,
     )
     # explicit flags win over the environment the snapshotter read
     if srv.snapshotter is not None and opts.snapshot_wal_mb:

@@ -1,6 +1,6 @@
 """PeerClient: the single gate every intra-cluster RPC goes through (copy
-of ``dgraph_tpu/cluster/peerclient.py`` without its trace propagation
-and its gRPC leg: the port has neither sampled spans nor gRPC).
+of ``dgraph_tpu/cluster/peerclient.py`` without its gRPC leg: the port
+has no gRPC).
 
 Upstream Dgraph survives slow and dead peers because its worker conn pool
 retries, follows leader hints, and balances reads across replicas
@@ -35,7 +35,10 @@ group.  PeerClient owns three defenses, applied to every peer call:
 
 Every attempt passes through the failpoint ``peerclient.<op>``
 (utils/failpoints.py), which is how the chaos suite injects
-deterministic faults below the retry/breaker machinery.
+deterministic faults below the retry/breaker machinery.  A sampled
+caller's span records one ``rpc.<op>`` child per attempt, and its
+context rides the ``Traceparent`` header of every HTTP peer call, so the
+remote node records its leg of the trace under the same trace id.
 
 ``DGRAPH_TPU_RESILIENCE=0`` is the escape hatch: calls degrade to the
 single-shot behavior (one attempt, legacy timeout, no breaker, no
@@ -56,6 +59,7 @@ import time
 import urllib.error
 from typing import Callable, Dict, List, Optional, Tuple
 
+from dgraph_tpu_torch import obs
 from dgraph_tpu_torch.cluster.transport import PeerAuth, urlopen_peer
 from dgraph_tpu_torch.utils.env import env_float as _env_f
 from dgraph_tpu_torch.utils.failpoints import fail
@@ -356,9 +360,19 @@ class PeerClient:
             return attempt(off_timeout if off_timeout is not None else budget)
         n_attempts = max(1, int(attempts if attempts is not None else self.attempts))
         deadline = None if budget is None else time.monotonic() + budget
+        # flight recorder: the calling thread's span (the query's engine
+        # span, a forwarder's root, …) — every attempt below records one
+        # ``rpc.<op>`` child with the breaker/backoff outcome, so a trace
+        # shows each wire try.  None = unsampled: no span objects here.
+        tsp = obs.current_span()
         admitted, retry_after, probe_token = self._admit(peer, op)
         if not admitted:
             PEER_RPC.add((peer, op, "open"))
+            if tsp is not None:
+                with tsp.child(f"rpc.{op}") as a:
+                    a.set_attr("peer", peer)
+                    a.set_attr("outcome", "breaker_open")
+                    a.set_attr("retry_after_s", round(retry_after, 3))
             raise BreakerOpenError(peer, op, retry_after)
         last: Optional[BaseException] = None
         made = 0  # attempts actually issued (≠ n_attempts under sheds)
@@ -380,47 +394,82 @@ class PeerClient:
                     )
                     per = max(per, _MIN_ATTEMPT_TIMEOUT)
                 made = i + 1
+                asp = None
+                if tsp is not None:
+                    asp = tsp.child(f"rpc.{op}")
+                    asp.set_attr("peer", peer)
+                    asp.set_attr("attempt", i + 1)
+                    if per is not None:
+                        asp.set_attr("timeout_s", round(per, 3))
                 try:
-                    fail.point(f"peerclient.{op}")
-                    res = attempt(per)
-                except urllib.error.HTTPError:
-                    # an HTTP response IS the peer talking: transport is fine
-                    self._record(peer, op, True)
-                    PEER_RPC.add((peer, op, "http_error"))
-                    PEER_RPC_ATTEMPTS.observe(i + 1)
-                    raise
-                except transient as e:
-                    if alive is not None and alive(e):
-                        # the peer RESPONDED with an application-level
-                        # rejection: transport is fine, same rule as the
-                        # HTTPError arm above
+                    try:
+                        fail.point(f"peerclient.{op}")
+                        res = attempt(per)
+                        if asp is not None:
+                            # BEFORE the finally publishes the span: a
+                            # reader racing the finish must never see a
+                            # successful attempt with no outcome
+                            asp.set_attr("outcome", "ok")
+                    except urllib.error.HTTPError as e:
+                        # an HTTP response IS the peer talking: transport is fine
                         self._record(peer, op, True)
                         PEER_RPC.add((peer, op, "http_error"))
                         PEER_RPC_ATTEMPTS.observe(i + 1)
+                        if asp is not None:
+                            asp.set_attr("outcome", "http_error")
+                            asp.set_attr("code", getattr(e, "code", 0))
                         raise
-                    last = e
-                    self._record(peer, op, False)
-                    if self.state_of(peer, op) == OPEN:
-                        break  # this attempt tripped the breaker: stop burning budget
-                    if i + 1 < n_attempts:
-                        b = min(
-                            self.backoff_cap, self.backoff_base * (2 ** i)
-                        ) * self._rng.random()
-                        if deadline is not None:
-                            b = min(b, max(0.0, deadline - time.monotonic()))
-                        PEER_BACKOFF.observe(b)
-                        if b > 0:
-                            time.sleep(b)
-                    continue
-                except Exception:
-                    # not transient, not an HTTP response: the peer spoke
-                    # garbage (BadStatusLine, truncated frame, …).  Count
-                    # it as a transport failure — un-recorded, a half-open
-                    # probe's flag would leak and wedge the breaker shut.
-                    self._record(peer, op, False)
-                    PEER_RPC.add((peer, op, "unavailable"))
-                    PEER_RPC_ATTEMPTS.observe(i + 1)
-                    raise
+                    except transient as e:
+                        if alive is not None and alive(e):
+                            # the peer RESPONDED with an application-level
+                            # rejection: transport is fine, same rule as the
+                            # HTTPError arm above
+                            self._record(peer, op, True)
+                            PEER_RPC.add((peer, op, "http_error"))
+                            PEER_RPC_ATTEMPTS.observe(i + 1)
+                            if asp is not None:
+                                asp.set_attr("outcome", "http_error")
+                            raise
+                        last = e
+                        self._record(peer, op, False)
+                        if asp is not None:
+                            asp.set_attr("outcome", "transient")
+                            asp.set_attr("error", type(e).__name__)
+                            asp.set_attr("breaker", self.state_of(peer, op))
+                        if self.state_of(peer, op) == OPEN:
+                            break  # this attempt tripped the breaker: stop burning budget
+                        if i + 1 < n_attempts:
+                            b = min(
+                                self.backoff_cap, self.backoff_base * (2 ** i)
+                            ) * self._rng.random()
+                            if deadline is not None:
+                                b = min(b, max(0.0, deadline - time.monotonic()))
+                            PEER_BACKOFF.observe(b)
+                            if asp is not None:
+                                # close the attempt span BEFORE sleeping:
+                                # the deliberate backoff rides as an attr,
+                                # not as span duration (finish is
+                                # idempotent; the finally below no-ops)
+                                asp.set_attr("backoff_s", round(b, 4))
+                                asp.finish()
+                            if b > 0:
+                                time.sleep(b)
+                        continue
+                    except Exception as e:
+                        # not transient, not an HTTP response: the peer spoke
+                        # garbage (BadStatusLine, truncated frame, …).  Count
+                        # it as a transport failure — un-recorded, a half-open
+                        # probe's flag would leak and wedge the breaker shut.
+                        self._record(peer, op, False)
+                        PEER_RPC.add((peer, op, "unavailable"))
+                        PEER_RPC_ATTEMPTS.observe(i + 1)
+                        if asp is not None:
+                            asp.set_attr("outcome", "garbage")
+                            asp.set_attr("error", type(e).__name__)
+                        raise
+                finally:
+                    if asp is not None:
+                        asp.finish()
                 self._record(peer, op, True)
                 PEER_RPC.add((peer, op, "ok"))
                 PEER_RPC_ATTEMPTS.observe(i + 1)
@@ -448,6 +497,12 @@ class PeerClient:
     ):
         """The HTTP peer call: ``urlopen_peer`` wrapped in retry/breaker.
         Returns the (context-managed) response object."""
+        # trace propagation: a sampled caller's context rides the W3C
+        # traceparent header, so the remote node records ITS half of the
+        # trace under the same trace_id (obs/spans.py)
+        sp = obs.current_span()
+        if sp is not None and hasattr(req, "add_header"):
+            req.add_header("Traceparent", obs.format_traceparent(sp))
 
         def attempt(t: Optional[float]):
             return urlopen_peer(req, t if t is not None else 10.0, self.auth)

@@ -58,6 +58,7 @@ from dgraph_tpu_torch.ops import spgemm
 from dgraph_tpu_torch.ops.sets import SENT
 from dgraph_tpu_torch.utils import planconfig
 from dgraph_tpu_torch.utils.metrics import (
+    ARENA_EVICTIONS,
     IVM_REPAIR_EDGES,
     IVM_REPAIRS,
     JOIN_TILE_BUILDS,
@@ -503,6 +504,9 @@ class CSRArena:
                 )
                 if repaired is not None:
                     IVM_REPAIR_EDGES.add(n_delta)
+                    led = _ledger.current()
+                    if led is not None:
+                        led.repairs += 1
             self._tiles = repaired
         if len(adds) or len(dels):
             self.epoch += 1
@@ -908,6 +912,7 @@ class ArenaManager:
         )
         self._lru: "OrderedDict[tuple, int]" = OrderedDict()  # (cache id, key) -> bytes
         self._lru_total = 0
+        self.evictions = 0  # arenas dropped by the budget, cumulative
         self._caches_by_id = {
             id(self._data): self._data,
             id(self._reverse): self._reverse,
@@ -954,7 +959,46 @@ class ArenaManager:
                 break
             self._lru.pop(victim)
             self._lru_total -= vbytes
+            self.evictions += 1
+            ARENA_EVICTIONS.add(1)
             self._drop_hops(self._caches_by_id[victim[0]].pop(victim[1], None))
+
+    def residency(self) -> dict:
+        """Device-residency + program-cache snapshot (obs/device.py's
+        data source).  ``resident_bytes`` is the budget accountant's
+        running total — the number eviction decisions are made on — so
+        the telemetry can never disagree with the enforcement.
+        ``tile_bytes`` walks the cached uid arenas' tile sets (the tile
+        join tier's dense blocks).  The reference's classed expanders
+        have no counterpart in the port: their counts are 0."""
+        with self._cache_lock:
+            resident = self._lru_total
+            entries = len(self._lru)
+            evictions = self.evictions
+            arenas = list(self._data.values()) + list(self._reverse.values())
+        tile_bytes = 0
+        tile_sets = 0
+        for a in arenas:
+            pt = a._tiles
+            if pt is not None:
+                tile_bytes += pt.device_bytes()
+                tile_sets += 1
+        return {
+            "resident_bytes": resident,
+            "budget_bytes": self.budget_bytes,
+            "headroom_bytes": (
+                max(0, self.budget_bytes - resident)
+                if self.budget_bytes else None
+            ),
+            "entries": entries,
+            "evictions": evictions,
+            "tile_bytes": tile_bytes,
+            "program_caches": {
+                "classed_expanders": 0,
+                "classed_programs": 0,
+                "tile_sets": tile_sets,
+            },
+        }
 
     def _lru_drop(self, cache, key) -> None:
         b = self._lru.pop((id(cache), key), None)
@@ -1079,27 +1123,40 @@ class ArenaManager:
         new_v = self.store.pred_versions.get(pred, 0)
         if new_v <= base or self.store.pred_floor > base:
             return
+        from dgraph_tpu_torch import obs
+
         repaired = dropped = 0
-        for arena, ad, dl in (
-            (a, adds, dels),
-            (self._reverse.get(pred), adds[:, ::-1], dels[:, ::-1]),
-        ):
-            if arena is None:
-                continue
-            rev = arena is not a
-            # the delta that drives this repair bumped the arena epoch
-            # exactly once (zero-delta re-keys bump nothing)
-            ne = arena.epoch
-            oe = ne - 1 if (len(adds) or len(dels)) else ne
-            rep, drop = self.hop_cache.repair_pred(
-                id(arena), pred, rev, ad, dl, base, new_v,
-                old_epoch=oe, new_epoch=ne,
-            )
-            repaired += rep
-            dropped += drop
+        with obs.child("ivm.repair") as sp:
+            for arena, ad, dl in (
+                (a, adds, dels),
+                (self._reverse.get(pred), adds[:, ::-1], dels[:, ::-1]),
+            ):
+                if arena is None:
+                    continue
+                rev = arena is not a
+                # the delta that drives this repair bumped the arena
+                # epoch exactly once (zero-delta re-keys bump nothing)
+                ne = arena.epoch
+                oe = ne - 1 if (len(adds) or len(dels)) else ne
+                rep, drop = self.hop_cache.repair_pred(
+                    id(arena), pred, rev, ad, dl, base, new_v,
+                    old_epoch=oe, new_epoch=ne,
+                )
+                repaired += rep
+                dropped += drop
+            sp.set_attr("pred", pred)
+            sp.set_attr("delta", len(adds) + len(dels))
+            sp.set_attr("repaired", repaired)
+            sp.set_attr("dropped", dropped)
         if repaired:
             IVM_REPAIRS.add(("hop", "repaired"))
             IVM_REPAIR_EDGES.add((len(adds) + len(dels)) * repaired)
+            led = _ledger.current()
+            if led is not None:
+                # attributed to the request whose refresh drove the
+                # repair (usually the mutation; sometimes the first
+                # reader after it — the spans' attribution rule)
+                led.repairs += repaired
         if dropped:
             IVM_REPAIRS.add(("hop", "rebuild"))
 

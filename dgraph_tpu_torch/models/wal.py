@@ -55,6 +55,7 @@ import time
 import zlib
 from typing import Callable, Iterator, List, Optional
 
+from dgraph_tpu_torch import obs
 from dgraph_tpu_torch.models import codec
 from dgraph_tpu_torch.models.durability import (
     SnapshotCorruptError,
@@ -131,14 +132,23 @@ class Wal:
         """Group-commit barrier: make every record appended+flushed
         through ``seq`` (default: all so far) durable, sharing fsyncs —
         barriers that queue behind a leader's fsync covering their seq
-        return without touching the disk.  (The reference also records
-        the barrier as a ``wal.group_commit`` span of a sampled
-        mutation; the port has no spans yet.)"""
+        return without touching the disk.
+
+        Sampled mutations record the barrier as a span
+        (``wal.group_commit``): its duration is the ack's durability
+        cost, and the ``fsync`` attr says whether THIS writer led the
+        fsync or rode a leader's."""
         if not self.sync:
             return
         if seq is None:
             seq = self._seq
-        self._sync_upto(seq)
+        sp = obs.current_span()
+        if sp is None:
+            self._sync_upto(seq)
+            return
+        with sp.child("wal.group_commit") as bs:
+            bs.set_attr("seq", seq)
+            bs.set_attr("fsync", self._sync_upto(seq))
 
     def _sync_upto(self, seq: int) -> bool:
         """The barrier proper; True when this caller LED an fsync."""

@@ -1,33 +1,58 @@
-"""Request accounting for the port: the per-request resource ledger
-(``obs.ledger``) and the engine's stage timer.  Sampled spans and the
-flight recorder of ``dgraph_tpu.obs`` are not ported yet."""
+"""dgraph_tpu_torch.obs — the end-to-end query flight recorder and the
+per-request resource ledger (the surface of ``dgraph_tpu.obs``).
 
-from __future__ import annotations
+Span-based tracing across scheduler, cache, engine, WAL and peer RPCs,
+with W3C ``traceparent`` propagation, head + slow-tail sampling, a
+bounded trace ring (``/debug/traces``), a structured slow-query log and
+Chrome ``trace_event`` export; each sampled hop's device time is waited
+for on a CUDA event (``block_ready_ms``).  See obs/spans.py for the
+design, obs/ledger.py for the per-request account and obs/device.py for
+the device snapshot (``/debug/device``).
+"""
 
-import time
-
-from dgraph_tpu_torch.obs import ledger  # noqa: F401 — submodule surface
-
-
-class _Stage:
-    """Accumulating stage timer for the engine's per-request stats dicts
-    (host_expand_ms / device_expand_ms / ...), in milliseconds."""
-
-    __slots__ = ("stats", "key", "t0")
-
-    def __init__(self, stats: dict, key: str):
-        self.stats = stats
-        self.key = key
-
-    def __enter__(self) -> "_Stage":
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, et, ev, tb) -> None:
-        self.stats[self.key] = self.stats.get(self.key, 0.0) + (
-            (time.perf_counter() - self.t0) * 1e3
-        )
+from dgraph_tpu_torch.obs import device, ledger  # noqa: F401 — submodule surface
+from dgraph_tpu_torch.obs.export import chrome_trace
+from dgraph_tpu_torch.obs.spans import (
+    NOOP,
+    FlightRecorder,
+    Sampler,
+    Span,
+    TraceContext,
+    block_ready_ms,
+    child,
+    configure,
+    current_span,
+    format_traceparent,
+    parse_traceparent,
+    server_span,
+    stage,
+    start_request,
+)
 
 
-def stage(stats: dict, key: str) -> _Stage:
-    return _Stage(stats, key)
+def get_recorder() -> FlightRecorder:
+    """The live process recorder (configure() swaps it; always read
+    through this or the spans module attribute, never a stale import)."""
+    from dgraph_tpu_torch.obs import spans
+
+    return spans.recorder
+
+
+__all__ = [
+    "FlightRecorder",
+    "NOOP",
+    "Sampler",
+    "Span",
+    "TraceContext",
+    "block_ready_ms",
+    "child",
+    "chrome_trace",
+    "configure",
+    "current_span",
+    "format_traceparent",
+    "get_recorder",
+    "parse_traceparent",
+    "server_span",
+    "stage",
+    "start_request",
+]

@@ -8,7 +8,9 @@ with ``ctypes``.  Host C++ sources (the N-Quad scanner,
 ``native/nquad_scan.cpp``) are compiled the same way with ``g++``
 (:func:`host_lib`).  Nothing here runs at import time: this module is
 imported on hosts without ``nvcc`` or a GPU, where only the kernels'
-plain PyTorch versions run.
+plain PyTorch versions run.  Every build this process makes is counted
+(obs/device.py: ``dgraph_xla_compiles_total``, the port's counterpart of
+a backend compilation, with its seconds).
 
 Builds take an exclusive file lock on ``_build/.lock`` (parallel test
 workers and a server subprocess beside its parent build once, the rest
@@ -26,6 +28,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable, List
@@ -45,6 +48,8 @@ GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 _lock = threading.Lock()
 # name -> ptxas/nvcc output of the build made by this process
 build_logs: Dict[str, str] = {}
+# every library this process built, in build order (CUDA and host)
+built: List[str] = []
 
 
 @contextmanager
@@ -92,6 +97,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         if not todo:
             return out
         exe = nvcc()
+        t0 = time.perf_counter()
         procs = []
         for n in todo:
             tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
@@ -108,6 +114,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
                 errors.append(f"{n}.cu (nvcc exit {p.returncode}):\n{log}")
                 continue
             os.replace(tmp, out[n])  # atomic: a reader never sees half a .so
+            _note_build(n, time.perf_counter() - t0)
         if errors:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
         return out
@@ -130,6 +137,7 @@ def host_lib(src: Path) -> Path:
         if gxx is None:
             raise RuntimeError(f"g++ not found: cannot build {src.name}")
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
         r = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],
                            capture_output=True, text=True, timeout=300)
         if r.returncode != 0:
@@ -137,7 +145,15 @@ def host_lib(src: Path) -> Path:
             raise RuntimeError(f"g++ failed to build {src.name} (exit "
                                f"{r.returncode}):\n{r.stdout}{r.stderr}")
         os.replace(tmp, out)  # atomic: a reader never sees half a .so
+        _note_build(src.stem, time.perf_counter() - t0)
     return out
+
+
+def _note_build(name: str, secs: float) -> None:
+    from dgraph_tpu_torch.obs import device
+
+    built.append(name)
+    device.note_build(secs)
 
 
 class CudaKernel:

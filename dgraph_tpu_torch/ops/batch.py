@@ -16,9 +16,12 @@
 
 Where ``segments.plan`` returns k > 0, a scheduler yield point
 (``segments.seam``: cancellation, preemption) sits between every k hops,
-the reference's segmented dispatch.  The reference's spans, device
-guard and failpoints have no counterpart: a device fault propagates to
-the caller.
+the reference's segmented dispatch.  A sampled request records the
+whole pass as one ``multi_hop`` span (or one ``multi_hop_seg`` span a
+segment), with its hops, capacity and ``device_sync_ms``, the wait for
+the pass's results on a CUDA event.  The reference's device guard and
+failpoints have no counterpart: a device fault propagates to the
+caller.
 """
 
 from __future__ import annotations
@@ -81,20 +84,41 @@ def multi_hop(
     (read only with ``track_visited``).  Returns (frontiers int32[n_hops,
     cap]: the deduplicated frontier each hop produced, edge counts
     int32[n_hops], the final visited int32[cap])."""
+    from dgraph_tpu_torch import obs
     from dgraph_tpu_torch.sched import segments
 
     k = segments.plan(n_hops, cap, "multi_hop")
+    if not 0 < k < n_hops:
+        k = n_hops
+    # sampled requests record each dispatched segment as ONE span (the
+    # whole pass when unsegmented); unsampled: no span, no waits
+    sp = obs.current_span()
+    name = "multi_hop" if k == n_hops else "multi_hop_seg"
     f, vis = frontier, visited
     fs, totals = [], []
-    for i in range(n_hops):
-        if 0 < k < n_hops and i and i % k == 0:
+    for lo in range(0, n_hops, k):
+        if lo:
             segments.seam("multi_hop")
-        rows = frontier_rows(f) if lut is None else lut_rows(lut, f)
-        out, total = expand_ascending(offsets, dst, rows, cap)
-        f = sort_unique(out)
-        if track_visited:
-            f = torch.sort(torch.where(member_mask(f, vis), SENT, f)).values
-            vis = sort_unique(torch.cat([vis, f]))[:cap]
-        fs.append(f)
-        totals.append(total)
+        hops = min(k, n_hops - lo)
+        ms = obs.NOOP if sp is None else sp.child(name)
+        with ms:
+            for _ in range(hops):
+                rows = frontier_rows(f) if lut is None else lut_rows(lut, f)
+                out, total = expand_ascending(offsets, dst, rows, cap)
+                f = sort_unique(out)
+                if track_visited:
+                    f = torch.sort(
+                        torch.where(member_mask(f, vis), SENT, f)
+                    ).values
+                    vis = sort_unique(torch.cat([vis, f]))[:cap]
+                fs.append(f)
+                totals.append(total)
+            if sp is not None:
+                ms.set_attr("hops", int(hops))
+                ms.set_attr("cap", int(cap))
+                ms.set_attr("track_visited", bool(track_visited))
+                ms.set_attr(
+                    "device_sync_ms",
+                    round(obs.block_ready_ms((f, totals[-1], vis)), 3),
+                )
     return torch.stack(fs), torch.stack(totals), vis

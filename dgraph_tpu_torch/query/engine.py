@@ -158,6 +158,14 @@ class DeviceExpander:
         looked them up (``_plan_rows``); it serves the solo expansion
         only — a merged hop looks up the union's rows afresh.
 
+        When the request is SAMPLED (obs/spans.py), each call records
+        one ``hop`` span carrying the predicate, frontier size, edges
+        traversed, the route the expansion took (cache/merged/host/
+        resident/csr/empty) and the device/host split — on the device
+        routes ``device_sync_ms``, the wait for the gather's result
+        measured on a CUDA event before the fetch.  The unsampled path
+        branches away before any span object exists.
+
         This call IS the hop boundary: the request's CancelToken
         (sched/qos.py) is checkpointed here — a cancelled or
         deadline-lapsed request stops BEFORE its next launch — and the
@@ -165,7 +173,28 @@ class DeviceExpander:
         seam."""
         self.engine.checkpoint()
         fail.point("engine.hop")
-        out, seg_ptr = self._expand_cached(arena, src, attr, reverse, plan)
+        sp = obs.current_span()
+        if sp is None:  # unsampled hot path: zero allocations, no waits
+            out, seg_ptr = self._expand_cached(arena, src, attr, reverse, plan)
+        else:
+            st = self.engine.stats
+            e0 = st["edges"]
+            d0 = st["device_expand_ms"]
+            h0 = st["host_expand_ms"]
+            with sp.child("hop") as hs:
+                out, seg_ptr = self._expand_cached(arena, src, attr, reverse, plan)
+                hs.set_attr("pred", attr)
+                if reverse:
+                    hs.set_attr("reverse", True)
+                hs.set_attr("n_src", int(len(src)))
+                hs.set_attr("edges", int(st["edges"] - e0))
+                hs.set_attr("route", self._route)
+                dm = st["device_expand_ms"] - d0
+                hm = st["host_expand_ms"] - h0
+                if dm:
+                    hs.set_attr("device_ms", round(dm, 3))
+                if hm:
+                    hs.set_attr("host_ms", round(hm, 3))
         routes = self.engine.stats["routes"]
         routes[self._route] = routes.get(self._route, 0) + 1
         led = _ledger.current()
@@ -263,10 +292,23 @@ class DeviceExpander:
         rows_dev = torch.from_numpy(ops.pad_rows(rows, ops.bucket(n))).to(
             arena.device
         )
+        # the hop span ``expand`` opened (a merged hop's union runs in
+        # its leader's thread, under the leader's span); None unsampled
+        hs = obs.current_span()
+        sync_ms = None
         with obs.stage(eng.stats, "device_expand_ms"):
+            dev = self.expand_rows(arena, rows_dev, cap)
+            if hs is not None:
+                # sampled: split the device's compute from the host
+                # fetch (the unsampled path goes straight to the fetch)
+                sync_ms = obs.block_ready_ms(dev)
             # one fetch: out|seg concatenated on the device
-            packed = self.expand_rows(arena, rows_dev, cap).cpu().numpy()
+            packed = dev.cpu().numpy()
         led = _ledger.current()
+        if sync_ms is not None:
+            hs.set_attr("device_sync_ms", round(sync_ms, 3))
+            if led is not None:
+                led.device_sync_ms += sync_ms
         if led is not None:
             led.bytes_h2d += rows_dev.numel() * rows_dev.element_size()
             led.bytes_d2h += int(packed.nbytes)

@@ -32,8 +32,10 @@ still applies) and sends every k-way intersection of at most
 The port has no calibrated planner: the cost compare is the reference's
 ``DGRAPH_TPU_PLANNER=0`` branch (its static rate table,
 ``_STATIC_RATES``), so the decisions equal the reference's under that
-setting.  The reference's
-device guard, spans and failpoints around the dispatch are not ported: a
+setting.  A sampled request records the tile chain as one ``hop``
+span (route ``mxu``) and a device k-way step as a ``kway`` span (the
+port's addition), each with its ``device_sync_ms``.  The reference's
+device guard and failpoints around the dispatch are not ported: a
 device fault propagates.
 """
 
@@ -156,12 +158,24 @@ def kway_intersect(
     st = stats if stats is not None else {}
     if use_device:
         dev = devmod.resolve(device)
-        with obs.stage(st, "kway_ms"):
+        # sampled: the device k-way step records a ``kway`` span (the
+        # port's addition: the reference records none) with its shape
+        # and the wait for the intersect kernel's result
+        sp = obs.current_span()
+        ks = sp.child("kway") if sp is not None else obs.NOOP
+        with ks, obs.stage(st, "kway_ms"):
             L = ops.bucket(max(len(s) for s in sets))
             mat = np.stack([ops.pad_to(s, L) for s in sets])
             out = intersect_batch(torch.from_numpy(mat).to(dev)[None])[0]
+            if sp is not None:
+                ks.set_attr("route", "device")
+                ks.set_attr("k", k)
+                ks.set_attr("lanes", int(L))
+                ks.set_attr("device_sync_ms", round(obs.block_ready_ms(out), 3))
             out = out.cpu().numpy()
             res = out[out != SENT].astype(np.int64)
+            if sp is not None:
+                ks.set_attr("out", int(len(res)))
         route = "kway_device"
     else:
         with obs.stage(st, "kway_ms"):
@@ -439,7 +453,12 @@ def try_mxu_route(engine, child, src: np.ndarray, resolver) -> bool:
         seg_k = len(levels)
     dests: List[Optional[np.ndarray]] = [None] * len(levels)
     totals = np.zeros(len(levels), dtype=np.int64)
-    with obs.stage(engine.stats, "mxu_join_ms"):
+    # sampled: ONE hop span for the whole tile chain (it replaces the
+    # per-level hops), its device wait summed over the segments
+    sp = obs.current_span()
+    hs = sp.child("hop") if sp is not None else obs.NOOP
+    sync_ms = 0.0
+    with hs, obs.stage(engine.stats, "mxu_join_ms"):
         x = _mask_of(src64, m, dev)
         keep_masks = [
             None if ks is None else _mask_of(ks, m, dev) for ks in keeps_np
@@ -452,6 +471,8 @@ def try_mxu_route(engine, child, src: np.ndarray, resolver) -> bool:
             masks, tot = spgemm.run_mask_chain(
                 tile_ops[lo:hi], keep_masks[lo:hi], degvs[lo:hi], x
             )
+            if sp is not None:
+                sync_ms += obs.block_ready_ms((masks, tot))
             totals[lo:hi] = tot.cpu().numpy()
             for i in range(lo, hi):
                 if need[i]:
@@ -466,6 +487,13 @@ def try_mxu_route(engine, child, src: np.ndarray, resolver) -> bool:
                     if need[i]:
                         dests[i] = _EMPTY
                 break
+        if sp is not None:
+            hs.set_attr("route", "mxu")
+            hs.set_attr("levels", len(levels))
+            hs.set_attr("preds", [sg.attr for sg in levels])
+            hs.set_attr("mask_lanes", int(m))
+            hs.set_attr("tiles", [int(pt.n_tiles) for pt in tiles])
+            hs.set_attr("device_sync_ms", round(sync_ms, 3))
 
     # --- stage light-mode stashes (the chain consumer's contract) ---
     src_list: Optional[np.ndarray] = src64

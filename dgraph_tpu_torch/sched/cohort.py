@@ -121,7 +121,7 @@ class SchedRequest:
 
     __slots__ = (
         "parsed", "debug", "deadline", "enqueued", "key",
-        "_done", "result", "stats", "error",
+        "_done", "result", "stats", "error", "span", "queue_span",
         "tenant", "cancel", "ledger", "slot_held", "slot_released",
     )
 
@@ -142,6 +142,14 @@ class SchedRequest:
         self.result: Optional[dict] = None
         self.stats: Optional[dict] = None
         self.error: Optional[BaseException] = None
+        # flight recorder (obs/spans.py): ``span`` is the admitting
+        # request's root span (None when unsampled — the common case),
+        # carried across the handler→flush-worker thread hop so
+        # execution re-roots under the right trace; ``queue_span``
+        # covers admission→execution and is finished by whoever decides
+        # this request's fate — execution, shed, or singleflight dealing
+        self.span = None
+        self.queue_span = None
         # per-query resource ledger (obs/ledger.py): the admitting
         # request's account, re-activated on whichever flush worker
         # executes it
@@ -159,12 +167,22 @@ class SchedRequest:
             (time.monotonic() if now is None else now) >= self.deadline
         )
 
+    def end_queue_wait(self, outcome: str) -> None:
+        """Close the queue-wait span; first closer's outcome wins
+        (execution start beats the completion fallback)."""
+        qs = self.queue_span
+        if qs is not None and qs.t1 is None:
+            qs.set_attr("outcome", outcome)
+            qs.finish()
+
     def complete(self, result: dict, stats: dict) -> None:
+        self.end_queue_wait("done")
         self.result = result
         self.stats = stats
         self._done.set()
 
     def fail(self, exc: BaseException) -> None:
+        self.end_queue_wait(type(exc).__name__)
         self.error = exc
         self._done.set()
 

@@ -1,9 +1,7 @@
 """Multi-tenant serving QoS: tenant identity, quotas, weighted-fair
 pick, and cooperative query cancellation (copy of
-``dgraph_tpu/sched/qos.py`` without ``CancelRegistry`` /
-``/admin/cancel``, which key on the trace ids of sampled spans the port
-does not record yet, and without ``grpc_timeout``: the port has no gRPC
-surface).
+``dgraph_tpu/sched/qos.py`` without ``grpc_timeout``: the port has no
+gRPC surface).
 
 - **Tenant identity** — the ``X-Dgraph-Tenant`` HTTP header names the
   scope; absent means the ``default`` tenant.  :func:`resolve_tenant`
@@ -26,8 +24,10 @@ surface).
   boundaries and segment seams (never inside a launched kernel, so
   cancellation latency is one hop's duration).  Two sources flip it in
   the port: deadline lapse mid-execution (the token carries the
-  request budget) and client disconnect (an HTTP socket EOF peek).  A
-  cancelled query raises :class:`QueryCancelledError`; the serving
+  request budget), client disconnect (an HTTP socket EOF peek) and an
+  operator's ``/admin/cancel?trace_id=`` (:class:`CancelRegistry`, which
+  holds the tokens of sampled, scheduled reads under their trace ids).
+  A cancelled query raises :class:`QueryCancelledError`; the serving
   layer records ``dgraph_query_cancelled_total{reason,tenant}``.
 - **One deadline resolution** (:func:`parse_timeout`): zero/negative =
   budget already spent; absent/malformed/unbounded = no budget.
@@ -191,6 +191,63 @@ class CancelToken:
             if gone:
                 self.cancel("disconnect")
                 raise self.error()
+
+
+class CancelRegistry:
+    """trace_id → live CancelToken, for ``/admin/cancel?trace_id=``.
+
+    Bounded: at the cap the oldest registration is evicted (its query
+    merely becomes un-cancellable by trace id — deadline and disconnect
+    still work).  Only sampled requests have trace ids, so the admin
+    surface targets exactly the queries an operator can see in
+    /debug/traces."""
+
+    _MAX = 4096
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._m: "Dict[str, CancelToken]" = {}
+        # eviction queue of (trace_id, token) pairs: unregister leaves
+        # its entry behind (an O(n) list remove per request would tax
+        # the hot path), so eviction must verify the entry still maps
+        # to ITS token — a re-registered trace id (client retries reuse
+        # trace ids) must never have its LIVE token evicted by a stale
+        # queue entry
+        self._order: List[tuple] = []
+
+    def register(self, trace_id: str, token: CancelToken) -> None:
+        with self._lock:
+            self._m[trace_id] = token
+            self._order.append((trace_id, token))
+            while len(self._order) > self._MAX:
+                old_id, old_tok = self._order.pop(0)
+                if self._m.get(old_id) is old_tok:
+                    self._m.pop(old_id, None)
+
+    def unregister(self, trace_id: str, token: Optional[CancelToken] = None) -> None:
+        """Drop a registration — identity-checked: two sampled queries
+        may legally share one trace id (a distributed trace fanning out
+        several DQL queries), and the first to finish must not evict
+        the other's LIVE token.  ``token`` None = unconditional (tests,
+        teardown)."""
+        with self._lock:
+            if token is None or self._m.get(trace_id) is token:
+                self._m.pop(trace_id, None)
+            # the matching _order entry is dropped lazily by the
+            # eviction sweep (identity-checked there)
+
+    def cancel(self, trace_id: str, reason: str = "admin") -> bool:
+        with self._lock:
+            tok = self._m.get(trace_id)
+        if tok is None:
+            return False
+        tok.cancel(reason)
+        return True
+
+
+# process-wide registry (the serving layer registers sampled requests;
+# /admin/cancel resolves against it)
+REGISTRY = CancelRegistry()
 
 
 def socket_disconnect_probe(sock) -> Callable[[], bool]:

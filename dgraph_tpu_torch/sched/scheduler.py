@@ -82,6 +82,7 @@ import time
 from typing import Dict, List, Optional
 
 from dgraph_tpu_torch import ivm as _ivm
+from dgraph_tpu_torch import obs
 from dgraph_tpu_torch.obs import ledger as _ledgermod
 from dgraph_tpu_torch.sched import qos as _qos
 from dgraph_tpu_torch.sched import segments as _segments
@@ -269,11 +270,25 @@ class CohortScheduler:
             parsed, debug=debug, deadline=deadline, key=key,
             tenant=tenant, cancel=cancel,
         )
-        # the resource ledger rides the thread hop to the flush worker:
-        # the handler thread owns it again once wait() returns
-        # (single-writer hand-off)
+        sp = obs.current_span()
+        if sp is not None:
+            # sampled: carry the request's root across the thread hop to
+            # the flush worker, and open the queue-wait span HERE — the
+            # admission→execution gap the latency map files under an
+            # undifferentiated "processing"
+            req.span = sp
+            req.queue_span = sp.child("sched.queue")
+        # the resource ledger rides the same thread hop as the span: the
+        # handler thread owns it again once wait() returns (single-writer
+        # hand-off)
         req.ledger = _ledgermod.current()
-        self._admit(req, sig, key)
+        try:
+            self._admit(req, sig, key)
+        except SchedOverloadError:
+            # the queue-wait span opened above must land in the trace
+            # with the shed verdict, not leak unfinished
+            req.end_queue_wait("shed_overload")
+            raise
         result, stats = req.wait()
         if rc_key is not None:
             # sharing the response dict is safe by the singleflight
@@ -558,6 +573,18 @@ class CohortScheduler:
         n_dup = len(live) - len(leaders)
         if n_dup:
             SCHED_COALESCED.add(n_dup)
+        # flight recorder: ONE shared span per cohort flush, parented to
+        # the first sampled member's trace; every other sampled member's
+        # engine span LINKS to it instead of pretending to own it
+        flush_span = None
+        for r in live:
+            if r.span is not None:
+                flush_span = r.span.child("sched.flush")
+                flush_span.set_attr("reason", reason)
+                flush_span.set_attr("occupancy", len(cohort.reqs))
+                flush_span.set_attr("leaders", len(leaders))
+                flush_span.set_attr("coalesced", n_dup)
+                break
         # publish keyed leaders so identical arrivals during execution
         # attach instead of re-running (skip keys another flush already
         # owns — its version differs, or it registered first)
@@ -593,7 +620,7 @@ class CohortScheduler:
                     if mi > 0:
                         wave = min(wave, mi)
                 if len(leaders) == 1:
-                    self._run_one(leaders[0], merger)
+                    self._run_one(leaders[0], merger, flush_span)
                 else:
                     for lo in range(0, len(leaders), wave):
                         batch = leaders[lo : lo + wave]
@@ -606,14 +633,14 @@ class CohortScheduler:
                         threads = [
                             threading.Thread(
                                 target=self._run_one,
-                                args=(req, merger),
+                                args=(req, merger, flush_span),
                                 name="dgraph-cohort", daemon=True,
                             )
                             for req in batch[1:]
                         ]
                         for t in threads:
                             t.start()
-                        self._run_one(batch[0], merger)
+                        self._run_one(batch[0], merger, flush_span)
                         for t in threads:
                             t.join()
                 for k, followers in dups.items():
@@ -624,11 +651,16 @@ class CohortScheduler:
                         if lead.error is None:
                             # results are read-only from here on
                             # (handlers only encode them): sharing is safe
+                            if req.ledger is not None:
+                                # dealt a twin's result: the follower's
+                                # account says "coalesced", never the
+                                # leader's engine numbers twice
+                                req.ledger.coalesced += 1
                             req.complete(lead.result, lead.stats)
                         elif isinstance(lead.error, SchedDeadlineError):
                             # the leader ran out of budget but this
                             # duplicate still has some: run it (rare)
-                            self._run_one(req, merger)
+                            self._run_one(req, merger, flush_span)
                         else:
                             req.fail(lead.error)
         except BaseException as e:  # noqa: BLE001 — lock failure etc.: fail, never hang
@@ -658,6 +690,9 @@ class CohortScheduler:
                     # no-ops here
                     for r in live:
                         self._release_req_slot_locked(r)
+            if flush_span is not None:
+                flush_span.set_attr("merged_hops", merger.merged_dispatches)
+                flush_span.finish()
 
     def _complete_follower(
         self, req, lead, merger, have_engine_lock: bool = False
@@ -666,6 +701,8 @@ class CohortScheduler:
         if req.result is not None or req.error is not None:
             return
         if lead.error is None:
+            if req.ledger is not None:
+                req.ledger.coalesced += 1
             req.complete(lead.result, lead.stats)
         elif isinstance(lead.error, SchedDeadlineError) and not req.expired():
             # leader ran out of budget but this twin still has some: run
@@ -694,7 +731,9 @@ class CohortScheduler:
             f"({(now - req.enqueued) * 1e3:.1f}ms in cohort)"
         ))
 
-    def _run_one(self, req: SchedRequest, merger: HopMerger) -> None:
+    def _run_one(
+        self, req: SchedRequest, merger: HopMerger, flush_span=None
+    ) -> None:
         from dgraph_tpu_torch.query import outputnode
         from dgraph_tpu_torch.query.engine import QueryEngine
 
@@ -712,43 +751,54 @@ class CohortScheduler:
                 self._release_req_slot(req)
                 req.fail(req.cancel.error())
                 return
+            req.end_queue_wait("run")
             # re-root this worker thread under the admitting request's
-            # ledger
+            # trace AND ledger: the engine span parents to the REQUEST
+            # (it is that query's execution) and LINKS to the shared
+            # cohort-flush span that scheduled it
+            es = obs.NOOP
             if req.ledger is not None:
                 ltoken = _ledgermod.activate(req.ledger)
-            # a shell over the shared arena cache, with the served
-            # engine's knobs: its chain gate, and (the port's knobs the
-            # reference reads from the environment) the fused hop and
-            # resident route
-            eng = QueryEngine(srv.store, arenas=srv.engine.arenas)
-            eng.chain_threshold = srv.engine.chain_threshold
-            eng.expander.fused_hop = srv.engine.expander.fused_hop
-            eng.expander.resident_mode = srv.engine.expander.resident_mode
-            eng.expander.hop_merger = merger
-            # cooperative cancellation (sched/qos.py): the engine
-            # checkpoints this token at hop boundaries
-            eng.cancel = req.cancel
-            token = outputnode.DEBUG_UIDS.set(req.debug)
-            # segment seams inside the fused hop loops probe this context —
-            # the request's cancel token, the preemption-donation hook (a
-            # higher-priority arrival drains at the next seam on THIS
-            # thread), and the request's stats.  DGRAPH_TPU_SEGMENT=0
-            # leaves the donation hook off with the seams
-            seg_prev = _segments.activate(_segments.SegmentContext(
-                token=req.cancel,
-                preempt=(
-                    (lambda: self._maybe_preempt(req))
-                    if self.qos is not None
-                    and _planconfig.segment_mode() != "0"
-                    else None
-                ),
-                stats=eng.stats,
-            ))
-            try:
-                out = eng.run_parsed(req.parsed)
-            finally:
-                _segments.deactivate(seg_prev)
-                outputnode.DEBUG_UIDS.reset(token)
+            if req.span is not None:
+                es = req.span.child("engine")
+                if flush_span is not None:
+                    es.link(flush_span)
+            with es:
+                # a shell over the shared arena cache, with the served
+                # engine's knobs: its chain gate, and (the port's knobs
+                # the reference reads from the environment) the fused hop
+                # and resident route
+                eng = QueryEngine(srv.store, arenas=srv.engine.arenas)
+                eng.chain_threshold = srv.engine.chain_threshold
+                eng.expander.fused_hop = srv.engine.expander.fused_hop
+                eng.expander.resident_mode = srv.engine.expander.resident_mode
+                eng.expander.hop_merger = merger
+                # cooperative cancellation (sched/qos.py): the engine
+                # checkpoints this token at hop boundaries
+                eng.cancel = req.cancel
+                token = outputnode.DEBUG_UIDS.set(req.debug)
+                # segment seams inside the fused hop loops probe this
+                # context — the request's cancel token, the
+                # preemption-donation hook (a higher-priority arrival
+                # drains at the next seam on THIS thread), and the
+                # request's stats.  DGRAPH_TPU_SEGMENT=0 leaves the
+                # donation hook off with the seams
+                seg_prev = _segments.activate(_segments.SegmentContext(
+                    token=req.cancel,
+                    preempt=(
+                        (lambda: self._maybe_preempt(req))
+                        if self.qos is not None
+                        and _planconfig.segment_mode() != "0"
+                        else None
+                    ),
+                    stats=eng.stats,
+                ))
+                try:
+                    out = eng.run_parsed(req.parsed)
+                finally:
+                    _segments.deactivate(seg_prev)
+                    outputnode.DEBUG_UIDS.reset(token)
+                es.set_attr("edges", eng.stats.get("edges", 0))
             if req.ledger is not None:
                 # fold this shell's stats in BEFORE completion: once
                 # complete() fires, the handler thread owns the ledger

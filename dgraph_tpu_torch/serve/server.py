@@ -15,7 +15,24 @@
   bytes and records, sealed segments, snapshot age, the last recovery)
   when the store is durable.
 - ``GET /metrics`` (and ``/debug/prometheus_metrics``) — the Prometheus
-  text exposition of ``utils/metrics.py``.
+  text exposition of ``utils/metrics.py``; with ``Accept:
+  application/openmetrics-text`` the OpenMetrics exposition, whose
+  latency buckets carry exemplars (trace ids of the flight recorder).
+- ``GET /debug/traces`` (the flight recorder's ring), ``/debug/traces/<id>``
+  (one trace's spans; ``?format=chrome`` the Chrome trace_event form),
+  ``/debug/slow_queries`` (the slow-query log) and ``/debug/requests``
+  (the legacy sampled event ring) — 403 unless ``expose_trace``.  A
+  request is sampled by the recorder's head sampler
+  (``obs.configure(ratio=...)``, ``DGRAPH_TPU_TRACE_RATIO``, the CLI's
+  ``--trace``) or by a sampled ``Traceparent`` header while the sampler
+  is armed (ratio > 0); at ratio 0 no span is allocated.
+- ``GET /debug/device`` — backend, device name, kernel builds and the
+  arenas' device residency (obs/device.py); ``GET /debug/bundle`` — one
+  postmortem JSON (traces, slow queries, route gates, qos, ivm, caches,
+  device, ledger aggregates).
+- ``GET``/``POST /admin/cancel?trace_id=`` — cancel the live sampled,
+  scheduled read of that trace: 200, the read answers 499; 404 when no
+  live query holds the id.
 - ``GET /debug/store`` — predicates with their edge and value counts,
   the query caches' occupancy (``qcache``), the predicate versions
   (``ivm``), the QoS tenant table (``qos``) and the join tier's route
@@ -54,7 +71,7 @@ their same-predicate hops merged into one gather launch, a tier-2 result
 cache in front.  Mutations take the write side and run on the server's
 engine.  ``DGRAPH_TPU_SCHED=0`` restores the serial path: every request
 under the write side on the server's engine, one at a time.  The
-reference's tracing, subscriptions, gRPC and TLS are not ported yet.
+reference's subscriptions, gRPC and TLS are not ported yet.
 """
 
 from __future__ import annotations
@@ -68,7 +85,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
-from dgraph_tpu_torch import gql
+from dgraph_tpu_torch import gql, obs
 from dgraph_tpu_torch.cluster.peerclient import StaleUnavailableError
 from dgraph_tpu_torch.cluster.raft import NotLeaderError
 from dgraph_tpu_torch.models.durability import (
@@ -77,6 +94,7 @@ from dgraph_tpu_torch.models.durability import (
     StorageFaultError,
 )
 from dgraph_tpu_torch.models.store import PostingStore
+from dgraph_tpu_torch.obs import device as _device
 from dgraph_tpu_torch.obs import ledger as _ledger
 from dgraph_tpu_torch.query.engine import QueryEngine
 from dgraph_tpu_torch.sched import qos as _qos
@@ -93,63 +111,18 @@ from dgraph_tpu_torch.utils.metrics import (
     NUM_QUERIES,
     PENDING_QUERIES,
     QUERY_CANCELLED,
+    QUERY_LATENCY,
+    TENANT_LATENCY,
     metrics,
 )
 from dgraph_tpu_torch.utils.rwlock import RWLock
+from dgraph_tpu_torch.utils.trace import Latency, Tracer
 
 _CORS = {
     "Access-Control-Allow-Origin": "*",
     "Access-Control-Allow-Methods": "POST, GET, OPTIONS",
     "Access-Control-Allow-Headers": "Content-Type",
 }
-
-
-def _fmt_ns(ns: int) -> str:
-    """Render a duration the way Go's time.Duration.String does."""
-    if ns < 1_000:
-        return f"{ns}ns"
-    if ns < 1_000_000:
-        return f"{ns / 1_000:.6g}µs"
-    if ns < 1_000_000_000:
-        return f"{ns / 1_000_000:.6g}ms"
-    return f"{ns / 1_000_000_000:.6g}s"
-
-
-class Latency:
-    """Per-request stage timing; ``to_map()`` is the response's
-    ``server_latency`` (copy of dgraph_tpu/utils/trace.py Latency)."""
-
-    def __init__(self):
-        self.start = time.perf_counter_ns()
-        self.parsing_ns = 0
-        self.processing_ns = 0
-        self.json_ns = 0
-
-    def _mark(self) -> int:
-        now = time.perf_counter_ns()
-        elapsed = now - self.start
-        self.start = now
-        return elapsed
-
-    def record_parsing(self) -> None:
-        self.parsing_ns = self._mark()
-
-    def record_processing(self) -> None:
-        self.processing_ns = self._mark()
-
-    def record_json(self) -> None:
-        self.json_ns = self._mark()
-
-    def to_map(self) -> dict:
-        total = self.parsing_ns + self.processing_ns + self.json_ns
-        out = {"total": _fmt_ns(total)}
-        if self.parsing_ns:
-            out["parsing"] = _fmt_ns(self.parsing_ns)
-        if self.processing_ns:
-            out["processing"] = _fmt_ns(self.processing_ns)
-        if self.json_ns:
-            out["json"] = _fmt_ns(self.json_ns)
-        return out
 
 
 class DgraphServer:
@@ -167,10 +140,18 @@ class DgraphServer:
         arena_budget_mb: int = 0,
         export_path: str = "export",
         cluster=None,
+        trace_ratio: float = 0.0,
+        expose_trace: bool = True,
     ):
         self.cluster = cluster
         self.store = store
         self.export_path = export_path
+        # the legacy per-request event ring (/debug/requests), sampled at
+        # ``trace_ratio``; the flight recorder's own head sampler is the
+        # process recorder's (obs.configure, DGRAPH_TPU_TRACE_RATIO).
+        # ``expose_trace`` gates the trace surfaces (403 when off)
+        self.tracer = Tracer(trace_ratio)
+        self.expose_trace = expose_trace
         self.engine = QueryEngine(
             store, device=device,
             arena_budget_bytes=(arena_budget_mb * (1 << 20)) or None,
@@ -226,6 +207,7 @@ class DgraphServer:
         self._thread.start()
         if self.snapshotter is not None:
             self.snapshotter.start()
+        _device.stamp_build_info(self.engine.device)
         self.health.set_ok(True)
 
     @property
@@ -284,6 +266,7 @@ class DgraphServer:
         timeout_s: Optional[float] = None,
         tenant: str = "",
         cancel_probe=None,
+        trace_ctx=None,
     ) -> dict:
         """Parse, execute (mutation and/or queries) and return the
         response dict with its latency map.
@@ -295,26 +278,52 @@ class DgraphServer:
         ``tenant`` is the QoS scope and ``cancel_probe`` an optional
         transport-liveness callable (True when the client is GONE).
         All three serve scheduled reads only; mutations and the serial
-        path run to completion, as in the reference."""
+        path run to completion, as in the reference.
+
+        ``trace_ctx`` (obs.TraceContext) is the caller's incoming W3C
+        traceparent, if any: a sampled upstream makes this request's
+        flight-recorder root join its trace (while the local sampler is
+        armed).  When sampled, the Latency stage marks are mirrored as
+        ``parsing``/``processing`` spans under the root, and a scheduled
+        read's CancelToken is registered under the trace id for
+        ``/admin/cancel``."""
         from dgraph_tpu_torch.query import outputnode
 
         NUM_QUERIES.add(1)
         PENDING_QUERIES.add(1)
+        tr = self.tracer.begin()
         lat = Latency()
+        t0 = time.monotonic()
         sched = self.scheduler
+        qos_on = sched is not None and sched.qos is not None
         token = None
-        if sched is not None and sched.qos is not None:
+        if qos_on:
             tenant = _qos.resolve_tenant(tenant)
             token = _qos.CancelToken(timeout_s, tenant=tenant)
             if cancel_probe is not None:
                 token.attach_probe(cancel_probe)
         else:
             tenant = ""
-        led = _ledger.start()
-        ltoken = _ledger.activate(led)
+        root = obs.start_request("query", trace_ctx)
+        if root is not None:
+            root.set_attr("query", text[:200])
+            if self.cluster is not None:
+                root.set_attr("node", self.cluster.node_id)
+            if qos_on:
+                root.set_attr("tenant", tenant)
+            root.__enter__()  # paired with __exit__ in the finally below
+        # per-query resource ledger (obs/ledger.py): one pooled struct for
+        # this request's whole serving path; None under
+        # DGRAPH_TPU_LEDGER=0, and then every downstream site is a dead
+        # None-check
+        led = _ledger.start(tenant)
+        ltoken = _ledger.activate(led) if led is not None else None
         try:
-            parsed = gql.parse(text, variables)
+            with obs.child("parsing"):
+                parsed = gql.parse(text, variables)
             lat.record_parsing()
+            tr.printf("parsed: %d queries, mutation=%s", len(parsed.queries),
+                      parsed.mutation is not None)
             if parsed.mutation is not None:
                 # disk-fault read-only mode: shed mutations BEFORE they
                 # queue on the write lock (reads keep flowing); the
@@ -329,41 +338,55 @@ class DgraphServer:
                         retry_after=st.probe_interval_s,
                     )
             out: dict = {}
-            if sched is not None and parsed.mutation is None:
-                # read-only: ride a cohort (the member thread sets
-                # DEBUG_UIDS for the encode and folds its stats into the
-                # ledger).  The key makes equal requests singleflight-
-                # coalescible AND tier-2 result-cacheable.
-                vkey = json.dumps(variables, sort_keys=True) if variables else ""
-                result, stats = sched.run(
-                    parsed, debug=debug, timeout_s=timeout_s,
-                    key=(text, vkey, debug), tenant=tenant, cancel=token,
-                )
-                out.update(result)
-            else:
-                # mutations, and every request on the serial path: the
-                # exclusive side, on the server's engine
-                debug_token = outputnode.DEBUG_UIDS.set(debug)
-                try:
-                    with self._engine_lock.write():
-                        out.update(self.engine.run_parsed(parsed))
-                        stats = self.engine.stats
-                finally:
-                    outputnode.DEBUG_UIDS.reset(debug_token)
-                if parsed.mutation is not None:
-                    # group-commit durability barrier, OUTSIDE the write
-                    # lock: the mutation is applied and journaled; the
-                    # ack (this response) waits for a shared fsync that
-                    # concurrent writers amortize (no-op unless
-                    # enable_group_commit ran)
-                    barrier = getattr(self.store, "sync_barrier", None)
-                    if barrier is not None:
-                        barrier()
-                led.merge_engine_stats(stats)
+            with obs.child("processing"):
+                if sched is not None and parsed.mutation is None:
+                    # read-only: ride a cohort (the member thread sets
+                    # DEBUG_UIDS for the encode and folds its stats into
+                    # the ledger).  The key makes equal requests
+                    # singleflight-coalescible AND tier-2 result-cacheable.
+                    vkey = (
+                        json.dumps(variables, sort_keys=True)
+                        if variables else ""
+                    )
+                    if token is not None and root is not None:
+                        # the /admin/cancel?trace_id= hook: registered
+                        # ONLY for scheduled reads — the inline mutation
+                        # path has no checkpoints, and the endpoint must
+                        # 404 rather than claim a cancel it cannot
+                        # deliver.  Sampled requests are exactly the ones
+                        # an operator can see in /debug/traces.
+                        _qos.REGISTRY.register(root.trace_id, token)
+                    result, stats = sched.run(
+                        parsed, debug=debug, timeout_s=timeout_s,
+                        key=(text, vkey, debug), tenant=tenant, cancel=token,
+                    )
+                    out.update(result)
+                else:
+                    # mutations, and every request on the serial path: the
+                    # exclusive side, on the server's engine
+                    debug_token = outputnode.DEBUG_UIDS.set(debug)
+                    try:
+                        with self._engine_lock.write():
+                            out.update(self.engine.run_parsed(parsed))
+                            stats = self.engine.stats
+                    finally:
+                        outputnode.DEBUG_UIDS.reset(debug_token)
+                    if parsed.mutation is not None:
+                        # group-commit durability barrier, OUTSIDE the
+                        # write lock: the mutation is applied and
+                        # journaled; the ack (this response) waits for a
+                        # shared fsync that concurrent writers amortize
+                        # (no-op unless enable_group_commit ran)
+                        barrier = getattr(self.store, "sync_barrier", None)
+                        if barrier is not None:
+                            barrier()
+                    if led is not None:
+                        led.merge_engine_stats(stats)
             lat.record_processing()
+            tr.printf("processed")
             lat.record_json()
             out["server_latency"] = lat.to_map()
-            if ledger_out:
+            if ledger_out and led is not None:
                 out.setdefault("extensions", {})["ledger"] = led.to_dict()
             if debug:
                 # a hop MERGED across requests (HopMerger) attributes the
@@ -375,12 +398,47 @@ class DgraphServer:
                     for k, v in stats.items()
                 }
             return out
-        except QueryCancelledError as e:
-            QUERY_CANCELLED.add((e.reason, _qos.metric_label(tenant or e.tenant)))
+        except BaseException as e:
+            if root is not None:
+                root.set_attr("error", type(e).__name__)
+                if isinstance(e, QueryCancelledError):
+                    # a cancelled query's trace says so explicitly
+                    root.set_attr("outcome", "cancelled")
+            if isinstance(e, QueryCancelledError):
+                QUERY_CANCELLED.add(
+                    (e.reason, _qos.metric_label(tenant or e.tenant))
+                )
             raise
         finally:
             PENDING_QUERIES.add(-1)
-            _ledger.deactivate(ltoken)
+            dur = time.monotonic() - t0
+            if led is not None:
+                # drain to the per-tenant/per-route series and recycle
+                # the struct; a sampled trace carries the same account as
+                # a root attr (before __exit__ publishes it)
+                _ledger.deactivate(ltoken)
+                summary = _ledger.finish(led)
+                if root is not None:
+                    root.set_attr("ledger", summary)
+            trace_id = root.trace_id if root is not None else None
+            if root is not None:
+                if token is not None:
+                    # identity-checked: a concurrent request sharing this
+                    # trace id keeps ITS registration
+                    _qos.REGISTRY.unregister(root.trace_id, token)
+                root.__exit__(None, None, None)  # publish to the ring
+            if qos_on:
+                TENANT_LATENCY.observe(_qos.metric_label(tenant), dur)
+            # slow-query tail sampling is independent of the head
+            # sampler: an offender at ratio 0 still gets a structured log
+            # line and a synthetic trace — run it BEFORE the histogram so
+            # the tail bucket's exemplar can point at that trace too
+            slow_tid = obs.get_recorder().note_slow(text, dur, trace_id)
+            # the latency histogram carries the trace as an OpenMetrics
+            # exemplar: the bucket this request landed in links straight
+            # to /debug/traces/<id>
+            QUERY_LATENCY.observe(dur, trace_id=trace_id or slow_tid)
+            self.tracer.finish(tr, "query", text[:120])
 
 
 def _make_handler(srv: DgraphServer):
@@ -443,8 +501,72 @@ def _make_handler(srv: DgraphServer):
                 else:
                     self._reply(503, b"\"uninitialized\"")
             elif path in ("/metrics", "/debug/prometheus_metrics"):
-                self._reply(200, metrics.prometheus_text().encode(),
-                            "text/plain; version=0.0.4; charset=utf-8")
+                # content negotiation: a scraper asking for OpenMetrics
+                # gets histogram bucket EXEMPLARS (trace ids that
+                # resolve in /debug/traces) + # EOF; everyone else the
+                # classic format under its versioned content type
+                if "application/openmetrics-text" in self.headers.get("Accept", ""):
+                    self._reply(200, metrics.openmetrics_text().encode(),
+                                "application/openmetrics-text; version=1.0.0; "
+                                "charset=utf-8")
+                else:
+                    self._reply(200, metrics.prometheus_text().encode(),
+                                "text/plain; version=0.0.4; charset=utf-8")
+            elif path == "/debug/device":
+                # device telemetry (obs/device.py): backend identity,
+                # residency vs budget, program caches, kernel builds —
+                # the gauges refresh as a side effect
+                self._reply(200, json.dumps(_device.snapshot(srv)).encode())
+            elif path == "/debug/bundle":
+                # ONE postmortem JSON: the traces ring, slow queries, the
+                # route gates and join ring, qos, ivm, caches, device and
+                # ledger aggregates, snapshotted together
+                rec = obs.get_recorder()
+                bundle = {
+                    "generated_unix": time.time(),
+                    "traces": rec.traces() if srv.expose_trace else None,
+                    "slow_queries": (
+                        rec.slow_queries() if srv.expose_trace else None
+                    ),
+                    "planner": _planner_summary(srv),
+                    "qos": (
+                        srv.scheduler.qos_state()
+                        if srv.scheduler is not None
+                        else None
+                    ),
+                    "ivm": _ivm_stats(srv),
+                    "qcache": _qcache_stats(srv),
+                    "device": _device.snapshot(srv),
+                    "ledger": _ledger.aggregate_summary(),
+                }
+                self._reply(200, json.dumps(bundle, default=str).encode())
+            elif path == "/debug/requests":
+                if not srv.expose_trace:
+                    return self._err(403, "tracing not exposed")
+                self._reply(200, json.dumps(srv.tracer.recent()).encode())
+            elif path == "/debug/traces" or path.startswith("/debug/traces/"):
+                # the flight-recorder ring (obs/spans.py): listing, one
+                # trace's merged span tree, or the Chrome trace_event
+                # export (?format=chrome) for chrome://tracing / Perfetto
+                if not srv.expose_trace:
+                    return self._err(403, "tracing not exposed")
+                rec = obs.get_recorder()
+                if path == "/debug/traces":
+                    return self._reply(200, json.dumps(rec.traces()).encode())
+                t = rec.trace(path.rsplit("/", 1)[1])
+                if t is None:
+                    return self._err(404, "no such trace")
+                if qs.get("format", [""])[0] == "chrome":
+                    t = obs.chrome_trace(t)
+                self._reply(200, json.dumps(t).encode())
+            elif path == "/debug/slow_queries":
+                if not srv.expose_trace:
+                    return self._err(403, "tracing not exposed")
+                self._reply(
+                    200, json.dumps(obs.get_recorder().slow_queries()).encode()
+                )
+            elif path == "/admin/cancel":
+                self._admin_cancel(qs)
             elif path == "/debug/store":
                 from dgraph_tpu_torch.query import joinplan
 
@@ -501,28 +623,37 @@ def _make_handler(srv: DgraphServer):
                     return self._err(403, "cluster secret required")
                 name = qs.get("name", [""])[0]
                 since = int(qs.get("since", ["-1"])[0])
-                gid = srv.cluster.conf.belongs_to(name)
-                g = srv.cluster.groups.get(gid)
-                if g is None:
-                    return self._err(404, f"group {gid} not served here")
-                from dgraph_tpu_torch.cluster.replica import pred_to_bytes
+                # server half of the distributed trace: a sampled remote
+                # reader's traceparent makes THIS node record its leg of
+                # the snapshot serve under the same trace_id
+                tctx = obs.parse_traceparent(self.headers.get("Traceparent"))
+                with obs.server_span("peer.pred-snapshot", tctx) as ss:
+                    ss.set_attr("node", srv.cluster.node_id)
+                    ss.set_attr("pred", name)
+                    gid = srv.cluster.conf.belongs_to(name)
+                    g = srv.cluster.groups.get(gid)
+                    if g is None:
+                        return self._err(404, f"group {gid} not served here")
+                    from dgraph_tpu_torch.cluster.replica import pred_to_bytes
 
-                with g._lock:
-                    ver = g.pred_version(name)
-                    body = (
-                        b"" if ver == since else pred_to_bytes(g.store, name)
-                    )
-                try:
-                    self.send_response(204 if ver == since else 200)
-                    self.send_header("X-Pred-Version", str(ver))
-                    self.send_header("Content-Length", str(len(body)))
-                    self.end_headers()
-                    if ver != since:
-                        self.wfile.write(body)
-                except (BrokenPipeError, ConnectionResetError):
-                    # the reader's attempt timed out while the snapshot
-                    # was encoded: it retries (or degrades) on its side
-                    self.close_connection = True
+                    with g._lock:
+                        ver = g.pred_version(name)
+                        body = (
+                            b"" if ver == since else pred_to_bytes(g.store, name)
+                        )
+                    ss.set_attr("bytes", len(body))
+                    try:
+                        self.send_response(204 if ver == since else 200)
+                        self.send_header("X-Pred-Version", str(ver))
+                        self.send_header("Content-Length", str(len(body)))
+                        self.end_headers()
+                        if ver != since:
+                            self.wfile.write(body)
+                    except (BrokenPipeError, ConnectionResetError):
+                        # the reader's attempt timed out while the
+                        # snapshot was encoded: it retries (or degrades)
+                        # on its side
+                        self.close_connection = True
             elif path == "/predlist":
                 if srv.cluster is None:
                     return self._err(404, "not clustered")
@@ -537,6 +668,23 @@ def _make_handler(srv: DgraphServer):
                 self._reply(200, json.dumps(names).encode())
             else:
                 self._err(404, "no such endpoint")
+
+        def _admin_cancel(self, qs):
+            """Explicit cooperative cancellation: flip the live
+            CancelToken registered under this trace id (sampled,
+            scheduled reads only — exactly the ones visible in
+            /debug/traces).  The query stops at its next hop checkpoint
+            and answers 499; this endpoint merely flips the flag (GET as
+            in the reference, POST as well)."""
+            tid = qs.get("trace_id", [""])[0]
+            if not tid:
+                return self._err(400, "trace_id required")
+            if not _qos.REGISTRY.cancel(tid, reason="admin"):
+                return self._err(404, "no live query under that trace_id")
+            self._reply(200, json.dumps({
+                "code": "Success",
+                "message": f"cancel requested for trace {tid}",
+            }).encode())
 
         def _cluster_authorized(self) -> bool:
             """Gate for the intra-cluster plane (/raft*, /assign-uids,
@@ -576,21 +724,24 @@ def _make_handler(srv: DgraphServer):
                 return self._err(404, "not clustered")
             if not self._cluster_authorized():
                 return self._err(403, "bad cluster secret")
+            tctx = obs.parse_traceparent(self.headers.get("Traceparent"))
             if path == "/assign-uids":
                 # leader-only uid leasing (AssignUidsOverNetwork target)
-                try:
-                    want = int(raw or b"1")
-                    if want < 0:  # negative = reserve an explicit uid
-                        start, end = srv.cluster.reserve_local(-want)
-                    else:
-                        start, end = srv.cluster.assign_local(want)
-                except NotLeaderError as e:
-                    return self._reply(409, (e.leader or "").encode(), "text/plain")
-                except Exception as e:  # noqa: BLE001 — the reference's 400
-                    return self._err(400, str(e))
-                return self._reply(
-                    200, json.dumps({"start": start, "end": end}).encode()
-                )
+                with obs.server_span("peer.assign-uids", tctx) as ss:
+                    ss.set_attr("node", srv.cluster.node_id)
+                    try:
+                        want = int(raw or b"1")
+                        if want < 0:  # negative = reserve an explicit uid
+                            start, end = srv.cluster.reserve_local(-want)
+                        else:
+                            start, end = srv.cluster.assign_local(want)
+                    except NotLeaderError as e:
+                        return self._reply(409, (e.leader or "").encode(), "text/plain")
+                    except Exception as e:  # noqa: BLE001 — the reference's 400
+                        return self._err(400, str(e))
+                    return self._reply(
+                        200, json.dumps({"start": start, "end": end}).encode()
+                    )
             if path == "/join":
                 # runtime membership: a new server announces itself
                 # (grpc JoinCluster analog, draft.go:1049).  Like the
@@ -613,13 +764,20 @@ def _make_handler(srv: DgraphServer):
                 except Exception as e:  # noqa: BLE001 — a bad frame: 400
                     return self._err(400, str(e))
                 return self._reply(200, b"{}")
-            try:
-                srv.cluster.propose_local(gid, raw)
-            except NotLeaderError as e:
-                return self._reply(409, (e.leader or "").encode(), "text/plain")
-            except Exception as e:  # noqa: BLE001 — the reference's 500
-                return self._err(500, str(e))
-            return self._reply(200, b"{}")
+            # the forwarded-proposal leg of a distributed trace: a sampled
+            # forwarder's traceparent lands this node's commit work in the
+            # same trace
+            with obs.server_span("peer.raft-propose", tctx) as ss:
+                ss.set_attr("node", srv.cluster.node_id)
+                ss.set_attr("group", gid)
+                try:
+                    srv.cluster.propose_local(gid, raw)
+                except NotLeaderError as e:
+                    ss.set_attr("outcome", "not_leader")
+                    return self._reply(409, (e.leader or "").encode(), "text/plain")
+                except Exception as e:  # noqa: BLE001 — the reference's 500
+                    return self._err(500, str(e))
+                return self._reply(200, b"{}")
 
         def do_POST(self):
             u = urlparse(self.path)
@@ -629,9 +787,11 @@ def _make_handler(srv: DgraphServer):
             ):
                 return self._cluster_post(u.path, self.rfile.read(n), n)
             body = self.rfile.read(n).decode("utf-8", "replace")
+            qs = parse_qs(u.query)
+            if u.path == "/admin/cancel":
+                return self._admin_cancel(qs)
             if u.path != "/query":
                 return self._err(404, "no such endpoint")
-            qs = parse_qs(u.query)
             debug = qs.get("debug", ["false"])[0] == "true"
             want_ledger = qs.get("ledger", ["false"])[0] == "true"
             try:
@@ -644,6 +804,11 @@ def _make_handler(srv: DgraphServer):
                     ),
                     tenant=self.headers.get("X-Dgraph-Tenant") or "",
                     cancel_probe=self._disconnect_probe(),
+                    # a malformed traceparent parses to None — an
+                    # attacker-controlled header must never 500 a query
+                    trace_ctx=obs.parse_traceparent(
+                        self.headers.get("Traceparent")
+                    ),
                 )
             except SchedOverloadError as e:
                 # shed under overload: retriable, not a client error.  A
@@ -703,6 +868,34 @@ def _make_handler(srv: DgraphServer):
             self._reply(200, json.dumps(out).encode())
 
     return Handler
+
+
+def _planner_summary(srv: DgraphServer) -> dict:
+    """/debug/bundle "planner" section.  The port's planner is the
+    reference's static half (query/planner.py): no calibration and no
+    decision ring, so this reports the gates its compares read, the join
+    tier's route ring and the scheduler's (static) cohort knobs."""
+    from dgraph_tpu_torch.query import joinplan
+
+    eng = srv.engine
+    out = {
+        "enabled": False,
+        "calibration": None,
+        "gates": {
+            "expand_device_min": eng.expand_device_min,
+            "kway_device_min": eng.arenas.kway_device_min,
+            "chain_threshold": eng.chain_threshold,
+        },
+        "join": joinplan.debug_summary(),
+    }
+    sched = srv.scheduler
+    if sched is not None:
+        out["sched"] = {
+            "adaptive": False,
+            "max_batch": sched.max_batch,
+            "flush_ms": round(sched.flush_s * 1e3, 3),
+        }
+    return out
 
 
 def _ivm_stats(srv: DgraphServer) -> Optional[dict]:

@@ -2,21 +2,33 @@
 ``dgraph_tpu/utils/metrics.py``).
 
 The counter, gauge and histogram types of the reference and the
-instruments the serving plane bumps: query counts, the cohort
-scheduler's, QoS sheds and cancellations, segment seams, the two query
-cache tiers, the tile join tier's routes and builds, IVM repairs,
-failpoint fires and deliberately swallowed exceptions.
-``GET /metrics`` (and ``/debug/prometheus_metrics``) serve
-``metrics.prometheus_text()``.  The reference's exemplars, OpenMetrics
-exposition and the instruments of its unported layers (cluster, WAL,
-mesh, device guard, planner, tracing) are not here.
+instruments the serving plane bumps: query counts and latency, the
+cohort scheduler's, QoS sheds and cancellations, segment seams, the two
+query cache tiers, the tile join tier's routes and builds, IVM repairs,
+the storage and cluster planes, the flight recorder, the per-request
+ledger's families, device residency and kernel builds, failpoint fires
+and deliberately swallowed exceptions.  ``GET /metrics`` (and
+``/debug/prometheus_metrics``) serve ``metrics.prometheus_text()``, or
+``metrics.openmetrics_text()`` — the same body with histogram bucket
+EXEMPLARS (trace ids of the flight recorder) and ``# EOF`` — to a
+scraper that asks for ``application/openmetrics-text``.
+
+Where the port differs: the compile families
+(``dgraph_xla_compiles_total``, ``dgraph_xla_compile_seconds``) count
+the port's kernel builds at first use (``ops/_build.py``: one ``nvcc``
+per CUDA source, one ``g++`` per host library), the counterpart of a
+backend compilation; ``dgraph_build_info`` carries a ``torch`` label
+where the reference's carries ``jax``.  The instruments of the
+unported layers (mesh, device guard, planner, subscriptions, gRPC) are
+not here.
 """
 
 from __future__ import annotations
 
 import threading
+import time as _time
 from bisect import bisect_left
-from typing import Dict
+from typing import Dict, Optional
 
 
 class Counter:
@@ -132,11 +144,60 @@ class LabeledGauge:
             return dict(self._m)
 
 
+class FuncGauge:
+    """Gauge whose value is computed at scrape time (process uptime).
+    The callable must be cheap and exception-free — it runs inside every
+    exposition pass."""
+
+    __slots__ = ("name", "_fn")
+
+    def __init__(self, name: str, fn):
+        self.name = name
+        self._fn = fn
+
+    def value(self) -> float:
+        return float(self._fn())
+
+
+class MultiLabeledGauge:
+    """Gauge family keyed by a label TUPLE (``dgraph_build_info``: a
+    constant-1 gauge whose labels carry the version/backend identity)."""
+
+    def __init__(self, name: str, labels):
+        self.name = name
+        self.labels = tuple(labels)
+        self._m: Dict[tuple, float] = {}
+        self._lock = threading.Lock()
+
+    def set(self, key, v: float) -> None:
+        key = tuple(str(k) for k in key)
+        if len(key) != len(self.labels):
+            raise ValueError(
+                f"{self.name}: expected {len(self.labels)} label values, "
+                f"got {len(key)}"
+            )
+        with self._lock:
+            self._m[key] = float(v)
+
+    def snapshot(self) -> Dict[tuple, float]:
+        with self._lock:
+            return dict(self._m)
+
+
 class Histogram:
     """Fixed-bucket histogram with Prometheus ``_bucket{le=...}`` /
-    ``_sum`` / ``_count`` exposition."""
+    ``_sum`` / ``_count`` exposition.
 
-    __slots__ = ("name", "buckets", "_counts", "_sum", "_count", "_lock")
+    Buckets optionally carry an OpenMetrics EXEMPLAR — the last
+    (trace_id, value, wall timestamp) that landed in them — so a bucket
+    of ``dgraph_query_latency_seconds`` links to a trace in the flight
+    recorder's ring (``/debug/traces/<id>``).  Exemplars render only in
+    the OpenMetrics exposition (``openmetrics_text``)."""
+
+    __slots__ = (
+        "name", "buckets", "_counts", "_sum", "_count", "_exemplars",
+        "_lock",
+    )
 
     def __init__(self, name: str, buckets):
         self.name = name
@@ -145,16 +206,28 @@ class Histogram:
             raise ValueError("histogram needs at least one bucket bound")
         # per-bucket (non-cumulative) counts; +Inf bucket is the tail slot
         self._counts = [0] * (len(self.buckets) + 1)
+        # per-bucket last exemplar: (trace_id, value, wall_ts) or None
+        self._exemplars = [None] * (len(self.buckets) + 1)
         self._sum = 0.0
         self._count = 0
         self._lock = threading.Lock()
 
-    def observe(self, v: float) -> None:
+    def observe(self, v: float, trace_id: Optional[str] = None) -> None:
         i = bisect_left(self.buckets, v)
         with self._lock:
             self._counts[i] += 1
             self._sum += v
             self._count += 1
+            if trace_id:
+                # wall timestamp STORED, never used in interval math —
+                # OpenMetrics exemplar timestamps are epoch seconds
+                self._exemplars[i] = (trace_id, v, _time.time())
+
+    def exemplars(self):
+        """Per-bucket (trace_id, value, wall_ts) snapshot, aligned with
+        buckets + [+Inf]."""
+        with self._lock:
+            return list(self._exemplars)
 
     def snapshot(self):
         """(cumulative bucket counts aligned with self.buckets + [+Inf],
@@ -170,15 +243,52 @@ class Histogram:
         return cum, s, c
 
 
+class LabeledHistogram:
+    """Histogram family keyed by one label (per-tenant latency).  Series
+    are created on first observe; the key space is BOUNDED
+    (``max_series``) because label values may come from client input —
+    the overflow tail collapses into one ``overflow`` series."""
+
+    def __init__(self, name: str, label: str, buckets, max_series: int = 64):
+        self.name = name
+        self.label = label
+        self.buckets = tuple(sorted(float(b) for b in buckets))
+        self.max_series = max_series
+        self._m: Dict[str, Histogram] = {}
+        self._lock = threading.Lock()
+
+    def _get(self, key: str) -> Histogram:
+        with self._lock:
+            h = self._m.get(key)
+            if h is None:
+                if len(self._m) >= self.max_series:
+                    key = "overflow"
+                    h = self._m.get(key)
+                if h is None:
+                    h = self._m[key] = Histogram(self.name, self.buckets)
+            return h
+
+    def observe(self, key: str, v: float, trace_id: Optional[str] = None) -> None:
+        self._get(str(key)).observe(v, trace_id=trace_id)
+
+    def snapshot(self) -> Dict[str, tuple]:
+        with self._lock:
+            items = list(self._m.items())
+        return {k: h.snapshot() for k, h in items}
+
+
 class MetricsRegistry:
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
+        self._func_gauges: Dict[str, FuncGauge] = {}
         self._labeled: Dict[str, LabeledCounter] = {}
         self._multilabeled: Dict[str, MultiLabeledCounter] = {}
         self._labeled_gauges: Dict[str, LabeledGauge] = {}
+        self._multilabeled_gauges: Dict[str, MultiLabeledGauge] = {}
         self._histograms: Dict[str, Histogram] = {}
+        self._labeled_histograms: Dict[str, LabeledHistogram] = {}
 
     def counter(self, name: str) -> Counter:
         with self._lock:
@@ -192,6 +302,13 @@ class MetricsRegistry:
             g = self._gauges.get(name)
             if g is None:
                 g = self._gauges[name] = Gauge(name)
+            return g
+
+    def func_gauge(self, name: str, fn) -> FuncGauge:
+        with self._lock:
+            g = self._func_gauges.get(name)
+            if g is None:
+                g = self._func_gauges[name] = FuncGauge(name, fn)
             return g
 
     def labeled(self, name: str, label: str = "predicate") -> LabeledCounter:
@@ -215,11 +332,29 @@ class MetricsRegistry:
                 g = self._labeled_gauges[name] = LabeledGauge(name, label)
             return g
 
+    def multilabeled_gauge(self, name: str, labels) -> MultiLabeledGauge:
+        with self._lock:
+            g = self._multilabeled_gauges.get(name)
+            if g is None:
+                g = self._multilabeled_gauges[name] = MultiLabeledGauge(
+                    name, labels
+                )
+            return g
+
     def histogram(self, name: str, buckets) -> Histogram:
         with self._lock:
             h = self._histograms.get(name)
             if h is None:
                 h = self._histograms[name] = Histogram(name, buckets)
+            return h
+
+    def labeled_histogram(self, name: str, label: str, buckets) -> LabeledHistogram:
+        with self._lock:
+            h = self._labeled_histograms.get(name)
+            if h is None:
+                h = self._labeled_histograms[name] = LabeledHistogram(
+                    name, label, buckets
+                )
             return h
 
     def prometheus_text(self) -> str:
@@ -228,10 +363,13 @@ class MetricsRegistry:
         with self._lock:
             counters = list(self._counters.values())
             gauges = list(self._gauges.values())
+            func_gauges = list(self._func_gauges.values())
             labeled = list(self._labeled.values())
             multilabeled = list(self._multilabeled.values())
             labeled_gauges = list(self._labeled_gauges.values())
+            multilabeled_gauges = list(self._multilabeled_gauges.values())
             histograms = list(self._histograms.values())
+            labeled_histograms = list(self._labeled_histograms.values())
 
         def _esc(s: str) -> str:
             return s.replace("\\", "\\\\").replace('"', '\\"')
@@ -242,6 +380,9 @@ class MetricsRegistry:
         for g in sorted(gauges, key=lambda g: g.name):
             lines.append(f"# TYPE {g.name} gauge")
             lines.append(f"{g.name} {g.value()}")
+        for fg in sorted(func_gauges, key=lambda g: g.name):
+            lines.append(f"# TYPE {fg.name} gauge")
+            lines.append(f"{fg.name} {fg.value():g}")
         for l in sorted(labeled, key=lambda l: l.name):
             lines.append(f"# TYPE {l.name} counter")
             for k, v in sorted(l.snapshot().items()):
@@ -257,6 +398,13 @@ class MetricsRegistry:
             lines.append(f"# TYPE {lg.name} gauge")
             for k, v in sorted(lg.snapshot().items()):
                 lines.append(f'{lg.name}{{{lg.label}="{_esc(k)}"}} {v:g}')
+        for mg in sorted(multilabeled_gauges, key=lambda g: g.name):
+            lines.append(f"# TYPE {mg.name} gauge")
+            for key, v in sorted(mg.snapshot().items()):
+                pairs = ",".join(
+                    f'{lab}="{_esc(val)}"' for lab, val in zip(mg.labels, key)
+                )
+                lines.append(f"{mg.name}{{{pairs}}} {v:g}")
         for h in sorted(histograms, key=lambda h: h.name):
             cum, s, c = h.snapshot()
             lines.append(f"# TYPE {h.name} histogram")
@@ -265,7 +413,53 @@ class MetricsRegistry:
             lines.append(f'{h.name}_bucket{{le="+Inf"}} {c}')
             lines.append(f"{h.name}_sum {s:g}")
             lines.append(f"{h.name}_count {c}")
+        for lh in sorted(labeled_histograms, key=lambda h: h.name):
+            lines.append(f"# TYPE {lh.name} histogram")
+            for key, (cum, s, c) in sorted(lh.snapshot().items()):
+                kq = _esc(key)
+                for b, n in zip(lh.buckets, cum):
+                    lines.append(
+                        f'{lh.name}_bucket{{{lh.label}="{kq}",le="{b:g}"}} {n}'
+                    )
+                lines.append(
+                    f'{lh.name}_bucket{{{lh.label}="{kq}",le="+Inf"}} {c}'
+                )
+                lines.append(f'{lh.name}_sum{{{lh.label}="{kq}"}} {s:g}')
+                lines.append(f'{lh.name}_count{{{lh.label}="{kq}"}} {c}')
         return "\n".join(lines) + "\n"
+
+    def openmetrics_text(self) -> str:
+        """OpenMetrics exposition: the classic body plus histogram
+        bucket EXEMPLARS (``# {trace_id="..."} value timestamp``) and
+        the mandatory ``# EOF`` terminator.  Series names match the
+        classic exposition exactly (no ``_total`` re-suffixing)."""
+        classic = self.prometheus_text()
+        with self._lock:
+            histograms = list(self._histograms.values())
+        # keyed by the bucket-line PREFIX (name + le label), never the
+        # count: the classic body and the exemplar snapshot are taken at
+        # different instants, and a concurrent observe() between them
+        # must not strip exemplars from every bucket it bumped
+        ex_by_prefix: Dict[str, str] = {}
+        for h in histograms:
+            bounds = [f"{b:g}" for b in h.buckets] + ["+Inf"]
+            for bound, ex in zip(bounds, h.exemplars()):
+                if ex is None:
+                    continue
+                trace_id, v, ts = ex
+                ex_by_prefix[f'{h.name}_bucket{{le="{bound}"}} '] = (
+                    f' # {{trace_id="{trace_id}"}} {v:g} {ts:.3f}'
+                )
+        out = []
+        for line in classic.splitlines():
+            if "_bucket{" in line:
+                cut = line.index("} ") + 2
+                suffix = ex_by_prefix.get(line[:cut])
+                if suffix is not None:
+                    line += suffix
+            out.append(line)
+        out.append("# EOF")
+        return "\n".join(out) + "\n"
 
 
 # Global registry; components fetch these by name.
@@ -279,6 +473,16 @@ NUM_QUERIES = metrics.counter("dgraph_num_queries_total")
 _LATENCY_BUCKETS = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
     0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+
+# end-to-end query latency (its buckets carry exemplars: the trace id
+# of a sampled or tail-sampled request) and its per-tenant twin under
+# QoS (bounded series: tenant names are client input)
+QUERY_LATENCY = metrics.histogram(
+    "dgraph_query_latency_seconds", _LATENCY_BUCKETS
+)
+TENANT_LATENCY = metrics.labeled_histogram(
+    "dgraph_tenant_query_latency_seconds", "tenant", _LATENCY_BUCKETS
 )
 
 # cohort scheduler surface (sched/scheduler.py): how full cohorts ride,
@@ -413,6 +617,59 @@ BREAKER_TRANSITIONS = metrics.multilabeled(
 DEGRADED_READS = metrics.counter("dgraph_degraded_reads_total")
 RAFT_DROPPED = metrics.labeled(
     "dgraph_raft_frames_dropped_total", label="peer"
+)
+
+
+# flight recorder (obs/spans.py): SPANS_RECORDED counts every Span object
+# constructed — the proof that the unsampled hot path allocates none
+# (tests assert a ZERO delta at ratio 0); TRACES_RECORDED is the ring
+# intake; SLOW_QUERIES counts tail-sampled offenders (DGRAPH_TPU_SLOW_MS)
+SPANS_RECORDED = metrics.counter("dgraph_trace_spans_total")
+TRACES_RECORDED = metrics.counter("dgraph_traces_recorded_total")
+SLOW_QUERIES = metrics.counter("dgraph_slow_queries_total")
+
+# per-request resource ledger (obs/ledger.py): edges traversed per
+# tenant, hop dispatches by route, host/device/device_sync stage time in
+# integer microseconds, staged and cache-hit bytes by direction, and the
+# Ledger STRUCTS constructed (pool misses: a zero delta across warm
+# requests proves the pool recycles)
+EDGES_TRAVERSED = metrics.labeled(
+    "dgraph_edges_traversed_total", label="tenant"
+)
+LEDGER_HOPS = metrics.labeled("dgraph_ledger_hops_total", label="route")
+LEDGER_STAGE_US = metrics.labeled(
+    "dgraph_ledger_stage_us_total", label="stage"
+)
+LEDGER_BYTES = metrics.labeled("dgraph_ledger_bytes_total", label="dir")
+LEDGERS_CREATED = metrics.counter("dgraph_ledger_structs_total")
+
+# device telemetry (obs/device.py + models/arena.py): device-memory
+# residency under the ArenaManager budget, join-tile residency, arena LRU
+# evictions, program-cache occupancy per kind, and kernel builds under
+# the reference's compile family names (count + seconds)
+HBM_RESIDENT_BYTES = metrics.gauge("dgraph_hbm_resident_bytes")
+HBM_BUDGET_BYTES = metrics.gauge("dgraph_hbm_budget_bytes")
+HBM_TILE_BYTES = metrics.gauge("dgraph_hbm_tile_bytes")
+ARENA_EVICTIONS = metrics.counter("dgraph_arena_evictions_total")
+PROGRAM_CACHE_ENTRIES = metrics.labeled_gauge(
+    "dgraph_program_cache_entries", label="kind"
+)
+XLA_COMPILES = metrics.counter("dgraph_xla_compiles_total")
+XLA_COMPILE_SECONDS = metrics.histogram(
+    "dgraph_xla_compile_seconds",
+    (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0),
+)
+
+# build identity + liveness: the constant-1 gauge whose labels say what
+# runs (obs/device.py stamps it at server start) and the seconds since
+# import, computed at scrape time
+BUILD_INFO = metrics.multilabeled_gauge(
+    "dgraph_build_info", ("version", "backend", "torch")
+)
+_PROCESS_START = _time.monotonic()
+UPTIME_SECONDS = metrics.func_gauge(
+    "dgraph_uptime_seconds",
+    lambda: _time.monotonic() - _PROCESS_START,
 )
 
 

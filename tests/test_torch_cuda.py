@@ -4,8 +4,9 @@ per wrapper call, the batched 2-hop pipeline on the card against the
 numpy oracle, the order-by's torch ops, the multi-hop pass (one
 gather launch a hop) and the tile join tier's mask chain on the card
 against the same calls on the CPU, a hop merged across four engine
-shells as one gather launch, and a durable directory recovered on the
-card answering its 2-hop through the gather.  Every test is marked ``cuda`` and skips
+shells as one gather launch, a durable directory recovered on the
+card answering its 2-hop through the gather, and a sampled 2-hop served
+on the card whose hop spans carry the device wait.  Every test is marked ``cuda`` and skips
 where no GPU is visible.  The file imports neither JAX nor the JAX
 package, so on the card's machine (no JAX there) it runs alone:
 
@@ -456,3 +457,59 @@ def test_cluster_two_hop_on_the_card_matches_the_cpu_cluster(tmp_path, monkeypat
                 s.stop()
     assert bodies["cuda"] == bodies["cpu"]
     assert '"e"' in bodies["cpu"]
+
+
+def test_sampled_two_hop_on_the_card_records_device_sync(tmp_path):
+    """A sampled 2-hop served on the card (gate at 1, caches detached):
+    every hop span on the resident route carries ``device_sync_ms``
+    (waited for on a CUDA event) within the hop's duration, the gather
+    launches once a resident hop, and the body equals the CPU server's."""
+    _need_gpu()
+    import json
+    import urllib.request
+
+    from dgraph_tpu_torch import obs
+    from dgraph_tpu_torch.models import PostingStore
+    from dgraph_tpu_torch.serve.server import DgraphServer
+
+    src, dst = bench2hop.gen_edges(20_000, 200_000)
+    seeds = np.unique(np.random.default_rng(71).integers(1, 20_001, size=512))
+    q = "{ q(func: uid(%s)) { uid e { uid e { uid } } } }" % ", ".join(
+        "0x%x" % int(s) for s in seeds)
+    tid = "%032x" % 0xC0DA
+
+    def serve(device, traced):
+        store = PostingStore()
+        store.apply_schema("e: uid .")
+        store.bulk_set_uid_edges("e", src, dst)
+        srv = DgraphServer(store, device=device)
+        srv.engine.expand_device_min = 1
+        srv.engine.arenas.hop_cache = None
+        srv.scheduler.result_cache = None
+        srv.start()
+        try:
+            hdr = {"Traceparent": "00-%s-%016x-01" % (tid, 0xC0DA)} if traced else {}
+            req = urllib.request.Request(srv.addr + "/query", data=q.encode(),
+                                         headers=hdr)
+            n0 = tgather.KERNEL.launches
+            with urllib.request.urlopen(req, timeout=120) as r:
+                out = json.loads(r.read())
+            out.pop("server_latency")
+            return out, tgather.KERNEL.launches - n0
+        finally:
+            srv.stop()
+
+    try:
+        obs.configure(ratio=1e-9)
+        got, launches = serve("cuda", True)
+    finally:
+        rec = obs.get_recorder()
+        obs.configure()
+    want, _ = serve("cpu", False)
+    assert got == want
+    hops = [s for s in rec.trace(tid)["spans"] if s["name"] == "hop"]
+    resident = [s for s in hops if s["attrs"]["route"] == "resident"]
+    assert len(resident) == 2 and launches == 2, hops
+    for s in resident:
+        assert s["attrs"]["pred"] == "e"
+        assert 0.0 < s["attrs"]["device_sync_ms"] <= s["dur_us"] / 1e3

@@ -41,7 +41,8 @@ def test_importing_every_subpackage_loads_no_jax():
         m.name for m in pkgutil.walk_packages([str(PKG)], "dgraph_tpu_torch.")
     )
     for m in ("query.engine", "query.joinplan", "ops.kway",
-              "cluster.service", "cluster.raft"):
+              "cluster.service", "cluster.raft", "obs.spans", "obs.device",
+              "obs.export", "obs.ledger", "utils.trace"):
         assert f"dgraph_tpu_torch.{m}" in subpackages
     code = (
         "import sys, importlib\n"

@@ -5,9 +5,13 @@ equal to ``dgraph_tpu.sched.qos``'s on the same (seeded) inputs; the
 cancel token's semantics; a tenant quota shed answering 429 with
 ``Retry-After``; and a cancelled token stopping ``@recurse``,
 ``shortest`` and a fused chain at their next checkpoint or segment seam,
-and a mid-execution deadline answering 504.
+and a mid-execution deadline answering 504; the ``CancelRegistry`` cases
+of tests/test_qos.py and ``/admin/cancel`` on a port server (a sampled,
+scheduled read held at a hop by a failpoint delay answers 499).
 
-Tolerance 0 throughout (equal values, equal orders)."""
+Tolerance 0 throughout (equal values, equal orders).  The autouse
+fixture restores the flight recorder and gives every test a fresh
+``qos.REGISTRY``."""
 
 import json
 import threading
@@ -19,6 +23,7 @@ import numpy as np
 import pytest
 
 from dgraph_tpu.sched import qos as jqos
+from dgraph_tpu_torch import obs
 from dgraph_tpu_torch import ops as tops
 from dgraph_tpu_torch.bench2hop import gen_edges
 from dgraph_tpu_torch.models import PostingStore
@@ -30,6 +35,15 @@ from dgraph_tpu_torch.utils.metrics import QUERY_CANCELLED, SEGMENT_YIELDS
 
 JOIN = 10.0
 N_NODES, N_EDGES = 300, 1500
+
+
+
+@pytest.fixture(autouse=True)
+def _recorder_and_registry_reset(monkeypatch):
+    monkeypatch.setattr(qos, "REGISTRY", qos.CancelRegistry())
+    yield
+    obs.configure()
+
 
 TIMEOUTS = [None, "", "abc", "nan", "inf", "-inf", "-1", "0", "0.5", "1e-3",
             " 2 ", "1ms"]
@@ -267,3 +281,171 @@ def test_deadline_mid_execution_is_504(graph_store, monkeypatch):
     finally:
         fail.reset()
         srv.stop()
+
+
+# ------------------------------------------------------- cancel registry
+
+
+def test_cancel_registry_reregistered_trace_id_survives_eviction():
+    """A client retrying with the SAME trace id re-registers it; stale
+    eviction-queue entries must not evict the live token, even at the
+    capacity bound."""
+    assert qos.CancelRegistry._MAX == jqos.CancelRegistry._MAX
+    reg = qos.CancelRegistry()
+    stale, live = qos.CancelToken(), qos.CancelToken()
+    reg.register("tid", stale)
+    reg.unregister("tid")
+    reg.register("tid", live)
+    for i in range(qos.CancelRegistry._MAX - 1):
+        reg.register(f"other-{i}", qos.CancelToken())
+    assert reg.cancel("tid")
+    assert live.cancelled and not stale.cancelled
+
+
+def test_cancel_registry_unregister_is_identity_checked():
+    """Two sampled queries may share one trace id — the first to finish
+    must not unregister the other's live token."""
+    reg = qos.CancelRegistry()
+    a, b = qos.CancelToken(), qos.CancelToken()
+    reg.register("shared", a)
+    reg.register("shared", b)   # b overwrites: latest registration wins
+    reg.unregister("shared", a)  # a finishes: must NOT evict b
+    assert reg.cancel("shared")
+    assert b.cancelled and not a.cancelled
+    reg.unregister("shared", b)
+    assert not reg.cancel("shared")
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_cancel_registry_matches_reference(seed):
+    """A seeded sequence of register / unregister / cancel on both
+    packages' registries (a small bound, so eviction runs): the same
+    cancel verdicts and the same tokens flipped."""
+    rng = np.random.default_rng(seed)
+    mine, ref = qos.CancelRegistry(), jqos.CancelRegistry()
+    mine._MAX = ref._MAX = 8
+    toks_m, toks_r = [], []
+    got, want = [], []
+    for _ in range(400):
+        op, tid = int(rng.integers(0, 3)), f"t{int(rng.integers(0, 12))}"
+        if op == 0:
+            toks_m.append((tid, qos.CancelToken()))
+            toks_r.append((tid, jqos.CancelToken()))
+            mine.register(tid, toks_m[-1][1])
+            ref.register(tid, toks_r[-1][1])
+        elif op == 1 and toks_m:
+            i = int(rng.integers(0, len(toks_m)))
+            mine.unregister(toks_m[i][0], toks_m[i][1])
+            ref.unregister(toks_r[i][0], toks_r[i][1])
+        else:
+            got.append(mine.cancel(tid))
+            want.append(ref.cancel(tid))
+    assert got == want
+    assert [t.cancelled for _, t in toks_m] == [t.cancelled for _, t in toks_r]
+
+
+def _get_status(addr, path, method="GET"):
+    req = urllib.request.Request(addr + path, method=method,
+                                 data=b"" if method == "POST" else None)
+    try:
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+@pytest.fixture()
+def served():
+    srv = DgraphServer(PostingStore(), device="cpu")
+    srv.start()
+    _post(srv.addr, SEED)
+    yield srv
+    srv.stop()
+
+
+def test_admin_cancel_needs_a_trace_id(served):
+    assert _get_status(served.addr, "/admin/cancel")[0] == 400
+    assert _get_status(served.addr, "/admin/cancel", "POST")[0] == 400
+
+
+def test_admin_cancel_404s_for_inline_mutation_path(served):
+    """The inline (mutation) path has no cancellation checkpoints, so its
+    trace id is never registered: /admin/cancel answers 404."""
+    obs.configure(ratio=1e-9)
+    tp = "00-%032x-%016x-01" % (0x71, 0x71)
+    code, _raw, _h = _post(served.addr, 'mutation { set { <0x9> <name> "Zed" . } }',
+                           {"Traceparent": tp})
+    assert code == 200
+    assert _get_status(served.addr, "/admin/cancel?trace_id=%032x" % 0x71)[0] == 404
+
+
+def test_cancel_after_final_hop_is_a_noop(served):
+    obs.configure(ratio=1e-9)
+    tp = "00-%032x-%016x-01" % (0x51, 0x51)
+    code, raw, _h = _post(served.addr, "{ q(func: uid(0x1)) { name friend { name } } }",
+                          {"Traceparent": tp})
+    assert code == 200 and json.loads(raw)["q"][0]["name"] == "Ann"
+    assert _get_status(served.addr, "/admin/cancel?trace_id=%032x" % 0x51)[0] == 404
+
+
+CHAIN_SEED = """
+mutation { schema { friend: uid . name: string . } set {
+  <0x1> <friend> <0x2> . <0x2> <friend> <0x3> .
+  <0x3> <friend> <0x4> . <0x4> <friend> <0x5> .
+  <0x5> <name> "end" .
+} }
+"""
+CHAIN_Q = "{ q(func: uid(0x1)) { friend { friend { friend { friend { name } } } } } }"
+
+
+@pytest.mark.parametrize("method", ["GET", "POST"])
+def test_admin_cancel_mid_flight_stops_hop_dispatch(method):
+    """A sampled, scheduled read held at each hop by a 300 ms failpoint
+    delay, carrying its own Traceparent: /admin/cancel answers 200, the
+    read answers 499 before its fourth hop, the admin cancellation is
+    counted for its tenant, its trace closes with outcome=cancelled, and
+    a second cancel answers 404."""
+    obs.configure(ratio=1e-9)
+    server = DgraphServer(PostingStore(), device="cpu")
+    server.start()
+    try:
+        _post(server.addr, CHAIN_SEED)
+        before = QUERY_CANCELLED.total(reason="admin", tenant="batcher")
+        h0 = fail.hits("engine.hop")
+        n = 0x61 if method == "GET" else 0x62
+        tid = "%032x" % n
+        res = {}
+
+        def run():
+            res["got"] = _post(server.addr, CHAIN_Q, {
+                "Traceparent": "00-%s-%016x-01" % (tid, n),
+                "X-Dgraph-Tenant": "batcher",
+            })
+
+        fail.arm("engine.hop", "delay(ms=300)")
+        try:
+            t = threading.Thread(target=run)
+            t.start()
+            t_end = time.monotonic() + JOIN
+            code = 404
+            while code == 404 and time.monotonic() < t_end:
+                code = _get_status(server.addr, "/admin/cancel?trace_id=" + tid,
+                                   method)[0]
+                time.sleep(0.02)
+            assert code == 200
+            t.join(timeout=60)
+        finally:
+            fail.disarm("engine.hop")
+        code, raw, _h = res["got"]
+        assert code == 499, raw
+        assert json.loads(raw)["code"] == "ErrorQueryCancelled"
+        assert fail.hits("engine.hop") - h0 < 4
+        assert QUERY_CANCELLED.total(reason="admin", tenant="batcher") == before + 1
+        assert _get_status(server.addr, "/admin/cancel?trace_id=" + tid,
+                           method)[0] == 404
+        trace = obs.get_recorder().trace(tid)
+        roots = [s for s in trace["spans"] if s["name"] == "query"]
+        assert roots[0]["attrs"]["outcome"] == "cancelled"
+        assert roots[0]["attrs"]["tenant"] == "batcher"
+    finally:
+        server.stop()
