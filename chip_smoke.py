@@ -30,8 +30,9 @@ fewer it is no more than the largest one.
    a. a materialised 2-hop from 64 seeds, byte-identical to an engine
       over the same store pinned to the host route;
    b. a var-block 2-hop from 8192 seeds with a root ``count()``,
-      repeated: its second hop crosses the default device gate and must
-      launch the gather kernel; edges/s and p50/p99 latency printed;
+      repeated: it must launch the gather kernel, and its stats must
+      hold a planner ``expand`` decision that took the resident route;
+      edges/s and p50/p99 latency printed;
    c. a mutation adding edges from seed nodes, merged into the resident
       CSR on the device (epoch flips, no reseed), then a materialised
       2-hop over a fresh 8192-seed frontier holding those seeds,
@@ -88,8 +89,8 @@ fewer it is no more than the largest one.
    ``torch.cuda.memory_allocated()``, its kernel builds equal
    ``ops/_build``'s builds in this process; ``/debug/bundle`` has the
    reference's keys; the OpenMetrics ``/metrics`` carries latency
-   exemplars whose trace ids resolve; (o6) the count 10 times at ratio 0
-   and 10 at ratio 1, alternating: p50 of each and the mean
+   exemplars whose trace ids resolve; (o6) the count 6 times at ratio 0
+   and 6 at ratio 1, alternating: p50 of each and the mean
    ``device_sync_ms`` of a device hop (no limit is set on the cost).
    The counts are read right after.
 8. ranks — the schema ``rank: int .`` and an int per node for uids
@@ -118,9 +119,11 @@ fewer it is no more than the largest one.
    table, with and without the visited set, and from a drained frontier
    (uids that own no row).
 11. chain — every kernel's launch count is set to 0, then, over HTTP at
-   the default chain threshold, each query served a few times and held
-   byte for byte against the host-route engine (the cheap ones, (a), (e)
-   and (f), 4 times a route), from seeds of their own
+   the default chain threshold (the planner prices the chain; a fused
+   query's stats must hold its ``chain`` decision), each query served a
+   few times and held byte for byte against the host-route engine (the
+   cheap ones, (a), (e) and (f), 3 times a route, the bulky ones once),
+   from seeds of their own
    (seed 53): (a) the main path's var-block 2-hop count from 8192 seeds,
    which must take the multi-hop pass (2 levels fused, 2 gather
    launches a request); (b) the materialised 2-hop (a staged full-mode
@@ -182,9 +185,14 @@ fewer it is no more than the largest one.
    Every body must equal a host-route engine's; each route-1 request
    must record exactly one ``mxu`` decision (``chain`` for m1 and m2,
    ``triangle`` for m3 and m4) and ``mxu_join_ms > 0``.  Then a mutation
-   adds 64 ``friend`` edges inside stored blocks and deletes 64; (m1)
+   adds 64 ``friend`` edges inside stored blocks and deletes 64, under
+   ``DGRAPH_TPU_IVM_REPAIR=force`` (the repair gate pinned, so that the
+   repair path runs whatever the planner's rates price); (m1)
    again must equal the host route, with the tiles repaired in place
-   (``IVM_REPAIRS{tile,repaired}`` up by one, no tile build).  The
+   (``IVM_REPAIRS{tile,repaired}`` up by one, no tile build).  A route-1
+   request's gather launches must equal its per-level resident hops
+   (the triangle's ``w as ~friend`` goes to the card where the planner
+   prices it so; the tile chain launches none).  The
    counts are read right after.  Then, launching none of the kernels:
    ``expand_mask_batch`` and ``triangle_mask_batch`` on the card against
    the same calls on the CPU at bench_ops.py's shape (512 nodes, 32,768
@@ -263,8 +271,8 @@ fewer it is no more than the largest one.
    replica, per group.  With both query caches detached, the three
    servers are asked the var-block 2-hop count from phase 4's 8192
    seeds together (each one's seconds to it: the read snapshot, the
-   arena seed, the first gather), then each in turn that count 6
-   times, the materialised 2-hop from those seeds once and join (a) 6
+   arena seed, the first gather), then each in turn that count 4
+   times, the materialised 2-hop from those seeds once and join (a) 4
    times, every body equal to a host-route engine over a single-node
    store of the same data, each server's requests launching the gather
    and (a)'s the intersect.  Then 64 added and 64 deleted ``e`` edges
@@ -284,6 +292,26 @@ fewer it is no more than the largest one.
    ``peer.pred-snapshot`` among them.
    Each line carries the card's name and power limit; launches by node.
    The counts are read right after.
+18a. planner — a second server over the main path's store, booted with
+   ``DGRAPH_TPU_CALIBRATE=1``: the planner measures its rates on the card
+   (``utils/calibrate.py``: a dispatch round trip, the gather kernel,
+   ``expand_csr``, numpy, ``np.intersect1d``, the intersect kernel, the
+   tile product) and prints them beside the card's name and power
+   limit; it serves through the main server's arenas (built once).  The
+   launch counts are zeroed after the boot.  Served, with
+   both caches detached: phase 4's 2-hop count (per level, the planner
+   on and off request by request), join (a) and (b) and chain (a), 3
+   timed requests each, every body equal to the host route; its
+   ``/debug/planner`` must have recorded ``expand`` decisions that took
+   the resident gather and ``kway`` decisions that took the intersect
+   kernel (each query's own stats too, and chain (a)'s ``chain``
+   decision), and the mispredict rate is printed.  Then 16 client
+   threads send 4 counts of 1024 fresh seeds each at once: the cohort
+   controller must move ``max_batch`` or the flush deadline inside its
+   bounds.  The counts are read right after.  Every earlier phase runs
+   with the planner at its default (on, priors: no calibration file in
+   a fresh checkout); a check that once asserted the static gate
+   asserts the recorded decision now.
 19. report — the device time of one 200-query chunk by stage (hop 1,
    dedup, hop 2, checksum; CUDA events); one pass of the 1000 queries
    under ``torch.profiler``: the card's busy time (the union of its
@@ -311,6 +339,8 @@ Exits non-zero without a CUDA GPU, or when the package is not beside it.
 
 ``python3 chip_smoke.py --durability-only`` runs phase 1, the graph's
 generation (no server) and phase 17 (about three minutes).
+``python3 chip_smoke.py --planner-only`` runs phases 1 and 2, the names
+of phase 5 and phase 18a.
 ``python3 chip_smoke.py --cluster-only`` runs phase 1, the graph's
 generation and phase 18.
 ``python3 chip_smoke.py --trace-only`` runs phases 1 and 2, the names of
@@ -344,12 +374,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 N_NODES, N_EDGES, GRAPH_SEED = 2_000_000, 21_000_000, 7
 # 8192 seeds: on this graph a 2-hop from 4096 seeds reaches about 210,000
-# second-level edges, below the engine's default device gate (262144);
-# 8192 seeds about 410,000, so the served query crosses it (the config
-# line prints both counts)
-# (6 repeats: 20 before the cluster phase, 10 before the flight
-# recorder's; the run must still fit its time limit)
-SMALL_SEEDS, LARGE_SEEDS, REPEATS = 64, 8192, 6
+# second-level edges, below the static device gate (262144, the gate with
+# the planner off); 8192 seeds about 410,000, so the served query crosses
+# it (the config line prints both counts)
+# (4 repeats: 20 before the cluster phase, 10 before the flight
+# recorder's, 6 before the planner's; the run must still fit its time
+# limit)
+SMALL_SEEDS, LARGE_SEEDS, REPEATS = 64, 8192, 4
 # the batched 2-hop: bench.py's defaults (BENCH_SEEDS, BENCH_ITERS) and
 # its chunk of queries per batched program
 BATCH_SEEDS, BATCH_QUERIES, CHUNK_Q = 4096, 1000, 200
@@ -373,10 +404,11 @@ RECURSE_MAX_EDGES = 1_000_000  # the reference's recursion cap (query/recurse.py
 # the fewest requests any phase reports a p99 over (below it the p99
 # is null); the threshold that pins the chain off
 CHAIN_SEED, PINNED_OFF = 53, 1 << 62
-# (4 cheap requests a route and 2 bulky ones: 24 and 3 before the
-# cluster phase, 6 and 3 before the flight recorder's; the run must
-# still fit its time limit; p99 needs P99_MIN requests)
-CHAIN_REPEATS, CHAIN_REPEATS_BULKY, P99_MIN = 4, 2, 20
+# (3 cheap requests a route and 1 bulky one: 24 and 3 before the
+# cluster phase, 6 and 3 before the flight recorder's, 4 and 2 before
+# the planner's; the run must still fit its time limit; p99 needs
+# P99_MIN requests)
+CHAIN_REPEATS, CHAIN_REPEATS_BULKY, P99_MIN = 3, 1, 20
 
 # the serving plane: client threads, requests each (the last repeats
 # the client's first; 5, not 8: with the cluster phase the run must
@@ -441,27 +473,35 @@ CLUSTER_RECORD_EDGES, CLUSTER_RECORD_NAMES = 1 << 18, 1 << 17
 # leaders through the whole load; 100 ms (a 1-2 s timeout, etcd's
 # default scale) outlasts an apply
 CLUSTER_TICK_MS = 100
-# (6 timed requests a query and server: 10 before the flight recorder)
-CLUSTER_SEED, CLUSTER_DELTA, CLUSTER_REPEATS, CLUSTER_WAIT_S = 79, 64, 6, 600
+# (4 timed requests a query and server: 10 before the flight recorder,
+# 6 before the planner)
+CLUSTER_SEED, CLUSTER_DELTA, CLUSTER_REPEATS, CLUSTER_WAIT_S = 79, 64, 4, 600
 
 # the flight recorder: its seed (seeds, trace ids), traced requests of
 # each query, unsampled requests, the hop delay that holds the cancelled
-# query, and the timed requests at each ratio
+# query, and the timed requests at each ratio (6: 10 before the
+# planner's phase)
 FLIGHT_SEED, FLIGHT_TRACED, FLIGHT_UNSAMPLED = 83, 3, 10
-FLIGHT_HOLD_MS, FLIGHT_COST_REQUESTS = 500, 10
+FLIGHT_HOLD_MS, FLIGHT_COST_REQUESTS = 500, 6
+
+# the planner phase: timed requests of each query (the count's with the
+# planner on and off in turn), and the burst that moves the cohort
+# controller: client threads, requests each, seeds a request, seed
+PLANNER_REPEATS = 3
+PLANNER_CLIENTS, PLANNER_BURST, PLANNER_BURST_SEEDS, PLANNER_SEED = 16, 4, 1024, 89
 
 # kernels: (name, wrapper module, TPU kernel it replaces, paths that run it)
 KERNELS = [
     ("gather_packed", "dgraph_tpu_torch.ops.gather",
      "dgraph_tpu/ops/pallas_gather.py:48",
      ("main_path", "flight_recorder", "query_surface", "chain", "serving_plane",
-      "mxu_join", "durability", "cluster")),
+      "mxu_join", "durability", "cluster", "planner")),
     ("slotmap", "dgraph_tpu_torch.ops.slotmap",
      "dgraph_tpu/ops/pallas_slotmap.py:46", ("batched_2hop",)),
     ("intersect", "dgraph_tpu_torch.ops.kway",
      "dgraph_tpu/ops/pallas_intersect.py:35",
      ("join_path", "flight_recorder", "chain", "serving_plane", "mxu_join",
-      "cluster")),
+      "cluster", "planner")),
 ]
 
 
@@ -529,18 +569,30 @@ def two_hop_count(seeds) -> str:
             % uid_list(seeds))
 
 
+_HOST_REF: dict = {}
+
+
 def host_engine(store):
     """An engine over the same store pinned to the host route, the fused
     chain, the fused @recurse and the hop cache off: the reference the
-    served bodies must equal byte for byte."""
+    served bodies must equal byte for byte.  One per store version: a
+    store that took no write since the last call gets the same engine
+    back (its host arenas, whose first build takes seconds, are what a
+    fresh engine would build)."""
     from dgraph_tpu_torch.query import QueryEngine
 
+    version = getattr(store, "version", None)
+    got = _HOST_REF.get(id(store))
+    if version is not None and got is not None and got[0] == version \
+            and got[1].store is store:
+        return got[1]
     eng = QueryEngine(store, device="cpu")
     eng.expand_device_min = 1 << 62
     eng.arenas.kway_device_min = 1 << 62
     eng.arenas.hop_cache = None
     eng.chain_threshold = PINNED_OFF
     eng.expander.fused_hop = False
+    _HOST_REF[id(store)] = (version, eng)
     return eng
 
 
@@ -554,6 +606,31 @@ def per_level(engine):
         yield
     finally:
         engine.chain_threshold, engine.expander.fused_hop = thr, hop
+
+
+def check_priced(srv, chain: bool = False) -> None:
+    """The served engine runs the priced planner: on, with the hop and
+    k-way knobs at their defaults (a pinned knob keeps the static
+    compare), and with ``chain`` the chain threshold too (``per_level``
+    pins it off)."""
+    from dgraph_tpu_torch.query import planner
+    from dgraph_tpu_torch.utils import planconfig
+
+    eng = srv.engine
+    check(planner.enabled()
+          and eng.expand_device_min == planconfig.EXPAND_DEVICE_MIN_DEFAULT
+          and eng.arenas.kway_device_min == planconfig.KWAY_DEVICE_MIN_DEFAULT
+          and (not chain
+               or eng.chain_threshold == planconfig.CHAIN_THRESHOLD_DEFAULT),
+          "the server must run the priced planner at its default knobs")
+
+
+def check_decided(eng_stats: dict, kind: str, route: str, what: str) -> None:
+    """A request's engine stats hold a priced decision of ``kind`` that
+    took ``route`` (query/planner.py records them under "planner")."""
+    decs = eng_stats.get("planner", [])
+    check(any(d["kind"] == kind and d["route"] == route for d in decs),
+          f"{what}: no {kind} decision took {route}: {decs}")
 
 
 def cuda_ms(fn, iters: int = 30, warm: int = 3) -> float:
@@ -784,9 +861,8 @@ def phase_main_path(store, srv, rng, card: str) -> dict:
          "body_bytes": len(raw), "ms": round(secs * 1e3, 3),
          "byte_identical_to_host_route": True})
 
-    # b. large var-block 2-hop under the default gate, repeated
-    check(srv.engine.expand_device_min == 262144,
-          "the server must run the default planner gate")
+    # b. large var-block 2-hop under the priced planner, repeated
+    check_priced(srv)
     seeds = np.unique(rng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
     q = two_hop_count(seeds)
     n0 = gather.KERNEL.launches
@@ -803,8 +879,9 @@ def phase_main_path(store, srv, rng, card: str) -> dict:
     check(strip_latency(raw) == want, "large 2-hop count differs from the host route")
     # one more request for its stage breakdown (latency map + engine stats)
     _status, raw, _secs = post(srv.addr, q, "?debug=true")
-    log({"phase": "large_2hop_breakdown",
-         "server_latency": json.loads(raw)["server_latency"]})
+    lat_map = json.loads(raw)["server_latency"]
+    check_decided(lat_map["engine"], "expand", "resident", "large 2-hop")
+    log({"phase": "large_2hop_breakdown", "server_latency": lat_map})
     p50 = float(np.percentile(lat, 50))
     out["large"] = {
         "seeds": len(seeds), "repeats": REPEATS, "edges_per_query": edges,
@@ -1032,8 +1109,7 @@ def phase_join_path(store, srv, s1, s2, card: str) -> dict:
     from dgraph_tpu_torch.ops import kway
     from dgraph_tpu_torch.query import joinplan
 
-    check(srv.engine.arenas.kway_device_min == 262144,
-          "the server must run the default k-way gate")
+    check_priced(srv)
     ref = host_engine(store)
     out = {}
     for name, q, need in (("filter_and", join_filter_query(s1, s2), 1),
@@ -1058,6 +1134,7 @@ def phase_join_path(store, srv, s1, s2, card: str) -> dict:
         eng = lat_map.pop("engine")
         check(eng["kway_device"] >= need and eng["kway_host"] == 0,
               f"{name}: k-way routes {eng['kway_device']} device, {eng['kway_host']} host")
+        check_decided(eng, "kway", "device", name)
         out[name] = {
             "seeds": len(s1), "repeats": REPEATS,
             "p50_ms": float(np.percentile(lat, 50)) * 1e3,
@@ -1421,6 +1498,7 @@ def serve_surface(srv, ref, name: str, q: str, repeats: int, card: str) -> dict:
            "device_expand_ms": eng["device_expand_ms"],
            "host_expand_ms": eng["host_expand_ms"], "encode_ms": eng["encode_ms"],
            "expand_device_min": srv.engine.expand_device_min,
+           "planner": eng.get("planner", []),
            "byte_identical_to_host_route": True, "card": card}
     log(dict(phase="query_surface", route="per_level", **row))
     return row
@@ -1431,7 +1509,7 @@ def phase_query_surface(store, srv, n_ranked: int, card: str) -> dict:
     zeroes the launch counts just before.  ``card`` is the nvidia-smi
     name and power limit."""
     gate = srv.engine.expand_device_min
-    check(gate == 262144, "the server must run the default planner gate")
+    check_priced(srv)
     ref = host_engine(store)
     arena = srv.engine.arenas.data("e")
     rng = np.random.default_rng(SURFACE_SEED)
@@ -1463,6 +1541,8 @@ def phase_query_surface(store, srv, n_ranked: int, card: str) -> dict:
                 % uid_list(large), RECURSE_REPEATS)
     check(row["gather_launches"] >= RECURSE_REPEATS,
           "the @recurse did not launch the gather kernel")
+    check(any(d["kind"] == "expand" and d["route"] == "resident"
+              for d in row["planner"]), "the @recurse recorded no resident expand")
     check(row["edges"] < RECURSE_MAX_EDGES,
           f"the @recurse walked {row['edges']} edges, the cap is {RECURSE_MAX_EDGES}")
     # (c) shortest, as the server stands and with every expansion on the card
@@ -1621,7 +1701,8 @@ def serve_routes(srv, name: str, q: str, want: str, hops: list,
                   **{k: eng[k] for k in (
                       "chain_ms", "chain_fused_levels", "chain_reject",
                       "fused_gathers", "routes", "edges", "kway_device",
-                      "device_expand_ms", "host_expand_ms", "encode_ms")}}
+                      "device_expand_ms", "host_expand_ms", "encode_ms")},
+                  "planner": eng.get("planner", [])}
     return out
 
 
@@ -1631,8 +1712,8 @@ def phase_chain(store, srv, large, small, rseeds, card: str) -> dict:
     from dgraph_tpu_torch import ops
 
     eng = srv.engine
-    check(eng.chain_threshold == 262144 and eng.expander.fused_hop,
-          "the server must run the default chain threshold with fused hops on")
+    check_priced(srv, chain=True)
+    check(eng.expander.fused_hop, "the server must run with fused hops on")
     ref = host_engine(store)
     # (name, query, fused levels, gathers a request, multi-hop calls a
     # request, served per level as well, requests a route)
@@ -1670,6 +1751,8 @@ def phase_chain(store, srv, large, small, rseeds, card: str) -> dict:
             check(f["chain_fused_levels"] == levels,
                   f"{name}: {f['chain_fused_levels']} fused levels, want {levels} "
                   f"(rejects: {f['chain_reject']})")
+            if levels:
+                check_decided(f, "chain", "chain", name)
             check(f["gather_launches_per_query"] == gathers,
                   f"{name}: {f['gather_launches_per_query']} gather launches a "
                   f"request, want {gathers}")
@@ -1736,9 +1819,8 @@ def serving_mix(arena, rng):
     @recurse count from 8192 seeds, join query (a), and ``shortest`` k 1
     from one source to two nodes two hops away (the second re-expands
     the first's rings: hop-cache hits) — then a repeat of its own
-    first.  Every text reads only ``e``, so all share
-    one cache version (the caches' generation sweep reclaims entries of
-    any other version, live ones included)."""
+    first.  Every text reads only ``e``, so all share one cache
+    version."""
     def seeds():
         return np.unique(rng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
 
@@ -1849,10 +1931,13 @@ def phase_serving_plane(store, srv, card: str) -> dict:
     check(sched is not None and sched.result_cache is not None
           and eng.arenas.hop_cache is not None,
           "the server must serve through the scheduler with both caches")
-    check((sched.max_batch, sched.flush_s, sched.queue_cap, sched.merge_window_s)
-          == (32, 0.002, 256, 0.001) and eng.expand_device_min == 262144
-          and eng.chain_threshold == 262144,
-          "the scheduler and the engine must run their default knobs")
+    ctl = sched._adaptive
+    check(ctl is not None and (ctl.base_batch, ctl.base_flush_s, sched.queue_cap,
+                               sched.merge_window_s) == (32, 0.002, 256, 0.001)
+          and 32 <= sched.max_batch <= ctl.hi_batch
+          and ctl.lo_flush_s <= sched.flush_s <= 0.002,
+          "the scheduler must run its default knobs under the cohort controller")
+    check_priced(srv, chain=True)
     t0 = time.perf_counter()
     arena = eng.arenas.data("e")
     rng = np.random.default_rng(SERVE_SEED)
@@ -2050,17 +2135,22 @@ def mxu_queries(rng) -> list:
 
 
 @contextlib.contextmanager
-def mxu_mode(mode: str):
-    """DGRAPH_TPU_MXU_JOIN for the requests sent inside (read per call)."""
-    old = os.environ.get("DGRAPH_TPU_MXU_JOIN")
-    os.environ["DGRAPH_TPU_MXU_JOIN"] = mode
+def env_set(name: str, value: str):
+    """``name`` set to ``value`` in this process's environment inside."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop("DGRAPH_TPU_MXU_JOIN", None)
+            os.environ.pop(name, None)
         else:
-            os.environ["DGRAPH_TPU_MXU_JOIN"] = old
+            os.environ[name] = old
+
+
+def mxu_mode(mode: str):
+    """DGRAPH_TPU_MXU_JOIN for the requests sent inside (read per call)."""
+    return env_set("DGRAPH_TPU_MXU_JOIN", mode)
 
 
 def serve_mxu(srv, name: str, q: str, want: str, shape: str) -> dict:
@@ -2104,6 +2194,10 @@ def serve_mxu(srv, name: str, q: str, want: str, shape: str) -> dict:
             "p99_ms": p99(ms), "max_ms": max(ms),
             "gather_launches_per_query": launches[mode][0] / MXU_REPEATS,
             "intersect_launches_per_query": launches[mode][1] / MXU_REPEATS,
+            # per-level hops outside a fused pass that took the gather
+            # (the planner's resident expands)
+            "resident_hops_per_query": float(np.mean(
+                [e["routes"].get("resident", 0) for e in st])),
             "mxu_join_ms_p50": float(np.median([e["mxu_join_ms"] for e in st])),
             "tile_build_ms_first": st[0]["tile_build_ms"],
             "tile_build_ms_p50": float(np.median([e["tile_build_ms"] for e in st])),
@@ -2203,7 +2297,11 @@ def _serve_mxu_phase(srv, store, card: str, t0: float):
         row = {"query": name, "seeds": q.split(")")[0].count("0x"), "card": card,
                "count": json.loads(want)["q"][0]["count"]}
         row.update(serve_mxu(srv, name, q, want, shape))
-        check(row["mxu"]["gather_launches_per_query"] == 0,
+        # the tile chain launches no gather; a per-level hop beside it
+        # (the triangle's ``w as ~friend``) may, where the planner sends
+        # it to the card
+        check(row["mxu"]["gather_launches_per_query"]
+              == row["mxu"]["resident_hops_per_query"],
               f"{name}: the tile route launched the gather")
         check(row["gather"]["gather_launches_per_query"] >= 1,
               f"{name}: the gather tier launched no gather")
@@ -2212,20 +2310,26 @@ def _serve_mxu_phase(srv, store, card: str, t0: float):
                   f"{name}: the keep-set AND did not launch the intersect kernel")
         rows[name] = row
         log(dict(phase="mxu_join", **row))
-    # the mutation: the tiles must be repaired in place, not rebuilt
+    # the mutation: the tiles must be repaired in place, not rebuilt.
+    # DGRAPH_TPU_IVM_REPAIR=force pins the repair gate (within its delta
+    # cap): the planner prices a repair of the whole arena's tiles
+    # against two refills, and with the card's rates it may choose the
+    # rebuild, which would leave the repair path untried
     text, adds, dels = mxu_mutation(arena, np.random.default_rng(MXU_SEED + 1))
     rep0 = IVM_REPAIRS.snapshot().get(("tile", "repaired"), 0)
     builds0 = JOIN_TILE_BUILDS.value()
-    status, raw, _secs = post(srv.addr, text)
-    check(status == 200, f"phase mxu_join mutation: HTTP {status}: {raw[:300]!r}")
-    # served first: the served arenas take the store's journal of the
-    # write; a host-route engine built after it reads the store afresh
     served = {}
-    for name, q, _shape in queries[:2]:
-        with mxu_mode("1"):
-            status, raw, secs = post(srv.addr, q, "?debug=true")
-        check(status == 200, f"{name} after the mutation: HTTP {status}")
-        served[name] = (raw, secs)
+    with env_set("DGRAPH_TPU_IVM_REPAIR", "force"):
+        status, raw, _secs = post(srv.addr, text)
+        check(status == 200, f"phase mxu_join mutation: HTTP {status}: {raw[:300]!r}")
+        # served first: the served arenas take the store's journal of
+        # the write; a host-route engine built after it reads the store
+        # afresh
+        for name, q, _shape in queries[:2]:
+            with mxu_mode("1"):
+                status, raw, secs = post(srv.addr, q, "?debug=true")
+            check(status == 200, f"{name} after the mutation: HTTP {status}")
+            served[name] = (raw, secs)
     rep1 = IVM_REPAIRS.snapshot().get(("tile", "repaired"), 0)
     builds1 = JOIN_TILE_BUILDS.value()
     ref = host_engine(store)
@@ -3434,7 +3538,8 @@ def slotmap_timing(a, frontiers, plan) -> dict:
         # the function reads cs and cd once and writes the map once
         nbytes = 4 * q * (2 * pcap + capc)
         times = kernel_times(
-            lambda cs=cs, cd=cd, capc=capc: slotmap.slotmap(cs, cd, capc))
+            lambda cs=cs, cd=cd, capc=capc: slotmap.slotmap(cs, cd, capc),
+            kernel="slotmap_tiles")
         plain_ms = cuda_ms(
             lambda cs=cs, cd=cd, capc=capc: slotmap.slotmap_plain(cs, cd, capc))
         out[name] = {"Q": q, "pcap": pcap, "capc": capc,
@@ -3545,7 +3650,8 @@ def intersect_timing(device, served, rng) -> dict:
         nbytes = 4 * (sum(row_sizes) + L)
         out[name] = {
             "K": k, "L": L, "row_sizes": row_sizes, "bytes": nbytes,
-            **kernel_times(lambda t3=t3: kway.intersect_batch(t3)),
+            **kernel_times(lambda t3=t3: kway.intersect_batch(t3),
+                           kernel="intersect_tiles"),
             "plain_ms": cuda_ms(lambda t3=t3: kway.intersect_plain(t3)),
             "intersect_many_ms": cuda_ms(lambda t2=t2: ops.intersect_many(t2)),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -3601,6 +3707,189 @@ def order_timing(engine, seeds) -> dict:
     return out
 
 
+def planner_counts(addr: str) -> dict:
+    """/debug/planner's decision counts and mispredicts (process-wide:
+    the caller takes differences)."""
+    d = get_json(addr, "/debug/planner")
+    return {"counts": d["counts"], "mispredicts": d["mispredicts"],
+            "mispredict_total": d["mispredict_total"]}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v - before.get(k, 0)}
+
+
+def planner_burst(srv, ref, card: str) -> dict:
+    """PLANNER_CLIENTS client threads, each sending PLANNER_BURST
+    2-hop counts of PLANNER_BURST_SEEDS fresh seeds at once, with both
+    caches detached: the cohort controller must move max_batch or the
+    flush deadline, within its bounds (its state sampled every 2 ms)."""
+    import threading
+
+    ctl = srv.scheduler._adaptive
+    check(ctl is not None, "planner: the scheduler has no cohort controller")
+    rng = np.random.default_rng(PLANNER_SEED)
+    texts = [two_hop_count(np.unique(rng.integers(1, N_NODES + 1,
+                                                  size=PLANNER_BURST_SEEDS)))
+             for _ in range(PLANNER_CLIENTS)]
+    want = {q: json.dumps(ref.run(q)) for q in texts}
+    samples, errors = [], []
+    stop = threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            samples.append((srv.scheduler.max_batch, srv.scheduler.flush_s))
+            time.sleep(0.002)
+
+    def client(i):
+        try:
+            for j in range(PLANNER_BURST):
+                q = texts[(i + j) % len(texts)]
+                status, raw, _secs = post(srv.addr, q)
+                if status != 200 or strip_latency(raw) != want[q]:
+                    errors.append((i, j, status))
+        except Exception as e:  # noqa: BLE001 — reported by the check below
+            errors.append((i, repr(e)))
+
+    s0 = ctl.state()
+    poller = threading.Thread(target=poll, daemon=True)
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(PLANNER_CLIENTS)]
+    t0 = time.perf_counter()
+    with no_caches(srv):
+        poller.start()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        stop.set()
+        poller.join()
+    secs = time.perf_counter() - t0
+    s1 = ctl.state()
+    check(not errors, f"planner burst: failed or differing requests {errors[:5]}")
+    batches = {mb for mb, _f in samples}
+    flushes = {round(f * 1e3, 6) for _mb, f in samples}
+    check(all(ctl.base_batch <= mb <= ctl.hi_batch for mb in batches)
+          and all(ctl.lo_flush_s * 1e3 - 1e-9 <= f <= ctl.base_flush_s * 1e3 + 1e-9
+                  for f in flushes),
+          f"planner burst: the controller left its bounds ({batches}, {flushes})")
+    moved = batches != {ctl.base_batch} or flushes != {round(ctl.base_flush_s * 1e3, 6)}
+    check(moved and s1["updates"] > s0["updates"],
+          f"planner burst: the cohort controller did not move ({s0} -> {s1})")
+    return {"clients": PLANNER_CLIENTS, "requests": PLANNER_CLIENTS * PLANNER_BURST,
+            "seeds": PLANNER_BURST_SEEDS, "seconds": secs,
+            "max_batch_seen": sorted(batches), "flush_ms_seen": sorted(flushes),
+            "state_before": s0, "state_after": s1, "card": card}
+
+
+def phase_planner(store, arenas, card: str, zero_counts, served_done,
+                  device: str = "cuda") -> dict:
+    """Phase planner: a second server over the main path's store, booted
+    with DGRAPH_TPU_CALIBRATE=1 so that the planner measures its rates on
+    the card, serving through the main server's ``arenas`` (a second
+    build of the 16.2M-edge arena and the term index took 40 s of the
+    phase); the main path's 2-hop count (per level, with the planner on
+    and off in turn), join (a) and (b) and chain (a), each body held
+    against the host route; the decisions /debug/planner recorded; then
+    the burst that moves the cohort controller.  ``zero_counts()`` runs
+    after the boot (the calibration's own launches are not the path's),
+    ``served_done()`` after the burst.  The server is stopped at the end.
+    ``device`` "cpu" rehearses the phase at a small size off the card."""
+    from dgraph_tpu_torch.query import planner
+    from dgraph_tpu_torch.serve.server import DgraphServer
+
+    t0 = time.perf_counter()
+    with env_set("DGRAPH_TPU_CALIBRATE", "1"):
+        srv = DgraphServer(store, device=device)
+    boot_s = time.perf_counter() - t0
+    srv.engine.arenas = arenas
+    cal = planner.calibration_info()
+    check(cal["source"] == "measured" and cal["backend"] == srv.engine.device.type,
+          f"planner: the boot did not measure on the card: {cal}")
+    log({"phase": "planner_calibration", "card": card, "boot_s": boot_s,
+         "rates": cal["rates"], "priors_replaced": True})
+    srv.start()
+    try:
+        zero_counts()
+        ref = host_engine(store)
+        rng = np.random.default_rng(GRAPH_SEED)
+        rng.integers(1, N_NODES + 1, size=SMALL_SEEDS)  # the main path's (a)
+        count_seeds = np.unique(rng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+        jrng = np.random.default_rng(JOIN_SEED)
+        s1, s2 = (np.unique(jrng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+                  for _ in range(2))
+        large_c, _small, _by = chain_seeds()
+        queries = [
+            ("count_2hop", two_hop_count(count_seeds), True),
+            ("join_a", join_filter_query(s1, s2), False),
+            ("join_b", allofterms_query(s1), False),
+            ("chain_a", two_hop_count(large_c), False),
+        ]
+        # a first request of each shape outside the timed ones
+        t1 = time.perf_counter()
+        for _name, q, _pl in queries:
+            check(post(srv.addr, q)[0] == 200, "planner: a warm-up request failed")
+        warm_s = time.perf_counter() - t1
+        before = planner_counts(srv.addr)
+        rows = {}
+        with no_caches(srv):
+            for name, q, pinned_chain in queries:
+                want = json.dumps(ref.run(q))
+                modes = ("on", "off") if name == "count_2hop" else ("on",)
+                lat = {m: [] for m in modes}
+                for _ in range(PLANNER_REPEATS):
+                    for m in modes:
+                        with contextlib.ExitStack() as st:
+                            if pinned_chain:
+                                st.enter_context(per_level(srv.engine))
+                            if m == "off":
+                                st.enter_context(env_set("DGRAPH_TPU_PLANNER", "0"))
+                            status, raw, secs = post(srv.addr, q)
+                        check(status == 200, f"planner {name} ({m}): HTTP {status}")
+                        check(strip_latency(raw) == want,
+                              f"planner {name} ({m}): body differs from the host route")
+                        lat[m].append(secs * 1e3)
+                with contextlib.ExitStack() as st:
+                    if pinned_chain:
+                        st.enter_context(per_level(srv.engine))
+                    _status, raw, _secs = post(srv.addr, q, "?debug=true")
+                eng = json.loads(raw)["server_latency"]["engine"]
+                rows[name] = {
+                    **{f"p50_ms_planner_{m}": float(np.percentile(v, 50))
+                       for m, v in lat.items()},
+                    "request_ms": lat, "routes": eng["routes"],
+                    "kway_device": eng["kway_device"], "kway_host": eng["kway_host"],
+                    "chain_fused_levels": eng["chain_fused_levels"],
+                    "planner": eng.get("planner", []),
+                    "byte_identical_to_host_route": True, "card": card}
+                log(dict(phase="planner_query", query=name, **rows[name]))
+        after = planner_counts(srv.addr)
+        counts = _delta(after["counts"], before["counts"])
+        check(counts.get("expand:resident", 0) > 0,
+              f"planner: no expand decision took the resident route: {counts}")
+        check(counts.get("kway:device", 0) > 0,
+              f"planner: no k-way decision took the intersect kernel: {counts}")
+        check_decided(rows["count_2hop"], "expand", "resident", "planner count")
+        check_decided(rows["join_a"], "kway", "device", "planner join (a)")
+        check_decided(rows["chain_a"], "chain", "chain", "planner chain (a)")
+        mis = after["mispredict_total"] - before["mispredict_total"]
+        n_dec = sum(counts.values())
+        burst = planner_burst(srv, ref, card)
+        served_done()
+        out = {"boot_s": boot_s, "warm_s": warm_s, "rates": cal["rates"],
+               "decisions": counts, "mispredicts": mis,
+               "mispredict_rate": mis / n_dec if n_dec else 0.0,
+               "mispredicts_by_kind": _delta(after["mispredicts"], before["mispredicts"]),
+               "process_mispredict_stats": planner.mispredict_stats(),
+               "rows": {n: {k: r[k] for k in r if k.startswith("p50_ms")}
+                        for n, r in rows.items()},
+               "burst": burst, "seconds": time.perf_counter() - t0, "card": card}
+        log(dict(phase="planner", **{k: v for k, v in out.items() if k != "rates"}))
+        return out
+    finally:
+        srv.stop()
+
+
 def gather_timing(arena, rng) -> dict:
     """The gather through wrapper calls only (so that it times an older
     tree's wrapper too), keyed by shape: the main path's largest (the
@@ -3654,6 +3943,7 @@ def main(argv) -> int:
     mxu_only = "--mxu-only" in argv
     cluster_only = "--cluster-only" in argv
     trace_only = "--trace-only" in argv
+    planner_only = "--planner-only" in argv
     try:
         import torch
     except ImportError:
@@ -3755,6 +4045,17 @@ def main(argv) -> int:
             log({"phase_seconds": phase_s, "launches": launches,
                  "flight_recorder": flight["cost"]})
             return 0
+        if planner_only:
+            phase = mark("names")
+            phase_names(store, srv, N_NAMED)
+            phase = mark("planner")
+            pl = phase_planner(store, srv.engine.arenas, info["nvidia_smi"],
+                               zero_counts, lambda: read_counts("planner"))
+            mark("done")
+            log({"phase_seconds": phase_s, "launches": launches,
+                 "planner": {k: pl[k] for k in ("decisions", "mispredict_rate",
+                                                "rows", "seconds")}})
+            return 0
         if serving_only:
             phase = mark("names")
             phase_names(store, srv, N_NAMED)
@@ -3835,6 +4136,9 @@ def main(argv) -> int:
         clu = phase_cluster("cuda", src, dst, info["nvidia_smi"])
         read_counts("cluster")
         del src, dst
+        phase = mark("planner")
+        pl = phase_planner(store, srv.engine.arenas, info["nvidia_smi"],
+                           zero_counts, lambda: read_counts("planner"))
         phase = mark("gather_timing")
         t = gather_timing(srv.engine.arenas.data("e"), np.random.default_rng(13))
         log(dict(phase="gather_timing", **t))
@@ -3943,7 +4247,10 @@ def main(argv) -> int:
                      "failover_s": clu["failover"]["acknowledged_write_s"]},
                  "pair_first_fetch_s": clu["pair"]["first_fetch_s"],
                  "pair_first_fetch_bytes": clu["pair"]["first_fetch_bytes"],
-                 "pair_trace": clu["pair"]["trace"]}})
+                 "pair_trace": clu["pair"]["trace"]},
+             "planner": {k: pl[k] for k in (
+                 "seconds", "decisions", "mispredicts", "mispredict_rate", "rows")},
+             "launches_by_path": launches})
         log({"kernels": kernels})
         log(info["nvidia_smi"])
         log({"ok": True, "device": {

@@ -9,7 +9,7 @@ front of the cohort scheduler — repeat queries skip admission, cohort
 wait and execution.
 
 Both tiers share the `VersionedLFUCache` core (cache/core.py):
-predicate-version invalidation, incremental generation sweeping, and
+predicate-version invalidation, reclaim on probe, and
 byte-budgeted LFU-with-aging admission.  Gate: ``DGRAPH_TPU_CACHE``
 (default on; ``0`` restores the cache-less path byte-identically).
 """

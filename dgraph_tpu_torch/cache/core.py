@@ -14,11 +14,14 @@ both cache tiers (cache/hop.py, cache/result.py) share:
   ``repair_where`` lets the IVM layer transform-and-re-key entries a
   delta can fix in place.
 
-- **Generation sweeping.**  Dead-version entries still occupy budget
-  until reclaimed.  Rather than a stop-the-world flush (a latency
-  cliff exactly when a mutation already disturbed the warm path),
-  every put sweeps a bounded handful of stale entries — reclamation
-  cost is amortized across the operations that need the space.
+- **Reclaim on probe.**  A probe that finds its key under another
+  version reclaims that entry on the spot; a dead entry no probe
+  reaches again loses its heat and leaves through LFU eviction.  The
+  reference also sweeps, on every put, a handful of entries whose
+  version differs from the put's.  That reclaims live entries: under
+  IVM an entry is keyed on its own footprint's version, so an entry of
+  another footprint is live at another version.  The port does not
+  sweep (the difference only moves hits; responses are the same).
 
 - **LFU-with-aging admission/eviction** under a byte budget.  Plain
   LRU lets one megaquery walk the whole hot head out of the cache;
@@ -74,22 +77,17 @@ class VersionedLFUCache:
         budget_bytes: int,
         max_entry_frac: float = 0.125,
         age_interval: int = 256,
-        sweep_limit: int = 32,
         stats_hook: Optional[Callable] = None,
     ):
         self.budget_bytes = int(budget_bytes)
         self.max_entry_bytes = max(1, int(self.budget_bytes * max_entry_frac))
         self.age_interval = max(1, int(age_interval))
-        self.sweep_limit = max(1, int(sweep_limit))
         self._hook = stats_hook
         self._lock = threading.Lock()
         self._m: Dict[object, _Entry] = {}
         self._bytes = 0
         self._seq = 0
         self._puts_since_age = 0
-        # rotating sweep cursor: a list snapshot of keys consumed a few
-        # per put, rebuilt when exhausted — bounded work per operation
-        self._sweep_keys: list = []
 
     # -- introspection -----------------------------------------------------
 
@@ -145,8 +143,8 @@ class VersionedLFUCache:
 
     def put(self, key, version: int, value, nbytes: int) -> bool:
         """Admit ``value`` under the budget; returns False when refused
-        (over the per-entry cap, or a zero budget).  Also performs one
-        bounded generation sweep and, when needed, LFU-aging eviction."""
+        (over the per-entry cap, or a zero budget).  Also performs, when
+        needed, LFU-aging eviction."""
         nbytes = int(nbytes)
         if self.budget_bytes <= 0 or nbytes > self.max_entry_bytes:
             hook = self._hook
@@ -155,7 +153,6 @@ class VersionedLFUCache:
             return False
         evicted = 0
         with self._lock:
-            self._sweep_locked(version)
             old = self._m.get(key)
             if old is not None:
                 self._bytes -= old.nbytes
@@ -256,23 +253,8 @@ class VersionedLFUCache:
         with self._lock:
             self._m.clear()
             self._bytes = 0
-            self._sweep_keys = []
 
     # -- internals (lock held) ---------------------------------------------
-
-    def _sweep_locked(self, version: int) -> None:
-        """Reclaim up to sweep_limit dead-version entries — the
-        incremental generation sweep (no global flush stall)."""
-        if not self._sweep_keys:
-            self._sweep_keys = list(self._m.keys())
-        n = 0
-        while self._sweep_keys and n < self.sweep_limit:
-            k = self._sweep_keys.pop()
-            e = self._m.get(k)
-            n += 1
-            if e is not None and e.version != version:
-                del self._m[k]
-                self._bytes -= e.nbytes
 
     def _evict_locked(self, protect) -> int:
         """Evict lowest-(freq, seq) entries until within budget; never

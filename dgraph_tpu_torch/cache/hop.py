@@ -157,7 +157,7 @@ class HopCache:
             int(out.nbytes) + int(seg_ptr.nbytes) + int(frontier.nbytes) + 64
         )
         self._c.put(key, version, (out, seg_ptr, frontier), nbytes)
-        # admissions and sweeps change occupancy without a get-event
+        # admissions and evictions change occupancy without a get-event
         QCACHE_HOP_BYTES.set(self._c.occupancy_bytes)
 
     # -- delta repair (ivm/repair.py) -----------------------------------------
@@ -225,8 +225,8 @@ class HopCache:
         """Drop every entry for ``arena_id`` NOT keyed at ``epoch`` —
         the post-delta sweep (``ArenaManager._try_apply_delta``): any
         entry the repair pass did not carry forward describes a snapshot
-        that no longer exists, and must not squat in the budget waiting
-        for its generation sweep."""
+        that no longer exists, and must not squat in the budget until
+        LFU eviction reaches it."""
         n = self._c.drop_where(
             lambda k: k[0] == arena_id and k[3] != epoch
         )

@@ -24,7 +24,8 @@ footprint (ivm/versions.py::result_version; the global
 ``store.version`` when the footprint is unknowable or under
 ``DGRAPH_TPU_IVM=0``), so a mutation only kills the responses that
 actually read its predicates; stale entries die logically at the
-version advance and are reclaimed by the incremental sweep.
+version advance and are reclaimed by the probe that finds them (or
+leave through LFU eviction).
 
 Knobs: ``DGRAPH_TPU_CACHE`` (shared gate),
 ``DGRAPH_TPU_CACHE_RESULT_BYTES`` (budget, default 32 MiB, 0 disables
@@ -167,7 +168,7 @@ class ResultCache:
             (response, stats),
             _approx_bytes(response) + _approx_bytes(stats),
         )
-        # admissions and sweeps change occupancy without a get-event
+        # admissions and evictions change occupancy without a get-event
         QCACHE_RESULT_BYTES.set(self._c.occupancy_bytes)
 
     def clear(self) -> None:

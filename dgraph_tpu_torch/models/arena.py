@@ -570,13 +570,18 @@ class CSRArena:
 
 def _ivm_repair_gate(n_delta: int, entry_edges: float) -> bool:
     """The repair-vs-rebuild decision for one derived view: off when the
-    IVM gate is, else ``planner.repair_route`` (its static half)."""
+    IVM gate is, else ``planner.repair_route``, which prices a repair of
+    ``n_delta`` edges against refills of an ``entry_edges``-edge view
+    (recorded like every other route decision, at /debug/planner)."""
     from dgraph_tpu_torch.ivm import ivm_enabled
     from dgraph_tpu_torch.query import planner
 
     if not ivm_enabled():
         return False
-    return planner.repair_route(n_delta, entry_edges)
+    ok, dec = planner.repair_route(n_delta, entry_edges)
+    if dec is not None:
+        planner.record(None, dec)
+    return ok
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:

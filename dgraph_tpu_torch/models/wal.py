@@ -707,6 +707,11 @@ class DurableStore(PostingStore):
     def apply_schema(self, text: str) -> None:
         parse_schema(text, into=self.schema)  # validate before journaling
         self._journal(codec.encode_schema(text))
+        # schema semantics change how every predicate reads: bump the
+        # version and the IVM floor as the replay's SCHEMA branch does
+        # (the reference's live path bumps neither)
+        self.version += 1
+        self.note_global_change()
         self.applied_index += 1
         if not self._replaying:
             self._flush_guarded()

@@ -18,7 +18,12 @@ facets, groupby, expand or var functions, optionally decorated with
   languages (its ``ValueArena``) and/or ``first``/``offset``: a
   per-parent segmented rank sort and window on the device.
 
-Anything else runs per level, the general implementation.  A light
+Anything else runs per level, the general implementation.  Whether an
+eligible chain fuses is the planner's priced verdict
+(``planner.chain_route``: one fused pass against per-level execution,
+recorded in ``stats["planner"]`` and closed with the chain's measured
+``chain_ms``; the static ``est_total >= chain_threshold`` compare when the
+planner is off or the threshold is pinned).  A light
 (var-block) chain may first be taken by the tile join tier
 (``joinplan.try_mxu_route``: a mask chain over adjacency tiles, where
 its cost model picks it).  Otherwise a light, same-arena, undecorated
@@ -284,7 +289,19 @@ def try_run_chain(
         lvl = int(est_u * (a.n_edges / max(1, a.n_rows)))
         est_total += lvl
         est_u = lvl
-    if not planner.chain_route(est_total, engine.chain_threshold):
+    # route decision: the priced compare by default, the static threshold
+    # when the planner is off or the knob is pinned (plan_dec None then,
+    # so the static reject message stays as it was)
+    fuse, plan_dec = planner.chain_route(engine, est_total, len(levels))
+    if not fuse:
+        if plan_dec is not None:
+            # the per-level verdict is final: record it now
+            planner.record(engine.stats, plan_dec)
+            return reject(
+                f"fan-out estimate {est_total}: calibrated model favors "
+                f"per-level ({plan_dec['est_other_us']}us fused vs "
+                f"{plan_dec['est_chosen_us']}us per-level)"
+            )
         return reject(
             f"fan-out estimate {est_total} below threshold "
             f"{engine.chain_threshold}"
@@ -341,6 +358,9 @@ def try_run_chain(
         and engine.expander.fused_hop
         and _try_chain_scan(engine, levels, arenas[0], src, est_edges)
     ):
+        # the chain ran: record the decision and hand it to the engine's
+        # chain_ms bracket for the post-hoc check
+        _ran(engine, plan_dec)
         return True
 
     # --- staged pass: capacity planning (overflow-free) ---
@@ -404,7 +424,16 @@ def try_run_chain(
                   out=seg_ptr[1:])
         sg.chain_stash = ("full", flat[valid].astype(np.int64), seg_ptr, src_list)
         src_list = nxt[nxt != SENT].astype(np.int64)
+    _ran(engine, plan_dec)
     return True
+
+
+def _ran(engine, plan_dec) -> None:
+    """A priced chain ran: record its decision, and leave it for the
+    engine to close with the chain's measured latency."""
+    if plan_dec is not None:
+        planner.record(engine.stats, plan_dec)
+    engine._pending_chain_dec = plan_dec
 
 
 def _resolve_filter_global(engine, ft, resolver) -> np.ndarray:

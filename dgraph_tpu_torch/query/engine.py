@@ -6,11 +6,13 @@ uid sets on the host, ordering runs on the host, and the JSON encoding
 is the reference's, so responses are byte-identical to the JAX engine's.
 
 Expansion routes (``DeviceExpander``): ``empty``, ``host`` (numpy over
-the host mirror, below ``expand_device_min``), ``resident`` (the
+the host mirror, where the planner prices it cheaper:
+``query/planner.py``), ``resident`` (the
 hand-written gather kernel over the device-resident CSR, the default on
 a CUDA device) and ``csr`` (torch ``expand_csr`` over the staged CSR).
 Before any per-level expansion, a uid child tries the fused chain
-(``query/chain.py``): above ``chain_threshold`` estimated edges a whole
+(``query/chain.py``): where the planner prices it cheaper than per-level
+execution (the static ``chain_threshold`` when it is off) a whole
 chain of levels runs on the device through the same expansion call,
 one fetch for all of them, and its levels are consumed from their
 ``chain_stash``.  ``@recurse`` (``query/recurse.py``; an internal
@@ -22,8 +24,9 @@ adjacency tiles (``try_mxu_route``, called by the fused chain), and,
 unless ``DGRAPH_TPU_MXU_JOIN=0``, an ``@filter`` AND with at least two
 leaves that resolve without the frontier intersects them with the
 candidates in one ``kway_intersect`` call, on the intersect kernel
-above ``kway_device_min``.  Order-by on a numeric, date or bool
-predicate runs on the device above ``expand_device_min``
+where the planner prices it cheaper than the host fold.  Order-by on a
+numeric, date or bool predicate runs on the device above
+``expand_device_min``
 (``_device_order_perm``: value ranks from the predicate's
 ``ValueArena``, one stable segmented sort); string keys,
 language-tagged values and value variables sort on the host.  Above
@@ -83,7 +86,9 @@ def _fresh_stats() -> dict:
     why chain attempts fell back to per-level execution (bounded), and
     the gather calls the fused chain, multi-hop pass and fused
     @recurse made (``fused_gathers``; per-level gathers count under
-    ``routes["resident"]``)."""
+    ``routes["resident"]``), and the root filters that stopped early on
+    ``first: k`` (``first_early_exit``).  The planner's priced decisions
+    land under ``planner`` (query/planner.py::record)."""
     return {
         "edges": 0,
         "host_expand_ms": 0.0,
@@ -103,6 +108,7 @@ def _fresh_stats() -> dict:
         "fused_gathers": 0,
         "tile_build_ms": 0.0,
         "mxu_join_ms": 0.0,
+        "first_early_exit": 0,
     }
 
 
@@ -116,9 +122,11 @@ class DeviceExpander:
     """Per-level expansion routing: ONE device dispatch (or one host
     numpy pass) per (level × predicate).
 
-    Routing per call: ``empty`` (no edges to walk) → ``host`` (total
-    fan-out below ``expand_device_min``) → ``resident`` (the gather
-    kernel over the arena's device-resident CSR) → ``csr`` (torch
+    Routing per call: ``empty`` (no edges to walk) → ``host`` (the
+    planner's ``expand_route`` prices numpy cheaper; with the planner off
+    or the knob pinned, a fan-out below ``expand_device_min``) →
+    ``resident`` (the gather kernel over the arena's device-resident
+    CSR) → ``csr`` (torch
     ``expand_csr`` over the staged CSR tensors).  The resident route is
     taken when ``_use_resident()``: DGRAPH_TPU_RESIDENT '0' never, '1'
     (default) on a CUDA device, 'force' on any device — on the CPU the
@@ -140,6 +148,9 @@ class DeviceExpander:
         self.hop_merger = None
         # the route the last expansion took (empty/host/resident/csr)
         self._route = ""
+        # the planner's decision of the expansion in flight, closed with
+        # its measured latency by _expand_one
+        self._expand_dec = None
 
     def _use_resident(self) -> bool:
         if self.resident_mode == "0":
@@ -276,6 +287,24 @@ class DeviceExpander:
     def _expand_one(
         self, arena, src: np.ndarray, plan=None
     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Wrapper around the expansion: closes the planner's host/device
+        decision (made inside, where the exact fan-out is known) with
+        the measured stage latency, which the mispredict check and the
+        online rate refinement read."""
+        st = self.engine.stats
+        before = st["device_expand_ms"] + st["host_expand_ms"]
+        self._expand_dec = None
+        out, seg_ptr = self._expand_one_inner(arena, src, plan)
+        dec = self._expand_dec
+        if dec is not None:
+            self._expand_dec = None
+            actual_ms = st["device_expand_ms"] + st["host_expand_ms"] - before
+            planner.note_outcome(dec, actual_ms * 1e3)
+        return out, seg_ptr
+
+    def _expand_one_inner(
+        self, arena, src: np.ndarray, plan=None
+    ) -> Tuple[np.ndarray, np.ndarray]:
         eng = self.engine
         n = len(src)
         if n == 0 or arena.n_edges == 0:
@@ -285,7 +314,16 @@ class DeviceExpander:
         if total == 0:
             self._route = "empty"
             return _EMPTY, np.zeros(n + 1, dtype=np.int64)
-        if not planner.expand_route(total, eng.expand_device_min):
+        # host/device: the priced break-even by default, the static
+        # expand_device_min compare when the planner is off or the knob
+        # is pinned
+        use_device, dec = planner.expand_route(
+            total, eng.expand_device_min, resident=self._use_resident()
+        )
+        if dec is not None:
+            planner.record(eng.stats, dec)
+            self._expand_dec = dec
+        if not use_device:
             # a device dispatch costs a round trip that dwarfs the work
             return self._host_fallback(arena, rows)
         cap = ops.bucket(total)
@@ -375,6 +413,9 @@ class QueryEngine:
         # whether the block being executed is a var block: its chains
         # run light (query/chain.py)
         self._cur_block_internal = False
+        # the planner's decision of a chain that ran, closed with the
+        # chain's measured latency (query/chain.py sets it)
+        self._pending_chain_dec = None
         # per-request execution stats (reset by run_parsed)
         self.stats = _fresh_stats()
         # cooperative cancellation (sched/qos.py): the scheduler installs
@@ -532,7 +573,7 @@ class QueryEngine:
             return
         dest = self._root_uids(sg, resolver)
         if sg.filter is not None:
-            dest = self._apply_filter(sg.filter, dest, resolver)
+            dest = self._apply_root_filter(sg, dest, resolver)
         dest = self._order_and_paginate_root(sg, dest, value_vars)
         sg.dest_uids = dest
         if sg.params.is_groupby:
@@ -772,8 +813,15 @@ class QueryEngine:
             plan = _plan_rows(arena, src)
             # failed attempts count too: planning cost must show in SOME
             # bucket or the breakdown misleads
+            c0 = self.stats["chain_ms"]
             with obs.stage(self.stats, "chain_ms"):
                 chain.try_run_chain(self, child, src, resolver, plan[1])
+            # close the planner's chain decision with the measured latency
+            # (set only when a priced chain actually ran)
+            cdec = self._pending_chain_dec
+            if cdec is not None:
+                self._pending_chain_dec = None
+                planner.note_outcome(cdec, (self.stats["chain_ms"] - c0) * 1e3)
         if child.chain_stash is not None and child.chain_stash[0] == "light":
             _tag, dest, stash_src, n_edges = child.chain_stash
             child.chain_stash = None
@@ -839,6 +887,54 @@ class QueryEngine:
         )
 
     # -- filters -----------------------------------------------------------
+
+    def _apply_root_filter(
+        self, sg: SubGraph, dest: np.ndarray, resolver
+    ) -> np.ndarray:
+        """The root filter with ``first: k`` early exit: when the block
+        has a positive ``first`` and no order, the final dest is the
+        first ``offset + first`` (past ``after``) survivors in uid order,
+        so the filter runs over ascending chunks of the candidates
+        (doubling from max(1024, 8·need)) and stops once enough survive
+        (stat ``first_early_exit``).  Filters are per-candidate
+        membership tests, so filtering commutes with chunking and the
+        bytes equal the whole-set pass.  Other shapes, unsorted
+        candidates and DGRAPH_TPU_QOS=0 filter the whole set."""
+        p = sg.params
+        need = (p.first or 0) + max(p.offset or 0, 0)
+        from dgraph_tpu_torch.sched.qos import qos_enabled
+
+        if (
+            (p.first or 0) <= 0
+            or p.order_attr
+            or (p.offset or 0) < 0
+            or not qos_enabled()
+        ):
+            return self._apply_filter(sg.filter, dest, resolver)
+        # chunk floor: global leaves (index functions) resolve again per
+        # chunk, so start big enough that doubling reaches the whole set
+        # in a few rounds
+        chunk = max(1024, 8 * need)
+        if len(dest) <= chunk or not bool(np.all(dest[1:] > dest[:-1])):
+            return self._apply_filter(sg.filter, dest, resolver)
+        after = p.after or 0
+        parts: List[np.ndarray] = []
+        got = 0
+        pos = 0
+        while pos < len(dest):
+            self.checkpoint()
+            part = self._apply_filter(
+                sg.filter, dest[pos : pos + chunk], resolver
+            )
+            parts.append(part)
+            got += int((part > after).sum()) if after else len(part)
+            pos += chunk
+            if got >= need:
+                if pos < len(dest):
+                    self.stats["first_early_exit"] += 1
+                break
+            chunk *= 2
+        return np.concatenate(parts)
 
     def _apply_filter(self, ft: FilterTree, candidates: np.ndarray, resolver) -> np.ndarray:
         if ft.func is not None:

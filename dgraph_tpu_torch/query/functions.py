@@ -2,11 +2,12 @@
 
 The port of ``dgraph_tpu/query/functions.py``: each function is resolved
 against the arenas (index posting lists expanded through the torch
-``expand_csr`` above the device gate, numpy below it), then — for lossy
+``expand_csr`` or numpy, as the planner prices them: query/planner.py),
+then — for lossy
 tokenizers (float/year/term-eq/trigram/geo) — exact-rechecked on the
 host.  k-way intersections (allofterms / alloftext, term-eq, trigram AND)
-route through ``joinplan.kway_intersect``: the host fold below the
-arenas' ``kway_device_min``, the intersect kernel above it.
+route through ``joinplan.kway_intersect``: the host fold or the
+intersect kernel, as the planner prices them.
 """
 
 from __future__ import annotations
@@ -123,7 +124,9 @@ class FuncResolver:
     def _expand_rows(self, arena, rows: np.ndarray) -> np.ndarray:
         """Union of the posting lists at ``rows`` (expand + unique),
         size-routed host/device like QueryEngine._expand through the
-        same static gate (query/planner.py::expand_route)."""
+        same priced break-even (query/planner.py::expand_route; the
+        static expand_device_min compare when the planner is off or the
+        knob is pinned), recorded and closed like an engine hop."""
         from dgraph_tpu_torch.query import planner
 
         rows = np.asarray(rows, dtype=np.int64)
@@ -133,11 +136,19 @@ class FuncResolver:
         total = int(arena.degree_of_rows(rows).sum())
         if total == 0:
             return _EMPTY
+        use_device, dec = planner.expand_route(
+            total, self.arenas.expand_device_min
+        )
+        if dec is not None:
+            planner.record(self.stats, dec)
         st = self.stats if self.stats is not None else {}
-        if not planner.expand_route(total, self.arenas.expand_device_min):
+        r0 = st.get("resolver_expand_ms", 0.0)
+        if not use_device:
             with obs.stage(st, "resolver_expand_ms"):
                 out, _seg = arena.expand_host(rows)
-                return np.unique(out)
+                res = np.unique(out)
+            planner.note_outcome(dec, (st["resolver_expand_ms"] - r0) * 1e3)
+            return res
         with obs.stage(st, "resolver_expand_ms"):
             cap = ops.bucket(total)
             arena.ensure_device()  # stale after incremental host deltas
@@ -146,7 +157,9 @@ class FuncResolver:
             ).to(arena.device)
             out, _seg, _t = ops.expand_csr(arena.offsets, arena.dst, rows_t, cap)
             u = ops.sort_unique(out).cpu().numpy()
-            return u[u != SENT].astype(np.int64)
+            res = u[u != SENT].astype(np.int64)
+        planner.note_outcome(dec, (st["resolver_expand_ms"] - r0) * 1e3)
+        return res
 
     def _kway(self, sets: List[np.ndarray]) -> np.ndarray:
         """k-way intersection of sorted-unique sets, size-routed through

@@ -12,11 +12,13 @@ dense tile products or pairwise expansion, per query.
   per-edge cost; tiles must fit ``DGRAPH_TPU_TILE_BUDGET``, the mask
   ``DGRAPH_TPU_MXU_MASK_MAX``.
 - **`kway_intersect`** — the k-way set-intersection router: the host
-  ``np.intersect1d`` fold below the size gate (``kway_device_min``,
-  ``DGRAPH_TPU_KWAY_DEVICE_MIN``), one call of the intersect kernel
-  (``ops.kway.intersect_batch``) above it.  The engine's ``@filter``
-  AND, the fused chain's and this tier's keep-set ANDs and the
-  resolver's token / trigram folds route through here.
+  ``np.intersect1d`` fold or one call of the intersect kernel
+  (``ops.kway.intersect_batch``), priced by the planner
+  (``planner.kway_route``; the static size gate ``kway_device_min`` /
+  ``DGRAPH_TPU_KWAY_DEVICE_MIN`` when it is off or the gate is
+  pinned).  The engine's ``@filter`` AND, the fused chain's and this
+  tier's keep-set ANDs and the resolver's token / trigram folds route
+  through here.
 - **decision recording** — every route decision of the tile tier lands
   in the per-request ``engine.stats["join_routes"]`` (bounded), a
   process-level ring with counts (``debug_summary``, served at
@@ -29,11 +31,15 @@ cost model, ``force`` skips the cost comparison (structural eligibility
 still applies) and sends every k-way intersection of at most
 ``KWAY_K_MAX`` sets to the device.
 
-The port has no calibrated planner: the cost compare is the reference's
-``DGRAPH_TPU_PLANNER=0`` branch (its static rate table,
-``_STATIC_RATES``), so the decisions equal the reference's under that
-setting.  A sampled request records the tile chain as one ``hop``
-span (route ``mxu``) and a device k-way step as a ``kway`` span (the
+The tile tier's cost compare reads the planner's live rates
+(``query/planner.py::rates``) while the planner is on, and the
+reference's planner-off constants (``_STATIC_RATES``) under
+``DGRAPH_TPU_PLANNER=0``; a k-way intersection is priced by
+``planner.kway_route`` (the static ``kway_device_min`` gate when the
+planner is off or the gate is pinned), so the decisions equal the
+reference's under the same calibration.  A sampled request records the
+tile chain as one ``hop`` span (route ``mxu``) and a device k-way step
+as a ``kway`` span (the
 port's addition), each with its ``device_sync_ms``.  The reference's
 device guard and failpoints around the dispatch are not ported: a
 device fault propagates.
@@ -61,11 +67,12 @@ _EMPTY = np.empty(0, dtype=np.int64)
 # the reference's bound on the sets of one device k-way call
 KWAY_K_MAX = 16
 
-# Cost rates (µs) of the reference's planner-off compare, verbatim:
-# the decision only has to be right about which side of a ~100× shape
-# gap a query sits on, and every decision is recorded with both
-# estimates.  gather_edge_us is the gather tier's per-edge cost
-# including host conversion.
+# Cost rates (µs) of the reference's planner-off compare, verbatim
+# (DGRAPH_TPU_PLANNER=0; the planner's live rates otherwise): the
+# decision only has to be right about which side of a ~100× shape gap a
+# query sits on, and every decision is recorded with both estimates.
+# _GATHER_EDGE_US is the gather tier's per-edge cost including host
+# conversion.
 _STATIC_RATES = {
     "dispatch_us": 120.0,
     "tile_mac_us": 1.2e-4,
@@ -134,10 +141,15 @@ def kway_intersect(
     """Intersection of k sorted-unique uid sets, routed by
     ``DGRAPH_TPU_MXU_JOIN``: '0' or more than ``KWAY_K_MAX`` sets fold on
     the host; 'force' takes the intersect kernel on ``device`` (default
-    cuda); '1' takes it when the total size reaches ``device_min``
-    (default ``planconfig.kway_device_min()``).  Byte-identical either
-    way (sorted-unique int64); each route is counted in ``stats``, the
-    process counts and the ``dgraph_kway_intersect_total`` counter."""
+    cuda); '1' asks the planner (``planner.kway_route``), or, when it is
+    off or the gate is pinned, takes the kernel once the total size
+    reaches ``device_min`` (default ``planconfig.kway_device_min()``).
+    Byte-identical either way (sorted-unique int64); each route is
+    counted in ``stats``, the process counts and the
+    ``dgraph_kway_intersect_total`` counter, and a priced decision is
+    recorded and closed with the measured ``kway_ms``."""
+    from dgraph_tpu_torch.query import planner
+
     sets = [np.asarray(s, dtype=np.int64) for s in sets]
     if not sets:
         return _EMPTY
@@ -148,14 +160,23 @@ def kway_intersect(
     total = sum(len(s) for s in sets)
     k = len(sets)
     mode = mxu_mode()
+    dec = None
     if mode == "0" or k > KWAY_K_MAX:
         use_device = False
     elif mode == "force":
         use_device = True
     else:
-        gate = planconfig.kway_device_min() if device_min is None else device_min
-        use_device = total >= gate
+        use_device, dec = planner.kway_route(total, k, device_min)
+        if use_device is None:
+            gate = (
+                planconfig.kway_device_min() if device_min is None
+                else device_min
+            )
+            use_device = total >= gate
+    if dec is not None:
+        planner.record(stats, dec)
     st = stats if stats is not None else {}
+    k0 = st.get("kway_ms", 0.0)
     if use_device:
         dev = devmod.resolve(device)
         # sampled: the device k-way step records a ``kway`` span (the
@@ -188,6 +209,7 @@ def kway_intersect(
         _COUNTS[route] += 1
     if stats is not None:
         stats[route] = stats.get(route, 0) + 1
+        planner.note_outcome(dec, (stats["kway_ms"] - k0) * 1e3)
     return res
 
 
@@ -376,9 +398,19 @@ def try_mxu_route(engine, child, src: np.ndarray, resolver) -> bool:
             if nz[-1] >= mean_cls + 4:
                 pad = 2.0
                 break
-    r = _STATIC_RATES
+    # rate table: the planner's live rates while it is on (the gather
+    # tier's per-edge cost is the device gather plus the per-level host
+    # conversion, chain_route's split of the flat 0.02), the reference's
+    # planner-off constants verbatim under DGRAPH_TPU_PLANNER=0
+    planner_on = planner.enabled()
+    if planner_on:
+        r = planner.rates()
+        gather_edge_us = r["device_edge_us"] + r["host_touch_us"]
+    else:
+        r = _STATIC_RATES
+        gather_edge_us = _GATHER_EDGE_US
     est_pairwise = len(levels) * r["dispatch_us"] + est_total * (
-        _GATHER_EDGE_US * pad
+        gather_edge_us * pad
     )
     nbm = m // t
     per_pass = sum(
@@ -430,6 +462,18 @@ def try_mxu_route(engine, child, src: np.ndarray, resolver) -> bool:
         "mxu", levels, est_total, est_pairwise, est_mxu,
         reason="generic join over densified tiles",
     ))
+    # its twin in the planner's ring (kind mxu), so the post-hoc check
+    # covers the tile tier too; only while the planner is on
+    pdec = None
+    if planner_on:
+        pdec = {
+            "kind": "mxu", "route": "mxu", "units": int(est_total),
+            "est_chosen_us": round(float(est_mxu), 1),
+            "est_other_us": round(float(est_pairwise), 1),
+            "reason": "generic join over densified tiles",
+        }
+        planner.record(engine.stats, pdec)
+    mxu_ms0 = engine.stats.get("mxu_join_ms", 0.0)
 
     dev = engine.device
     src64 = np.asarray(src, dtype=np.int64)
@@ -494,6 +538,9 @@ def try_mxu_route(engine, child, src: np.ndarray, resolver) -> bool:
             hs.set_attr("mask_lanes", int(m))
             hs.set_attr("tiles", [int(pt.n_tiles) for pt in tiles])
             hs.set_attr("device_sync_ms", round(sync_ms, 3))
+    planner.note_outcome(
+        pdec, (engine.stats.get("mxu_join_ms", 0.0) - mxu_ms0) * 1e3
+    )
 
     # --- stage light-mode stashes (the chain consumer's contract) ---
     src_list: Optional[np.ndarray] = src64

@@ -4,7 +4,7 @@ Recurse:164 in Dgraph).
 
 The same child template re-expands level by level; each realized level
 and template is one ``engine._exec_child``, so the ``DeviceExpander``
-routes it (the gather kernel above ``expand_device_min``).  Already
+routes it (the gather kernel where the planner prices it).  Already
 visited targets are masked out of each level (the reference's per-edge
 reachMap, recurse.go:110-145, as sorted visited-uid sets), value leaves
 are fetched again for every new frontier, and the walk stops at

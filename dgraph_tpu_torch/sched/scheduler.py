@@ -46,10 +46,13 @@ all — singleflight's reuse window (while a twin is in flight) extended
 to the whole mutation epoch.  Gated by ``DGRAPH_TPU_CACHE`` (default
 on; ``0`` restores today's path byte-identically).
 
-The reference's load-adaptive admission (its ``CohortController``) is
-armed only while its calibrated planner is on; the port's planner is
-the reference's static half, so cohort size and the flush deadline are
-the static knobs below — the reference under ``DGRAPH_TPU_PLANNER=0``.
+Admission is load-adaptive by default: while the planner is on
+(``DGRAPH_TPU_PLANNER``) and neither knob is pinned, cohort size and the
+flush deadline track measured queue wait and occupancy inside hard
+bounds — [base, 8×base] members, [base/8, base] deadline — through
+``query/planner.py::CohortController`` (its state at
+``/debug/planner``).  Responses never depend on either knob; pinning
+one (env or constructor argument) keeps the static values.
 
 Multi-tenant QoS (sched/qos.py): requests carry a tenant scope
 (``X-Dgraph-Tenant``; absent = ``default``).  Admission
@@ -84,6 +87,7 @@ from typing import Dict, List, Optional
 from dgraph_tpu_torch import ivm as _ivm
 from dgraph_tpu_torch import obs
 from dgraph_tpu_torch.obs import ledger as _ledgermod
+from dgraph_tpu_torch.query import planner as _planner
 from dgraph_tpu_torch.sched import qos as _qos
 from dgraph_tpu_torch.sched import segments as _segments
 from dgraph_tpu_torch.sched.cohort import (
@@ -187,6 +191,20 @@ class CohortScheduler:
         # must not preempt AGAIN from inside the donated flush (the
         # critical query's own seams would otherwise recurse)
         self._donation = threading.local()
+        # load-adaptive cohort admission (query/planner.py): armed only
+        # when the planner is on and neither knob is pinned — an env
+        # value or a constructor argument is an operator override
+        self._adaptive = None
+        if (
+            _planner.enabled()
+            and max_batch is None
+            and flush_ms is None
+            and not _planconfig.overridden("DGRAPH_TPU_SCHED_MAX_BATCH")
+            and not _planconfig.overridden("DGRAPH_TPU_SCHED_FLUSH_MS")
+        ):
+            self._adaptive = _planner.CohortController(
+                self.max_batch, self.flush_s
+            )
         n_workers = int(
             concurrency
             if concurrency is not None
@@ -529,8 +547,11 @@ class CohortScheduler:
         now = time.monotonic()
         live: List[SchedRequest] = []
         shed: List[SchedRequest] = []
+        max_wait = 0.0
         for req in cohort.reqs:
-            SCHED_QUEUE_WAIT.observe(now - req.enqueued)
+            w = now - req.enqueued
+            max_wait = max(max_wait, w)
+            SCHED_QUEUE_WAIT.observe(w)
             if req.expired(now):
                 self._shed_deadline(req, now)
                 shed.append(req)
@@ -554,6 +575,10 @@ class CohortScheduler:
                 for r in shed:
                     self._release_req_slot_locked(r)
         if not live:
+            # a fully shed cohort is the strongest overload signal: its
+            # queue waits must reach the controller, or the deadline
+            # never tightens under the backlog it exists for
+            self._adapt(len(cohort.reqs), max_wait, 0.0)
             return
         # singleflight: equal-key members are the same deterministic
         # computation — run the first of each key, deal its result to
@@ -693,6 +718,25 @@ class CohortScheduler:
             if flush_span is not None:
                 flush_span.set_attr("merged_hops", merger.merged_dispatches)
                 flush_span.finish()
+            # feed this flush's measurements back: occupancy, the worst
+            # queue wait and the cohort's service time
+            self._adapt(len(cohort.reqs), max_wait, time.monotonic() - now)
+
+    def _adapt(self, occupancy: int, max_wait: float, service_s: float) -> None:
+        """Feed one flush's measurements to the adaptive controller,
+        honouring a runtime planner flip: switched off, the knobs snap
+        back to their static bases."""
+        if self._adaptive is None:
+            return
+        if _planner.enabled():
+            mb, fs = self._adaptive.update(occupancy, max_wait, service_s)
+        else:
+            mb, fs = self._adaptive.base_batch, self._adaptive.base_flush_s
+        # both knobs move together and _next_cohort reads them under
+        # _cond: unlocked stores could publish one worker's max_batch
+        # with another's flush_s
+        with self._cond:
+            self.max_batch, self.flush_s = mb, fs
 
     def _complete_follower(
         self, req, lead, merger, have_engine_lock: bool = False

@@ -103,11 +103,15 @@ def early_exit(loop: str) -> None:
 
 def plan(n_steps: int, est_step_units: int, loop: str) -> int:
     """The segment size for one run of a fused hop loop
-    (planner.segment_route, the reference's static half): k hops between
-    seams, 0 = no seam at all.  Counts the segmented runs."""
+    (planner.segment_route): k hops between seams, 0 = no seam at all.
+    Records a priced decision into the active request's stats and counts
+    the segmented runs."""
     from dgraph_tpu_torch.query import planner
 
-    k = planner.segment_route(n_steps, est_step_units, loop)
+    k, dec = planner.segment_route(n_steps, est_step_units, loop)
+    if dec is not None:
+        ctx = current()
+        planner.record(ctx.stats if ctx is not None else None, dec)
     if k > 0:
         SEGMENT_DISPATCHES.add(loop)
     return k

@@ -28,8 +28,12 @@
   is armed (ratio > 0); at ratio 0 no span is allocated.
 - ``GET /debug/device`` — backend, device name, kernel builds and the
   arenas' device residency (obs/device.py); ``GET /debug/bundle`` — one
-  postmortem JSON (traces, slow queries, route gates, qos, ivm, caches,
-  device, ledger aggregates).
+  postmortem JSON (traces, slow queries, the planner's summary, qos,
+  ivm, caches, device, ledger aggregates).
+- ``GET /debug/planner`` — the planner (query/planner.py): calibration
+  provenance and live rates, decision counts by (kind, route),
+  mispredicts, the recent decisions with both estimates, the join
+  tier's ring and the cohort controller's state.
 - ``GET``/``POST /admin/cancel?trace_id=`` — cancel the live sampled,
   scheduled read of that trace: 200, the read answers 499; 404 when no
   live query holds the id.
@@ -96,6 +100,7 @@ from dgraph_tpu_torch.models.durability import (
 from dgraph_tpu_torch.models.store import PostingStore
 from dgraph_tpu_torch.obs import device as _device
 from dgraph_tpu_torch.obs import ledger as _ledger
+from dgraph_tpu_torch.query import planner as _planner
 from dgraph_tpu_torch.query.engine import QueryEngine
 from dgraph_tpu_torch.sched import qos as _qos
 from dgraph_tpu_torch.sched.cohort import (
@@ -106,6 +111,7 @@ from dgraph_tpu_torch.sched.cohort import (
 from dgraph_tpu_torch.sched.qos import QueryCancelledError
 from dgraph_tpu_torch.sched.scheduler import CohortScheduler, sched_enabled
 from dgraph_tpu_torch.serve.export import export as export_rdf
+from dgraph_tpu_torch.utils import planconfig as _planconfig
 from dgraph_tpu_torch.utils.health import HealthGate
 from dgraph_tpu_torch.utils.metrics import (
     NUM_QUERIES,
@@ -156,6 +162,15 @@ class DgraphServer:
             store, device=device,
             arena_budget_bytes=(arena_budget_mb * (1 << 20)) or None,
         )
+        # planner calibration (query/planner.py): a persisted calibration
+        # of this device's backend loads on every boot; the measurement
+        # pass runs only under DGRAPH_TPU_CALIBRATE=1.  A measurement that
+        # fails raises: a card that cannot launch the kernels is sick
+        if _planner.enabled():
+            _planner.boot(
+                measure_now=_planconfig.calibrate_at_boot(),
+                device=self.engine.device,
+            )
         # RW lock: read-only queries run CONCURRENTLY over the shared
         # arenas; mutations (and every request on the serial path) take
         # the exclusive side
@@ -528,7 +543,9 @@ def _make_handler(srv: DgraphServer):
                     "slow_queries": (
                         rec.slow_queries() if srv.expose_trace else None
                     ),
-                    "planner": _planner_summary(srv),
+                    "planner": _planner.debug_summary(
+                        scheduler=srv.scheduler
+                    ),
                     "qos": (
                         srv.scheduler.qos_state()
                         if srv.scheduler is not None
@@ -540,6 +557,17 @@ def _make_handler(srv: DgraphServer):
                     "ledger": _ledger.aggregate_summary(),
                 }
                 self._reply(200, json.dumps(bundle, default=str).encode())
+            elif path == "/debug/planner":
+                # the route-decision view (query/planner.py): calibration
+                # and live rates, decision counts with mispredicts, the
+                # recent ring (both estimates, and the measured latency
+                # once closed), the join ring and the cohort controller
+                self._reply(
+                    200,
+                    json.dumps(
+                        _planner.debug_summary(scheduler=srv.scheduler)
+                    ).encode(),
+                )
             elif path == "/debug/requests":
                 if not srv.expose_trace:
                     return self._err(403, "tracing not exposed")
@@ -868,34 +896,6 @@ def _make_handler(srv: DgraphServer):
             self._reply(200, json.dumps(out).encode())
 
     return Handler
-
-
-def _planner_summary(srv: DgraphServer) -> dict:
-    """/debug/bundle "planner" section.  The port's planner is the
-    reference's static half (query/planner.py): no calibration and no
-    decision ring, so this reports the gates its compares read, the join
-    tier's route ring and the scheduler's (static) cohort knobs."""
-    from dgraph_tpu_torch.query import joinplan
-
-    eng = srv.engine
-    out = {
-        "enabled": False,
-        "calibration": None,
-        "gates": {
-            "expand_device_min": eng.expand_device_min,
-            "kway_device_min": eng.arenas.kway_device_min,
-            "chain_threshold": eng.chain_threshold,
-        },
-        "join": joinplan.debug_summary(),
-    }
-    sched = srv.scheduler
-    if sched is not None:
-        out["sched"] = {
-            "adaptive": False,
-            "max_batch": sched.max_batch,
-            "flush_ms": round(sched.flush_s * 1e3, 3),
-        }
-    return out
 
 
 def _ivm_stats(srv: DgraphServer) -> Optional[dict]:

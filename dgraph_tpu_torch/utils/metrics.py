@@ -19,8 +19,8 @@ the port's kernel builds at first use (``ops/_build.py``: one ``nvcc``
 per CUDA source, one ``g++`` per host library), the counterpart of a
 backend compilation; ``dgraph_build_info`` carries a ``torch`` label
 where the reference's carries ``jax``.  The instruments of the
-unported layers (mesh, device guard, planner, subscriptions, gRPC) are
-not here.
+unported layers (mesh, device guard, subscriptions, gRPC) are not
+here.
 """
 
 from __future__ import annotations
@@ -538,6 +538,22 @@ QCACHE_HIT_AGE = metrics.histogram(
     "dgraph_qcache_hit_age_seconds",
     (0.001, 0.01, 0.1, 1.0, 10.0, 60.0, 600.0),
 )
+
+# measured-cost planner (query/planner.py): every route decision is
+# counted per (kind, route), every post-hoc check that catches the model
+# on the wrong side of a break-even lands in MISPREDICT{kind}, and every
+# calibration pass that ran in CALIBRATIONS.  A sustained rise of the
+# mispredict rate (mispredicts / decisions) means the persisted
+# calibration no longer matches the card: re-run it
+# (DGRAPH_TPU_CALIBRATE=1).
+PLANNER_DECISIONS = metrics.multilabeled(
+    "dgraph_planner_decisions_total", ("kind", "route")
+)
+PLANNER_MISPREDICTS = metrics.labeled(
+    "dgraph_planner_mispredict_total", label="kind"
+)
+PLANNER_CALIBRATIONS = metrics.counter("dgraph_planner_calibrations_total")
+
 
 # the tile join tier (ops/spgemm.py + query/joinplan.py): every route
 # decision (mxu vs pairwise) and every k-way intersection's host or

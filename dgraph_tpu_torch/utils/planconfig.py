@@ -3,6 +3,15 @@
 one setting steers both engines).
 
 Env knob                      Default  Meaning
+DGRAPH_TPU_PLANNER            1        measured-cost planner
+                                       (query/planner.py): '0' restores
+                                       every static compare below
+DGRAPH_TPU_CALIBRATION_FILE   scratch/planner_calib_torch.json
+                                       persisted calibration ('' keeps none);
+                                       the port's own default path, so the
+                                       two packages never share a file
+DGRAPH_TPU_CALIBRATE          0        '1' re-measures the rates on the
+                                       card at server boot and persists them
 DGRAPH_TPU_EXPAND_DEVICE_MIN  262144   min per-level fan-out before an
                                        expansion leaves host numpy for a
                                        device dispatch
@@ -13,15 +22,16 @@ DGRAPH_TPU_RESIDENT           1        resident-CSR gather tier: '0' never,
 DGRAPH_TPU_KWAY_DEVICE_MIN    262144   min total elements of a k-way
                                        intersection before the host fold
                                        yields to the intersect kernel
+                                       (static; the planner prices it)
 DGRAPH_TPU_CHAIN_THRESHOLD    262144   min estimated fan-out of a uid chain
                                        before it fuses (query/chain.py)
 DGRAPH_TPU_SEGMENT            auto     segment seams in the fused hop loops
                                        (sched/segments.py): '0' never,
                                        'force' every DGRAPH_TPU_SEGMENT_K
-                                       hops, 'auto' never (the reference
-                                       prices it with its calibrated
-                                       planner, which the port lacks)
-DGRAPH_TPU_SEGMENT_K          4        hops per segment under 'force'
+                                       hops, 'auto' priced by the planner
+                                       (never while it is off)
+DGRAPH_TPU_SEGMENT_K          4        hops per segment under 'force' (and
+                                       under 'auto' when pinned)
 DGRAPH_TPU_MXU_JOIN           1        tile join tier (query/joinplan.py):
                                        '0' off, '1' behind the cost model,
                                        'force' skips the cost compare
@@ -32,13 +42,15 @@ DGRAPH_TPU_TILE               128      adjacency tile edge length
 DGRAPH_TPU_TILE_BUDGET        1<<28    per-arena tile byte budget
 DGRAPH_TPU_IVM_REPAIR         1        in-place repair of hop-cache entries
                                        and tiles after a delta: '0' drop
-                                       only, '1' within the cap below (the
-                                       reference's static gate), 'force'
-                                       the same
+                                       only, '1' within the cap below and
+                                       priced by the planner, 'force'
+                                       within the cap
 DGRAPH_TPU_IVM_REPAIR_MAX_DELTA 512    largest edge delta repaired in place
 
 Every knob is read per call, so a test or an operator flips it without
-rebuilding the engine.
+rebuilding the engine.  A knob set in the environment is pinned
+(``overridden``): the planner then keeps the static compare for the
+gate it steers.
 """
 
 from __future__ import annotations
@@ -53,6 +65,14 @@ MXU_MASK_MAX_DEFAULT = 1 << 22
 TILE_DEFAULT = 128
 TILE_BUDGET_DEFAULT = 1 << 28
 IVM_REPAIR_MAX_DELTA_DEFAULT = 512
+CALIBRATION_FILE_DEFAULT = "scratch/planner_calib_torch.json"
+
+
+def overridden(name: str) -> bool:
+    """Is this knob explicitly pinned in the environment?  The planner
+    treats a pinned knob as an operator override and keeps the static
+    compare for that gate."""
+    return name in os.environ
 
 
 def _int(name: str, default: int) -> int:
@@ -60,6 +80,26 @@ def _int(name: str, default: int) -> int:
     if raw is None or raw == "":
         return default
     return int(raw)
+
+
+def planner_enabled() -> bool:
+    """DGRAPH_TPU_PLANNER: the measured-cost planner gate (default on).
+    ``0`` restores every static compare."""
+    return os.environ.get("DGRAPH_TPU_PLANNER", "1") != "0"
+
+
+def calibration_file() -> str:
+    """Path of the persisted calibration JSON ('' keeps none)."""
+    return os.environ.get(
+        "DGRAPH_TPU_CALIBRATION_FILE", CALIBRATION_FILE_DEFAULT
+    )
+
+
+def calibrate_at_boot() -> bool:
+    """DGRAPH_TPU_CALIBRATE=1: re-measure the rates at server boot and
+    persist them, replacing any file (the stale-calibration remedy).
+    Default off: a boot loads the persisted file or keeps the priors."""
+    return os.environ.get("DGRAPH_TPU_CALIBRATE", "0") == "1"
 
 
 def expand_device_min() -> int:
@@ -85,12 +125,13 @@ def chain_threshold() -> int:
 
 
 def segment_mode() -> str:
-    """DGRAPH_TPU_SEGMENT: '0', 'auto' or 'force'."""
+    """DGRAPH_TPU_SEGMENT: '0', 'auto' (priced) or 'force'."""
     return os.environ.get("DGRAPH_TPU_SEGMENT", "auto")
 
 
 def segment_k() -> int:
-    """Hops per segment under DGRAPH_TPU_SEGMENT=force."""
+    """Hops per segment under DGRAPH_TPU_SEGMENT=force (and under
+    'auto' when pinned)."""
     return _int("DGRAPH_TPU_SEGMENT_K", SEGMENT_K_DEFAULT)
 
 
@@ -118,7 +159,8 @@ def tile_budget() -> int:
 
 def ivm_repair_mode() -> str:
     """DGRAPH_TPU_IVM_REPAIR: '0' never repair (drop only), '1' (default)
-    and 'force' repair a delta within the cap."""
+    a delta within the cap when the planner prices repair below the
+    refills, 'force' any delta within the cap."""
     return os.environ.get("DGRAPH_TPU_IVM_REPAIR", "1")
 
 

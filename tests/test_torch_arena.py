@@ -11,6 +11,10 @@ import torch
 
 from dgraph_tpu.models import arena as jarena
 from dgraph_tpu_torch.models import arena as tarena
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 
 def _pair(seed, n=300, n_edges=3000):

@@ -22,6 +22,10 @@ from dgraph_tpu import ops as jops
 from dgraph_tpu.models import arena as jarena
 from dgraph_tpu_torch import ops as tops
 from dgraph_tpu_torch.models import arena as tarena
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 SENT = tops.SENT
 

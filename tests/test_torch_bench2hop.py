@@ -32,8 +32,12 @@ from dgraph_tpu_torch import ops as tops  # noqa: E402
 from dgraph_tpu_torch.models import arena as tarena  # noqa: E402
 from dgraph_tpu_torch.models import carry  # noqa: E402
 from dgraph_tpu_torch.ops import slotmap as tslot  # noqa: E402
+from torch_pins import pinned_planner  # noqa: F401
 
-pytestmark = pytest.mark.pallas_interpret
+pytestmark = [
+    pytest.mark.pallas_interpret,
+    pytest.mark.usefixtures("pinned_planner"),
+]
 
 CPU = torch.device("cpu")
 

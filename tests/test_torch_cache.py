@@ -41,6 +41,10 @@ from dgraph_tpu_torch.serve.server import DgraphServer
 from dgraph_tpu_torch.utils.metrics import QCACHE_RESULT_EVENTS
 
 from tests.test_torch_sched import _jax_edge, _mutate
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 N_NODES, N_EDGES = 300, 1500
 
@@ -50,20 +54,26 @@ N_NODES, N_EDGES = 300, 1500
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_lfu_matches_reference_on_a_seeded_op_sequence(seed):
-    """Puts (some over the per-entry cap), gets at live and older
+    """Puts (some over the per-entry cap), gets at live and other
     versions, live probes, drops and clears on a small budget, so
     admission, refusal, stale reclaim, aging and eviction all run: both
-    caches answer every op alike and hold the same bytes after it."""
+    caches answer every op alike and hold the same bytes after it.
+
+    Every put is at one version: the reference's put-time generation
+    sweep reclaims entries of other versions, which the port does not do
+    (``test_sweep_keeps_an_entry_of_another_footprint``), so the two
+    agree on sequences where a put never meets an entry of another
+    version."""
     rng = np.random.default_rng(seed)
-    kw = dict(budget_bytes=4000, age_interval=16, sweep_limit=4)
-    mine, ref = VersionedLFUCache(**kw), JaxLFU(**kw)
+    kw = dict(budget_bytes=4000, age_interval=16)
+    mine, ref = VersionedLFUCache(**kw), JaxLFU(sweep_limit=4, **kw)
     for step in range(1500):
         op = rng.random()
         key = "k%d" % rng.integers(0, 40)
         ver = int(rng.integers(0, 3))
         if op < 0.45:
             nb = int(rng.choice([50, 120, 300, 700]))
-            assert mine.put(key, ver, step, nb) == ref.put(key, ver, step, nb)
+            assert mine.put(key, 1, step, nb) == ref.put(key, 1, step, nb)
         elif op < 0.9:
             g, w = mine.get(key, ver), ref.get(key, ver)
             assert (g is None) == (w is None), step
@@ -80,6 +90,31 @@ def test_lfu_matches_reference_on_a_seeded_op_sequence(seed):
             ref.clear()
         assert len(mine) == len(ref), step
         assert mine.occupancy_bytes == ref.occupancy_bytes, step
+
+
+def test_sweep_keeps_an_entry_of_another_footprint():
+    """An entry is keyed on its own footprint's version (ivm/versions.py):
+    ``a`` read only ``e`` (version 1), ``b`` read ``e`` and ``name``
+    (written last, version 2).  Nothing ``a`` read changed, so ``a`` is
+    live; the reference's put-time sweep reclaims it all the same, and
+    the port keeps it."""
+    from dgraph_tpu_torch.models.types import TypeID, TypedValue
+
+    st = PostingStore()
+    st.apply(Edge(pred="e", src=1, dst=2))
+    st.apply(Edge(pred="name", src=1, value=TypedValue(TypeID.STRING, "x")))
+    va = ivm.version_for(st, ["e"])
+    vb = ivm.version_for(st, ["e", "name"])
+    assert va < vb == st.version
+    mine, ref = VersionedLFUCache(4000), JaxLFU(4000)
+    for c in (mine, ref):
+        assert c.put("a", va, "A", 100)
+        assert c.put("b", vb, "B", 100)
+    assert ref.get("a", va) is None  # the reference swept a live entry
+    assert len(ref) == 1
+    hit = mine.get("a", va)
+    assert hit is not None and hit[0] == "A"
+    assert mine.get("b", vb)[0] == "B" and len(mine) == 2
 
 
 def test_digests_match_reference():

@@ -28,9 +28,13 @@ from dgraph_tpu_torch.query import QueryEngine
 
 from tests.test_chain import QUERIES, SCHEMA
 from tests.torch_parity import REFERENCE_ENV, body, port_store_of
+from torch_pins import pinned_planner  # noqa: F401
 
 # the reference compiles one chain program per capacity tuple
-pytestmark = pytest.mark.compile_budget(400)
+pytestmark = [
+    pytest.mark.compile_budget(400),
+    pytest.mark.usefixtures("pinned_planner"),
+]
 
 PINNED_OFF = 1 << 62
 

@@ -42,6 +42,10 @@ from dgraph_tpu_torch.models import store as tstore
 from dgraph_tpu_torch.models import types as ttypes
 from dgraph_tpu_torch.models import wal as twal
 from dgraph_tpu_torch.models.store import Edge
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 
 def wait_for(cond, timeout=5.0, step=0.02):

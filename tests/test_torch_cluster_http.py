@@ -51,6 +51,10 @@ from tests.test_cluster_http import (  # noqa: F401 — the module-wide fixture
     _try_post,
     _wait,
 )
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 ROOT = Path(__file__).resolve().parents[1]
 

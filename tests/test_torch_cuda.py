@@ -6,9 +6,12 @@ gather launch a hop) and the tile join tier's mask chain on the card
 against the same calls on the CPU, a hop merged across four engine
 shells as one gather launch, a durable directory recovered on the
 card answering its 2-hop through the gather, and a sampled 2-hop served
-on the card whose hop spans carry the device wait.  Every test is marked ``cuda`` and skips
+on the card whose hop spans carry the device wait, and the planner's
+calibration on the card (positive rates; a kernel that fails to launch
+makes it raise).  Every test is marked ``cuda`` and skips
 where no GPU is visible.  The file imports neither JAX nor the JAX
-package, so on the card's machine (no JAX there) it runs alone:
+package (its planner pin, tests/torch_pins.py, pins the port's planner
+alone where JAX is missing), so on the card's machine it runs alone:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
@@ -27,8 +30,12 @@ from dgraph_tpu_torch.ops import kway
 from dgraph_tpu_torch.ops import order as torder
 from dgraph_tpu_torch.ops import slotmap as tslot
 import torch_cases  # tests/torch_cases.py (pytest puts tests/ on the path)
+from torch_pins import pinned_planner  # noqa: F401
 
-pytestmark = pytest.mark.cuda
+pytestmark = [
+    pytest.mark.cuda,
+    pytest.mark.usefixtures("pinned_planner"),
+]
 
 
 def _need_gpu():
@@ -460,7 +467,8 @@ def test_cluster_two_hop_on_the_card_matches_the_cpu_cluster(tmp_path, monkeypat
 
 
 def test_sampled_two_hop_on_the_card_records_device_sync(tmp_path):
-    """A sampled 2-hop served on the card (gate at 1, caches detached):
+    """A sampled 2-hop served on the card (gate at 1, the chain pinned
+    off so that each level is a hop of its own, caches detached):
     every hop span on the resident route carries ``device_sync_ms``
     (waited for on a CUDA event) within the hop's duration, the gather
     launches once a resident hop, and the body equals the CPU server's."""
@@ -484,6 +492,8 @@ def test_sampled_two_hop_on_the_card_records_device_sync(tmp_path):
         store.bulk_set_uid_edges("e", src, dst)
         srv = DgraphServer(store, device=device)
         srv.engine.expand_device_min = 1
+        # the priced chain route would fuse the two levels into one pass
+        srv.engine.chain_threshold = 1 << 62
         srv.engine.arenas.hop_cache = None
         srv.scheduler.result_cache = None
         srv.start()
@@ -513,3 +523,56 @@ def test_sampled_two_hop_on_the_card_records_device_sync(tmp_path):
     for s in resident:
         assert s["attrs"]["pred"] == "e"
         assert 0.0 < s["attrs"]["device_sync_ms"] <= s["dur_us"] / 1e3
+
+
+def test_calibration_on_the_card_measures_positive_rates(tmp_path, monkeypatch):
+    _need_gpu()
+    from dgraph_tpu_torch.query import planner
+    from dgraph_tpu_torch.utils import calibrate
+
+    n0, k0 = tgather.KERNEL.launches, kway.KERNEL.launches
+    cal = calibrate.measure(edges=1 << 14, reps=3, device="cuda")
+    assert cal.source == "measured" and cal.backend == "cuda"
+    for k, v in cal.rates().items():
+        assert v > 0, k
+    # the pass went through the kernels themselves
+    assert tgather.KERNEL.launches > n0 and kway.KERNEL.launches > k0
+    path = str(tmp_path / "calib.json")
+    monkeypatch.setenv("DGRAPH_TPU_CALIBRATION_FILE", path)
+    monkeypatch.setenv("DGRAPH_TPU_CALIBRATE", "1")
+    from dgraph_tpu_torch.models import PostingStore
+    from dgraph_tpu_torch.serve.server import DgraphServer
+
+    srv = DgraphServer(PostingStore(), device="cuda")
+    try:
+        info = planner.calibration_info()
+        assert info["source"] == "measured" and info["backend"] == "cuda"
+        assert calibrate.load(path, backend="cuda") is not None
+        assert calibrate.load(path, backend="cpu") is None
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("broken", ["gather", "intersect"])
+def test_calibration_raises_when_a_kernel_launch_fails(broken, monkeypatch):
+    """A calibration that cannot launch a kernel has found a sick card:
+    ``measure()`` and a ``DGRAPH_TPU_CALIBRATE=1`` server boot raise, and
+    nothing falls back to the priors."""
+    _need_gpu()
+    from dgraph_tpu_torch.models import PostingStore
+    from dgraph_tpu_torch.query import planner
+    from dgraph_tpu_torch.serve.server import DgraphServer
+    from dgraph_tpu_torch.utils import calibrate
+
+    def fail(*_a, **_k):
+        raise RuntimeError(f"injected {broken} launch failure")
+
+    kern = tgather.KERNEL if broken == "gather" else kway.KERNEL
+    monkeypatch.setattr(kern, "launch", fail)
+    with pytest.raises(RuntimeError, match="injected"):
+        calibrate.measure(edges=1 << 12, reps=2, device="cuda")
+    monkeypatch.setenv("DGRAPH_TPU_CALIBRATE", "1")
+    monkeypatch.setenv("DGRAPH_TPU_CALIBRATION_FILE", "")
+    with pytest.raises(RuntimeError, match="injected"):
+        DgraphServer(PostingStore(), device="cuda")
+    assert planner.calibration_info()["source"] != "measured"

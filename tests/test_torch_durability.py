@@ -42,6 +42,10 @@ from dgraph_tpu_torch.utils.metrics import (
     GROUP_COMMIT_WRITES,
     SNAPSHOTS,
 )
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 
 def _nb(store, pred, uid):
@@ -496,6 +500,42 @@ def test_server_readonly_mode_sheds_mutations_serves_reads(durable_server):
     assert store.health.probe_now()
     _post(port, _set_mutation(3))
     assert _get(port, "/health?detail=1")["storage"]["readonly"] is False
+
+
+def test_live_schema_mutation_bumps_the_version(durable_server, tmp_path):
+    """A schema mutation through a durable server moves ``store.version``
+    and the IVM floor, as the replay of the same record does, so a cache
+    entry keyed before the change goes stale; a restart reaches the same
+    version.  The reference's live path bumps neither (asserted beside
+    it): the port's fix of that fault."""
+    srv, store = durable_server
+    _post(srv.port, 'mutation { set { <0x1> <cv> "1" . } }')
+    v0 = store.version
+    _post(srv.port, "mutation { schema { cv: string @index(exact) . } }")
+    assert store.version == v0 + 1
+    assert store.pred_floor == store.version
+    live = store.version
+    srv.stop()
+    again = DurableStore(str(tmp_path / "p"))
+    try:
+        assert again.version == live
+    finally:
+        again.close()
+
+    from dgraph_tpu.models.store import Edge as JEdge
+    from dgraph_tpu.models.types import TypeID as JTypeID
+    from dgraph_tpu.models.types import TypedValue as JTypedValue
+    from dgraph_tpu.models.wal import DurableStore as JaxDurable
+
+    ref = JaxDurable(str(tmp_path / "ref"))
+    try:
+        ref.apply(JEdge(pred="cv", src=1,
+                        value=JTypedValue(JTypeID.STRING, "1")))
+        r0 = ref.version
+        ref.apply_schema("cv: string @index(exact) .")
+        assert ref.version == r0
+    finally:
+        ref.close()
 
 
 def test_server_sustained_writes_keep_wal_bounded(durable_server, tmp_path):

@@ -34,10 +34,15 @@ from tests import test_film, test_goldens
 from tests.torch_parity import (
     REFERENCE_ENV, body, golden_queries, port_store_of,
 )
+from torch_pins import pinned_planner  # noqa: F401
 
 # interpret-mode Pallas compiles one program per (frontier, capacity)
 # bucket; the reference side of these tests needs more than the default
-pytestmark = [pytest.mark.compile_budget(400), pytest.mark.pallas_interpret]
+pytestmark = [
+    pytest.mark.compile_budget(400),
+    pytest.mark.pallas_interpret,
+    pytest.mark.usefixtures("pinned_planner"),
+]
 
 
 def _fixture_pair(setup, port_resident="force"):
@@ -246,3 +251,45 @@ def geo_text_pair():
 def test_geo_and_fulltext_parity(geo_text_pair, text):
     _check(geo_text_pair, text, None)
     assert json.loads(body(geo_text_pair[1].run(text)))["me"], "no match: a vacuous case"
+
+
+# the root filter's `first: k` early exit: 5000 named uids, every third
+# with an `e` edge; the windows past the first 1024-candidate chunk stop
+# early, the others filter the whole set
+FIRST_RDF = "\n".join(
+    ['<0x%x> <name> "n%d" .' % (u, u) for u in range(1, 5001)]
+    + ["<0x%x> <e> <0x%x> ." % (u, u + 1) for u in range(1, 5001, 3)]
+)
+FIRST_CASES = [
+    "{ q(func: has(name), first: 5) @filter(has(e)) { uid } }",
+    "{ q(func: has(name), first: 3, offset: 200) @filter(has(e)) { uid name } }",
+    "{ q(func: has(name), first: 4, after: 0x800) @filter(has(e)) { uid } }",
+    "{ q(func: has(name), first: 3000) @filter(has(e)) { uid } }",
+    "{ q(func: has(name), first: 5, orderdesc: name) @filter(has(e)) { uid } }",
+    "{ q(func: has(name), first: -5) @filter(has(e)) { uid } }",
+]
+
+
+@pytest.fixture(scope="module")
+def first_pair():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("DGRAPH_TPU_QOS", raising=False)  # the early exit's gate
+        jeng = JaxEngine(JaxStore())
+        jeng.run("mutation { schema { name: string . e: uid . } }")
+        jeng.run("mutation { set { %s } }" % FIRST_RDF)
+        teng = QueryEngine(port_store_of(jeng.store), device="cpu")
+        yield jeng, teng
+
+
+@pytest.mark.parametrize("text", FIRST_CASES)
+def test_root_filter_first_early_exit_matches_reference(first_pair, text):
+    jeng, teng = first_pair
+    want = jeng.run(text)
+    got = teng.run(text)
+    assert body(got) == body(want)
+    assert teng.stats["first_early_exit"] == jeng.stats["first_early_exit"]
+    if text == FIRST_CASES[0]:
+        assert teng.stats["first_early_exit"] == 1
+        assert json.loads(body(got))["q"] == [
+            {"_uid_": "0x%x" % u} for u in (1, 4, 7, 10, 13)
+        ]

@@ -19,8 +19,12 @@ from dgraph_tpu import ops as jops
 from dgraph_tpu.models.arena import ResidentArena, csr_dense_from_edges
 from dgraph_tpu_torch.ops import gather as tgather
 import torch_cases  # tests/torch_cases.py (pytest puts tests/ on the path)
+from torch_pins import pinned_planner  # noqa: F401
 
-pytestmark = pytest.mark.pallas_interpret
+pytestmark = [
+    pytest.mark.pallas_interpret,
+    pytest.mark.usefixtures("pinned_planner"),
+]
 
 
 def _seeded(src, dst, n):

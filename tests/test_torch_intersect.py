@@ -23,8 +23,12 @@ from dgraph_tpu_torch.ops.kway import (
     KERNEL, KMAX, intersect_batch, intersect_kernel, intersect_plain,
 )
 import torch_cases  # tests/torch_cases.py (pytest puts tests/ on the path)
+from torch_pins import pinned_planner  # noqa: F401
 
-pytestmark = pytest.mark.pallas_interpret
+pytestmark = [
+    pytest.mark.pallas_interpret,
+    pytest.mark.usefixtures("pinned_planner"),
+]
 
 SENT = tops.SENT
 

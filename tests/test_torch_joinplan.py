@@ -28,6 +28,10 @@ from dgraph_tpu_torch.query import joinplan as tjoin
 
 from tests.test_spgemm import KWAY_Q, _seed_store
 from tests.torch_parity import REFERENCE_ENV, body, port_store_of
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 KWAY_STAT_KEYS = ("kway_ms", "kway_device", "kway_host")
 

@@ -28,6 +28,10 @@ from dgraph_tpu_torch.utils.metrics import (
     LEDGER_HOPS,
     LEDGERS_CREATED,
 )
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 SEED = """
 mutation {
@@ -272,7 +276,12 @@ def test_debug_bundle_is_one_consistent_postmortem(srv):
         assert key in b, key
     assert b["ledger"]["structs_created"] >= 1
     assert "edges_by_tenant" in b["ledger"]
-    assert b["planner"]["gates"]["expand_device_min"] == srv.engine.expand_device_min
+    # the planner section is the planner's own summary (/debug/planner)
+    pl = b["planner"]
+    assert set(pl) == set(_get(srv.addr, "/debug/planner"))
+    assert pl["enabled"] is True
+    assert pl["calibration"]["source"] == "pinned"
+    assert pl["counts"].get("expand:host", 0) >= 1
 
 
 def test_build_info_and_uptime_on_metrics(srv):

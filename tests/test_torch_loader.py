@@ -48,6 +48,10 @@ from dgraph_tpu_torch.serve.server import DgraphServer
 
 from tests import test_film, test_goldens
 from tests.test_torch_native import CORPUS
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -199,7 +203,31 @@ FIXTURES = {
 }
 
 
+def _reference_scanner_ready() -> None:
+    """Load the reference's native scanner before its bulk path runs.
+    Both packages take their scanner when it is built and their Python
+    parser otherwise, and the two routes number blank nodes in different
+    orders.  The reference builds its scanner without a lock, so in a
+    fresh checkout a worker whose first build races another worker's
+    caches "no scanner" for its whole process, and its stores then
+    differ from the port's (which builds under a file lock).  Build it
+    again until it loads, so both packages take the native route."""
+    if os.environ.get("DGRAPH_TPU_NO_NATIVE"):
+        return
+    from dgraph_tpu import native as jnative
+
+    for _ in range(5):
+        if jnative._lib is not None:
+            return
+        jnative._tried = False
+        if jnative.scanner() is not None:
+            return
+        time.sleep(0.5)
+    raise RuntimeError("the reference's native scanner did not build")
+
+
 def _stores(name):
+    _reference_scanner_ready()
     jeng = JaxEngine(JaxStore())
     teng = QueryEngine(PostingStore(), device="cpu")
     for eng in (jeng, teng):

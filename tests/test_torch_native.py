@@ -19,6 +19,10 @@ from dgraph_tpu_torch.models import PostingStore
 from dgraph_tpu_torch.ops import _build
 from dgraph_tpu_torch.serve.mutations import apply_mutation
 from dgraph_tpu_torch.utils.metrics import BULK_QUADS
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 CORPUS = r"""
 <0x1> <name> "Noor Haddad" .

@@ -41,6 +41,10 @@ from dgraph_tpu_torch.models import PostingStore
 from dgraph_tpu_torch.serve.server import DgraphServer
 from dgraph_tpu_torch.utils.metrics import SLOW_QUERIES, SPANS_RECORDED
 from dgraph_tpu_torch.utils.trace import Tracer
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 # the modules (``dgraph_tpu.utils`` re-exports the registry object under
 # the module's name)

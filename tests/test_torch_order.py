@@ -31,6 +31,10 @@ from dgraph_tpu_torch.query import QueryEngine
 from tests import test_goldens
 from tests.test_order import ORDER_QUERIES
 from tests.torch_parity import port_store_of
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 
 def _case(name, desc_seed=0):

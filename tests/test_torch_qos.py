@@ -32,6 +32,10 @@ from dgraph_tpu_torch.sched import qos
 from dgraph_tpu_torch.serve.server import DgraphServer
 from dgraph_tpu_torch.utils.failpoints import fail
 from dgraph_tpu_torch.utils.metrics import QUERY_CANCELLED, SEGMENT_YIELDS
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 JOIN = 10.0
 N_NODES, N_EDGES = 300, 1500

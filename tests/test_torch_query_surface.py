@@ -24,6 +24,10 @@ from dgraph_tpu_torch.bench2hop import gen_edges
 
 from tests.test_torch_engine import _fixture_pair, _run_reference
 from tests.torch_parity import body
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 N_NODES, N_EDGES, N_RANK = 300, 1500, 40
 

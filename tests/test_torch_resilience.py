@@ -36,6 +36,10 @@ from dgraph_tpu_torch.cluster.peerclient import (
     PeerUnavailableError,
 )
 from dgraph_tpu_torch.utils.failpoints import FailpointError, Failpoints, fail
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 
 @pytest.fixture(autouse=True)

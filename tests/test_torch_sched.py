@@ -52,6 +52,10 @@ from dgraph_tpu_torch.utils.metrics import (
 )
 
 from tests.torch_parity import REFERENCE_ENV
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 N_NODES, N_EDGES = 300, 1500
 JOIN = 10.0  # seconds any thread join / request may take

@@ -22,8 +22,13 @@ from dgraph_tpu_torch.serve.server import DgraphServer
 
 from tests import test_goldens
 from tests.torch_parity import REFERENCE_ENV
+from torch_pins import pinned_planner  # noqa: F401
 
-pytestmark = [pytest.mark.compile_budget(400), pytest.mark.pallas_interpret]
+pytestmark = [
+    pytest.mark.compile_budget(400),
+    pytest.mark.pallas_interpret,
+    pytest.mark.usefixtures("pinned_planner"),
+]
 
 REQUESTS = [
     "mutation { schema { %s } set { %s } }" % (test_goldens.SCHEMA, test_goldens.RDF),

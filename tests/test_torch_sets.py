@@ -10,6 +10,10 @@ import torch
 
 from dgraph_tpu import ops as jops
 from dgraph_tpu_torch import ops as tops
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 SEEDS = [0, 1, 2]
 

@@ -21,8 +21,12 @@ from dgraph_tpu.ops.sets import _ov_slot_map as j_ov_slot_map
 from dgraph_tpu_torch.ops import sets as tsets
 from dgraph_tpu_torch.ops import slotmap as tslot
 import torch_cases  # tests/torch_cases.py (pytest puts tests/ on the path)
+from torch_pins import pinned_planner  # noqa: F401
 
-pytestmark = pytest.mark.pallas_interpret
+pytestmark = [
+    pytest.mark.pallas_interpret,
+    pytest.mark.usefixtures("pinned_planner"),
+]
 
 
 def _grouped_case(rng, n_rows, pcap):

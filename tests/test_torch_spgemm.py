@@ -26,6 +26,10 @@ from dgraph_tpu_torch.ops.sets import SENT, bucket, pad_to
 from dgraph_tpu_torch.utils.metrics import IVM_REPAIRS, JOIN_TILE_BUILDS
 
 import torch
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 T = 8
 

@@ -35,6 +35,10 @@ from dgraph_tpu_torch.query import QueryEngine
 
 from tests import test_goldens
 from tests.torch_parity import body, golden_queries
+from torch_pins import pinned_planner  # noqa: F401
+
+# every route decision of both planners is pinned (tests/torch_pins.py)
+pytestmark = pytest.mark.usefixtures("pinned_planner")
 
 
 def _mk(tmp_path, name="s"):
