@@ -93,6 +93,41 @@ fewer it is no more than the largest one.
    and 6 at ratio 1, alternating: p50 of each and the mean
    ``device_sync_ms`` of a device hop (no limit is set on the cost).
    The counts are read right after.
+7b. device guard — every kernel's launch count is set to 0, then, on the
+   same server (caches detached, the per-level route), the var-block
+   2-hop count from 8192 seeds of ``default_rng(91)`` and join (a), every
+   200 body byte-identical to the host-route engine: (o) the count with
+   ``DGRAPH_TPU_DEVGUARD`` 1 and 0 in turn, 4 each: both p50s, equal
+   gather launches; (i) with two throwaway 2M-edge arenas at the LRU's
+   cold end, ``device.hop=xla_oom(n=1)``: 200, ``evict_retry`` +1, an
+   eviction, the guard healthy → suspect → healthy; (r) a ballast from
+   ``torch.cuda.mem_get_info()`` leaves half the count's second-hop
+   gather buffer free: a real ``OutOfMemoryError``, eviction and one
+   retry answer 200 (or the line says what the allocator did instead);
+   (h) ``DGRAPH_TPU_DEVICE_HANG_MS=500``, a 1 s cooldown,
+   ``device.hop=hang(ms=3000,n=1)`` and the first 8 probes failing: the
+   count answers 503 with ``Retry-After`` within 1.5 s; once the wedged
+   hop has woken and made its launch, counts while sick answer 503 with
+   no gather launch, ``/debug/device`` and ``/health?detail=1``
+   say sick, 16 concurrent clients all 503, the scheduler's workers live,
+   and after re-admission (within 10 s) both bodies are identical.  The
+   counts are read right after.
+7c. subscriptions — every kernel's launch count is set to 0, then, with
+   the hop and k-way gates at 1 (a 1024-seed 2-hop is below the priced
+   break-even), 8 subscriptions (``default_rng(97)``): 4 var-block 2-hop
+   counts over ``e`` from 1024 seeds (one streamed as SSE over HTTP) and
+   4 two-word ``allofterms`` counts over ``name``, each snapshot equal to
+   a fresh ``/query`` body; 5 writes of 64 ``e`` edges from the first-hop
+   targets of one subscription's seeds to uids outside its 2-hop set:
+   each ``e`` subscription whose count changed gets one push equal to the
+   host-route engine at that version (its arena advanced by exactly the
+   written edges), the others nothing; re-set edges re-evaluate as skips;
+   a name write pushes the name subscriptions alone; an unrelated
+   predicate wakes none.  Push latency from the write's ack (p50, max),
+   evaluations, pushes and skips, and the launches during
+   re-evaluations are printed; one subscription is cancelled over
+   ``/subscribe/cancel``, the registry's stop (the server's stop path)
+   cancels the rest.  The counts are read right after.
 8. ranks — the schema ``rank: int .`` and an int per node for uids
    1..1,000,000, drawn from [0, 2^16) (seed 43: about 15 uids a value),
    written into the served store; the server's value arena is built.
@@ -345,6 +380,9 @@ of phase 5 and phase 18a.
 generation and phase 18.
 ``python3 chip_smoke.py --trace-only`` runs phases 1 and 2, the names of
 phase 5 (join (a) needs them) and phase 7a.
+``python3 chip_smoke.py --guard-only`` runs phases 1 and 2 and phase 7b;
+``python3 chip_smoke.py --subs-only`` phases 1 and 2, the names of phase 5
+and phase 7c.
 ``python3 chip_smoke.py --serving-only`` runs phases 1-3, the names of
 phase 5 and phase 12 alone (the serving plane on the caches' first
 use).  ``python3 chip_smoke.py --mxu-only`` runs phase 1 and phase 13
@@ -490,18 +528,39 @@ FLIGHT_HOLD_MS, FLIGHT_COST_REQUESTS = 500, 6
 PLANNER_REPEATS = 3
 PLANNER_CLIENTS, PLANNER_BURST, PLANNER_BURST_SEEDS, PLANNER_SEED = 16, 4, 1024, 89
 
+# the device fault domain: its seeds' seed, requests of the count with the
+# guard on and off each, the two throwaway arenas the OOM checks evict
+# (keys no predicate has) and their edges, the watchdog and cooldown of
+# the hang check, the wedge's length, the re-admission probes made to
+# fail first (8: the domain stays sick about 9 s, past the wedge's own
+# wake-up and launch, so the sick requests' launches are counted alone),
+# the concurrent clients while sick, the re-admission wait
+GUARD_SEED, GUARD_OVERHEAD_REPEATS = 91, 4
+GUARD_PADS, GUARD_PAD_EDGES = ("_guard_pad_1", "_guard_pad_2"), 2_000_000
+GUARD_HANG_MS, GUARD_WEDGE_MS, GUARD_COOLDOWN_S = 500, 3000, 1.0
+GUARD_PROBE_FAILS, GUARD_CLIENTS, GUARD_READMIT_S = 8, 16, 10.0
+# filler blocks at most (each the count's gather buffer, about 4.7 MB)
+GUARD_FILLERS = 4096
+
+# live queries: the seeds' seed, subscriptions over ``e`` and over
+# ``name``, seeds each ``e`` subscription counts from, the ``e`` writes
+# and their edges, the quiet wait that holds the others silent
+SUBS_SEED, SUBS_E, SUBS_NAME, SUBS_SEEDS = 97, 4, 4, 1024
+SUBS_WRITES, SUBS_DELTA, SUBS_QUIET_S = 5, 64, 1.0
+
 # kernels: (name, wrapper module, TPU kernel it replaces, paths that run it)
 KERNELS = [
     ("gather_packed", "dgraph_tpu_torch.ops.gather",
      "dgraph_tpu/ops/pallas_gather.py:48",
-     ("main_path", "flight_recorder", "query_surface", "chain", "serving_plane",
-      "mxu_join", "durability", "cluster", "planner")),
+     ("main_path", "flight_recorder", "device_guard", "subscriptions",
+      "query_surface", "chain", "serving_plane", "mxu_join", "durability",
+      "cluster", "planner")),
     ("slotmap", "dgraph_tpu_torch.ops.slotmap",
      "dgraph_tpu/ops/pallas_slotmap.py:46", ("batched_2hop",)),
     ("intersect", "dgraph_tpu_torch.ops.kway",
      "dgraph_tpu/ops/pallas_intersect.py:35",
-     ("join_path", "flight_recorder", "chain", "serving_plane", "mxu_join",
-      "cluster", "planner")),
+     ("join_path", "flight_recorder", "device_guard", "subscriptions", "chain",
+      "serving_plane", "mxu_join", "cluster", "planner")),
 ]
 
 
@@ -1425,6 +1484,564 @@ def phase_flight_recorder(store, srv, s1, s2, card: str) -> dict:
         return out
     finally:
         obs.configure()
+
+
+# -- phase 7b: the device fault domain ------------------------------------------
+
+
+def _guard_state_log(g):
+    """Record every state the guard passes through (its ``_set_state``
+    wrapped); returns the list it appends to and an undo."""
+    seen = [g.state]
+    orig = g._set_state
+
+    def rec(state):
+        orig(state)
+        if seen[-1] != g.state:
+            seen.append(g.state)
+
+    g._set_state = rec
+    return seen, lambda: setattr(g, "_set_state", orig)
+
+
+def _pad_arenas(srv, rng) -> dict:
+    """Two throwaway arenas of GUARD_PAD_EDGES random edges each, built
+    on the card into the served ArenaManager's cache under keys no
+    predicate has, and moved to the LRU's cold end: the victims of the
+    OOM checks' evictions, so every served arena stays warm and the store
+    takes no write.  Returns their device bytes by key."""
+    from dgraph_tpu_torch.models.arena import csr_from_edges
+
+    arenas = srv.engine.arenas
+    for p in GUARD_PADS:
+        src = rng.integers(1, N_NODES + 1, size=GUARD_PAD_EDGES)
+        dst = rng.integers(1, N_NODES + 1, size=GUARD_PAD_EDGES)
+        arenas._get_or_build(arenas._data, p,
+                             lambda: csr_from_edges(src, dst, arenas.device))
+    keys = [(id(arenas._data), p) for p in GUARD_PADS]
+    with arenas._cache_lock:
+        for k in reversed(keys):
+            arenas._lru.move_to_end(k, last=False)
+        return {k[1]: arenas._lru[k] for k in keys}
+
+
+def _drop_pads(srv) -> None:
+    arenas = srv.engine.arenas
+    with arenas._cache_lock:
+        for p in GUARD_PADS:
+            if arenas._data.pop(p, None) is not None:
+                arenas._lru_drop(arenas._data, p)
+
+
+def _stage_stats(raw: bytes) -> dict:
+    """A ``?debug=true`` body's stage times and routes."""
+    lat = json.loads(raw)["server_latency"]
+    eng = lat.pop("engine")
+    return {"server_latency": {k: v for k, v in lat.items()},
+            **{k: eng[k] for k in ("device_expand_ms", "host_expand_ms", "routes",
+                                   "edges")}}
+
+
+def _count_launches():
+    from dgraph_tpu_torch.ops import gather, kway
+
+    return gather.KERNEL.launches, kway.KERNEL.launches
+
+
+def phase_device_guard(store, srv, s1, s2, card: str) -> dict:
+    """The device fault domain on the card (utils/devguard.py); the caller
+    zeroes the launch counts just before, with both caches detached and
+    the per-level route.  Every 200 body is held byte for byte against
+    the host-route engine at the same store version."""
+    import torch
+
+    from dgraph_tpu_torch.utils import devguard
+    from dgraph_tpu_torch.utils.failpoints import fail
+    from dgraph_tpu_torch.utils.metrics import DEVICE_FAILOVER
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(GUARD_SEED)
+    seeds = np.unique(rng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+    count_q = two_hop_count(seeds)
+    join_q = join_filter_query(s1, s2)
+    ref = host_engine(store)
+    want = {"count": json.dumps(ref.run(count_q)), "join_a": json.dumps(ref.run(join_q))}
+    out = {"card": card, "seeds": len(seeds)}
+
+    def served(name, q, params=""):
+        status, raw, hdrs, secs = post_any(srv.addr, q, params=params)
+        if status == 200:
+            check(strip_latency(raw) == want[name],
+                  f"device_guard: {name} body differs from the host route")
+        return status, raw, hdrs, secs
+
+    # guard_overhead: the count with the guard on and off, request by request
+    lat = {"1": [], "0": []}
+    launches = {"1": [], "0": []}
+    for i in range(2 * GUARD_OVERHEAD_REPEATS):
+        mode = "1" if i % 2 == 0 else "0"
+        with env_set("DGRAPH_TPU_DEVGUARD", mode):
+            g0 = _count_launches()[0]
+            status, _raw, _h, secs = served("count", count_q)
+            check(status == 200, f"guard_overhead: HTTP {status}")
+            lat[mode].append(secs)
+            launches[mode].append(_count_launches()[0] - g0)
+    check(launches["1"] == launches["0"] and min(launches["1"]) >= 1,
+          f"guard_overhead: gather launches differ on/off: {launches}")
+    out["guard_overhead"] = {
+        "requests_each": GUARD_OVERHEAD_REPEATS,
+        "p50_ms_on": float(np.percentile(lat["1"], 50)) * 1e3,
+        "p50_ms_off": float(np.percentile(lat["0"], 50)) * 1e3,
+        "request_ms_on": [x * 1e3 for x in lat["1"]],
+        "request_ms_off": [x * 1e3 for x in lat["0"]],
+        "gather_launches_per_request": launches["1"][0], "card": card}
+    log(dict(phase="guard_overhead", **out["guard_overhead"]))
+
+    g = devguard.get()
+    arenas = srv.engine.arenas
+    pad_rng = np.random.default_rng(GUARD_SEED + 1)
+
+    # guard_oom_injected: one injected OOM at the per-level dispatch
+    pad_bytes = _pad_arenas(srv, pad_rng)
+    check(len(arenas._lru) >= 3, "guard_oom_injected: fewer than two other arenas cached")
+    states, undo = _guard_state_log(g)
+    ev0, r0 = arenas.evictions, DEVICE_FAILOVER.snapshot().get("evict_retry", 0)
+    f0 = dict(g.faults)
+    fail.arm("device.hop", "xla_oom(n=1)")
+    try:
+        status, raw, _h, secs = served("count", count_q, "?debug=true")
+    finally:
+        fail.disarm("device.hop")
+        undo()
+    check(status == 200, f"guard_oom_injected: HTTP {status}")
+    check(DEVICE_FAILOVER.snapshot().get("evict_retry", 0) == r0 + 1,
+          "guard_oom_injected: evict_retry did not rise by one")
+    check(arenas.evictions - ev0 >= 1, "guard_oom_injected: nothing was evicted")
+    check(states == ["healthy", "suspect", "healthy"],
+          f"guard_oom_injected: states {states}")
+    out["guard_oom_injected"] = {
+        "status": status, "ms": secs * 1e3, "evictions": arenas.evictions - ev0,
+        "evict_retry": 1, "states": states,
+        "oom_faults": g.faults.get("oom", 0) - f0.get("oom", 0),
+        "engine": _stage_stats(raw),
+        "pad_arena_bytes": pad_bytes, "card": card}
+    log(dict(phase="guard_oom_injected", **out["guard_oom_injected"]))
+
+    # guard_oom_real: a ballast leaves less free memory than the count's
+    # gather buffer, the evictable arenas more than the shortfall; then
+    # filler blocks take every cached block of the allocator that could
+    # still serve it (a segment's free tail survives empty_cache while
+    # another block of it lives)
+    pad_bytes = _pad_arenas(srv, pad_rng)
+    a = arenas.data("e")
+    rows, cap, _total = second_hop_rows(a, seeds)
+    from dgraph_tpu_torch.ops.gather import MAX_GRID
+
+    need = 4 * (2 * cap + 2 * len(rows) + MAX_GRID)
+    with arenas._cache_lock:
+        evictable = sum(b for k, b in list(arenas._lru.items())[:2])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0, total_mem = torch.cuda.mem_get_info()
+    # three quarters of the buffer left free: a new 2 MiB segment for the
+    # rows' upload still fits (below it the upload's own small-pool
+    # segment can fail, which evicting large blocks cannot cure), the
+    # buffer does not
+    leave = need * 3 // 4
+    ballast = [torch.empty(max(0, free0 - leave), dtype=torch.uint8, device="cuda")]
+    free1, _ = torch.cuda.mem_get_info()
+    cached1 = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    while len(ballast) < GUARD_FILLERS:
+        try:
+            ballast.append(torch.empty(need, dtype=torch.uint8, device="cuda"))
+        except torch.cuda.OutOfMemoryError:
+            break
+    fillers = len(ballast) - 1
+    free2, _ = torch.cuda.mem_get_info()
+    cached2 = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    ev0, r0 = arenas.evictions, DEVICE_FAILOVER.snapshot().get("evict_retry", 0)
+    oom0 = g.faults.get("oom", 0)
+    try:
+        status, raw, hdrs, secs = served("count", count_q, "?debug=true")
+    finally:
+        del ballast
+        torch.cuda.empty_cache()
+    real = {
+        "status": status, "ms": secs * 1e3, "gather_buffer_bytes": need,
+        "free_bytes_before_ballast": free0, "free_bytes_with_ballast": free1,
+        "cached_free_bytes_with_ballast": cached1, "fillers": fillers,
+        "free_bytes_with_fillers": free2, "cached_free_bytes_with_fillers": cached2,
+        "evictable_lru_bytes": evictable, "pad_arena_bytes": pad_bytes,
+        "evictions": arenas.evictions - ev0,
+        "evict_retry": DEVICE_FAILOVER.snapshot().get("evict_retry", 0) - r0,
+        "oom_faults": g.faults.get("oom", 0) - oom0,
+        "last_fault": g.status()["last_fault"],
+        "engine": _stage_stats(raw) if status == 200 else None, "card": card}
+    check(free1 < need and free1 + evictable > need or real["oom_faults"] > 0,
+          f"guard_oom_real: the ballast did not set up the shortfall: {real}")
+    if real["oom_faults"] and status == 200:
+        real["outcome"] = "real OOM, LRU evicted, one retry served"
+        check(real["evictions"] >= 1 and real["evict_retry"] == 1
+              and "OutOfMemoryError" in (real["last_fault"] or ""),
+              f"guard_oom_real: {real}")
+    elif real["oom_faults"]:
+        # the retry ran out of memory too: the allocator could not use
+        # the evicted arenas' blocks for the buffer
+        real["outcome"] = f"real OOM, eviction freed too little: HTTP {status}"
+        check(status == 503 and hdrs.get("Retry-After"),
+              f"guard_oom_real: a failed retry must answer 503: {real}")
+    else:
+        real["outcome"] = "no OOM: the allocator served the buffer from cached blocks"
+        check(status == 200, f"guard_oom_real: {real}")
+    out["guard_oom_real"] = real
+    log(dict(phase="guard_oom_real", **real))
+    _drop_pads(srv)
+
+    # guard_hang: a wedged dispatch answers 503 within hang_ms + 1 s, the
+    # domain sick, then re-admission by the probe
+    with env_set("DGRAPH_TPU_DEVICE_HANG_MS", str(GUARD_HANG_MS)), \
+            env_set("DGRAPH_TPU_DEVICE_COOLDOWN_S", str(GUARD_COOLDOWN_S)):
+        devguard.reset_for_tests()  # a guard with these knobs
+        g = devguard.get()
+        try:
+            workers = [t.is_alive() for t in srv.scheduler._workers]
+            fail.arm("device.hop", f"hang(ms={GUARD_WEDGE_MS},n=1)")
+            # the first probes fail: the domain stays sick long enough for
+            # the checks below
+            fail.arm("devguard.probe", f"error(n={GUARD_PROBE_FAILS})")
+            g_pre = _count_launches()[0]
+            status, raw, hdrs, secs = served("count", count_q)
+            t_sick = time.perf_counter()
+            check(status == 503 and hdrs.get("Retry-After") == str(
+                int(np.ceil(GUARD_COOLDOWN_S))),
+                  f"guard_hang: first count HTTP {status} {hdrs.get('Retry-After')}")
+            check(secs < GUARD_HANG_MS / 1e3 + 1.0,
+                  f"guard_hang: 503 after {secs:.3f} s")
+            # the abandoned worker wakes after the wedge and finishes its
+            # hop (one gather launch, its result dropped): wait for it, so
+            # that the launches counted below are the sick requests' own
+            wedge_s = wait_until(lambda: _count_launches()[0] > g_pre,
+                                 GUARD_WEDGE_MS / 1e3 + 10, "guard_hang: the wedge never woke")
+            time.sleep(0.5)
+            check(g.state == "sick", f"guard_hang: {g.state} after the wedge woke")
+            g0 = _count_launches()[0]
+            sick_ms = []
+            for _ in range(3):
+                st, _r, h, s = served("count", count_q)
+                check(st == 503 and h.get("Retry-After"), f"guard_hang: sick count HTTP {st}")
+                sick_ms.append(s * 1e3)
+            dbg = get_json(srv.addr, "/debug/device")["guard"]["domains"]["device"]
+            hl = get_json(srv.addr, "/health?detail=1")["device"]["domains"]["device"]
+            check(dbg["state"] == "sick" and hl["state"] == "sick",
+                  f"guard_hang: /debug/device {dbg['state']}, /health {hl['state']}")
+            codes = []
+            import threading as _th
+
+            def client():
+                st, *_rest = served("count", count_q)
+                codes.append(st)
+
+            ts = [_th.Thread(target=client) for _ in range(GUARD_CLIENTS)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=60)
+            sick_launches = _count_launches()[0] - g0
+            check(codes == [503] * GUARD_CLIENTS, f"guard_hang: concurrent codes {codes}")
+            check(sick_launches == 0,
+                  f"guard_hang: {sick_launches} gather launches while sick")
+            check(all(t.is_alive() for t in srv.scheduler._workers) and all(workers),
+                  "guard_hang: a scheduler worker died")
+            wait_until(lambda: g.state == "healthy", GUARD_READMIT_S,
+                       "guard_hang: no re-admission")
+            readmit_s = time.perf_counter() - t_sick
+            after = {}
+            for name, q in (("count", count_q), ("join_a", join_q)):
+                st, _r, _h, s = served(name, q)
+                check(st == 200, f"guard_hang: {name} after re-admission HTTP {st}")
+                after[name] = s * 1e3
+            stat = g.status()
+            out["guard_hang"] = {
+                "hang_ms": GUARD_HANG_MS, "wedge_ms": GUARD_WEDGE_MS,
+                "cooldown_s": GUARD_COOLDOWN_S, "time_to_503_ms": secs * 1e3,
+                "sick_503_ms": sick_ms, "concurrent_clients": GUARD_CLIENTS,
+                "time_to_readmission_s": readmit_s,
+                "probes_failed": stat["probes_failed"], "probes_ok": stat["probes_ok"],
+                "wedged_workers": stat["wedged_workers"], "faults": stat["faults"],
+                "wedge_woke_after_s": wedge_s, "after_readmission_ms": after,
+                "card": card}
+            log(dict(phase="guard_hang", **out["guard_hang"]))
+        finally:
+            fail.disarm("device.hop")
+            fail.disarm("devguard.probe")
+    # the wedged worker finishes its hop (its result dropped); a guard at
+    # the default knobs for the phases after this one
+    time.sleep(max(0.0, GUARD_WEDGE_MS / 1e3 - (time.perf_counter() - t_sick)) + 0.5)
+    devguard.reset_for_tests()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def guard_summary(g: dict) -> dict:
+    """The device_guard phase's figures for the summary line."""
+    o, r, h = g["guard_overhead"], g["guard_oom_real"], g["guard_hang"]
+    return {"seconds": g["seconds"],
+            "count_p50_ms_guard_on": o["p50_ms_on"],
+            "count_p50_ms_guard_off": o["p50_ms_off"],
+            "oom_injected_evictions": g["guard_oom_injected"]["evictions"],
+            "oom_real_outcome": r["outcome"], "oom_real_status": r["status"],
+            "hang_time_to_503_ms": h["time_to_503_ms"],
+            "hang_time_to_readmission_s": h["time_to_readmission_s"],
+            "probes_failed": h["probes_failed"], "probes_ok": h["probes_ok"]}
+
+
+# -- phase 7c: live-query subscriptions --------------------------------------
+
+
+def subs_summary(s: dict) -> dict:
+    """The subscriptions phase's figures for the summary line."""
+    return {k: s[k] for k in (
+        "seconds", "pushes", "push_latency_p50_ms", "push_latency_max_ms", "evals",
+        "events", "launches_during_reevaluation")}
+
+
+def _sub_consumer(sub, got: list):
+    """Pop ``sub``'s events into ``got`` as (arrival time, event) until
+    its terminal ``cancelled`` event."""
+    while True:
+        ev = sub.next_event(timeout=5.0)
+        if ev is None:
+            continue
+        got.append((time.perf_counter(), ev))
+        if ev["kind"] == "cancelled":
+            return
+
+
+def _sse_consumer(addr, text, got: list, ready):
+    """POST /subscribe as an SSE client: each frame into ``got`` as
+    (arrival time, event) until the ``cancelled`` frame."""
+    req = urllib.request.Request(addr + "/subscribe", data=text.encode(),
+                                 headers={"Accept": "text/event-stream"})
+    with urllib.request.urlopen(req, timeout=900) as resp:
+        ready.append(resp.headers["Content-Type"])
+        buf = b""
+        for line in resp:
+            if line.strip() == b"" and buf:
+                for ln in buf.split(b"\n"):
+                    if ln.startswith(b"data: "):
+                        got.append((time.perf_counter(), json.loads(ln[6:])))
+                buf = b""
+                if got and got[-1][1]["kind"] == "cancelled":
+                    return
+            elif not line.startswith(b":"):
+                buf += line.strip() + b"\n"
+
+
+def _events_since(got: list, i: int, kinds=("update",)):
+    return [(t, e) for t, e in got[i:] if e["kind"] in kinds]
+
+
+def phase_subscriptions(store, srv, card: str) -> dict:
+    """Live queries on the card (ivm/subs.py); the caller zeroes the
+    launch counts just before.  The hop and k-way gates are pinned at 1
+    for the phase (a 1024-seed 2-hop is below the priced device
+    break-even), so that every re-evaluation runs the kernels."""
+    import threading as _th
+
+    from dgraph_tpu_torch.utils.metrics import SUBS_EVALS, SUBS_EVENTS
+
+    t_phase = time.perf_counter()
+    check(srv.subs is not None, "subscriptions: the server has no registry")
+    rng = np.random.default_rng(SUBS_SEED)
+    arenas = srv.engine.arenas
+    knobs = (arenas.expand_device_min, arenas.kway_device_min)
+    arenas.expand_device_min, arenas.kway_device_min = 1, 1
+    e_seeds = [np.unique(rng.integers(1, N_NODES + 1, size=SUBS_SEEDS))
+               for _ in range(SUBS_E)]
+    e_qs = [two_hop_count(s) for s in e_seeds]
+    pairs = [(VOCAB[2 * i], VOCAB[2 * i + 1]) for i in range(SUBS_NAME)]
+    n_qs = ['{ q(func: allofterms(name, "%s %s")) { count() } }' % p for p in pairs]
+    texts = e_qs + n_qs
+    ref = host_engine(store)
+    want = [json.dumps(ref.run(q)) for q in texts]
+    gots = [[] for _ in texts]
+    threads = []
+    subs = []
+    try:
+        # one e subscription over HTTP as SSE, the rest registered over
+        # HTTP and consumed in process
+        ready = []
+        t = _th.Thread(target=_sse_consumer, args=(srv.addr, texts[0], gots[0], ready),
+                       daemon=True)
+        t.start()
+        threads.append(t)
+        wait_until(lambda: gots[0], 60, "subscriptions: no SSE snapshot")
+        subs.append(srv.subs.get(gots[0][0][1]["sub_id"]))
+        for i, q in enumerate(texts[1:], 1):
+            req = urllib.request.Request(srv.addr + "/subscribe", data=q.encode())
+            with urllib.request.urlopen(req, timeout=900) as r:
+                reg = json.loads(r.read())
+            sub = srv.subs.get(reg["sub_id"])
+            subs.append(sub)
+            t = _th.Thread(target=_sub_consumer, args=(sub, gots[i]), daemon=True)
+            t.start()
+            threads.append(t)
+        for i, q in enumerate(texts):
+            wait_until(lambda: gots[i], 60, f"subscriptions: sub {i} no snapshot")
+            snap = gots[i][0][1]
+            check(snap["kind"] == "snapshot", f"subscriptions: sub {i} first event {snap['kind']}")
+            status, raw, _s = post(srv.addr, q)
+            check(status == 200 and strip_latency(raw) == json.dumps(snap["data"])
+                  == want[i], f"subscriptions: sub {i} snapshot differs from /query")
+        check(ready == ["text/event-stream"], f"subscriptions: SSE content type {ready}")
+        footprints = [sorted(s.footprint) for s in subs]
+        check(footprints == [["e"]] * SUBS_E + [["name"]] * SUBS_NAME,
+              f"subscriptions: footprints {footprints}")
+
+        from dgraph_tpu_torch.ops import gather, kway
+
+        g_l0, k_l0 = gather.KERNEL.launches, kway.KERNEL.launches
+        evals0 = SUBS_EVALS.value()
+        ev0 = SUBS_EVENTS.snapshot()
+        latencies = []
+        writes = []
+        ref_arena = ref.arenas.data("e")
+        edges_e = store.peek("e").edges
+
+        def settle(expect_push, ack_t, marks, what):
+            """Wait for the pushes ``expect_push`` (sub index -> body),
+            record each one's latency from ``ack_t``, then hold every
+            subscription to exactly the pushes expected after a quiet
+            SUBS_QUIET_S."""
+            for i, body in expect_push.items():
+                wait_until(lambda: _events_since(gots[i], marks[i]), 30,
+                           f"{what}: sub {i} got no push")
+                (t_ev, ev), = _events_since(gots[i], marks[i])[:1]
+                check(json.dumps(ev["data"]) == body,
+                      f"{what}: sub {i} push differs from the host route")
+                latencies.append(t_ev - ack_t)
+            time.sleep(SUBS_QUIET_S)
+            for i in range(len(texts)):
+                n = len(_events_since(gots[i], marks[i]))
+                check(n == (1 if i in expect_push else 0),
+                      f"{what}: sub {i} got {n} pushes")
+
+        # e writes: 64 edges each from the first-hop targets of sub 0's
+        # seeds to uids outside its 2-hop set, so that its count moves
+        f1 = np.unique(ref_arena.expand_host(ref_arena.rows_for_uids_host(e_seeds[0]))[0])
+        reach = set(two_hop_set(ref_arena, e_seeds[0]).tolist())
+        last = [json.loads(w) for w in want]
+        for w in range(SUBS_WRITES):
+            srcs = rng.choice(f1, size=SUBS_DELTA, replace=False)
+            adds = []
+            for s in srcs.tolist():
+                t = int(rng.integers(1, N_NODES + 1))
+                while t in reach or t in edges_e.get(s, ()):
+                    t = int(rng.integers(1, N_NODES + 1))
+                adds.append((s, t))
+            marks = [len(x) for x in gots]
+            t0 = time.perf_counter()
+            status, raw, _s = post(srv.addr, "mutation { set { %s } }" % " ".join(
+                "<0x%x> <e> <0x%x> ." % e for e in adds))
+            ack = time.perf_counter()
+            check(status == 200, f"subscriptions: e write {w} HTTP {status}")
+            # sub 0's push first: its evaluation refreshed the served
+            # arenas, which consume the store's delta journal (a second
+            # ArenaManager refreshing first would take it from them)
+            wait_until(lambda: _events_since(gots[0], marks[0]), 30,
+                       f"e write {w}: sub 0 got no push")
+            # the host-route reference at this version: its arena takes
+            # exactly the written edges
+            ref_arena.apply_delta(np.array(adds, np.int64).reshape(-1, 2),
+                                  np.zeros((0, 2), np.int64))
+            bodies = [ref.run(q) for q in e_qs]
+            expect = {i: json.dumps(b) for i, b in enumerate(bodies) if b != last[i]}
+            check(0 in expect, f"subscriptions: e write {w} did not move sub 0")
+            settle(expect, ack, marks, f"e write {w}")
+            for i, b in enumerate(bodies):
+                last[i] = b
+            writes.append({"write": w, "edges": len(adds), "ack_ms": (ack - t0) * 1e3,
+                           "pushed": sorted(expect)})
+            reach = set(two_hop_set(ref_arena, e_seeds[0]).tolist())
+
+        # re-setting existing edges: every e subscription re-evaluates,
+        # the result is unchanged: a skip each, no push
+        skip0 = SUBS_EVENTS.snapshot().get("skip", 0)
+        marks = [len(x) for x in gots]
+        status, raw, _s = post(srv.addr, "mutation { set { %s } }" % " ".join(
+            "<0x%x> <e> <0x%x> ." % e for e in adds[:4]))
+        check(status == 200, f"subscriptions: re-set HTTP {status}")
+        wait_until(lambda: SUBS_EVENTS.snapshot().get("skip", 0) - skip0 >= SUBS_E, 30,
+                   "subscriptions: the re-set edges were not skips")
+        settle({}, time.perf_counter(), marks, "re-set")
+
+        # a name write: one new uid named with every word wakes the name
+        # subscriptions alone, each count one higher
+        marks = [len(x) for x in gots]
+        fresh = N_NAMED + 1 + int(rng.integers(0, 1000))
+        status, raw, _s = post(srv.addr, 'mutation { set { <0x%x> <name> "%s" . } }'
+                               % (fresh, " ".join(VOCAB)))
+        ack = time.perf_counter()
+        check(status == 200, f"subscriptions: name write HTTP {status}")
+        expect = {}
+        for i in range(SUBS_E, len(texts)):
+            b = json.loads(json.dumps(last[i]))
+            b["q"][0]["count"] += 1
+            expect[i] = json.dumps(b)
+        settle(expect, ack, marks, "name write")
+        for i in expect:
+            last[i] = json.loads(expect[i])
+
+        # an unrelated predicate: nothing wakes
+        marks = [len(x) for x in gots]
+        e0 = SUBS_EVALS.value()
+        status, raw, _s = post(srv.addr, 'mutation { set { <0x1> <hobby> "chess" . } }')
+        check(status == 200, f"subscriptions: unrelated write HTTP {status}")
+        settle({}, time.perf_counter(), marks, "unrelated write")
+        check(SUBS_EVALS.value() == e0, "subscriptions: an unrelated write evaluated")
+
+        ev1 = SUBS_EVENTS.snapshot()
+        launches = {"gather": gather.KERNEL.launches - g_l0,
+                    "intersect": kway.KERNEL.launches - k_l0}
+        # the name subscriptions' final bodies against a host-route
+        # reference whose term index is rebuilt at this version (the
+        # served arenas consumed the write's dirty mark)
+        with ref.arenas._cache_lock:
+            if ref.arenas._index.pop(("name", "term"), None) is not None:
+                ref.arenas._lru_drop(ref.arenas._index, ("name", "term"))
+        for i in range(SUBS_E, len(texts)):
+            check(ref.run(texts[i]) == last[i],
+                  f"subscriptions: name sub {i} final body differs from the host route")
+
+        # cancel one over HTTP; the server's stop path cancels the rest
+        victim = subs[1]
+        req = urllib.request.Request(srv.addr + "/subscribe/cancel?id=" + victim.id, data=b"")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            check(json.loads(r.read())["code"] == "Success", "subscriptions: cancel")
+        wait_until(lambda: gots[1] and gots[1][-1][1]["kind"] == "cancelled", 30,
+                   "subscriptions: no cancelled event")
+        srv.subs.stop()
+        for i, t in enumerate(threads):
+            t.join(timeout=30)
+            check(not t.is_alive(), f"subscriptions: consumer {i} still running")
+            check(gots[i][-1][1]["kind"] == "cancelled",
+                  f"subscriptions: sub {i} ended with {gots[i][-1][1]['kind']}")
+        check(not srv.subs._thread.is_alive(), "subscriptions: the notifier outlived stop")
+        lat_ms = [x * 1e3 for x in latencies]
+        out = {
+            "subscriptions": len(texts), "seeds_each": SUBS_SEEDS,
+            "e_writes": writes, "pushes": len(latencies),
+            "push_latency_p50_ms": float(np.percentile(lat_ms, 50)),
+            "push_latency_max_ms": max(lat_ms), "push_latency_ms": lat_ms,
+            "evals": SUBS_EVALS.value() - evals0,
+            "events": {k: ev1.get(k, 0) - ev0.get(k, 0) for k in ev1},
+            "launches_during_reevaluation": launches,
+            "sse": True, "card": card,
+            "seconds": time.perf_counter() - t_phase}
+        log(dict(phase="subscriptions", **out))
+        return out
+    finally:
+        arenas.expand_device_min, arenas.kway_device_min = knobs
 
 
 # -- phases 8-9: the query surface --------------------------------------------
@@ -3944,6 +4561,8 @@ def main(argv) -> int:
     cluster_only = "--cluster-only" in argv
     trace_only = "--trace-only" in argv
     planner_only = "--planner-only" in argv
+    guard_only = "--guard-only" in argv
+    subs_only = "--subs-only" in argv
     try:
         import torch
     except ImportError:
@@ -4045,6 +4664,31 @@ def main(argv) -> int:
             log({"phase_seconds": phase_s, "launches": launches,
                  "flight_recorder": flight["cost"]})
             return 0
+        if guard_only:
+            jrng = np.random.default_rng(JOIN_SEED)
+            s1, s2 = (np.unique(jrng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+                      for _ in range(2))
+            phase = mark("device_guard")
+            zero_counts()
+            with no_caches(srv), per_level(srv.engine):
+                guard = phase_device_guard(store, srv, s1, s2, info["nvidia_smi"])
+            read_counts("device_guard")
+            mark("done")
+            log({"phase_seconds": phase_s, "launches": launches,
+                 "device_guard": guard_summary(guard)})
+            return 0
+        if subs_only:
+            phase = mark("names")
+            phase_names(store, srv, N_NAMED)
+            phase = mark("subscriptions")
+            zero_counts()
+            with no_caches(srv), per_level(srv.engine):
+                subs = phase_subscriptions(store, srv, info["nvidia_smi"])
+            read_counts("subscriptions")
+            mark("done")
+            log({"phase_seconds": phase_s, "launches": launches,
+                 "subscriptions": subs_summary(subs)})
+            return 0
         if planner_only:
             phase = mark("names")
             phase_names(store, srv, N_NAMED)
@@ -4093,6 +4737,16 @@ def main(argv) -> int:
         with per_level(srv.engine):
             flight = phase_flight_recorder(store, srv, s1, s2, info["nvidia_smi"])
         read_counts("flight_recorder")
+        phase = mark("device_guard")
+        zero_counts()
+        with per_level(srv.engine):
+            guard = phase_device_guard(store, srv, s1, s2, info["nvidia_smi"])
+        read_counts("device_guard")
+        phase = mark("subscriptions")
+        zero_counts()
+        with per_level(srv.engine):
+            subs = phase_subscriptions(store, srv, info["nvidia_smi"])
+        read_counts("subscriptions")
         phase = mark("ranks")
         phase_ranks(store, srv, N_RANKED)
         phase = mark("query_surface")
@@ -4195,6 +4849,8 @@ def main(argv) -> int:
                            for n, j in join.items()},
              "flight_recorder": {"seconds": flight["seconds"], **flight["cost"],
                                  "cancel": flight["cancel"]},
+             "device_guard": guard_summary(guard),
+             "subscriptions": subs_summary(subs),
              "query_surface": {n: {k: r[k] for k in (
                  "p50_ms", "p99_ms", "gather_launches_per_query", "device_order",
                  "device_order_ms")} for n, r in surface["rows"].items()},

@@ -901,6 +901,9 @@ class ArenaManager:
     ):
         self.store = store
         self.device = resolve(device)
+        # every kernel built and bound now, never inside a guarded
+        # dispatch's watchdog (ops.bind_kernels; a no-op off CUDA)
+        ops.bind_kernels(self.device)
         # single source of truth for host-vs-device expansion routing
         # (engine and FuncResolver both read it; the engine may retune)
         self.expand_device_min = planconfig.expand_device_min()
@@ -959,14 +962,34 @@ class ArenaManager:
         if not self.budget_bytes:
             return
         while self._lru_total > self.budget_bytes and len(self._lru) > 1:
-            victim, vbytes = next(iter(self._lru.items()))
-            if victim == lkey:
+            if next(iter(self._lru)) == lkey:
                 break
-            self._lru.pop(victim)
-            self._lru_total -= vbytes
-            self.evictions += 1
-            ARENA_EVICTIONS.add(1)
-            self._drop_hops(self._caches_by_id[victim[0]].pop(victim[1], None))
+            self._pop_lru_victim()
+
+    def _pop_lru_victim(self) -> None:
+        """Evict the least recently used entry (caller holds
+        _cache_lock and knows the LRU is not empty)."""
+        victim, vbytes = self._lru.popitem(last=False)
+        self._lru_total -= vbytes
+        self.evictions += 1
+        ARENA_EVICTIONS.add(1)
+        self._drop_hops(self._caches_by_id[victim[0]].pop(victim[1], None))
+
+    def evict_for_oom(self, n: int = 2) -> int:
+        """Device-memory pressure valve (utils/devguard.py): a dispatch
+        just failed out of memory, so drop up to ``n`` LRU entries
+        whatever the budget says (the budget is an estimate, the
+        allocator's verdict is ground truth), always keeping one, to give
+        the one retry headroom.  Returns how many were dropped; 0 means
+        nothing is left to free.  An in-flight expansion holding a
+        dropped arena keeps its reference, and the caching allocator gets
+        the arena's blocks back only when the last reference dies."""
+        with self._cache_lock:
+            dropped = 0
+            while dropped < n and len(self._lru) > 1:
+                self._pop_lru_victim()
+                dropped += 1
+            return dropped
 
     def residency(self) -> dict:
         """Device-residency + program-cache snapshot (obs/device.py's

@@ -178,6 +178,10 @@ class PostingStore:
         self.pred_versions: Dict[str, int] = {}
         self.pred_floor = 0
         self.delta_base: Dict[str, int] = {}
+        # mutation delta stream (ivm/deltas.py), attached by the serving
+        # layer for live-query subscriptions; None costs one attribute
+        # read per mutation
+        self.delta_stream = None
         # cluster membership carried by MEMBER records (models/wal.py);
         # member_hook fires on their replay
         self.members: Dict[str, tuple] = {}
@@ -247,16 +251,30 @@ class PostingStore:
     def _delta_overflow(self, pred: str) -> None:
         self.delta[pred] = None
 
-    def _note_pred_mutation(self, pred: str) -> None:
-        """Per-predicate freshness for ONE mutation (the version was
-        already bumped)."""
+    def _note_pred_mutation(self, pred: str, stream_kind: str = "",
+                            src: int = 0, dst: int = 0, sign: int = 0) -> None:
+        """Per-predicate freshness and delta-stream publication for ONE
+        mutation (the version was already bumped).  ``stream_kind``:
+        "edge" publishes the exact edge delta, "pred" a whole-predicate
+        change, "" nothing."""
         self.pred_versions[pred] = self.version
+        ds = self.delta_stream
+        if ds is None or not stream_kind:
+            return
+        if stream_kind == "edge":
+            ds.publish_edge(pred, src, dst, sign, self.version)
+        else:
+            ds.publish_pred(pred, self.version)
 
     def note_global_change(self) -> None:
         """Record a change that cannot be scoped to predicates (a schema
-        mutation): the floor advances to the current version, so EVERY
-        footprint-keyed cache entry goes stale."""
+        mutation, a full-store replacement): the floor advances to the
+        current version, so EVERY footprint-keyed cache entry goes
+        stale, and the delta stream publishes an epoch."""
         self.pred_floor = self.version
+        ds = self.delta_stream
+        if ds is not None:
+            ds.publish_epoch(self.version)
 
     def apply(self, e: Edge) -> None:
         """Apply one edge mutation (AddMutationWithIndex analog,
@@ -265,6 +283,10 @@ class PostingStore:
         self.dirty.add(e.pred)
         self.version += 1
         p._wdmirror = None  # any mutation can change uids-with-data
+        # the delta stream's shape of this mutation: an exact edge delta
+        # when one exists, else a whole-predicate change (value and
+        # facet edits have no per-edge form)
+        kind, sign = "pred", 0
         if e.op == "set":
             if e.value is not None:
                 p.values[(e.src, e.lang)] = e.value
@@ -285,6 +307,7 @@ class PostingStore:
                 if e.dst not in tgt:
                     tgt.add(e.dst)
                     self._journal_delta(e.pred, e.src, e.dst, +1)
+                    kind, sign = "edge", +1
                 else:
                     # facet-only / no-op touch: arenas unaffected — keep
                     # an (empty) journal entry so refresh skips the
@@ -312,13 +335,14 @@ class PostingStore:
                     if not s:
                         del p.edges[e.src]
                     self._journal_delta(e.pred, e.src, e.dst, -1)
+                    kind, sign = "edge", -1
                 else:
                     self._journal_touch(e.pred)  # no-op delete
                 if p.edge_facets.pop((e.src, e.dst), None) is not None:
                     p._efmirror = None
         else:
             raise ValueError(f"unknown mutation op {e.op!r}")
-        self._note_pred_mutation(e.pred)
+        self._note_pred_mutation(e.pred, kind, e.src, e.dst, sign)
 
     def apply_many(self, edges: Iterable[Edge]) -> int:
         n = 0
@@ -364,7 +388,7 @@ class PostingStore:
                     self._journal_delta(pred, s, d, +1)
                 else:
                     self._journal_touch(pred)
-            self._note_pred_mutation(pred)
+            self._note_pred_mutation(pred, "pred")
             return
         self._delta_overflow(pred)  # bulk volume: full rebuild is cheaper
         order = np.argsort(src, kind="stable")
@@ -380,7 +404,7 @@ class PostingStore:
                 edges[u] = set(d[b0:b1].tolist())
             else:
                 tgt.update(d[b0:b1].tolist())
-        self._note_pred_mutation(pred)
+        self._note_pred_mutation(pred, "pred")  # bulk: no per-edge stream
 
     def bulk_set_values(self, pred: str, items) -> None:
         """Vectorized ingest of plain (facet-less) value edges: ONE dict
@@ -410,7 +434,7 @@ class PostingStore:
                 del p._has_langs
             except AttributeError:
                 pass
-        self._note_pred_mutation(pred)
+        self._note_pred_mutation(pred, "pred")
 
     def delete_predicate(self, pred: str) -> None:
         """posting.DeletePredicate analog (posting/index.go:666)."""
@@ -418,7 +442,7 @@ class PostingStore:
         self.dirty.add(pred)
         self.version += 1
         self._delta_overflow(pred)
-        self._note_pred_mutation(pred)
+        self._note_pred_mutation(pred, "pred")
 
     def apply_schema(self, text: str) -> None:
         """Parse schema text into this store's schema state; journaled

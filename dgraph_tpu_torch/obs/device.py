@@ -23,9 +23,10 @@ Served at ``GET /debug/device`` and folded into ``GET /debug/bundle``
 (serve/server.py).  The snapshot's keys differ from the reference's
 where the platforms differ: ``torch`` and ``cuda`` (the toolkit torch
 was built with) and ``device_name`` stand where the reference has
-``jax``; ``compiles.builds`` lists the builds by library; the
-reference's ``guard`` key (the device fault domain, ``utils/devguard.py``)
-is absent until that module is ported.
+``jax``; ``compiles.builds`` lists the builds by library.  The
+``guard`` key is the device fault domain's state (``utils/devguard.py``:
+enabled, and per domain its state, faults, probes and knobs), as in the
+reference.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from collections import Counter
 from typing import Dict
 
 from dgraph_tpu_torch.obs import ledger as _ledger
+from dgraph_tpu_torch.utils import devguard
 from dgraph_tpu_torch.utils.metrics import (
     BUILD_INFO,
     HBM_BUDGET_BYTES,
@@ -110,6 +112,7 @@ def snapshot(server=None) -> dict:
             "seconds_sum": round(XLA_COMPILE_SECONDS.snapshot()[1], 3),
             "builds": builds(),
         },
+        "guard": {"enabled": devguard.enabled(), "domains": devguard.summary()},
     }
     arenas = getattr(engine, "arenas", None)
     if arenas is None:

@@ -78,3 +78,21 @@ from dgraph_tpu_torch.ops.spgemm import (  # noqa: F401
     triangle_mask_batch,
     uids_to_mask,
 )
+
+
+def bind_kernels(device) -> None:
+    """Build (one ``nvcc`` per source, all started together) and bind
+    every hand-written kernel before the first guarded dispatch on
+    ``device``: a first-use build inside the device guard's watchdog
+    (utils/devguard.py) would be timed as a hang.  A no-op off CUDA.
+    ``ArenaManager`` calls it when it is built for a CUDA device."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return
+    from dgraph_tpu_torch.ops import _build, gather, kway, slotmap
+
+    kernels = (gather.KERNEL, kway.KERNEL, slotmap.KERNEL)
+    _build.build(k.source for k in kernels)
+    for k in kernels:
+        k._bind()

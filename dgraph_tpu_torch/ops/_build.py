@@ -156,6 +156,18 @@ def _note_build(name: str, secs: float) -> None:
     device.note_build(secs)
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel entry point returned a CUDA error code (``code``, a
+    ``cudaError_t``).  Its own type, so the device guard
+    (utils/devguard.py) tells a failed launch from a shape bug's
+    ``RuntimeError``: code 2 (``cudaErrorMemoryAllocation``) is an OOM,
+    any other code a transient device fault."""
+
+    def __init__(self, where: str, code: int):
+        self.code = int(code)
+        super().__init__(f"{where}: CUDA launch failed (error {self.code})")
+
+
 class CudaKernel:
     """One C entry point of a kernel library, with its launch count.
 
@@ -189,11 +201,10 @@ class CudaKernel:
 
     def launch(self, *args) -> None:
         """Call the entry point; it enqueues the kernel on the given
-        stream and returns ``cudaGetLastError()``.  Raises on non-zero."""
+        stream and returns ``cudaGetLastError()``.  Raises
+        :class:`KernelLaunchError` on non-zero."""
         rc = self._bind()(*args)
         if rc != 0:
-            raise RuntimeError(
-                f"{self.source}.{self.entry}: CUDA launch failed (error {rc})"
-            )
+            raise KernelLaunchError(f"{self.source}.{self.entry}", rc)
         with self._count_lock:
             self.launches += 1

@@ -19,9 +19,13 @@ Where ``segments.plan`` returns k > 0, a scheduler yield point
 the reference's segmented dispatch.  A sampled request records the
 whole pass as one ``multi_hop`` span (or one ``multi_hop_seg`` span a
 segment), with its hops, capacity and ``device_sync_ms``, the wait for
-the pass's results on a CUDA event.  The reference's device guard and
-failpoints have no counterpart: a device fault propagates to the
-caller.
+the pass's results on a CUDA event.  Each segment runs under the device
+guard (utils/devguard.py, failpoint site ``device.multi_hop``) and ends
+with a sync on its results, so a fault raises ``DeviceFaultError`` from
+the guard that launched it; the seams sit between the guarded segments.
+The callers (the fused chain and the fused recurse) decline to their
+per-level route on an out-of-memory fault and let every other fault
+propagate.
 """
 
 from __future__ import annotations
@@ -86,14 +90,42 @@ def multi_hop(
     int32[n_hops], the final visited int32[cap])."""
     from dgraph_tpu_torch import obs
     from dgraph_tpu_torch.sched import segments
+    from dgraph_tpu_torch.utils import devguard
+    from dgraph_tpu_torch.utils.failpoints import fail
 
     k = segments.plan(n_hops, cap, "multi_hop")
     if not 0 < k < n_hops:
         k = n_hops
     # sampled requests record each dispatched segment as ONE span (the
-    # whole pass when unsegmented); unsampled: no span, no waits
+    # whole pass when unsegmented); unsampled: no span
     sp = obs.current_span()
     name = "multi_hop" if k == n_hops else "multi_hop_seg"
+    guarded = devguard.enabled()
+
+    def _dispatch(f, vis, hops):
+        fail.point("device.multi_hop")
+        fs_seg, tot_seg = [], []
+        for _ in range(hops):
+            rows = frontier_rows(f) if lut is None else lut_rows(lut, f)
+            out, total = expand_ascending(offsets, dst, rows, cap)
+            f = sort_unique(out)
+            if track_visited:
+                f = torch.sort(
+                    torch.where(member_mask(f, vis), SENT, f)
+                ).values
+                vis = sort_unique(torch.cat([vis, f]))[:cap]
+            fs_seg.append(f)
+            tot_seg.append(total)
+        # under the guard the sync sits inside the watchdog bracket: a
+        # wedged or faulted pass surfaces here, on the guard's worker,
+        # not at the caller's later fetch
+        sync_ms = (
+            obs.block_ready_ms((f, tot_seg[-1], vis))
+            if sp is not None or guarded else None
+        )
+        return fs_seg, tot_seg, f, vis, sync_ms
+
+    guard = devguard.get()
     f, vis = frontier, visited
     fs, totals = [], []
     for lo in range(0, n_hops, k):
@@ -102,23 +134,15 @@ def multi_hop(
         hops = min(k, n_hops - lo)
         ms = obs.NOOP if sp is None else sp.child(name)
         with ms:
-            for _ in range(hops):
-                rows = frontier_rows(f) if lut is None else lut_rows(lut, f)
-                out, total = expand_ascending(offsets, dst, rows, cap)
-                f = sort_unique(out)
-                if track_visited:
-                    f = torch.sort(
-                        torch.where(member_mask(f, vis), SENT, f)
-                    ).values
-                    vis = sort_unique(torch.cat([vis, f]))[:cap]
-                fs.append(f)
-                totals.append(total)
+            fs_seg, tot_seg, f, vis, sync_ms = guard.run(
+                "device.multi_hop",
+                lambda f=f, vis=vis, hops=hops: _dispatch(f, vis, hops),
+            )
+            fs += fs_seg
+            totals += tot_seg
             if sp is not None:
                 ms.set_attr("hops", int(hops))
                 ms.set_attr("cap", int(cap))
                 ms.set_attr("track_visited", bool(track_visited))
-                ms.set_attr(
-                    "device_sync_ms",
-                    round(obs.block_ready_ms((f, totals[-1], vis)), 3),
-                )
+                ms.set_attr("device_sync_ms", round(sync_ms, 3))
     return torch.stack(fs), torch.stack(totals), vis

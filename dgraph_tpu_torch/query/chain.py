@@ -46,10 +46,17 @@ memory.
 Capacity planning is overflow-free: level 0 is exact (host degrees of the
 root rows), deeper levels use the arena's top-m degree cumsum (the m
 largest rows bound any m-row frontier).  A plan over the cap is rejected
-before any dispatch.  Nothing falls back after a dispatch: a device fault
-propagates, as on the per-level route.  Where ``segments.plan`` returns
-k > 0, a scheduler yield point (``segments.seam``) sits between every k
-levels of the staged pass, as between every k hops of ``ops.multi_hop``.
+before any dispatch.  Where ``segments.plan`` returns k > 0, a scheduler
+yield point (``segments.seam``) sits between every k levels of the
+staged pass, as between every k hops of ``ops.multi_hop``.
+
+Device faults (utils/devguard.py).  Each pass runs under the device
+guard (failpoint sites ``device.chain``, ``device.multi_hop``,
+``device.spgemm``).  A sick domain makes the chain raise
+``DeviceSickError`` up front; an out-of-memory fault of any fused pass
+declines to the per-level route, recorded in ``chain_reject``; every
+other fault propagates (the server's 503).  Nothing falls back to the
+host.
 """
 
 from __future__ import annotations
@@ -66,6 +73,8 @@ from dgraph_tpu_torch.ops.sets import SENT
 from dgraph_tpu_torch.query import joinplan, planner
 from dgraph_tpu_torch.query.functions import QueryError
 from dgraph_tpu_torch.sched import segments
+from dgraph_tpu_torch.utils import devguard
+from dgraph_tpu_torch.utils.failpoints import fail
 
 # largest per-level plan, in edges: full-mode chains fetch their
 # matrices (transfer-sized), light-mode (var-block) chains fetch only
@@ -175,7 +184,8 @@ def _order_window(flat, seg, order, order_static):
 
 
 def _run_fused(engine, root_vec, arenas, luts, keeps, orders, caps, light):
-    """Every level of the chain as device work, ONE packed int32 output.
+    """Every level of the chain as device work, ONE packed int32 output
+    fetched to the host.
 
     root_vec: int32[B] sorted-unique root uids, SENT-padded, on the
       device.
@@ -194,39 +204,59 @@ def _run_fused(engine, root_vec, arenas, luts, keeps, orders, caps, light):
       light: [nxt]? [total]
     out/owner are slot-aligned: each slot's target and its row in the
     level's frontier (-1 past the total or where a keep-set or window
-    dropped it), grouped by owner ascending."""
+    dropped it), grouped by owner ascending.
+
+    Each segment of levels (all of them unless ``segments.plan`` asks
+    for seams) is one closure under the device guard (``device.chain``)
+    that ends with its fetch, so a fault surfaces inside the guard that
+    launched it; the next segment's frontier stays on the device, and
+    the seams sit between the closures."""
     ex = engine.expander
-    gathers = ex._use_resident()
+    n = len(arenas)
     # segment seams (sched/segments.py): a scheduler yield point every
     # seg_k levels, where the planner asks for one
-    seg_k = segments.plan(len(arenas), max(c[0] for c in caps), "chain")
+    seg_k = segments.plan(n, max(c[0] for c in caps), "chain")
+    if not 0 < seg_k < n:
+        seg_k = n
+    guard = devguard.get()
+
+    def _dispatch(u, lo, hi):
+        fail.point("device.chain")
+        parts = []
+        for i in range(lo, hi):
+            cap, cap_u, need_dest, _dec, ostat = caps[i]
+            packed = ex.expand_rows(arenas[i], lut_rows(luts[i], u), cap)
+            flat, seg = packed[:cap], packed[cap:]
+            total = (seg >= 0).sum(dtype=torch.int32).reshape(1)
+            if keeps[i] is not None:
+                kept = ops.member_mask(flat, keeps[i])
+                flat = torch.where(kept, flat, SENT)
+                seg = torch.where(kept, seg, -1)
+            if ostat is not None:
+                flat, seg = _order_window(flat, seg, orders[i], ostat)
+            nxt = ops.sort_unique(flat)[:cap_u]
+            if not light:
+                parts += [flat, seg, nxt, total]
+            elif need_dest:
+                parts += [nxt, total]
+            else:
+                parts.append(total)
+            u = nxt
+        return torch.cat(parts).cpu().numpy(), u
+
+    host_parts = []
     u = root_vec
-    parts = []
-    for i, (a, lut, keep, order, (cap, cap_u, need_dest, _dec, ostat)) in enumerate(
-        zip(arenas, luts, keeps, orders, caps)
-    ):
-        if 0 < seg_k < len(arenas) and i and i % seg_k == 0:
+    for lo in range(0, n, seg_k):
+        if lo:
             segments.seam("chain")
-        packed = ex.expand_rows(a, lut_rows(lut, u), cap)
-        if gathers:
-            engine.stats["fused_gathers"] += 1
-        flat, seg = packed[:cap], packed[cap:]
-        total = (seg >= 0).sum(dtype=torch.int32).reshape(1)
-        if keep is not None:
-            kept = ops.member_mask(flat, keep)
-            flat = torch.where(kept, flat, SENT)
-            seg = torch.where(kept, seg, -1)
-        if ostat is not None:
-            flat, seg = _order_window(flat, seg, order, ostat)
-        nxt = ops.sort_unique(flat)[:cap_u]
-        if not light:
-            parts += [flat, seg, nxt, total]
-        elif need_dest:
-            parts += [nxt, total]
-        else:
-            parts.append(total)
-        u = nxt
-    return torch.cat(parts)
+        hi = min(lo + seg_k, n)
+        host, u = guard.run(
+            "device.chain", lambda u=u, lo=lo, hi=hi: _dispatch(u, lo, hi)
+        )
+        host_parts.append(host)
+    if ex._use_resident():
+        engine.stats["fused_gathers"] += n
+    return host_parts[0] if len(host_parts) == 1 else np.concatenate(host_parts)
 
 
 def try_run_chain(
@@ -246,7 +276,24 @@ def try_run_chain(
 
     if len(src) == 0 or not eligible_level(engine, child):
         return reject("root level not fusable" if len(src) else "empty frontier")
-    src = np.asarray(src)
+    # device fault domain latched sick: every fused route below is
+    # device work, so the chain raises (the server's 503) where the
+    # reference prices the device out and runs per level on the host
+    devguard.get().check("device.chain")
+    try:
+        return _fuse(engine, child, np.asarray(src), resolver, first_edges, reject)
+    except devguard.DeviceFaultError as e:
+        if e.kind != "oom":
+            raise
+        # a fused pass out of device memory declines to the per-level
+        # route: still the card and the same gather kernel, and its own
+        # OOM answer is LRU eviction and one retry
+        return reject("device oom: chain fell back to per-level")
+
+
+def _fuse(engine, child, src: np.ndarray, resolver, first_edges, reject) -> bool:
+    """``try_run_chain``'s body past the root checks: the tile route,
+    then the multi-hop pass, then the staged pass."""
     if not np.all(src[1:] > src[:-1]):
         # an order-by at the root permutes dest_uids: the stashed
         # matrices are aligned with an ascending-distinct frontier
@@ -387,10 +434,10 @@ def try_run_chain(
     root_vec = torch.from_numpy(
         ops.pad_to(src, ops.bucket(max(1, len(src))))
     ).to(dev)
-    # ONE device round trip for the whole chain
+    # ONE device round trip for the whole chain (one a segment)
     packed = _run_fused(
         engine, root_vec, arenas, luts, keeps, orders, caps, light
-    ).cpu().numpy()
+    )
 
     # --- host conversion: packed buffer -> engine results per level ---
     src_list = np.asarray(src, dtype=np.int64)

@@ -34,7 +34,9 @@ the routing, each expansion probes the tier-1 hop cache
 (``cache/hop.py``) and, on a cohort member of the scheduler
 (``sched/scheduler.py``), merges with the same hop of other requests
 into one union expansion (``DeviceExpander.submit_hop``); every hop is
-a cancellation checkpoint (``QueryEngine.checkpoint``).  The
+a cancellation checkpoint (``QueryEngine.checkpoint``).  Every device
+dispatch runs under the device guard (``utils/devguard.py``); a fault
+raises to the caller, never to a host route.  The
 reference's classed route and mesh are execution strategies over the
 same semantics and are not ported; filters other than the k-way AND and
 a fused chain's keep-sets fold on the host.
@@ -59,8 +61,9 @@ from dgraph_tpu_torch.query import (
     chain, groupby, joinplan, outputnode, planner, recurse, shortest,
 )
 from dgraph_tpu_torch.sched import segments as _segments
-from dgraph_tpu_torch.utils import planconfig
+from dgraph_tpu_torch.utils import devguard, planconfig
 from dgraph_tpu_torch.utils.failpoints import fail
+from dgraph_tpu_torch.utils.metrics import DEVICE_FAILOVER
 
 _EMPTY = np.empty(0, dtype=np.int64)
 
@@ -134,8 +137,13 @@ class DeviceExpander:
     ``fused_hop`` (False: off) gates the chain's multi-hop pass and the
     fused var-block @recurse.  Above the routing sit the tier-1 hop
     cache and, under the cohort scheduler, the cross-request hop merger
-    (``_expand_cached``).  A device fault propagates: there is no host
-    failover."""
+    (``_expand_cached``).  Each device expansion — the rows' upload, the
+    launch and the one fetch — runs under the device guard
+    (utils/devguard.py, failpoint site ``device.hop``): an out-of-memory
+    fault evicts LRU arenas and retries once on the card
+    (``_run_guarded``); any other fault, a wedged dispatch or a domain
+    latched sick raises ``DeviceFaultError`` (the server's 503).  There
+    is no host failover."""
 
     def __init__(self, engine: "QueryEngine"):
         self.engine = engine
@@ -275,7 +283,7 @@ class DeviceExpander:
             key, src, lambda union: self._expand_one(arena, union)
         )
 
-    def _host_fallback(self, arena, rows) -> Tuple[np.ndarray, np.ndarray]:
+    def _host_expand(self, arena, rows) -> Tuple[np.ndarray, np.ndarray]:
         """Small expansions: vectorized numpy over the host CSR mirror."""
         eng = self.engine
         self._route = "host"
@@ -325,46 +333,86 @@ class DeviceExpander:
             self._expand_dec = dec
         if not use_device:
             # a device dispatch costs a round trip that dwarfs the work
-            return self._host_fallback(arena, rows)
+            return self._host_expand(arena, rows)
         cap = ops.bucket(total)
-        rows_dev = torch.from_numpy(ops.pad_rows(rows, ops.bucket(n))).to(
-            arena.device
-        )
+        padded = ops.pad_rows(rows, ops.bucket(n))
         # the hop span ``expand`` opened (a merged hop's union runs in
         # its leader's thread, under the leader's span); None unsampled
         hs = obs.current_span()
-        sync_ms = None
-        with obs.stage(eng.stats, "device_expand_ms"):
-            dev = self.expand_rows(arena, rows_dev, cap)
-            if hs is not None:
-                # sampled: split the device's compute from the host
-                # fetch (the unsampled path goes straight to the fetch)
-                sync_ms = obs.block_ready_ms(dev)
-            # one fetch: out|seg concatenated on the device
-            packed = dev.cpu().numpy()
+        self._route = "resident" if self._use_resident() else "csr"
+
+        def _dispatch():
+            # upload, expansion and the ONE fetch, all inside the device
+            # guard's watchdog: an OOM staging the rows classifies like
+            # a launch's, and the fetch surfaces an asynchronous fault
+            # here.  Plain data out: stats, ledger and span writes stay
+            # on the caller's thread, so a wedged worker that wakes up
+            # later writes nothing a newer request owns
+            fail.point("device.hop")
+            t = {}
+            with obs.stage(t, "ms"):
+                dev = self.expand_rows(
+                    arena, torch.from_numpy(padded).to(arena.device), cap
+                )
+                # sampled: split the device's compute from the host fetch
+                sync_ms = obs.block_ready_ms(dev) if hs is not None else None
+                # one fetch: out|seg concatenated on the device
+                packed = dev.cpu().numpy()
+            return packed, sync_ms, t["ms"]
+
+        packed, sync_ms, ms = self._run_guarded("device.hop", _dispatch)
+        # the stage is the dispatch's own time on the worker, without the
+        # guard's hand-off: the planner refines the resident rate from it
+        eng.stats["device_expand_ms"] += ms
         led = _ledger.current()
         if sync_ms is not None:
             hs.set_attr("device_sync_ms", round(sync_ms, 3))
             if led is not None:
                 led.device_sync_ms += sync_ms
         if led is not None:
-            led.bytes_h2d += rows_dev.numel() * rows_dev.element_size()
+            led.bytes_h2d += int(padded.nbytes)
             led.bytes_d2h += int(packed.nbytes)
         out = packed[:total].astype(np.int64)
         seg = packed[cap : cap + total].astype(np.int64)
         eng.stats["edges"] += len(out)
         return out, _seg_ptr_of(seg, n)
 
+    def _run_guarded(self, op: str, fn):
+        """Run one dispatch-and-fetch closure under the device guard
+        (utils/devguard.py; the twin of the reference's ``_run_guarded``
+        without its host landing).  An out-of-memory fault gets LRU
+        eviction (``ArenaManager.evict_for_oom``) and ONE retry on the
+        card; any other fault, a second one, or an OOM with nothing left
+        to evict raises ``DeviceFaultError`` (the server's 503).  A
+        failed dispatch is no rate sample: the planner's expand decision
+        is dropped, never closed."""
+        g = devguard.get()
+        try:
+            return g.run(op, fn)
+        except devguard.DeviceFaultError as e:
+            if e.kind != "oom" or not self.engine.arenas.evict_for_oom():
+                self._expand_dec = None
+                raise
+        # the budget is an estimate, the allocator's verdict is ground
+        # truth: LRU arenas are gone, re-prove the dispatch once
+        DEVICE_FAILOVER.add("evict_retry")
+        g.note_evict_retry()
+        try:
+            return g.run(op, fn)
+        except devguard.DeviceFaultError:
+            self._expand_dec = None
+            raise
+
     def expand_rows(self, arena, rows: torch.Tensor, cap: int) -> torch.Tensor:
         """Device expansion of int32 ``rows`` (-1 skips) on this route:
         the packed ``concat([out, seg])`` int32[2·cap], device-in and
-        device-out (the per-level route's and the fused chain's call)."""
+        device-out (the per-level route's and the fused chain's call).
+        It sets no expander state: it runs inside guarded closures, and
+        the caller names the route."""
         if self._use_resident():
             # the CSR pinned on the device: no re-staging rides this
             # dispatch
-            self._route = "resident"
             return arena.resident().expand_packed(rows, cap)
-        self._route = "csr"
         arena.ensure_device()  # re-upload after host deltas
         out_d, seg_d, _t = ops.expand_csr(arena.offsets, arena.dst, rows, cap)
         return torch.cat([out_d, seg_d])

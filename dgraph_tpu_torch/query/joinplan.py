@@ -40,9 +40,12 @@ planner is off or the gate is pinned), so the decisions equal the
 reference's under the same calibration.  A sampled request records the
 tile chain as one ``hop`` span (route ``mxu``) and a device k-way step
 as a ``kway`` span (the
-port's addition), each with its ``device_sync_ms``.  The reference's
-device guard and failpoints around the dispatch are not ported: a
-device fault propagates.
+port's addition), each with its ``device_sync_ms``.  Both run under the
+device guard (utils/devguard.py, failpoint site ``device.spgemm``): a
+sick domain makes the tile route raise ``DeviceSickError`` up front, a
+faulted k-way step raises, and a faulted tile chain raises to the fused
+chain, which declines an out-of-memory fault to the per-level route.
+Where the reference folds on the host after a fault, the port does not.
 """
 
 from __future__ import annotations
@@ -59,7 +62,8 @@ from dgraph_tpu_torch import obs, ops
 from dgraph_tpu_torch.ops import spgemm
 from dgraph_tpu_torch.ops.kway import intersect_batch
 from dgraph_tpu_torch.ops.sets import SENT
-from dgraph_tpu_torch.utils import planconfig
+from dgraph_tpu_torch.utils import devguard, planconfig
+from dgraph_tpu_torch.utils.failpoints import fail
 from dgraph_tpu_torch.utils.metrics import JOIN_ROUTES, KWAY_INTERSECTS
 
 _EMPTY = np.empty(0, dtype=np.int64)
@@ -184,18 +188,31 @@ def kway_intersect(
         # and the wait for the intersect kernel's result
         sp = obs.current_span()
         ks = sp.child("kway") if sp is not None else obs.NOOP
-        with ks, obs.stage(st, "kway_ms"):
-            L = ops.bucket(max(len(s) for s in sets))
-            mat = np.stack([ops.pad_to(s, L) for s in sets])
-            out = intersect_batch(torch.from_numpy(mat).to(dev)[None])[0]
+        L = ops.bucket(max(len(s) for s in sets))
+
+        def _dispatch():
+            # staging, the kernel and the fetch inside the device guard's
+            # watchdog; a fault (an OOM too) propagates: no host fold
+            fail.point("device.spgemm")
+            t = {}
+            with obs.stage(t, "ms"):
+                mat = np.stack([ops.pad_to(s, L) for s in sets])
+                out = intersect_batch(torch.from_numpy(mat).to(dev)[None])[0]
+                sync_ms = obs.block_ready_ms(out) if sp is not None else None
+                out = out.cpu().numpy()
+            return out, sync_ms, t["ms"]
+
+        with ks:
+            out, sync_ms, ms = devguard.get().run("device.spgemm", _dispatch)
+            # the step's own time on the worker, without the guard's
+            # hand-off (the planner refines the kernel's rate from it)
+            st["kway_ms"] = st.get("kway_ms", 0.0) + ms
+            res = out[out != SENT].astype(np.int64)
             if sp is not None:
                 ks.set_attr("route", "device")
                 ks.set_attr("k", k)
                 ks.set_attr("lanes", int(L))
-                ks.set_attr("device_sync_ms", round(obs.block_ready_ms(out), 3))
-            out = out.cpu().numpy()
-            res = out[out != SENT].astype(np.int64)
-            if sp is not None:
+                ks.set_attr("device_sync_ms", round(sync_ms, 3))
                 ks.set_attr("out", int(len(res)))
         route = "kway_device"
     else:
@@ -313,6 +330,10 @@ def try_mxu_route(engine, child, src: np.ndarray, resolver) -> bool:
     mode = mxu_mode()
     if mode == "0" or len(src) == 0:
         return False
+    # device fault domain latched sick: the tile tier is device work, so
+    # it raises (the server's 503) where the reference declines it and
+    # the host serves
+    devguard.get().check("device.spgemm")
     # light (var-block) chains only: masks carry SETS, not uid matrices,
     # so any level whose results must be encoded cannot ride this tier
     if not engine._cur_block_internal:
@@ -502,28 +523,49 @@ def try_mxu_route(engine, child, src: np.ndarray, resolver) -> bool:
     sp = obs.current_span()
     hs = sp.child("hop") if sp is not None else obs.NOOP
     sync_ms = 0.0
+
+    def _dispatch(x, keep_masks, lo, hi):
+        # one segment under the device guard: mask staging (the first
+        # segment stages the root and keep masks, device-resident for
+        # the later ones), the tile chain and the fetches.  Plain data
+        # out; the caller writes the stats and stashes
+        fail.point("device.spgemm")
+        if x is None:
+            x = _mask_of(src64, m, dev)
+            keep_masks = [
+                None if ks is None else _mask_of(ks, m, dev)
+                for ks in keeps_np
+            ]
+        masks, tot = spgemm.run_mask_chain(
+            tile_ops[lo:hi], keep_masks[lo:hi], degvs[lo:hi], x
+        )
+        seg_sync = obs.block_ready_ms((masks, tot)) if sp is not None else 0.0
+        seg_dests = {
+            i: spgemm.mask_to_uids(masks[i - lo])
+            for i in range(lo, hi) if need[i]
+        }
+        nxt = masks[-1]
+        return (tot.cpu().numpy(), seg_dests, nxt, keep_masks,
+                bool(nxt.any()), seg_sync)
+
+    guard = devguard.get()
     with hs, obs.stage(engine.stats, "mxu_join_ms"):
-        x = _mask_of(src64, m, dev)
-        keep_masks = [
-            None if ks is None else _mask_of(ks, m, dev) for ks in keeps_np
-        ]
+        x = keep_masks = None
         lo = 0
         while lo < len(levels):
             if lo:
                 segments.seam("mask_chain")
             hi = min(lo + seg_k, len(levels))
-            masks, tot = spgemm.run_mask_chain(
-                tile_ops[lo:hi], keep_masks[lo:hi], degvs[lo:hi], x
+            tot, seg_dests, x, keep_masks, live, seg_sync = guard.run(
+                "device.spgemm",
+                lambda x=x, km=keep_masks, lo=lo, hi=hi: _dispatch(x, km, lo, hi),
             )
-            if sp is not None:
-                sync_ms += obs.block_ready_ms((masks, tot))
-            totals[lo:hi] = tot.cpu().numpy()
-            for i in range(lo, hi):
-                if need[i]:
-                    dests[i] = spgemm.mask_to_uids(masks[i - lo])
-            x = masks[-1]
+            sync_ms += seg_sync
+            totals[lo:hi] = tot
+            for i, d in seg_dests.items():
+                dests[i] = d
             lo = hi
-            if lo < len(levels) and not bool(x.any()):
+            if lo < len(levels) and not live:
                 # drained frontier: every remaining level is an empty
                 # mask with a zero total — stop dispatching
                 segments.early_exit("mask_chain")

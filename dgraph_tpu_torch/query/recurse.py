@@ -35,6 +35,7 @@ from dgraph_tpu_torch.models.types import TypeID
 from dgraph_tpu_torch.ops.sets import SENT
 from dgraph_tpu_torch.query.chain import _topm_deg_sum
 from dgraph_tpu_torch.query.subgraph import SubGraph
+from dgraph_tpu_torch.utils import devguard
 
 MAX_EDGES = 1_000_000
 
@@ -140,7 +141,8 @@ def _try_fused_recurse(engine, sg: SubGraph, uid_templates) -> bool:
     Strictly gated (the reference's gates): any decoration (filters,
     ordering, value leaves, @cascade, unbounded depth) or an edge bound
     over MAX_EDGES falls back to the level-by-level loop, decided before
-    any dispatch.  A device fault propagates."""
+    any dispatch.  An out-of-memory device fault falls back to the loop
+    too; any other device fault propagates."""
     p = sg.params
     if not p.is_internal or p.cascade or len(uid_templates) != 1:
         return False
@@ -179,12 +181,20 @@ def _try_fused_recurse(engine, sg: SubGraph, uid_templates) -> bool:
     cap = fused_cap(arena, len(frontier), depth)
     if cap is None:
         return False
-    offsets, dst = engine.expander.csr_buffers(arena)
-    f = torch.from_numpy(ops.pad_to(frontier, cap)).to(offsets.device)
-    fs, totals, _vis = ops.multi_hop(
-        offsets, dst, f, f, depth, cap,
-        track_visited=True, lut=arena.lut(),
-    )
+    try:
+        offsets, dst = engine.expander.csr_buffers(arena)
+        f = torch.from_numpy(ops.pad_to(frontier, cap)).to(offsets.device)
+        # guarded inside ops.multi_hop (device.multi_hop)
+        fs, totals, _vis = ops.multi_hop(
+            offsets, dst, f, f, depth, cap,
+            track_visited=True, lut=arena.lut(),
+        )
+    except devguard.DeviceFaultError as e:
+        if e.kind != "oom":
+            raise
+        # out of device memory: the level-by-level loop takes over,
+        # still on the card, where the per-level OOM retry evicts
+        return False
     engine.stats["fused_gathers"] += depth
     host = torch.cat([fs.reshape(-1), totals]).cpu().numpy()  # ONE fetch
     engine.stats["edges"] += int(host[depth * cap :].astype(np.int64).sum())

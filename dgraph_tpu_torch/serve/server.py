@@ -9,11 +9,21 @@
   body is built exactly as the reference builds it, so its JSON is
   byte-identical.  Sheds answer 429 with ``Retry-After`` (the global
   admission queue or the tenant's quota is full), an exhausted budget
-  504, a client that hung up 499.
+  504, a client that hung up 499, a device fault 503 with
+  ``Retry-After`` (below).
+- ``POST /subscribe`` — register a live query (ivm/subs.py): the body is
+  a read-only query, variables and tenant ride the ``/query`` headers.
+  Under ``Accept: text/event-stream`` (or ``?stream=1``) the answer is
+  the subscription's server-sent-event stream on this connection,
+  starting with the snapshot; otherwise its handle (``sub_id``,
+  ``preds``).  ``GET /subscribe?id=`` attaches to a handle's stream,
+  ``POST /subscribe/cancel?id=`` cancels it.  Over quota: 429 with
+  ``Retry-After``.
 - ``GET /health`` — ``OK`` while serving; ``?detail=1`` a JSON object
-  with the storage plane's state (``storage``: read-only latch, WAL
-  bytes and records, sealed segments, snapshot age, the last recovery)
-  when the store is durable.
+  with the device fault domain's state (``device``: utils/devguard.py)
+  and the storage plane's (``storage``: read-only latch, WAL bytes and
+  records, sealed segments, snapshot age, the last recovery) when the
+  store is durable.
 - ``GET /metrics`` (and ``/debug/prometheus_metrics``) — the Prometheus
   text exposition of ``utils/metrics.py``; with ``Accept:
   application/openmetrics-text`` the OpenMetrics exposition, whose
@@ -26,8 +36,9 @@
   (``obs.configure(ratio=...)``, ``DGRAPH_TPU_TRACE_RATIO``, the CLI's
   ``--trace``) or by a sampled ``Traceparent`` header while the sampler
   is armed (ratio > 0); at ratio 0 no span is allocated.
-- ``GET /debug/device`` — backend, device name, kernel builds and the
-  arenas' device residency (obs/device.py); ``GET /debug/bundle`` — one
+- ``GET /debug/device`` — backend, device name, kernel builds, the
+  device guard's state (``guard``) and the arenas' device residency
+  (obs/device.py); ``GET /debug/bundle`` — one
   postmortem JSON (traces, slow queries, the planner's summary, qos,
   ivm, caches, device, ledger aggregates).
 - ``GET /debug/planner`` — the planner (query/planner.py): calibration
@@ -38,9 +49,10 @@
   scheduled read of that trace: 200, the read answers 499; 404 when no
   live query holds the id.
 - ``GET /debug/store`` — predicates with their edge and value counts,
-  the query caches' occupancy (``qcache``), the predicate versions
-  (``ivm``), the QoS tenant table (``qos``) and the join tier's route
-  counts and recent decisions (``join``).
+  the query caches' occupancy (``qcache``), the predicate versions, the
+  delta stream and the subscription table (``ivm``), the QoS tenant
+  table (``qos``) and the join tier's route counts and recent decisions
+  (``join``).
 - ``GET /admin/shutdown`` — stops the server.
 - ``GET /admin/snapshot`` (``?wait=1`` blocks until the round is done)
   — one seal + compaction round of a durable store's WAL now.
@@ -74,8 +86,17 @@ lock, each member on an engine shell of its own over the shared arenas,
 their same-predicate hops merged into one gather launch, a tier-2 result
 cache in front.  Mutations take the write side and run on the server's
 engine.  ``DGRAPH_TPU_SCHED=0`` restores the serial path: every request
-under the write side on the server's engine, one at a time.  The
-reference's subscriptions, gRPC and TLS are not ported yet.
+under the write side on the server's engine, one at a time.
+
+Device faults (utils/devguard.py).  Every dispatch to the card runs
+under the device guard's watchdog.  A classified fault that reaches a
+request — a wedged dispatch (``DGRAPH_TPU_DEVICE_HANG_MS``), a domain
+latched sick, a transient fault, or an OOM the per-level route's
+eviction and retry did not cure — answers 503 ``ErrorServiceUnavailable``
+with ``Retry-After`` the ceiling of ``DGRAPH_TPU_DEVICE_COOLDOWN_S``.
+In a cohort each member it hit answers 503 and the flush worker lives
+on.  Nothing is served from the host instead, unlike the reference.
+The reference's gRPC and TLS are not ported yet.
 """
 
 from __future__ import annotations
@@ -111,6 +132,7 @@ from dgraph_tpu_torch.sched.cohort import (
 from dgraph_tpu_torch.sched.qos import QueryCancelledError
 from dgraph_tpu_torch.sched.scheduler import CohortScheduler, sched_enabled
 from dgraph_tpu_torch.serve.export import export as export_rdf
+from dgraph_tpu_torch.utils import devguard as _devguard
 from dgraph_tpu_torch.utils import planconfig as _planconfig
 from dgraph_tpu_torch.utils.health import HealthGate
 from dgraph_tpu_torch.utils.metrics import (
@@ -190,6 +212,26 @@ class DgraphServer:
         # cohort scheduler (sched/): gated by DGRAPH_TPU_SCHED (default
         # on); =0 restores the serial per-request path
         self.scheduler = CohortScheduler(self) if sched_enabled() else None
+        # incremental view maintenance (ivm/): attach the mutation delta
+        # stream to the store and stand up the live-query registry
+        # (POST /subscribe).  A ClusterStore keeps per-predicate versions
+        # for cache keys only and has no local mutation path to stream
+        # (supports_ivm_stream = False): no stream, no subscriptions.  A
+        # durable store is attached after its recovery, so replayed
+        # records publish nothing
+        self.subs = None
+        from dgraph_tpu_torch import ivm as _ivm
+
+        if (
+            _ivm.ivm_enabled()
+            and getattr(store, "pred_versions", None) is not None
+            and getattr(store, "supports_ivm_stream", True)
+        ):
+            stream = _ivm.attach_stream(store)
+            from dgraph_tpu_torch.ivm import subs as _subs
+
+            if _subs.subs_enabled():
+                self.subs = _subs.SubscriptionRegistry(self, stream)
         # storage plane (models/wal.py + models/durability.py), for a
         # DurableStore: group commit moves the --sync fsync out of the
         # exclusive write section into a shared post-lock barrier, so
@@ -222,6 +264,8 @@ class DgraphServer:
         self._thread.start()
         if self.snapshotter is not None:
             self.snapshotter.start()
+        if self.subs is not None:
+            self.subs.start()
         _device.stamp_build_info(self.engine.device)
         self.health.set_ok(True)
 
@@ -250,6 +294,11 @@ class DgraphServer:
                 self._httpd = None
             if self._thread is not None:
                 self._thread.join(timeout=30)
+            if self.subs is not None:
+                # before the scheduler: the notifier's in-flight
+                # re-evaluations ride it, which must still admit while
+                # they drain; every subscription is cancelled
+                self.subs.stop()
             if self.scheduler is not None:
                 # before the write lock: queued cohorts must drain (fail
                 # fast) or they would wait on a read lock that never comes
@@ -412,6 +461,13 @@ class DgraphServer:
                     k: (round(v, 3) if isinstance(v, float) else v)
                     for k, v in stats.items()
                 }
+                if _devguard.enabled():
+                    # the device fault domain's state beside the stats
+                    # (the reference stamps it on a failed-over
+                    # response; the port has no failover to stamp)
+                    out["server_latency"]["engine"]["device_guard"] = (
+                        _devguard.summary()
+                    )
             return out
         except BaseException as e:
             if root is not None:
@@ -492,6 +548,77 @@ def _make_handler(srv: DgraphServer):
                 return None
             return _qos.socket_disconnect_probe(self.connection)
 
+        def _subscribe(self, body: str, qs: dict):
+            """Register a live query (ivm/subs.py).  An SSE client gets
+            the event stream on this connection, starting with the
+            snapshot; otherwise the answer is the handle to attach to."""
+            if srv.subs is None:
+                return self._err(404, "subscriptions disabled "
+                                      "(DGRAPH_TPU_IVM/DGRAPH_TPU_SUBS)")
+            from dgraph_tpu_torch.ivm.subs import SubQuotaError
+
+            try:
+                vars_hdr = self.headers.get("X-Dgraph-Vars")
+                variables = json.loads(vars_hdr) if vars_hdr else None
+                sub = srv.subs.register(
+                    body, variables,
+                    tenant=self.headers.get("X-Dgraph-Tenant") or "",
+                )
+            except SubQuotaError as e:
+                return self._err(
+                    429, str(e), "ErrorServiceUnavailable",
+                    extra={"tenant": e.tenant},
+                    headers={"Retry-After": str(
+                        max(1, int(round(e.retry_after))))},
+                )
+            except Exception as e:  # noqa: BLE001 — the reference's 400
+                return self._err(400, str(e))
+            stream = (
+                "text/event-stream" in self.headers.get("Accept", "")
+                or qs.get("stream", ["0"])[0] in ("1", "true")
+            )
+            if stream:
+                return self._sse_stream(sub)
+            return self._reply(200, json.dumps({
+                "code": "Success",
+                "sub_id": sub.id,
+                "preds": (
+                    sorted(sub.footprint) if sub.footprint is not None else None
+                ),
+            }).encode())
+
+        def _sse_stream(self, sub):
+            """Server-sent-events pump for one subscription: a
+            close-delimited stream (no Content-Length), one ``event:``
+            frame per pushed event, comment heartbeats while idle so a
+            vanished client surfaces as a write error within a beat.
+            The connection owns the subscription: a transport error
+            cancels it."""
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Connection", "close")
+            self.end_headers()
+            self.close_connection = True
+            try:
+                while True:
+                    ev = sub.next_event(timeout=2.0)
+                    if ev is None:
+                        self.wfile.write(b": ping\n\n")
+                        self.wfile.flush()
+                        continue
+                    frame = (
+                        f"event: {ev.get('kind', 'update')}\n"
+                        f"id: {ev.get('seq', 0)}\n"
+                        f"data: {json.dumps(ev, default=str)}\n\n"
+                    )
+                    self.wfile.write(frame.encode())
+                    self.wfile.flush()
+                    if ev.get("kind") == "cancelled":
+                        return
+            except OSError:
+                srv.subs.cancel(sub.id, reason="disconnect")
+
         def do_OPTIONS(self):
             self._reply(200, b"")
 
@@ -508,6 +635,12 @@ def _make_handler(srv: DgraphServer):
                 status = getattr(srv.store, "storage_status", None)
                 if status is not None:
                     detail["storage"] = status()
+                # device fault domain (utils/devguard.py): per-domain
+                # state, fault counts and the re-admission probe's score
+                detail["device"] = {
+                    "enabled": _devguard.enabled(),
+                    "domains": _devguard.summary(),
+                }
                 self._reply(200 if srv.healthy() else 503,
                             json.dumps(detail).encode())
             elif path == "/health":
@@ -595,6 +728,15 @@ def _make_handler(srv: DgraphServer):
                 )
             elif path == "/admin/cancel":
                 self._admin_cancel(qs)
+            elif path == "/subscribe":
+                # attach to a registered subscription's event stream
+                if srv.subs is None:
+                    return self._err(404, "subscriptions disabled")
+                sid = qs.get("id", [""])[0]
+                sub = srv.subs.get(sid) if sid else None
+                if sub is None:
+                    return self._err(404, "no such subscription")
+                self._sse_stream(sub)
             elif path == "/debug/store":
                 from dgraph_tpu_torch.query import joinplan
 
@@ -818,6 +960,20 @@ def _make_handler(srv: DgraphServer):
             qs = parse_qs(u.query)
             if u.path == "/admin/cancel":
                 return self._admin_cancel(qs)
+            if u.path == "/subscribe":
+                return self._subscribe(body, qs)
+            if u.path == "/subscribe/cancel":
+                if srv.subs is None:
+                    return self._err(404, "subscriptions disabled")
+                sid = qs.get("id", [""])[0]
+                if not sid:
+                    return self._err(400, "id required")
+                if srv.subs.cancel(sid):
+                    return self._reply(200, json.dumps({
+                        "code": "Success",
+                        "message": f"subscription {sid} cancelled",
+                    }).encode())
+                return self._err(404, "no such subscription")
             if u.path != "/query":
                 return self._err(404, "no such endpoint")
             debug = qs.get("debug", ["false"])[0] == "true"
@@ -860,6 +1016,12 @@ def _make_handler(srv: DgraphServer):
                 except OSError:
                     self.close_connection = True
                     return None
+            except _devguard.DeviceFaultError as e:
+                # the card is sick, wedged or faulted (utils/devguard.py):
+                # retriable once the re-admission probe re-proves it
+                return self._err(503, str(e), "ErrorServiceUnavailable",
+                                 headers={"Retry-After": str(
+                                     _devguard.retry_after_s())})
             except StorageFaultError as e:
                 # disk fault / read-only mode: the mutation was NOT
                 # acknowledged; retriable once the re-arm probe clears
@@ -900,19 +1062,21 @@ def _make_handler(srv: DgraphServer):
 
 def _ivm_stats(srv: DgraphServer) -> Optional[dict]:
     """/debug/store "ivm" section: the predicate-version spread (how much
-    invalidation scoping buys).  None when IVM is off.  The reference's
-    delta stream and subscription table are not ported: null."""
+    invalidation scoping buys), the delta stream's occupancy and the
+    subscription table (null where the store streams nothing).  None
+    when IVM is off."""
     from dgraph_tpu_torch.ivm import ivm_enabled
 
     store = srv.store
     if not ivm_enabled():
         return None
+    stream = getattr(store, "delta_stream", None)
     return {
         "version": store.version,
         "pred_floor": store.pred_floor,
         "tracked_preds": len(store.pred_versions),
-        "stream": None,
-        "subs": None,
+        "stream": stream.snapshot() if stream is not None else None,
+        "subs": srv.subs.snapshot() if srv.subs is not None else None,
     }
 
 

@@ -32,8 +32,14 @@ bit-identically.  Triggers are counted per site in
 Instrumented sites of the port: the cohort scheduler's flush
 (``sched.flush``), the engine's per-level hop dispatch (``engine.hop``
 — the cancellation-checkpoint seam; arm ``delay(ms=...)`` to stretch
-it) and the segment seam between hops of the fused hop loops
-(``segment.seam``, sched/segments.py).
+it), the segment seam between hops of the fused hop loops
+(``segment.seam``, sched/segments.py), and the device guard's
+(utils/devguard.py): inside the guarded closures ``device.hop`` (a
+per-level expansion), ``device.chain`` (a staged chain segment),
+``device.multi_hop`` (a multi-hop segment) and ``device.spgemm`` (a
+k-way step or a tile chain segment), where ``hang`` and ``xla_oom``
+drive the watchdog and the OOM retry, and ``devguard.probe`` (the
+re-admission probe).
 """
 
 from __future__ import annotations

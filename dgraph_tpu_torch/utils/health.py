@@ -7,13 +7,14 @@
   one caller at a time holds the half-open probe slot, owns it via a
   token, and hands it back on every exit path;
 - :class:`CooldownProbeLoop` — the background re-prove loop of the
-  storage plane's read-only latch (``models/durability.StorageHealth``).
+  storage plane's read-only latch (``models/durability.StorageHealth``)
+  and of the device fault domain (``utils/devguard.py``); ``stop()``
+  ends it at once (the reference's loop sleeps its interval out).
 """
 
 from __future__ import annotations
 
 import threading
-import time
 from typing import Callable, Optional, Tuple
 
 
@@ -109,6 +110,7 @@ class CooldownProbeLoop:
         self._name = name
         self._lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
 
     def start(self) -> bool:
         """Spawn the loop unless one is already running; returns whether
@@ -123,14 +125,21 @@ class CooldownProbeLoop:
         t.start()
         return True
 
+    def stop(self, join_s: float = 0.0) -> None:
+        """End the loop at its next wake (the owner is going away); with
+        ``join_s`` wait that long for the thread to exit."""
+        self._stop.set()
+        t = self._thread
+        if join_s and t is not None and t is not threading.current_thread():
+            t.join(join_s)
+
     def _loop(self) -> None:
         while True:
             # cooldown FIRST (half-open semantics): give the condition
             # one interval to clear before re-proving anything
-            if not self._active():
+            if self._stop.is_set() or not self._active():
                 return
-            time.sleep(self.interval_s)
-            if not self._active():
+            if self._stop.wait(self.interval_s) or not self._active():
                 return
             if self._probe():
                 return

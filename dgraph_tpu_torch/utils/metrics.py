@@ -571,6 +571,41 @@ IVM_REPAIRS = metrics.multilabeled(
     "dgraph_ivm_repairs_total", ("kind", "outcome")
 )
 IVM_REPAIR_EDGES = metrics.counter("dgraph_ivm_repair_edges_total")
+# the mutation delta stream (ivm/deltas.py): events published by kind
+# (edge/pred/epoch) and the oldest events lost to ring overflow
+IVM_DELTAS = metrics.labeled("dgraph_ivm_deltas_total", label="kind")
+IVM_STREAM_DROPPED = metrics.counter("dgraph_ivm_stream_dropped_total")
+
+# live-query subscriptions (ivm/subs.py): active registrations,
+# re-evaluations run, events by disposition (push = a changed result
+# delivered, skip = re-evaluated and unchanged, lagged = a slow
+# consumer's queue dropped its oldest, deferred = a retriable shed or
+# device fault put the evaluation off, error = the subscription was
+# cancelled) and registration sheds by reason (quota/cap)
+SUBS_ACTIVE = metrics.gauge("dgraph_subscription_active")
+SUBS_EVALS = metrics.counter("dgraph_subscription_evals_total")
+SUBS_EVENTS = metrics.labeled(
+    "dgraph_subscription_events_total", label="kind"
+)
+SUBS_SHED = metrics.labeled(
+    "dgraph_subscription_shed_total", label="reason"
+)
+
+# device fault domain (utils/devguard.py), under the reference's names:
+# DEVICE_STATE per domain (0 healthy, 1 suspect, 2 sick), every
+# classified fault by kind (hang/oom/transient), the re-admission probes
+# by outcome (ok/fail).  DEVICE_FAILOVER counts only ``evict_retry`` in
+# the port (an OOM on the per-level route answered by LRU eviction and
+# one retry on the card): the reference's ``host`` failover is not
+# ported, a faulted query answers 503
+DEVICE_STATE = metrics.labeled_gauge("dgraph_device_state", label="domain")
+DEVICE_FAULTS = metrics.labeled("dgraph_device_faults_total", label="kind")
+DEVICE_FAILOVER = metrics.labeled(
+    "dgraph_device_failover_total", label="route"
+)
+DEVICE_PROBES = metrics.labeled(
+    "dgraph_device_probes_total", label="outcome"
+)
 
 # storage plane (models/wal.py + models/durability.py), under the
 # reference's names: a disk fault latches read-only mode (the gauge)

@@ -8,7 +8,9 @@ shells as one gather launch, a durable directory recovered on the
 card answering its 2-hop through the gather, and a sampled 2-hop served
 on the card whose hop spans carry the device wait, and the planner's
 calibration on the card (positive rates; a kernel that fails to launch
-makes it raise).  Every test is marked ``cuda`` and skips
+makes it raise), and the device guard on the card (a real launch error
+and a real OOM classified, the guard's worker on the caller's stream).
+Every test is marked ``cuda`` and skips
 where no GPU is visible.  The file imports neither JAX nor the JAX
 package (its planner pin, tests/torch_pins.py, pins the port's planner
 alone where JAX is missing), so on the card's machine it runs alone:
@@ -576,3 +578,72 @@ def test_calibration_raises_when_a_kernel_launch_fails(broken, monkeypatch):
     with pytest.raises(RuntimeError, match="injected"):
         DgraphServer(PostingStore(), device="cuda")
     assert planner.calibration_info()["source"] != "measured"
+
+
+# ---------------------------------------------- the device guard on the card
+
+
+def test_real_kernel_launch_error_is_classified():
+    """A kernel entry point's own error return on the card (here the
+    gather refusing a scratch buffer too small, cudaErrorInvalidValue)
+    raises ``KernelLaunchError`` with its code, which the device guard
+    classifies ``transient``; a good launch right after it succeeds."""
+    _need_gpu()
+    from dgraph_tpu_torch.ops._build import KernelLaunchError
+    from dgraph_tpu_torch.utils import devguard
+
+    dev = torch.device("cuda")
+    off = torch.tensor([0, 1, 2], dtype=torch.int32, device=dev)
+    dst = torch.tensor([5, 6], dtype=torch.int32, device=dev)
+    rows = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    small = torch.empty(4, dtype=torch.int32, device=dev)
+
+    def bad_launch():
+        tgather.KERNEL.launch(
+            off.data_ptr(), dst.data_ptr(), rows.data_ptr(), 2, 2,
+            small.data_ptr(), small.numel(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+
+    g = devguard.DeviceGuard("t", hang_ms=30_000, cooldown_s=60, sick_after=3)
+    with pytest.raises(devguard.DeviceFaultError) as ei:
+        g.run("device.hop", bad_launch)
+    assert ei.value.kind == "transient"
+    assert isinstance(ei.value.__cause__, KernelLaunchError)
+    assert ei.value.__cause__.code == 1  # cudaErrorInvalidValue
+    assert g.state == "suspect"
+    out = g.run("device.hop", lambda: tops.gather_packed(off, dst, rows, 2).cpu())
+    assert out[:2].tolist() == [5, 6]
+    assert g.state == "healthy"
+
+
+def test_real_oom_is_classified():
+    _need_gpu()
+    from dgraph_tpu_torch.utils import devguard
+
+    g = devguard.DeviceGuard("t", hang_ms=30_000, cooldown_s=60, sick_after=3)
+    with pytest.raises(devguard.DeviceFaultError) as ei:
+        g.run("device.hop", lambda: torch.empty(1 << 46, device="cuda"))
+    assert ei.value.kind == "oom"
+    assert isinstance(ei.value.__cause__, torch.cuda.OutOfMemoryError)
+
+
+def test_guard_worker_runs_on_the_callers_stream():
+    """torch's current stream is per thread: the guard's worker must run
+    the closure on the CALLER's stream, so a gather it launches orders
+    after the caller's uploads on that stream."""
+    _need_gpu()
+    from dgraph_tpu_torch.utils import devguard
+
+    g = devguard.DeviceGuard("t", hang_ms=30_000, cooldown_s=60)
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        got = g.run("op", lambda: torch.cuda.current_stream().cuda_stream)
+        off = torch.tensor([0, 2, 3], dtype=torch.int32, device="cuda")
+        dst = torch.tensor([7, 8, 9], dtype=torch.int32, device="cuda")
+        rows = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+        out = g.run("device.hop", lambda: tops.gather_packed(off, dst, rows, 4))
+    assert got == s.cuda_stream
+    assert got != torch.cuda.current_stream().cuda_stream
+    s.synchronize()
+    assert out[:3].cpu().tolist() == [7, 8, 9]

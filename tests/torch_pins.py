@@ -17,6 +17,15 @@ A file uses it with
 ``pytestmark = pytest.mark.usefixtures("pinned_planner")`` and
 ``from torch_pins import pinned_planner  # noqa: F401``.
 
+The same fixture pins the two other kinds of process-wide state the
+port's serving path keeps: the device guards (``utils/devguard.py`` in
+both packages: a sick latch left behind by one test would make every
+later device route in the same worker raise) and the failpoints.  Before
+and after each test it resets both packages' guards and disarms both
+packages' failpoints; after it, it checks that no subscription notifier
+(``dgraph-subs``) or device-guard probe loop started during the test
+outlives it (a server a test forgot to stop).
+
 This lives beside ``tests/torch_cases.py``, not in it: that module is
 loaded by ``chip_smoke.py`` on the card, where no JAX is installed, and
 ``tests/test_torch_isolation.py`` holds it free of any reference
@@ -66,18 +75,66 @@ def reset_both_planners() -> None:
         planner._reset_for_tests()
 
 
+def _guard_modules():
+    """(devguard, failpoints) module pairs: the port's, and the
+    reference's where JAX is installed."""
+    import importlib
+    import importlib.util
+
+    pkgs = ["dgraph_tpu_torch"]
+    if importlib.util.find_spec("jax") is not None:
+        pkgs.insert(0, "dgraph_tpu")
+    return tuple(
+        (importlib.import_module(f"{p}.utils.devguard"),
+         importlib.import_module(f"{p}.utils.failpoints"))
+        for p in pkgs
+    )
+
+
+def reset_guards() -> None:
+    """Both packages: fresh device guards, every failpoint disarmed."""
+    for guard, fp in _guard_modules():
+        fp.fail.reset()
+        guard.reset_for_tests()
+
+
+# threads that must not outlive the server or guard that started them
+_OWNED_THREADS = ("dgraph-subs", "dgraph-devguard-device")
+
+
+def _owned_threads() -> set:
+    import threading
+
+    return {t for t in threading.enumerate() if t.name in _OWNED_THREADS}
+
+
+def check_no_leaked_threads(before: set, wait_s: float = 5.0) -> None:
+    """Fail when a notifier or probe-loop thread started after
+    ``before`` is still alive ``wait_s`` later."""
+    import time
+
+    deadline = time.monotonic() + wait_s
+    while True:
+        left = [t for t in _owned_threads() - before if t.is_alive()]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    assert not left, f"threads outlived their owner: {[t.name for t in left]}"
+
+
 @pytest.fixture
 def pinned_planner(monkeypatch):
     planners = _planners()
-    if len(planners) == 2:
-        # the reference prices a device its device guard holds sick out
-        # of every route (its ``_device_factor``): start from healthy
-        # guards, whatever an earlier file in this worker left behind
-        import importlib
-
-        importlib.import_module("dgraph_tpu.utils.devguard").reset_for_tests()
+    # the reference prices a device its device guard holds sick out of
+    # every route (its ``_device_factor``), and the port raises on one:
+    # start from healthy guards and no armed failpoint, whatever an
+    # earlier file in this worker left behind
+    reset_guards()
+    threads = _owned_threads()
     for planner, _cal in planners:
         monkeypatch.setattr(planner, "_EWMA_ALPHA", 0.0)
     pin_both_planners()
     yield
     reset_both_planners()
+    reset_guards()
+    check_no_leaked_threads(threads)
