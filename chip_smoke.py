@@ -112,7 +112,40 @@ fewer it is no more than the largest one.
    say sick, 16 concurrent clients all 503, the scheduler's workers live,
    and after re-admission (within 10 s) both bodies are identical.  The
    counts are read right after.
-7c. subscriptions — every kernel's launch count is set to 0, then, with
+7c. transports — every kernel's launch count is set to 0, then: (a) on
+   the main path's server (caches detached, per level), the 2-hop count
+   from 8192 seeds (``default_rng(103)``) and join (a), once each (20
+   times under ``--transports-only``) over HTTP JSON, over HTTP with
+   ``Accept: application/protobuf`` and over gRPC ``/protos.Dgraph/Run``,
+   the transports in turn request by request: every body's tree
+   (protobuf decoded with ``serve/proto.iter_fields``) equals the JSON
+   surface's, which equals the host route's, every protobuf body's
+   fields equal the encoder's of that tree (the latency field aside),
+   and every request launches the gather (join (a) the intersect too),
+   exactly as many of each as the JSON surface's first request; (b) a
+   second server over the same store and arenas with a throwaway
+   ``openssl`` certificate serves the same requests over HTTPS (a client
+   context that pins the CA) and gRPC on TLS, with the same bodies and
+   launches; a plaintext channel into the TLS
+   listener fails, ``CheckVersion`` answers, ``AssignUids`` leases; the
+   handshake's cost is the median of 20 fresh connections each, plain
+   and TLS; (c) a count over ``e`` from 1024 seeds streamed over gRPC
+   ``Subscribe`` (gates at 1): its snapshot equals ``/query``; after a
+   write of 64 edges to uids outside the seeds' 2-hop set the pushed
+   Response equals a fresh ``/query``; cancelling the stream drops the
+   subscription, and the host-route engine takes the written edges (phase
+   7d reuses it); (d) three servers on the card with TLS listeners,
+   ``https://`` peers pinned by ``peer_ca``, raft over the gRPC Worker
+   plane, phase 18's group rules and ``e`` on all three, ``name`` on the
+   third alone, loaded with every 64th generated edge (328,125) and the
+   names of uids 1..125,000: the load replicates, a group-1 follower
+   answers the count over gRPC as the host route does, a write of 64
+   edges through the third converges, and a read traced over gRPC on the
+   first, which pulls ``name`` from the third, holds both servers'
+   spans.  ``dgraph_grpc_raft_frames_total`` is printed.  Where grpcio
+   does not import, one line says so and only the HTTP legs run.  The
+   counts are read right after.
+7d. subscriptions — every kernel's launch count is set to 0, then, with
    the hop and k-way gates at 1 (a 1024-seed 2-hop is below the priced
    break-even), 8 subscriptions (``default_rng(97)``): 4 var-block 2-hop
    counts over ``e`` from 1024 seeds (one streamed as SSE over HTTP) and
@@ -157,7 +190,7 @@ fewer it is no more than the largest one.
    the default chain threshold (the planner prices the chain; a fused
    query's stats must hold its ``chain`` decision), each query served a
    few times and held byte for byte against the host-route engine (the
-   cheap ones, (a), (e) and (f), 3 times a route, the bulky ones once),
+   cheap ones, (a), (e) and (f), twice a route, the bulky ones once),
    from seeds of their own
    (seed 53): (a) the main path's var-block 2-hop count from 8192 seeds,
    which must take the multi-hop pass (2 levels fused, 2 gather
@@ -176,8 +209,8 @@ fewer it is no more than the largest one.
 12. serving plane — phases 4-11 run with both query caches detached
    (the scheduler's result cache and the arenas' hop cache), so that
    their repeats execute; here they are attached again, every kernel's
-   launch count is set to 0, and 16 client threads each send 5 requests
-   (80 in all) over HTTP to the server at its default knobs (the cohort
+   launch count is set to 0, and 12 client threads each send 5 requests
+   (60 in all) over HTTP to the server at its default knobs (the cohort
    scheduler on): per client a var-block ``@recurse(depth: 2)`` count
    from 8192 seeds (level by level: the fused BFS's bound rejects 8192
    seeds, and level 2 is above the merge gate), join query (a), and
@@ -296,7 +329,7 @@ fewer it is no more than the largest one.
    the end), under the group rules ``1: e`` / ``2: name`` / ``default:
    fp % 2 + 1``: (t) three servers each serving groups 0, 1 and 2 (3
    replicas of every predicate), their device and k-way gates at 1: the
-   schema, then every fourth generated edge (a stride sample: both the
+   schema, then every eighth generated edge (a stride sample: both the
    uniform and the pareto-skewed halves of the targets) in
    source-ascending ``BULKEDGES`` records of 262,144 edges and phase 5's
    names on uids 1..250,000 in ``BULKVALS`` records of 131,072, one
@@ -382,7 +415,8 @@ generation and phase 18.
 phase 5 (join (a) needs them) and phase 7a.
 ``python3 chip_smoke.py --guard-only`` runs phases 1 and 2 and phase 7b;
 ``python3 chip_smoke.py --subs-only`` phases 1 and 2, the names of phase 5
-and phase 7c.
+and phase 7d; ``--transports-only`` phases 1 and 2, the names of phase 5
+and phase 7c, with 20 requests of each query on each transport.
 ``python3 chip_smoke.py --serving-only`` runs phases 1-3, the names of
 phase 5 and phase 12 alone (the serving plane on the caches' first
 use).  ``python3 chip_smoke.py --mxu-only`` runs phase 1 and phase 13
@@ -442,17 +476,18 @@ RECURSE_MAX_EDGES = 1_000_000  # the reference's recursion cap (query/recurse.py
 # the fewest requests any phase reports a p99 over (below it the p99
 # is null); the threshold that pins the chain off
 CHAIN_SEED, PINNED_OFF = 53, 1 << 62
-# (3 cheap requests a route and 1 bulky one: 24 and 3 before the
+# (2 cheap requests a route and 1 bulky one: 24 and 3 before the
 # cluster phase, 6 and 3 before the flight recorder's, 4 and 2 before
-# the planner's; the run must still fit its time limit; p99 needs
-# P99_MIN requests)
-CHAIN_REPEATS, CHAIN_REPEATS_BULKY, P99_MIN = 3, 1, 20
+# the planner's, 3 and 1 before the transports'; the run must still fit
+# its time limit; p99 needs P99_MIN requests)
+CHAIN_REPEATS, CHAIN_REPEATS_BULKY, P99_MIN = 2, 1, 20
 
-# the serving plane: client threads, requests each (the last repeats
-# the client's first; 5, not 8: with the cluster phase the run must
-# still fit its time limit), shortest paths each, rounds of each path
-# (scheduled, serial), and the seed of the mix's draws
-SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_SHORTEST = 16, 5, 2
+# the serving plane: client threads (12, not 16: with the transports'
+# phase the run took 1099.6 s of its 1200), requests each (the last
+# repeats the client's first; 5, not 8: with the cluster phase the run
+# must still fit its time limit), shortest paths each, rounds of each
+# path (scheduled, serial), and the seed of the mix's draws
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_SHORTEST = 12, 5, 2
 SERVE_ROUNDS, SERVE_SEED = 1, 59
 
 # the tile join tier: its graph (uids, targets a uid, seed), the seeds'
@@ -495,10 +530,11 @@ PAIR_EDGE_SHARE, PAIR_NAMED = 64, 125_000
 # each replica apply makes the next read copy the predicate and rebuild
 # its arena, three at once in one interpreter, and at full size the
 # phase took 346-445 s of a run that came within 4 s of its 1200 s
-# limit); at this size the count's second hop is below the default
-# device gate, so the trio's servers run both gates at 1, as the pair's
-# reader does
-TRIO_EDGE_SHARE, TRIO_NAMED = 4, 250_000
+# limit; every fourth edge until the transports' phase, which took the
+# whole run past 1050 s); at this size the count's second hop is below
+# the default device gate, so the trio's servers run both gates at 1, as
+# the pair's reader does
+TRIO_EDGE_SHARE, TRIO_NAMED = 8, 250_000
 # the trio's load in per-range records (uids ascending, as the loader's
 # batches are) of at most this many edges / names, one proposal each:
 # a raft frame crosses the transport's 2 s send window, and the leader
@@ -548,19 +584,32 @@ GUARD_FILLERS = 4096
 SUBS_SEED, SUBS_E, SUBS_NAME, SUBS_SEEDS = 97, 4, 4, 1024
 SUBS_WRITES, SUBS_DELTA, SUBS_QUIET_S = 5, 64, 1.0
 
+# the transports: the count's seeds' seed, requests of each query on
+# each transport in a whole run (the bodies and launches; 3, then 2, took
+# the whole run past 1050 s) and under --transports-only (the p50 and
+# p99 of each transport), fresh connections the handshake is timed over, the
+# uids AssignUids leases, the Subscribe count's seeds, the edges of each
+# write; the TLS cluster's cut (every TLS_TRIO_SHARE-th generated edge,
+# the pair's share of phase cluster) and its group placement: ``e``
+# (group 1) on all three servers, ``name`` (group 2) on server 3 alone,
+# so that a read of names on server 1 crosses to server 3
+TRANSPORT_SEED, TRANSPORT_REPEATS, TRANSPORT_TIMED, TRANSPORT_CONNECTS = 103, 1, 20, 20
+TRANSPORT_LEASE, TRANSPORT_SUB_SEEDS, TRANSPORT_DELTA = 1000, 1024, 64
+TLS_TRIO_SHARE, TLS_TRIO_GROUPS = 64, "1=0,1;2=0,1;3=0,1,2"
+
 # kernels: (name, wrapper module, TPU kernel it replaces, paths that run it)
 KERNELS = [
     ("gather_packed", "dgraph_tpu_torch.ops.gather",
      "dgraph_tpu/ops/pallas_gather.py:48",
      ("main_path", "flight_recorder", "device_guard", "subscriptions",
-      "query_surface", "chain", "serving_plane", "mxu_join", "durability",
-      "cluster", "planner")),
+      "transports", "query_surface", "chain", "serving_plane", "mxu_join",
+      "durability", "cluster", "planner")),
     ("slotmap", "dgraph_tpu_torch.ops.slotmap",
      "dgraph_tpu/ops/pallas_slotmap.py:46", ("batched_2hop",)),
     ("intersect", "dgraph_tpu_torch.ops.kway",
      "dgraph_tpu/ops/pallas_intersect.py:35",
-     ("join_path", "flight_recorder", "device_guard", "subscriptions", "chain",
-      "serving_plane", "mxu_join", "cluster", "planner")),
+     ("join_path", "flight_recorder", "device_guard", "subscriptions",
+      "transports", "chain", "serving_plane", "mxu_join", "cluster", "planner")),
 ]
 
 
@@ -592,16 +641,17 @@ def post(addr: str, text: str, params: str = ""):
     return status, raw, secs
 
 
-def post_any(addr: str, text: str, headers=None, params: str = ""):
+def post_any(addr: str, text: str, headers=None, params: str = "", context=None):
     """POST /query (an error status does not raise); returns (status,
-    body bytes, response headers, seconds)."""
+    body bytes, response headers, seconds).  ``context`` is the TLS
+    client context of an ``https://`` address."""
     import urllib.error
 
     req = urllib.request.Request(addr + "/query" + params, data=text.encode(),
                                  method="POST", headers=headers or {})
     t0 = time.perf_counter()
     try:
-        with urllib.request.urlopen(req, timeout=900) as r:
+        with urllib.request.urlopen(req, timeout=900, context=context) as r:
             return r.status, r.read(), dict(r.headers), time.perf_counter() - t0
     except urllib.error.HTTPError as e:
         return e.code, e.read(), dict(e.headers), time.perf_counter() - t0
@@ -653,6 +703,16 @@ def host_engine(store):
     eng.expander.fused_hop = False
     _HOST_REF[id(store)] = (version, eng)
     return eng
+
+
+def host_engine_advanced(store, eng, adds) -> None:
+    """``eng`` (``host_engine(store)`` before the write of the edges
+    ``adds`` on ``e``, whose delta the served arenas took first) takes
+    exactly those edges and stays the reference of the store's new
+    version: the next ``host_engine(store)`` builds no host arenas."""
+    eng.arenas.data("e").apply_delta(np.array(adds, np.int64).reshape(-1, 2),
+                                     np.zeros((0, 2), np.int64))
+    _HOST_REF[id(store)] = (store.version, eng)
 
 
 @contextlib.contextmanager
@@ -1795,7 +1855,7 @@ def guard_summary(g: dict) -> dict:
             "probes_failed": h["probes_failed"], "probes_ok": h["probes_ok"]}
 
 
-# -- phase 7c: live-query subscriptions --------------------------------------
+# -- phase 7d: live-query subscriptions --------------------------------------
 
 
 def subs_summary(s: dict) -> dict:
@@ -1803,6 +1863,27 @@ def subs_summary(s: dict) -> dict:
     return {k: s[k] for k in (
         "seconds", "pushes", "push_latency_p50_ms", "push_latency_max_ms", "evals",
         "events", "launches_during_reevaluation")}
+
+
+def transports_summary(t: dict) -> dict:
+    """Phase transports' figures for the summary line."""
+    out = {"grpc": t["grpc"], "seconds": t["seconds"]}
+    for part in ("plain", "tls"):
+        out[part] = {f"{q}_{tn}": {k: r[k] for k in ("p50_ms", "p99_ms",
+                                                     "gather_launches",
+                                                     "intersect_launches")}
+                     for q, rows in t[part].items() for tn, r in rows.items()}
+    out["tls_checks"] = t["tls_checks"]
+    if "subscribe" in t:
+        out["subscribe_push_ms"] = t["subscribe"]["push_ms"]
+    if "cluster" in t:
+        c = t["cluster"]
+        # the cut's name beside its figures: a stride sample, gates at 1
+        out[f"tls_trio_stride{TLS_TRIO_SHARE}_named{PAIR_NAMED}_gates1"] = {
+            k: c[k] for k in ("replicate_s", "count_first_answer_s", "count_p50_ms",
+                              "write_ack_s", "write_converged_s", "traced_read_ms",
+                              "dgraph_grpc_raft_frames_total")}
+    return out
 
 
 def _sub_consumer(sub, got: list):
@@ -2042,6 +2123,574 @@ def phase_subscriptions(store, srv, card: str) -> dict:
         return out
     finally:
         arenas.expand_device_min, arenas.kway_device_min = knobs
+
+
+# -- phase 7c: the transports ------------------------------------------------
+
+
+def grpc_importable() -> bool:
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def tls_cert(work: Path) -> tuple:
+    """A throwaway self-signed certificate for localhost / 127.0.0.1 from
+    the ``openssl`` CLI: (cert path, key path)."""
+    cert, key = work / "cert.pem", work / "key.pem"
+    r = subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+         "-keyout", str(key), "-out", str(cert), "-days", "1",
+         "-subj", "/CN=localhost",
+         "-addext", "subjectAltName=DNS:localhost,IP:127.0.0.1"],
+        capture_output=True, text=True, timeout=120)
+    check(r.returncode == 0, f"transports: openssl failed: {r.stderr[-500:]}")
+    return str(cert), str(key)
+
+
+def pb_fields(raw: bytes) -> list:
+    """A protobuf Response's top-level fields, its Latency (field 2, the
+    only one that differs between two runs) left out."""
+    from dgraph_tpu_torch.serve import proto
+
+    return [f for f in proto.iter_fields(raw) if f[0] != 2]
+
+
+def pb_tree(raw: bytes) -> str:
+    """A protobuf Response decoded (through ``serve/proto.iter_fields``)
+    into the JSON surface's tree, latency left out, as JSON text."""
+    from dgraph_tpu_torch.serve import proto
+
+    d = proto.decode_response(raw)
+    d.pop("server_latency", None)
+    return json.dumps(d)
+
+
+class GrpcRun:
+    """``/protos.Dgraph/Run`` on one channel: raw Response bytes, a
+    deadline on every call."""
+
+    def __init__(self, target: str, cafile: str = ""):
+        from dgraph_tpu_torch.serve.grpc_server import make_channel
+
+        self.ch = make_channel(target, cafile)
+        self._run = self.ch.unary_unary("/protos.Dgraph/Run")
+
+    def __call__(self, text: str, metadata=None):
+        from dgraph_tpu_torch.serve.grpc_server import encode_request
+
+        t0 = time.perf_counter()
+        raw = self._run(encode_request(text), timeout=CLUSTER_WAIT_S, metadata=metadata)
+        return raw, time.perf_counter() - t0
+
+    def stop(self):
+        self.ch.close()
+
+
+def served_transports(srv, queries, runs, want, card: str, what: str, repeats: int,
+                      expect=None) -> dict:
+    """Each query of ``queries`` over each transport of ``runs`` (name ->
+    callable returning (body bytes, seconds, protobuf?)), ``repeats``
+    times, the transports taking turns request by request (so that none
+    of them takes all of a warm-up or a slow spell of the host): every
+    body's tree equals ``want`` (the JSON surface's, held to the host
+    route), every protobuf body's fields equal the encoder's of that
+    tree, and every request launches exactly the gathers and intersects
+    of ``expect[query]`` (or, without ``expect``, of the first
+    transport's first request: the JSON surface's), so that a hop sent
+    to the host on one transport fails the run.  Returns per query and
+    transport the p50 / p99 and the kernels' launches a request."""
+    from dgraph_tpu_torch.ops import gather, kway
+    from dgraph_tpu_torch.serve import proto
+
+    rows = {}
+    for name, q in queries.items():
+        enc = pb_fields(proto.encode_response(json.loads(want[name])))
+        lat, g, k = ({t: [] for t in runs} for _ in range(3))
+        for _ in range(repeats):
+            for tname, run in runs.items():
+                g0, k0 = gather.KERNEL.launches, kway.KERNEL.launches
+                raw, secs, binary = run(q)
+                g[tname].append(gather.KERNEL.launches - g0)
+                k[tname].append(kway.KERNEL.launches - k0)
+                lat[tname].append(secs * 1e3)
+                if binary:
+                    check(pb_fields(raw) == enc,
+                          f"{what} {name} over {tname}: the protobuf body differs")
+                    got = pb_tree(raw)
+                else:
+                    got = strip_latency(raw)
+                check(got == want[name],
+                      f"{what} {name} over {tname}: the body differs from the JSON surface's")
+        first = next(iter(runs))
+        base = expect[name] if expect else (g[first][0], k[first][0])
+        for tname in runs:
+            lat_t, g_t, k_t = lat[tname], g[tname], k[tname]
+            check(min(g_t) >= 1, f"{what} {name} over {tname}: a request launched no gather")
+            if name == "join_a":
+                check(min(k_t) >= 1,
+                      f"{what} join (a) over {tname}: a request launched no intersect")
+            check(all((a, b) == base for a, b in zip(g_t, k_t)),
+                  f"{what} {name} over {tname}: launched gathers {g_t} and intersects "
+                  f"{k_t}, the JSON surface's request {base}")
+            rows.setdefault(name, {})[tname] = {
+                "requests": len(lat_t), "p50_ms": float(np.percentile(lat_t, 50)),
+                "p99_ms": p99(lat_t), "request_ms": lat_t,
+                "gather_launches": g_t, "intersect_launches": k_t}
+            log(dict(phase="transports_served", part=what, query=name, transport=tname,
+                     card=card, **rows[name][tname]))
+    return rows
+
+
+def handshake_ms(fn, n: int = TRANSPORT_CONNECTS) -> float:
+    """The median of ``n`` calls of ``fn`` (a fresh connection each), ms."""
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(ts, 50))
+
+
+def free_port_pairs(n: int, offset: int) -> list:
+    """``n`` free ports whose ``port + offset`` is free too (the gRPC
+    listeners' convention)."""
+    import socket
+
+    out = []
+    while len(out) < n:
+        (p,) = free_ports(1)
+        if p + offset > 65535:
+            continue
+        s = socket.socket()
+        try:
+            s.bind(("127.0.0.1", p + offset))
+        except OSError:
+            continue
+        finally:
+            s.close()
+        if p not in out:
+            out.append(p)
+    return out
+
+
+def phase_transports(store, srv, src, dst, card: str, device: str = "cuda",
+                     repeats: int = TRANSPORT_REPEATS) -> dict:
+    """Phase transports: the main path's server over HTTP JSON, binary
+    HTTP and gRPC; a second server over the same store and arenas on
+    TLS (HTTPS and gRPC), ``repeats`` requests of each query on each
+    transport; a live count streamed over gRPC Subscribe; a
+    TLS cluster of three with raft over gRPC, loaded from the generated
+    edges ``src``/``dst``.  The caller zeroes the
+    launch counts just before and reads them just after, with both query
+    caches detached and the served engine per level."""
+    import shutil
+    import ssl
+
+    from dgraph_tpu_torch.serve.server import DgraphServer
+
+    t_phase = time.perf_counter()
+    has_grpc = grpc_importable()
+    if not has_grpc:
+        log({"phase": "transports", "grpc": None,
+             "why": "grpcio not importable on this machine"})
+    grpc = importlib.import_module("grpc") if has_grpc else None
+    work = ROOT / "_smoke" / "transports"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cert, key = tls_cert(work)
+    rng = np.random.default_rng(TRANSPORT_SEED)
+    seeds = np.unique(rng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+    jrng = np.random.default_rng(JOIN_SEED)
+    s1, s2 = (np.unique(jrng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+              for _ in range(2))
+    queries = {"count": two_hop_count(seeds), "join_a": join_filter_query(s1, s2)}
+    check_priced(srv)
+    t0 = time.perf_counter()
+    ref = host_engine(store)
+    want = {n: json.dumps(ref.run(q)) for n, q in queries.items()}
+    check(json.loads(want["join_a"]).get("q"), "transports: join (a) matched nothing")
+    out = {"card": card, "grpc": has_grpc, "seeds": len(seeds),
+           "host_reference_s": time.perf_counter() - t0}
+    opened = []  # servers and channels to stop, whatever fails
+    try:
+        # -- (a) three transports on the main path's server ---------------
+        from dgraph_tpu_torch.serve.grpc_server import GrpcServer, make_channel
+
+        def http_json(q):
+            status, raw, _h, secs = post_any(srv.addr, q)
+            check(status == 200, f"transports: HTTP {status}")
+            return raw, secs, False
+
+        def http_binary(q):
+            status, raw, h, secs = post_any(srv.addr, q, {"Accept": "application/protobuf"})
+            check(status == 200 and h.get("Content-Type") == "application/protobuf",
+                  f"transports: binary HTTP {status} {h.get('Content-Type')}")
+            return raw, secs, True
+
+        runs = {"http_json": http_json, "http_protobuf": http_binary}
+        if has_grpc:
+            gsrv = GrpcServer(srv, port=0)
+            gsrv.start()
+            opened.append(gsrv)
+            grun = GrpcRun(f"127.0.0.1:{gsrv.port}")
+            opened.append(grun)
+            runs["grpc"] = lambda q: (*grun(q), True)
+        out["plain"] = served_transports(srv, queries, runs, want, card, "plain", repeats)
+
+        # -- (b) TLS: a second server over the same store and arenas ------
+        tsrv = DgraphServer(store, device=device, tls_cert=cert, tls_key=key)
+        tsrv.engine.arenas = srv.engine.arenas
+        tsrv.start()
+        opened.append(tsrv)
+        check(tsrv.addr.startswith("https://"), f"transports: TLS addr {tsrv.addr}")
+        ctx = ssl.create_default_context(cafile=cert)  # the CA pinned
+
+        def https_json(q):
+            status, raw, _h, secs = post_any(tsrv.addr, q, context=ctx)
+            check(status == 200, f"transports: HTTPS {status}")
+            return raw, secs, False
+
+        truns = {"https_json": https_json}
+        tls = {}
+        if has_grpc:
+            from dgraph_tpu_torch.client import GrpcTransport
+
+            tg = GrpcServer(tsrv, port=0)
+            tg.start()
+            opened.append(tg)
+            trun = GrpcRun(f"localhost:{tg.port}", cafile=cert)
+            opened.append(trun)
+            truns["grpc_tls"] = lambda q: (*trun(q), True)
+            plain = make_channel(f"127.0.0.1:{tg.port}")
+            try:
+                plain.unary_unary("/protos.Dgraph/CheckVersion")(b"", timeout=10)
+                check(False, "transports: a plaintext channel into the TLS listener answered")
+            except grpc.RpcError as e:
+                tls["plaintext_into_tls"] = str(e.code())
+            finally:
+                plain.close()
+            gt = GrpcTransport(f"localhost:{tg.port}", cafile=cert, timeout=60)
+            try:
+                tls["check_version"] = gt.check_version()
+                check(tls["check_version"].startswith("0.7"),
+                      f"transports: CheckVersion {tls['check_version']!r}")
+                # (the bulk load bypasses the uid allocator, in the
+                # reference too: the lease starts where the allocator
+                # stands, not past the loaded uids)
+                a, b = gt.assign_uids(TRANSPORT_LEASE)
+                check(b - a == TRANSPORT_LEASE - 1 and a > 0,
+                      f"transports: AssignUids leased {a}..{b}")
+                tls["assign_uids"] = [a, b]
+            finally:
+                gt.close()
+        # the same launches a request as the plain server's JSON surface
+        json_launches = {n: (r["http_json"]["gather_launches"][0],
+                             r["http_json"]["intersect_launches"][0])
+                         for n, r in out["plain"].items()}
+        with no_caches(tsrv), per_level(tsrv.engine):
+            out["tls"] = served_transports(tsrv, queries, truns, want, card, "tls",
+                                           repeats, expect=json_launches)
+
+        # the handshake's cost: a fresh connection each, /health (plain
+        # and TLS) and a fresh gRPC channel's first CheckVersion
+        def health(addr, context=None):
+            with urllib.request.urlopen(addr + "/health", timeout=60, context=context) as r:
+                r.read()
+
+        tls["http_connect_ms"] = handshake_ms(lambda: health(srv.addr))
+        tls["https_connect_ms"] = handshake_ms(lambda: health(tsrv.addr, ctx))
+        if has_grpc:
+            def channel(target, cafile=""):
+                ch = make_channel(target, cafile)
+                try:
+                    ch.unary_unary("/protos.Dgraph/CheckVersion")(b"", timeout=60)
+                finally:
+                    ch.close()
+
+            tls["grpc_connect_ms"] = handshake_ms(
+                lambda: channel(f"127.0.0.1:{gsrv.port}"))
+            tls["grpc_tls_connect_ms"] = handshake_ms(
+                lambda: channel(f"localhost:{tg.port}", cert))
+        out["tls_checks"] = tls
+        log(dict(phase="transports_tls", card=card, connects=TRANSPORT_CONNECTS, **tls))
+
+        # -- (c) the live count over gRPC Subscribe -----------------------
+        if has_grpc:
+            out["subscribe"] = transports_subscribe(store, srv, grpc, gsrv, ref, rng, card)
+
+        # -- (d) a TLS cluster of three, raft over gRPC -------------------
+        if has_grpc:
+            out["cluster"] = transports_cluster(device, grpc, src, dst, cert, key,
+                                                work, card)
+        out["seconds"] = time.perf_counter() - t_phase
+        log(dict(phase="transports", **{k: v for k, v in out.items()
+                                         if k not in ("plain", "tls")}))
+        return out
+    finally:
+        for o in reversed(opened):
+            o.stop()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def transports_subscribe(store, srv, grpc, gsrv, ref, rng, card: str) -> dict:
+    """(c): a count over ``e`` from TRANSPORT_SUB_SEEDS seeds streamed
+    over ``/protos.Dgraph/Subscribe`` (both gates at 1, as in phase
+    subscriptions); after one write of TRANSPORT_DELTA edges, the pushed
+    Response equals a fresh ``/query``; cancelling the stream drops the
+    subscription."""
+    import threading as _th
+
+    from dgraph_tpu_torch.ops import gather
+    from dgraph_tpu_torch.serve import proto
+    from dgraph_tpu_torch.serve.grpc_server import encode_request, make_channel
+
+    check(srv.subs is not None, "subscribe: the server has no registry")
+    arenas = srv.engine.arenas
+    knobs = (arenas.expand_device_min, arenas.kway_device_min)
+    arenas.expand_device_min, arenas.kway_device_min = 1, 1
+    seeds = np.unique(rng.integers(1, N_NODES + 1, size=TRANSPORT_SUB_SEEDS))
+    q = two_hop_count(seeds)
+    ch = make_channel(f"127.0.0.1:{gsrv.port}")
+    call = ch.unary_stream("/protos.Dgraph/Subscribe")(encode_request(q),
+                                                        timeout=CLUSTER_WAIT_S)
+    got = []
+
+    def consume():
+        try:
+            for m in call:
+                got.append((time.perf_counter(), proto.decode_response(m)))
+        except grpc.RpcError:
+            pass  # the phase cancels the call when done
+
+    t = _th.Thread(target=consume, daemon=True)
+    t.start()
+    try:
+        wait_until(lambda: got, 60, "subscribe: no snapshot frame")
+        snap = dict(got[0][1])
+        meta = snap.pop("_subscription_")[0]
+        check(meta["kind"] == "snapshot", f"subscribe: first frame {meta}")
+        status, raw, _s = post(srv.addr, q)
+        check(status == 200 and json.dumps(snap) == strip_latency(raw),
+              "subscribe: the snapshot differs from /query")
+        # TRANSPORT_DELTA edges from first-hop targets of the seeds to
+        # uids outside their 2-hop set: the count moves
+        ref_arena = ref.arenas.data("e")
+        f1 = np.unique(ref_arena.expand_host(ref_arena.rows_for_uids_host(seeds))[0])
+        reach = set(two_hop_set(ref_arena, seeds).tolist())
+        edges_e = store.peek("e").edges
+        adds = []
+        for s in rng.choice(f1, size=TRANSPORT_DELTA, replace=False).tolist():
+            tgt = int(rng.integers(1, N_NODES + 1))
+            while tgt in reach or tgt in edges_e.get(s, ()):
+                tgt = int(rng.integers(1, N_NODES + 1))
+            adds.append((s, tgt))
+        g0 = gather.KERNEL.launches
+        status, raw, _s = post(srv.addr, edge_mutation(adds, []))
+        ack = time.perf_counter()
+        check(status == 200, f"subscribe: the write answered {status}")
+        wait_until(lambda: len(got) >= 2, 60, "subscribe: no push after the write")
+        t_push, pushed = got[1]
+        pushed = dict(pushed)
+        pmeta = pushed.pop("_subscription_")[0]
+        check(pmeta["kind"] == "update" and pmeta["preds"] == "e",
+              f"subscribe: pushed {pmeta}")
+        status, raw, _s = post(srv.addr, q)
+        check(status == 200 and json.dumps(pushed) == strip_latency(raw),
+              "subscribe: the pushed Response differs from a fresh /query")
+        check(pushed != snap, "subscribe: the write left the count unchanged")
+        host_engine_advanced(store, ref, adds)
+        launches = gather.KERNEL.launches - g0
+        check(launches >= 1, "subscribe: the re-evaluation launched no gather")
+        sid = meta["sub_id"]
+        call.cancel()
+        t.join(timeout=30)
+        dropped = wait_until(lambda: srv.subs.get(sid) is None, 30,
+                             "subscribe: the subscription outlived its stream")
+        out = {"seeds": len(seeds), "edges_written": len(adds),
+               "push_ms": (t_push - ack) * 1e3, "count_before": snap["q"][0]["count"],
+               "count_after": pushed["q"][0]["count"],
+               "gather_launches_write_to_check": launches,
+               "dropped_after_cancel_s": dropped, "card": card}
+        log(dict(phase="transports_subscribe", **out))
+        return out
+    finally:
+        call.cancel()
+        ch.close()
+        arenas.expand_device_min, arenas.kway_device_min = knobs
+
+
+def transports_cluster(device, grpc, src, dst, cert, key, work: Path, card: str) -> dict:
+    """(d): three servers on ``device`` with TLS listeners, ``https://``
+    peers pinned by ``peer_ca``, raft over the gRPC Worker plane (TLS)
+    and phase cluster's ``GroupConfig``; groups placed ``TLS_TRIO_GROUPS``: the
+    count's ``e`` (group 1) on all three, ``name`` (group 2) on node 3
+    alone.  Loads every TLS_TRIO_SHARE-th generated edge and the names of
+    uids 1..PAIR_NAMED; the count over gRPC from a group-1 follower; a
+    write of TRANSPORT_DELTA edges; one traced read over gRPC on node 1
+    that pulls ``name`` from node 3, its trace holding both nodes'
+    spans."""
+    import ssl
+
+    from dgraph_tpu_torch import obs
+    from dgraph_tpu_torch.client import GrpcTransport
+    from dgraph_tpu_torch.cluster.groups import GroupConfig
+    from dgraph_tpu_torch.cluster.service import ClusterService, parse_peer_groups
+    from dgraph_tpu_torch.models import PostingStore
+    from dgraph_tpu_torch.ops import gather
+    from dgraph_tpu_torch.serve.grpc_server import GrpcServer
+    from dgraph_tpu_torch.serve.server import DgraphServer
+    from dgraph_tpu_torch.utils.metrics import NUM_GRPC_RAFT
+
+    t_boot = time.perf_counter()
+    csrc, cdst = src[::TLS_TRIO_SHARE], dst[::TLS_TRIO_SHARE]
+    items = name_items(PAIR_NAMED)
+    schema = "e: uid .\nname: string @index(term) ."
+    ref_store = PostingStore()
+    ref_store.apply_schema(schema)
+    ref_store.bulk_set_uid_edges("e", csrc, cdst)
+    ref_store.bulk_set_values("name", items)
+    ref = host_engine(ref_store)
+    rng = np.random.default_rng(TRANSPORT_SEED + 1)
+    seeds = np.unique(rng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+    q_count = two_hop_count(seeds)
+    small = np.unique(rng.integers(1, PAIR_NAMED + 1, size=SMALL_SEEDS))
+    q_names = "{ q(func: uid(%s)) { uid e { uid name } } }" % uid_list(small)
+    want = json.dumps(ref.run(q_count))
+    ctx = ssl.create_default_context(cafile=cert)  # the CA pinned
+    patience = os.environ.get("DGRAPH_TPU_PROPOSE_TIMEOUT")
+    os.environ["DGRAPH_TPU_PROPOSE_TIMEOUT"] = str(CLUSTER_WAIT_S)
+    frames0 = NUM_GRPC_RAFT.value()
+    ports = free_port_pairs(3, 1000)
+    peers = {str(i + 1): f"https://127.0.0.1:{p}" for i, p in enumerate(ports)}
+    servers, gsrvs = [], []
+    try:
+        for i, p in enumerate(ports):
+            nid = str(i + 1)
+            svc = ClusterService(
+                node_id=nid, my_addr=peers[nid], peers=peers,
+                group_ids=[int(g) for g in
+                           parse_peer_groups(TLS_TRIO_GROUPS)[nid]],
+                directory=str(work / "cluster" / f"n{nid}"),
+                group_config=GroupConfig.parse(CLUSTER_CONF),
+                peer_groups=parse_peer_groups(TLS_TRIO_GROUPS), tick_ms=CLUSTER_TICK_MS,
+                peer_ca=cert, raft_transport="grpc", grpc_port_offset=1000,
+                secret="transports")
+            svc.start()
+            s = DgraphServer(svc.store, port=p, device=device, cluster=svc,
+                             tls_cert=cert, tls_key=key)
+            s.start()
+            servers.append(s)
+            g = GrpcServer(s, port=p + 1000)
+            g.start()
+            gsrvs.append(g)
+        wait_until(lambda: all(s.cluster.has_leader() for s in servers), 60,
+                   "tls cluster: no raft leader elected")
+        boot_s = time.perf_counter() - t_boot
+        for s in servers:
+            s.engine.expand_device_min = 1
+            s.engine.arenas.kway_device_min = 1
+            s.engine.arenas.hop_cache = None
+        f1 = group_follower(servers, 1)
+        post_retry(f1.addr, "mutation { schema { %s } }" % schema.replace("\n", " "),
+                   context=ctx)
+        order = np.argsort(csrc, kind="stable")
+        bsrc, bdst = csrc[order], cdst[order]
+        retries = []
+        replicate_s = replicate(servers, 1, "e", lambda: [propose_retry(
+            lambda i=i: f1.store.bulk_set_uid_edges(
+                "e", bsrc[i:i + CLUSTER_RECORD_EDGES], bdst[i:i + CLUSTER_RECORD_EDGES]),
+            retries) for i in range(0, len(bsrc), CLUSTER_RECORD_EDGES)])
+        owner = servers[2]
+        propose_retry(lambda: owner.store.bulk_set_values("name", items), retries)
+        # the count over gRPC (TLS, the CA pinned) from a group-1 follower
+        fg = gsrvs[servers.index(f1)]
+        t = GrpcTransport(f"localhost:{fg.port}", cafile=cert, timeout=CLUSTER_WAIT_S)
+        try:
+            def count_is(body):
+                got = t.run(q_count)
+                got.pop("server_latency", None)
+                return json.dumps(got) == body
+
+            g0 = gather.KERNEL.launches
+            first_s = wait_until(lambda: count_is(want), CLUSTER_WAIT_S,
+                                 "tls cluster: the follower never answered the count",
+                                 step=0.5)
+            lat = []
+            for _ in range(TRANSPORT_REPEATS):
+                t0 = time.perf_counter()
+                check(count_is(want), "tls cluster: the count differs from the host route")
+                lat.append((time.perf_counter() - t0) * 1e3)
+            check(gather.KERNEL.launches > g0, "tls cluster: the count launched no gather")
+            # the write, over HTTPS through node 3; every node converges
+            adds, dels = delta_edges(ref_store, seeds, TRANSPORT_DELTA,
+                                     np.random.default_rng(TRANSPORT_SEED + 2))
+            _raw, write_s = post_retry(owner.addr, edge_mutation(adds, dels),
+                                       context=ctx)
+            apply_edges(ref_store, adds, dels)
+            new = json.dumps(ref.run(q_count))
+            check(new != want, "tls cluster: the write left the count unchanged")
+            converge_s = wait_until(lambda: count_is(new), CLUSTER_WAIT_S,
+                                    "tls cluster: the follower never saw the write",
+                                    step=0.2)
+        finally:
+            t.close()
+        # one traced read over gRPC on node 1: name lives on node 3 alone
+        want_names = json.dumps(ref.run(q_names))
+        rec = obs.configure(ratio=1e-9)  # armed: the metadata decides
+        try:
+            tid = "%032x" % (TRANSPORT_SEED << 40 | 0x7D)
+            run = GrpcRun(f"localhost:{gsrvs[0].port}", cafile=cert)
+            try:
+                raw, read_s = run(q_names, metadata=(
+                    ("traceparent", f"00-{tid}-{tid[16:]}-01"),))
+            finally:
+                run.stop()
+            check(pb_tree(raw) == want_names,
+                  "tls cluster: the traced read differs from the host route")
+            spans = {}
+
+            def legs():
+                tr = rec.trace(tid)
+                if tr is None:
+                    return False
+                spans["all"] = tr["spans"]
+                nodes = {s["attrs"].get("node") for s in tr["spans"]}
+                return {"1", "3"} <= nodes and any(
+                    s["name"] == "peer.pred-snapshot" and s["attrs"].get("node") == "3"
+                    for s in tr["spans"])
+
+            wait_until(legs, 30, "tls cluster: the trace holds no span of node 3")
+            sp = spans["all"]
+            check(all(s["trace_id"] == tid for s in sp), "tls cluster: a span off the trace")
+        finally:
+            obs.configure()
+        frames = NUM_GRPC_RAFT.value() - frames0
+        check(frames > 0, "tls cluster: no raft frame crossed the gRPC Worker plane")
+        out = {"servers": 3, "groups": TLS_TRIO_GROUPS, "conf": CLUSTER_CONF,
+               "edges": int(len(csrc)), "edge_sample": f"every {TLS_TRIO_SHARE}th",
+               "named": PAIR_NAMED, "raft_transport": "grpc", "tls": True,
+               "boot_s": boot_s, "replicate_s": replicate_s, "retried": len(retries),
+               "count_first_answer_s": first_s, "count_p50_ms": float(np.percentile(lat, 50)),
+               "count_request_ms": lat, "write_ack_s": write_s,
+               "write_converged_s": converge_s, "traced_read_ms": read_s * 1e3,
+               "trace_spans": len(sp), "trace_names": sorted({s["name"] for s in sp}),
+               "trace_nodes": sorted({s["attrs"]["node"] for s in sp if "node" in s["attrs"]}),
+               "dgraph_grpc_raft_frames_total": frames, "card": card}
+        log(dict(phase="transports_cluster", **out))
+        return out
+    finally:
+        for g in gsrvs:
+            g.stop()
+        for s in servers:
+            s.stop()
+        if patience is None:
+            os.environ.pop("DGRAPH_TPU_PROPOSE_TIMEOUT", None)
+        else:
+            os.environ["DGRAPH_TPU_PROPOSE_TIMEOUT"] = patience
+
 
 
 # -- phases 8-9: the query surface --------------------------------------------
@@ -3469,14 +4118,14 @@ def wait_until(cond, timeout: float, msg: str, step: float = 0.05) -> float:
     return time.perf_counter() - t0
 
 
-def post_retry(addr: str, text: str, timeout: float = CLUSTER_WAIT_S):
+def post_retry(addr: str, text: str, timeout: float = CLUSTER_WAIT_S, context=None):
     """POST a write to a cluster server, retrying the answers a leader
     change produces (no leader yet, a proposal timed out, a peer down:
     400 with a retry message, 409, 5xx) under one bounded deadline; a
-    deterministic error fails at once."""
+    deterministic error fails at once.  ``context``: see ``post_any``."""
     t0 = time.perf_counter()
     while True:
-        status, raw, _h, secs = post_any(addr, text)
+        status, raw, _h, secs = post_any(addr, text, context=context)
         if status == 200:
             return raw, secs
         msg = raw.decode("utf-8", "replace").lower()
@@ -4563,6 +5212,7 @@ def main(argv) -> int:
     planner_only = "--planner-only" in argv
     guard_only = "--guard-only" in argv
     subs_only = "--subs-only" in argv
+    transports_only = "--transports-only" in argv
     try:
         import torch
     except ImportError:
@@ -4689,6 +5339,19 @@ def main(argv) -> int:
             log({"phase_seconds": phase_s, "launches": launches,
                  "subscriptions": subs_summary(subs)})
             return 0
+        if transports_only:
+            phase = mark("names")
+            phase_names(store, srv, N_NAMED)
+            phase = mark("transports")
+            zero_counts()
+            with no_caches(srv), per_level(srv.engine):
+                tr = phase_transports(store, srv, src, dst, info["nvidia_smi"],
+                                      repeats=TRANSPORT_TIMED)
+            read_counts("transports")
+            mark("done")
+            log({"phase_seconds": phase_s, "launches": launches,
+                 "transports": transports_summary(tr)})
+            return 0
         if planner_only:
             phase = mark("names")
             phase_names(store, srv, N_NAMED)
@@ -4742,6 +5405,14 @@ def main(argv) -> int:
         with per_level(srv.engine):
             guard = phase_device_guard(store, srv, s1, s2, info["nvidia_smi"])
         read_counts("device_guard")
+        # transports before subscriptions: no write since the device
+        # guard's host-route reference, and its Subscribe leg's one write
+        # advances that reference, which phase subscriptions reuses
+        phase = mark("transports")
+        zero_counts()
+        with per_level(srv.engine):
+            tr = phase_transports(store, srv, src, dst, info["nvidia_smi"])
+        read_counts("transports")
         phase = mark("subscriptions")
         zero_counts()
         with per_level(srv.engine):
@@ -4851,6 +5522,7 @@ def main(argv) -> int:
                                  "cancel": flight["cancel"]},
              "device_guard": guard_summary(guard),
              "subscriptions": subs_summary(subs),
+             "transports": transports_summary(tr),
              "query_surface": {n: {k: r[k] for k in (
                  "p50_ms", "p99_ms", "gather_launches_per_query", "device_order",
                  "device_order_ms")} for n, r in surface["rows"].items()},

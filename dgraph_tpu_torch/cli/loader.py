@@ -1,14 +1,16 @@
 """Bulk RDF loader of the port (port of ``dgraph_tpu/cli/loader.py``):
 
     python -m dgraph_tpu_torch.cli.loader -r data.rdf.gz -s schema.txt \\
-        -d http://127.0.0.1:8080 [--batch 1000] [-c 4] [--cd ckptdir]
+        -d http://127.0.0.1:8080 [--batch 1000] [-c 4] [--cd ckptdir] \\
+        [--grpc [--ca cert.pem]]
 
 Equivalent of cmd/dgraphloader/main.go: gzip-aware line reader
 (readLine:68), batches of N quads through the batching client
 (processFile:151), optional schema file first (processSchemaFile:85),
 round-robin over multiple server addresses (setupConnection:222), and
-checkpoint/resume per input file via client sync marks.  Speaks HTTP
-only: the reference's ``--grpc`` exits non-zero (gRPC is not ported).
+checkpoint/resume per input file via client sync marks.  ``--grpc``
+loads over ``protos.Dgraph/Run`` instead of HTTP (an ``http(s)://``
+address maps to its port + 1000; an ``https://`` one needs ``--ca``).
 """
 
 from __future__ import annotations
@@ -30,11 +32,29 @@ from dgraph_tpu_torch.client import (
 from dgraph_tpu_torch.client.client import Transport
 
 
+def _make_transport(addr: str, use_grpc: bool, cafile: str = "") -> Transport:
+    """One server's transport: gRPC (upstream loader's native wire,
+    cmd/dgraphloader/main.go:222 grpc conns) or HTTP.  gRPC targets may
+    be given bare (host:port) or as http(s)://host:port (mapped to the
+    +1000 convention); https-derived targets need ``cafile`` (--ca) and
+    dial TLS-verified (GrpcTransport's pinned-CA path)."""
+    if not use_grpc:
+        return HttpTransport(addr)
+    from dgraph_tpu_torch.client import GrpcTransport
+
+    # the CA applies only to https-derived targets: handing it to a
+    # plaintext member of a mixed fleet would dial TLS into a plaintext
+    # listener and fail every RPC with an opaque UNAVAILABLE
+    return GrpcTransport(
+        addr, cafile=cafile if addr.startswith("https://") else ""
+    )
+
+
 class RoundRobinTransport(Transport):
     """Spread requests over several servers (loader main.go:222)."""
 
-    def __init__(self, addrs):
-        self._ts = [HttpTransport(a) for a in addrs]
+    def __init__(self, addrs, use_grpc: bool = False, cafile: str = ""):
+        self._ts = [_make_transport(a, use_grpc, cafile) for a in addrs]
         self._next = itertools.cycle(self._ts)
         self._lock = threading.Lock()
 
@@ -132,16 +152,19 @@ def main(argv=None) -> int:
     p.add_argument("--cd", dest="client_dir", default="",
                    help="client checkpoint dir (enables resume)")
     p.add_argument("--grpc", action="store_true",
-                   help="connect over gRPC: not ported, exits with an error")
+                   help="connect over gRPC (protos.Dgraph/Run) instead of "
+                        "HTTP; http(s):// addresses map to port + 1000")
+    p.add_argument("--ca", default="",
+                   help="pinned CA / server-cert PEM for https gRPC "
+                        "targets (a --tls_cert server serves gRPC over "
+                        "TLS; required with https:// + --grpc)")
     ns = p.parse_args(argv)
-    if ns.grpc:
-        print("dgraph_tpu_torch.cli.loader: gRPC is not ported; load over "
-              "HTTP (drop --grpc)", file=sys.stderr)
-        return 2
 
     addrs = [a.strip() for a in ns.dgraph.split(",") if a.strip()]
     transport = (
-        RoundRobinTransport(addrs) if len(addrs) > 1 else HttpTransport(addrs[0])
+        RoundRobinTransport(addrs, use_grpc=ns.grpc, cafile=ns.ca)
+        if len(addrs) > 1
+        else _make_transport(addrs[0], ns.grpc, ns.ca)
     )
     client = DgraphClient(
         transport, BatchMutationOptions(size=ns.batch, pending=ns.concurrent)

@@ -3,6 +3,9 @@
     python -m dgraph_tpu_torch.cli.server --p DIR --port 8080 [--sync] [--device cpu]
     python -m dgraph_tpu_torch.cli.server --p DIR --port 8081 --idx 1 --groups 0,1 \
         --peer 1@127.0.0.1:8081,2@127.0.0.1:8082,3@127.0.0.1:8083 [--device cpu]
+    python -m dgraph_tpu_torch.cli.server --p DIR --port 8081 --idx 1 \
+        --tls_cert cert.pem --tls_key key.pem --peer_ca cert.pem \
+        --raft_transport grpc --peer 1@127.0.0.1:8081,2@127.0.0.1:8082
 
 Boots on a ``DurableStore`` in ``--p`` (default ``p``): it replays the
 snapshot, the sealed WAL segments and the active WAL, prints the
@@ -23,8 +26,20 @@ absent peers serve every group) and reached by its peers at ``--my``
 the raft logs and snapshots (``raft-g<N>/``), as in the reference; it
 prints ``cluster node N groups [...] peers {...}`` then ``serving on``.
 ``--cluster_secret`` gates the intra-cluster endpoints.  Raft frames
-travel over HTTP: ``--raft_transport grpc`` and an ``https://`` peer
-exit 2 with a message (the port has neither gRPC nor TLS).
+travel over HTTP(S), or with ``--raft_transport grpc`` over the gRPC
+Worker plane (``/protos.Worker/RaftMessage`` at each peer's HTTP port +
+the same offset as this server's ``--grpc_port``; it needs an explicit
+``--port``, an enabled gRPC listener and grpcio, else it exits 2).
+
+``--grpc_port`` is the gRPC listener (``protos.Dgraph``: Run,
+CheckVersion, AssignUids, Subscribe; ``protos.Worker``: Echo,
+RaftMessage): 0, the default, is the HTTP port + 1000, below 0 turns it
+off.  Where grpcio is not importable the server says so and serves HTTP
+alone.  ``--tls_cert`` / ``--tls_key`` serve HTTPS and gRPC over TLS (1.2
+and up); a TLS server defaults bare peer addresses and ``--my`` to
+``https://``.  ``https://`` peers are verified against ``--peer_ca``
+(a pinned CA), not at all under ``--peer_tls_insecure``, else against
+the system trust store (with a warning).
 
 Serves ``/query``, ``/health``, ``/metrics``, ``/admin/snapshot``,
 ``/admin/export``, ``/admin/cancel``, ``/admin/shutdown`` and the
@@ -37,8 +52,7 @@ unless ``--device cpu`` is given; without a GPU the default fails at
 start-up.  Reads go through the cohort scheduler, steered by the
 reference's environment knobs (``DGRAPH_TPU_SCHED``,
 ``DGRAPH_TPU_SCHED_*``, ``DGRAPH_TPU_QOS*``, ``DGRAPH_TPU_CACHE*``,
-``DGRAPH_TPU_IVM``, ``DGRAPH_TPU_SEGMENT*``).  The reference's gRPC
-and TLS flags are not ported yet.
+``DGRAPH_TPU_IVM``, ``DGRAPH_TPU_SEGMENT*``).
 """
 
 from __future__ import annotations
@@ -68,6 +82,13 @@ def main(argv=None) -> int:
     ap.add_argument("--export", dest="export_path", default="export",
                     help="directory /admin/export writes to")
     ap.add_argument("--port", type=int, default=8080, help="HTTP port (0 = any free port)")
+    ap.add_argument("--grpc_port", type=int, default=0,
+                    help="gRPC listener port (protos.Dgraph service); "
+                         "0 = http port + 1000, below 0 disables")
+    ap.add_argument("--tls_cert", default="",
+                    help="PEM certificate chain: serve HTTPS and gRPC over TLS")
+    ap.add_argument("--tls_key", default="",
+                    help="PEM key of --tls_cert (empty = inside the cert file)")
     ap.add_argument("--bind", default="127.0.0.1", help="address to listen on")
     ap.add_argument("--device", default=None, help="torch device: cuda (default) or cpu")
     ap.add_argument("--arena_budget_mb", type=int, default=0,
@@ -92,29 +113,53 @@ def main(argv=None) -> int:
                     help="shared secret required on intra-cluster endpoints "
                          "(/raft*, /assign-uids, /join, /pred-snapshot, "
                          "/predlist); empty disables the gate")
+    ap.add_argument("--peer_ca", default="",
+                    help="PEM CA bundle to verify peer TLS certs against "
+                         "(CA pinning for the raft plane)")
+    ap.add_argument("--peer_tls_insecure", action="store_true",
+                    help="explicitly skip peer TLS verification "
+                         "(throwaway self-signed clusters only)")
     ap.add_argument("--trace", dest="trace_ratio", type=float, default=0.0,
                     help="share of requests sampled into the flight recorder "
                          "(DGRAPH_TPU_TRACE_RATIO wins when set)")
     ap.add_argument("--expose_trace", action="store_true",
                     help="serve /debug/traces, /debug/slow_queries and "
                          "/debug/requests")
-    ap.add_argument("--raft_transport", default="http",
-                    help="raft frame carrier between servers: http (grpc "
-                         "is not ported and exits 2)")
+    ap.add_argument("--raft_transport", default="http", choices=("http", "grpc"),
+                    help="raft frame carrier between servers; grpc uses "
+                         "/protos.Worker/RaftMessage at peer http port + "
+                         "the gRPC offset")
     opts = ap.parse_args(argv)
-    if opts.raft_transport != "http":
-        print(f"--raft_transport {opts.raft_transport}: not supported by "
-              "this port (http only; the reference's gRPC raft transport "
-              "is not ported)", file=sys.stderr)
-        return 2
+    # the gRPC listener this process binds (0 = http port + 1000)
+    grpc_port = (
+        -1
+        if opts.grpc_port < 0
+        else (opts.grpc_port or (opts.port + 1000 if opts.port else 0))
+    )
+    if opts.raft_transport == "grpc":
+        # fail fast: a node whose raft plane is gRPC but that serves no
+        # gRPC listener (or lacks grpcio) can neither send nor receive
+        # frames — it would boot, never elect, and give no hint why
+        if grpc_port <= 0 or opts.port <= 0:
+            print("--raft_transport grpc requires explicit --port and an "
+                  "enabled gRPC listener (--grpc_port >= 0); peers derive "
+                  "each other's raft targets as http port + the same offset",
+                  file=sys.stderr)
+            return 2
+        try:
+            import grpc  # noqa: F401
+        except ImportError:
+            print("--raft_transport grpc requires grpcio, which is not "
+                  "importable in this environment", file=sys.stderr)
+            return 2
     # the device first: a missing GPU fails start-up before the disk is
     # touched
     device = resolve(opts.device)
     cluster = None
     if opts.peer or opts.join:
         try:
-            cluster = _boot_cluster(opts)
-        except ValueError as e:  # an https peer: refused, never downgraded
+            cluster = _boot_cluster(opts, grpc_port)
+        except ValueError as e:  # e.g. an https peer over gRPC without --peer_ca
             print(f"cluster configuration refused: {e}", file=sys.stderr)
             return 2
         store = cluster.store
@@ -138,7 +183,8 @@ def main(argv=None) -> int:
         store, port=opts.port, bind=opts.bind, device=device,
         arena_budget_mb=opts.arena_budget_mb, export_path=opts.export_path,
         cluster=cluster, trace_ratio=obs.get_recorder().sampler.ratio,
-        expose_trace=opts.expose_trace,
+        expose_trace=opts.expose_trace, tls_cert=opts.tls_cert,
+        tls_key=opts.tls_key,
     )
     # explicit flags win over the environment the snapshotter read
     if srv.snapshotter is not None and opts.snapshot_wal_mb:
@@ -146,7 +192,6 @@ def main(argv=None) -> int:
     if srv.snapshotter is not None and opts.snapshot_wal_records:
         srv.snapshotter.wal_records = opts.snapshot_wal_records
     srv.start()
-    print(f"serving on {srv.addr} (device {srv.engine.device})", flush=True)
 
     def _on_signal(_sig, _frm):
         # a second signal must not re-enter stop() while the first holds
@@ -155,13 +200,31 @@ def main(argv=None) -> int:
         signal.signal(signal.SIGTERM, signal.SIG_IGN)
         srv.stop()
 
+    # before the serving line: a client that signals as soon as it reads
+    # it must find the handlers in place
     signal.signal(signal.SIGINT, _on_signal)
     signal.signal(signal.SIGTERM, _on_signal)
+    print(f"serving on {srv.addr} (device {srv.engine.device})", flush=True)
+    grpc_srv = None
+    if grpc_port >= 0:
+        try:
+            from dgraph_tpu_torch.serve.grpc_server import GrpcServer
+
+            grpc_srv = GrpcServer(srv, bind=opts.bind, port=grpc_port)
+            grpc_srv.start()
+            print(f"gRPC (protos.Dgraph) at {opts.bind}:{grpc_srv.port}", flush=True)
+        except ImportError:
+            # a missing transport library, not a device fallback: the
+            # HTTP surface serves on, as the reference's does
+            print("grpcio unavailable; gRPC surface disabled", file=sys.stderr)
+            grpc_srv = None
     srv.wait()
+    if grpc_srv is not None:
+        grpc_srv.stop()
     return 0
 
 
-def _boot_cluster(opts):
+def _boot_cluster(opts, grpc_port: int):
     """The clustered and joining boots (the reference's
     ``dgraph_tpu/cli/server.py``): a ``ClusterService`` over the raft
     logs in ``--p``, started before the HTTP surface.  A joiner boots
@@ -173,32 +236,41 @@ def _boot_cluster(opts):
         parse_peers,
     )
 
-    my_addr = opts.my_addr or f"http://127.0.0.1:{opts.port}"
+    scheme = "https" if opts.tls_cert else "http"
+    my_addr = opts.my_addr or f"{scheme}://127.0.0.1:{opts.port}"
     group_ids = [int(g) for g in opts.group_ids.split(",") if g.strip()]
+    common = dict(
+        node_id=str(opts.raft_id),
+        my_addr=my_addr,
+        group_ids=group_ids,
+        directory=opts.postings_dir,
+        sync_writes=opts.sync_writes,
+        secret=opts.cluster_secret,
+        peer_ca=opts.peer_ca,
+        peer_tls_insecure=opts.peer_tls_insecure,
+        raft_transport=opts.raft_transport,
+        grpc_port_offset=max(0, grpc_port - opts.port),
+    )
     if opts.join and not opts.peer:
         cluster = ClusterService(
-            node_id=str(opts.raft_id),
-            my_addr=my_addr,
-            peers={str(opts.raft_id): my_addr},
-            group_ids=group_ids,
-            directory=opts.postings_dir,
-            sync_writes=opts.sync_writes,
-            secret=opts.cluster_secret,
-            passive=True,
+            peers={str(opts.raft_id): my_addr}, passive=True, **common
         )
         cluster.start()
         cluster.join_cluster(opts.join)
         return cluster
     cluster = ClusterService(
-        node_id=str(opts.raft_id),
-        my_addr=my_addr,
-        peers=parse_peers(opts.peer),
-        group_ids=group_ids,
-        directory=opts.postings_dir,
-        sync_writes=opts.sync_writes,
-        secret=opts.cluster_secret,
+        peers=parse_peers(opts.peer, default_scheme=scheme),
         peer_groups=parse_peer_groups(opts.peer_groups),
+        **common,
     )
+    if (
+        any(a.startswith("https://") for a in cluster.peers.values())
+        and not opts.peer_ca
+        and not opts.peer_tls_insecure
+    ):
+        print("warning: TLS peers will be verified against the system "
+              "trust store; for self-signed cluster certs pass --peer_ca "
+              "(pin) or --peer_tls_insecure", file=sys.stderr)
     cluster.start()
     return cluster
 

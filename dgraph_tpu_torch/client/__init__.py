@@ -1,6 +1,6 @@
-"""Client SDK of the port: batching mutations, query, unmarshal,
-checkpointing (the reference's ``dgraph_tpu/client`` without its gRPC
-transport).
+"""Client SDK of the port: batching mutations, query over HTTP (JSON or
+binary protobuf) or gRPC, unmarshal, checkpointing (the reference's
+``dgraph_tpu/client``).
 
 Equivalent of the reference's client/ package: `NewDgraphClient`-style
 batching client (client/mutations.go:206) with pipelined request workers
@@ -14,17 +14,20 @@ from dgraph_tpu_torch.client.client import (
     DgraphClient,
     Edge as ClientEdge,
     EmbeddedTransport,
+    GrpcTransport,
     HttpTransport,
 )
 from dgraph_tpu_torch.client.checkpoint import SyncMarks
-from dgraph_tpu_torch.client.unmarshal import unmarshal
+from dgraph_tpu_torch.client.unmarshal import unmarshal, unmarshal_list
 
 __all__ = [
     "BatchMutationOptions",
     "DgraphClient",
     "ClientEdge",
     "EmbeddedTransport",
+    "GrpcTransport",
     "HttpTransport",
     "SyncMarks",
     "unmarshal",
+    "unmarshal_list",
 ]

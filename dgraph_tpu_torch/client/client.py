@@ -1,12 +1,12 @@
-"""Batching Dgraph client (port of ``dgraph_tpu/client/client.py``; the
-reference's ``GrpcTransport`` and the binary-protobuf HTTP response are
-not ported).
+"""Batching Dgraph client (port of ``dgraph_tpu/client/client.py``).
 
 Mirrors client/mutations.go: callers stream N-Quads via BatchSet /
 BatchDelete; `pending` worker threads drain batches of `size` quads and
 submit them as mutation blocks; Flush waits for everything in flight.
-Two transports: HTTP (the reference's network client) and embedded
-(the reference's in-process InMemoryComm client, dgraph/embedded.go:39).
+Three transports: HTTP (JSON, or the binary protobuf ``Response`` with
+``binary=True``), gRPC (``protos.Dgraph/Run``, upstream's native client
+wire) and embedded (upstream's in-process InMemoryComm client,
+dgraph/embedded.go:39).
 """
 
 from __future__ import annotations
@@ -28,10 +28,17 @@ class Transport:
 class HttpTransport(Transport):
     """HTTP transport: POST /query with the text, variables in the
     X-Dgraph-Vars header; error statuses raise with the server's
-    message."""
+    message.  ``binary=True`` asks for the protobuf wire-format
+    ``Response`` (``Accept: application/protobuf``, serve/proto.py) and
+    decodes it to the JSON path's result-dict shape, with proto3's
+    inherent divergences: a ONE-element scalar list decodes as the bare
+    scalar (the repeated-field ambiguity, serve/proto.py decode_node) and
+    a mutation's code/message strings are not carried (Response has no
+    fields for them)."""
 
-    def __init__(self, addr: str):
+    def __init__(self, addr: str, binary: bool = False):
         self.addr = addr.rstrip("/")
+        self.binary = binary
 
     def run(self, text: str, variables: Optional[dict] = None) -> dict:
         req = urllib.request.Request(
@@ -39,9 +46,19 @@ class HttpTransport(Transport):
         )
         if variables:
             req.add_header("X-Dgraph-Vars", json.dumps(variables))
+        if self.binary:
+            req.add_header("Accept", "application/protobuf")
         try:
             with urllib.request.urlopen(req, timeout=60) as resp:
-                out = json.loads(resp.read().decode())
+                raw = resp.read()
+                if self.binary and resp.headers.get("Content-Type", "").startswith(
+                    "application/protobuf"
+                ):
+                    from dgraph_tpu_torch.serve.proto import decode_response
+
+                    out = decode_response(raw)
+                else:
+                    out = json.loads(raw.decode())
         except urllib.error.HTTPError as e:
             # the server answers errors with a JSON {code, message} body;
             # surface the message, not just the status line
@@ -64,6 +81,83 @@ class EmbeddedTransport(Transport):
 
     def run(self, text: str, variables: Optional[dict] = None) -> dict:
         return self.server.run_query(text, variables)
+
+
+class GrpcTransport(Transport):
+    """gRPC transport against serve/grpc_server.py — upstream's native
+    client wire (client/client.go over protos.Dgraph/Run).
+    Channels come from a shared refcounted pool with a CheckVersion
+    liveness probe (the worker/conn.go:108 pool analog); call close()
+    to release this transport's reference.
+
+    ``target`` is a bare host:port, or an http(s):// server address
+    (mapped to the +1000 gRPC port convention).  A server started with
+    --tls_cert serves gRPC over TLS, so https-derived targets require
+    ``cafile`` (its cert / a pinned CA, PEM) and dial a verified
+    grpc.secure_channel — mirroring GrpcRaftTransport: there is no
+    silent plaintext downgrade and no unverified-TLS mode.
+
+    ``timeout`` is every call's deadline in seconds (None: none); the
+    server turns it into the request's budget, as it does
+    ``X-Dgraph-Timeout``."""
+
+    _pool = None  # class-level shared ChannelPool
+
+    def __init__(self, target: str, cafile: str = "",
+                 timeout: Optional[float] = None):
+        from dgraph_tpu_torch.serve.grpc_server import ChannelPool
+
+        if GrpcTransport._pool is None:
+            GrpcTransport._pool = ChannelPool()
+        if "://" in target:
+            from dgraph_tpu_torch.cluster.transport import grpc_target_of
+
+            if target.startswith("https://") and not cafile:
+                raise ValueError(
+                    "https gRPC targets require cafile= (the server's "
+                    "TLS cert or a pinned CA): dialing plaintext into a "
+                    "--tls_cert server fails every RPC"
+                )
+            target = grpc_target_of(target, 1000)
+        self.target = target
+        self.cafile = cafile
+        self.timeout = timeout
+        self._chan = GrpcTransport._pool.get(target, cafile or None)
+        self._run = self._chan.unary_unary("/protos.Dgraph/Run")
+        self._check = self._chan.unary_unary("/protos.Dgraph/CheckVersion")
+        self._assign = self._chan.unary_unary("/protos.Dgraph/AssignUids")
+
+    def run(self, text: str, variables: Optional[dict] = None) -> dict:
+        import grpc
+
+        from dgraph_tpu_torch.serve.grpc_server import encode_request
+        from dgraph_tpu_torch.serve.proto import decode_response
+
+        try:
+            raw = self._run(encode_request(text, variables), timeout=self.timeout)
+        except grpc.RpcError as e:
+            raise RuntimeError(e.details() or str(e.code())) from None
+        return decode_response(raw)
+
+    def check_version(self) -> str:
+        from dgraph_tpu_torch.serve.grpc_server import decode_version
+
+        return decode_version(self._check(b"", timeout=self.timeout))
+
+    def assign_uids(self, n: int) -> tuple:
+        from dgraph_tpu_torch.serve.grpc_server import (
+            decode_assigned_ids,
+            encode_num,
+        )
+
+        return decode_assigned_ids(
+            self._assign(encode_num(n), timeout=self.timeout)
+        )
+
+    def close(self) -> None:
+        if self._chan is not None:
+            GrpcTransport._pool.release(self.target, self.cafile or None)
+            self._chan = None
 
 
 @dataclass

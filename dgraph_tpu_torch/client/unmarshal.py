@@ -4,9 +4,11 @@
 Equivalent of client/unmarshal.go:253 — the Go client reflects over
 struct tags to fill user structs from protobuf Node trees.  The Python
 analog fills dataclasses (or plain classes with annotations) from the
-JSON response tree: field name = predicate (override with
-`dgraph_field` metadata), nested dataclass / List[dataclass] fields
-recurse.
+JSON response tree — or from a protobuf ``Response``'s Node trees,
+which ``serve/proto.decode_response`` (``HttpTransport(binary=True)``,
+``GrpcTransport``) folds into the same dict shape: field name =
+predicate (override with `dgraph_field` metadata), nested dataclass /
+List[dataclass] fields recurse.
 """
 
 from __future__ import annotations
@@ -64,3 +66,8 @@ def unmarshal(node: dict, cls: Type[T]) -> T:
                 item = item.get(key, item)
             kwargs[f.name] = _convert_scalar(item, t)
     return cls(**kwargs)
+
+
+def unmarshal_list(nodes: List[dict], cls: Type[T]) -> List[T]:
+    """Fill one dataclass instance per response node."""
+    return [unmarshal(n, cls) for n in nodes]

@@ -8,8 +8,9 @@ replication is a Raft log per group feeding each replica's store.  A
 clustered server's engine reads a ``ClusterStore`` (``service.py``) and
 builds its device arenas from that store's per-predicate snapshot
 copies, so cluster reads run the same gather and intersect kernels as a
-single node's.  Raft frames travel over HTTP only: the reference's gRPC
-raft transport and TLS peers are not ported.
+single node's.  Raft frames travel over HTTP(S) or, with
+``raft_transport="grpc"``, over the gRPC Worker plane; ``https://``
+peers are verified under ``transport.PeerAuth``.
 """
 
 from dgraph_tpu_torch.cluster.groups import GroupConfig, fingerprint64

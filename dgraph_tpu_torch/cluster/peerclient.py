@@ -1,6 +1,5 @@
 """PeerClient: the single gate every intra-cluster RPC goes through (copy
-of ``dgraph_tpu/cluster/peerclient.py`` without its gRPC leg: the port
-has no gRPC).
+of ``dgraph_tpu/cluster/peerclient.py``).
 
 Upstream Dgraph survives slow and dead peers because its worker conn pool
 retries, follows leader hints, and balances reads across replicas
@@ -37,8 +36,9 @@ Every attempt passes through the failpoint ``peerclient.<op>``
 (utils/failpoints.py), which is how the chaos suite injects
 deterministic faults below the retry/breaker machinery.  A sampled
 caller's span records one ``rpc.<op>`` child per attempt, and its
-context rides the ``Traceparent`` header of every HTTP peer call, so the
-remote node records its leg of the trace under the same trace id.
+context rides the ``Traceparent`` header of every HTTP peer call (the
+``traceparent`` metadata of a gRPC one), so the remote node records its
+leg of the trace under the same trace id.
 
 ``DGRAPH_TPU_RESILIENCE=0`` is the escape hatch: calls degrade to the
 single-shot behavior (one attempt, legacy timeout, no breaker, no
@@ -335,12 +335,15 @@ class PeerClient:
         """Run ``attempt(per_attempt_timeout)`` with retries/backoff under
         the budget and the peer's breaker.
 
-        ``transient`` classifies retriable transport failures.
-        ``HTTPError`` always passes through un-retried — the peer is
-        alive — and counts as a breaker success.  ``alive`` refines
-        ``transient`` for exception types that cover both cases: a
-        transient-matched exception it judges alive gets the HTTPError
-        treatment (un-retried, breaker success).  ``off_timeout`` is the
+        ``transient`` classifies retriable transport failures (gRPC
+        callers extend it with ``grpc.RpcError``).  ``HTTPError`` always
+        passes through un-retried — the peer is alive — and counts as a
+        breaker success.  ``alive`` refines ``transient`` for exception
+        types that cover both cases: a transient-matched exception it
+        judges alive gets the HTTPError treatment (un-retried, breaker
+        success) — how gRPC's single ``RpcError`` tells a responding peer
+        (INVALID_ARGUMENT, UNAUTHENTICATED, …) from a dead one
+        (UNAVAILABLE).  ``off_timeout`` is the
         single-attempt timeout used when DGRAPH_TPU_RESILIENCE=0
         (defaults to ``budget``).
 
@@ -511,4 +514,72 @@ class PeerClient:
             peer, op, attempt,
             budget=budget, attempts=attempts, off_timeout=off_timeout,
             slice_budget=slice_budget,
+        )
+
+    def grpc_unary(
+        self,
+        peer: str,
+        op: str,
+        channel,
+        method: str,
+        payload: bytes,
+        *,
+        metadata=None,
+        budget: Optional[float] = None,
+        attempts: Optional[int] = None,
+        slice_budget: bool = True,
+    ):
+        """The gRPC peer call (raft frames over the Worker plane): the
+        channel-RPC invocation lives here, under the same retries and
+        breakers as the HTTP calls."""
+        import grpc
+
+        # multicallables are cached ON the channel (their lifetime), not
+        # rebuilt per frame — this is the raft hot path, one send per
+        # heartbeat per peer
+        try:
+            mcs = channel._dgraph_tpu_multicallables
+        except AttributeError:
+            mcs = channel._dgraph_tpu_multicallables = {}
+        rpc = mcs.get(method)
+        if rpc is None:
+            rpc = mcs[method] = channel.unary_unary(method)
+
+        # trace propagation, gRPC leg: traceparent rides metadata (same
+        # W3C field the HTTP leg puts in a header)
+        sp = obs.current_span()
+        if sp is not None:
+            metadata = list(metadata or []) + [
+                ("traceparent", obs.format_traceparent(sp))
+            ]
+
+        def attempt(t: Optional[float]):
+            return rpc(payload, timeout=t, metadata=metadata)
+
+        # every RpcError carries a status; only these mean the peer
+        # itself is unreachable/slow.  Anything else (UNAUTHENTICATED on
+        # a secret mismatch, INVALID_ARGUMENT, UNIMPLEMENTED, …) is the
+        # peer ANSWERING with a rejection — retrying doubles traffic to
+        # an alive peer and opening its breaker misreports a config
+        # error as a network outage
+        transient_codes = (
+            grpc.StatusCode.UNAVAILABLE,
+            grpc.StatusCode.DEADLINE_EXCEEDED,
+            grpc.StatusCode.CANCELLED,
+        )
+
+        def peer_alive(e: BaseException) -> bool:
+            code = getattr(e, "code", None)
+            try:
+                return code is not None and code() not in transient_codes
+            except Exception:  # noqa: BLE001 — unknown error shape:
+                return False   # keep the old everything-transient rule
+
+        # ValueError: grpcio raises it when the channel closed under the
+        # call mid-shutdown — transient for a sender loop, same as before
+        return self.call(
+            peer, op, attempt,
+            budget=budget, attempts=attempts,
+            transient=(grpc.RpcError, OSError, ValueError),
+            alive=peer_alive, slice_budget=slice_budget,
         )

@@ -1,5 +1,6 @@
 """Cluster service: the server binary's StartRaftNodes analog (copy of
-``dgraph_tpu/cluster/service.py``, raft frames over HTTP only).
+``dgraph_tpu/cluster/service.py``; raft frames over HTTP(S) or the gRPC
+Worker plane).
 
 Wires the cluster layer into a serving process (upstream Dgraph's
 worker/groups.go:109 StartRaftNodes + dgraph/server.go storage bring-up):
@@ -50,16 +51,16 @@ from dgraph_tpu_torch.cluster.transport import (
     HttpRaftTransport,
     PeerAuth,
     decode_msg,
-    refuse_https,
 )
 
 METADATA_GROUP = 0
 
 
 def parse_peers(peer_spec: str, default_scheme: str = "http") -> Dict[str, str]:
-    """"1@host:8080,2@host:8081" (or full http:// urls) → id→addr.
-    Bare host:port entries take ``default_scheme``.  An https peer raises
-    ValueError: the port has no TLS on the raft plane."""
+    """"1@host:8080,2@host:8081" (or full http(s):// urls) → id→addr.
+    Bare host:port entries take ``default_scheme`` — a TLS-enabled server
+    must default its peers to https or raft frames hit TLS listeners as
+    plaintext and are silently dropped."""
     out: Dict[str, str] = {}
     for part in peer_spec.split(","):
         part = part.strip()
@@ -70,7 +71,6 @@ def parse_peers(peer_spec: str, default_scheme: str = "http") -> Dict[str, str]:
         nid, addr = part.split("@", 1)
         if not addr.startswith(("http://", "https://")):
             addr = f"{default_scheme}://" + addr
-        refuse_https(addr)
         out[nid.strip()] = addr
     return out
 
@@ -103,19 +103,13 @@ class ClusterService:
         group_config: Optional[GroupConfig] = None,
         sync_writes: bool = False,
         secret: str = "",
+        peer_ca: str = "",
+        peer_tls_insecure: bool = False,
         peer_groups: Optional[Dict[str, List[int]]] = None,
         raft_transport: str = "http",
+        grpc_port_offset: int = 1000,
         **raft_opts,
     ):
-        if raft_transport != "http":
-            # the reference's gRPC raft transport is not ported: refuse
-            # rather than boot a node that can neither send nor receive
-            raise ValueError(
-                f"raft transport {raft_transport!r} is not supported by "
-                "this port (http only)"
-            )
-        for addr in list(peers.values()) + [my_addr]:
-            refuse_https(addr)
         if METADATA_GROUP not in group_ids:
             group_ids = [METADATA_GROUP] + list(group_ids)
         self.node_id = node_id
@@ -129,16 +123,32 @@ class ClusterService:
             self.conf = GroupConfig.parse(f"default: fp % {len(data_groups)} + 1")
         else:
             self.conf = GroupConfig.single_group()
-        self.auth = PeerAuth(secret=secret)
+        self.auth = PeerAuth(secret=secret, cafile=peer_ca, insecure=peer_tls_insecure)
         # one PeerClient for every peer RPC this server issues — the
         # retry/backoff/breaker funnel (cluster/peerclient.py); the raft
         # transports share it so a peer that times out on the read plane
         # is ALSO known-bad to the raft sender loops (and vice versa)
         self.peerclient = PeerClient(auth=self.auth)
         others = {nid: a for nid, a in self.peers.items() if nid != node_id}
-        self.transport = HttpRaftTransport(
-            others, auth=self.auth, peerclient=self.peerclient
-        )
+        if raft_transport == "grpc":
+            # raft frames over the gRPC Worker plane (upstream's native
+            # raft leg, draft.go:1017).  gRPC listeners sit at the http
+            # port + offset (the CLI's --grpc_port convention); the
+            # transport derives targets per message, so members learned
+            # or re-addressed at runtime route correctly too.
+            from dgraph_tpu_torch.cluster.transport import GrpcRaftTransport
+
+            self.transport = GrpcRaftTransport(
+                others,
+                secret=secret,
+                port_offset=grpc_port_offset,
+                auth=self.auth,
+                peerclient=self.peerclient,
+            )
+        else:
+            self.transport = HttpRaftTransport(
+                others, auth=self.auth, peerclient=self.peerclient
+            )
         # static placement (group/conf.go's server-side complement): which
         # groups each peer serves.  None/missing peer = serves everything
         # (full replication, the pre-placement behavior).  The metadata
@@ -273,7 +283,8 @@ class ClusterService:
         iterate self.peers/addr_of concurrently."""
         if nid != self.node_id:
             self.peers = {**self.peers, nid: addr}
-            # update_peer refuses an https address (no TLS in the port).
+            # transport-agnostic rewiring: the gRPC transport derives its
+            # target from the http address itself (update_peer validates).
             # Validation failures must NOT raise: this runs on the raft
             # apply thread, and aborting would leave the committed batch
             # partially applied on this replica — skip the rewiring (the

@@ -1,5 +1,5 @@
-"""Raft message wire codec + HTTP transport between server processes
-(copy of ``dgraph_tpu/cluster/transport.py``: the frames are
+"""Raft message wire codec + the HTTP and gRPC transports between server
+processes (copy of ``dgraph_tpu/cluster/transport.py``: the frames are
 byte-identical to the reference's, so port and reference servers can
 share one Raft group).
 
@@ -11,10 +11,11 @@ a sender thread so the raft event loop never blocks on the network.
 Delivery is best-effort; raft tolerates loss and the queue drops when a
 peer is down (the reference's conn pool likewise drops on dead conns).
 
-Frames travel over HTTP only, in plain text: the reference's
-``GrpcRaftTransport`` and its TLS trust model (``--peer_ca``,
-``--peer_tls_insecure``) are not ported, and an ``https://`` peer is
-refused rather than downgraded.
+Frames travel over HTTP(S) (``HttpRaftTransport``: ``POST /raft/<g>``)
+or over the gRPC Worker plane (``GrpcRaftTransport``:
+``/protos.Worker/RaftMessage``).  ``https://`` peers are verified under
+``PeerAuth``'s trust model: a pinned CA (``--peer_ca``), the explicit
+``--peer_tls_insecure`` opt-out, or the system trust store.
 """
 
 from __future__ import annotations
@@ -49,31 +50,44 @@ SECRET_HEADER = "X-Dgraph-Cluster-Secret"
 
 class PeerAuth:
     """Security posture for intra-cluster calls: a shared secret attached
-    to every request (the reference's TLS trust model for https peers is
-    not ported)."""
+    to every request, and the TLS trust model for https peers —
+    ``cafile`` pins a CA (chain verified, hostname check off: cluster
+    certs are typically issued to names that don't match peer IPs, the
+    reference's tls_helper has the same server-name override escape
+    hatch); ``insecure=True`` is the explicit opt-out for throwaway
+    self-signed setups; default is full system-store verification."""
 
-    def __init__(self, secret: str = ""):
+    def __init__(self, secret: str = "", cafile: str = "", insecure: bool = False):
         self.secret = secret
+        self.cafile = cafile
+        self.insecure = insecure
+        self._ctx = None
 
+    def ssl_context(self):
+        if self._ctx is None:
+            import ssl
 
-def refuse_https(addr: str) -> None:
-    """Raise for an ``https://`` peer address: the port speaks plain HTTP
-    to its peers, and sending raft frames (and the cluster secret) in
-    the clear to a TLS peer would be a quiet downgrade."""
-    if addr.startswith("https://"):
-        raise ValueError(
-            f"peer {addr!r}: https peers are not supported by this port "
-            "(no TLS on the raft plane); use http:// addresses"
-        )
+            if self.cafile:
+                ctx = ssl.create_default_context(cafile=self.cafile)
+                ctx.check_hostname = False
+                ctx.verify_mode = ssl.CERT_REQUIRED
+            elif self.insecure:
+                ctx = ssl._create_unverified_context()
+            else:
+                ctx = ssl.create_default_context()
+            self._ctx = ctx
+        return self._ctx
 
 
 def urlopen_peer(req, timeout: float, auth: Optional[PeerAuth] = None):
-    """urlopen for intra-cluster calls: attaches the cluster secret;
-    refuses https peers."""
+    """urlopen for intra-cluster calls: attaches the cluster secret and
+    applies the PeerAuth TLS trust model for https peers."""
     if auth is not None and auth.secret and hasattr(req, "add_header"):
         req.add_header(SECRET_HEADER, auth.secret)
     url = req.full_url if hasattr(req, "full_url") else str(req)
-    refuse_https(url)
+    if url.startswith("https://"):
+        ctx = (auth or PeerAuth()).ssl_context()
+        return urllib.request.urlopen(req, timeout=timeout, context=ctx)
     return urllib.request.urlopen(req, timeout=timeout)
 
 
@@ -215,8 +229,8 @@ def decode_msg(b: bytes):
 
 
 class _QueuedPeerTransport(Transport):
-    """Queue-per-peer / drop-don't-block sender discipline of the raft
-    transport: one bounded queue + daemon sender thread per peer —
+    """Queue-per-peer / drop-don't-block sender discipline shared by the
+    raft transports: one bounded queue + daemon sender thread per peer —
     the raft loop enqueues and returns; slow/dead peers drop frames
     instead of applying backpressure to consensus (batchAndSendMessages
     behavior, draft.go:434 'no need to send heartbeats if we can't send
@@ -231,7 +245,7 @@ class _QueuedPeerTransport(Transport):
         auth: Optional["PeerAuth"] = None,
         peerclient=None,
     ):
-        self.addr_of = dict(addr_of)      # node_id -> http://host:port
+        self.addr_of = dict(addr_of)      # node_id -> http(s)://host:port
         self.timeout = timeout
         self.auth = auth
         # all network sends route through the PeerClient funnel
@@ -265,9 +279,7 @@ class _QueuedPeerTransport(Transport):
 
     def update_peer(self, nid: str, addr: str) -> None:
         """Runtime membership rewiring (atomic reference swap — sender
-        threads re-read addr_of per message).  An https address raises
-        ValueError (no TLS in the port)."""
-        refuse_https(addr)
+        threads re-read addr_of per message)."""
         self.addr_of = {**self.addr_of, nid: addr}
 
     def send(self, to: str, group: int, msg) -> None:
@@ -334,10 +346,180 @@ class HttpRaftTransport(_QueuedPeerTransport):
             except Exception as e:  # noqa: BLE001 — ANY other failure
                 # (IncompleteRead from a peer killed mid-response, encode
                 # surprise) must not kill this peer's only sender thread
-                # for the process lifetime: count under its own site AND
-                # print the traceback
+                # for the process lifetime; same discipline as the gRPC
+                # twin: count under its own site AND print the traceback
                 import traceback
 
                 RAFT_DROPPED.add(peer)
                 note_swallowed("transport.sender_unexpected", e)
                 traceback.print_exc()
+
+
+def grpc_target_of(http_addr: str, port_offset: int) -> str:
+    """Peer address → its gRPC target.  Accepts full http(s)://host:port
+    urls AND bare host:port (ClusterService's peers param admits both);
+    raises on anything it cannot map rather than emitting a target that
+    silently drops every frame."""
+    from urllib.parse import urlsplit
+
+    addr = http_addr
+    if "://" not in addr:
+        addr = "http://" + addr
+    u = urlsplit(addr)
+    if not u.hostname or not u.port:
+        raise ValueError(f"cannot derive a gRPC target from peer address {http_addr!r}")
+    return f"{u.hostname}:{u.port + port_offset}"
+
+
+class GrpcRaftTransport(_QueuedPeerTransport):
+    """Ships raft frames over the gRPC Worker plane
+    (``/protos.Worker/RaftMessage``, serve/grpc_server.py) — the direct
+    analog of the reference's raft gRPC leg (worker/draft.go:1017);
+    the cluster secret rides gRPC metadata.
+
+    ``addr_of`` holds peer HTTP addresses (same contract as
+    HttpRaftTransport, so runtime membership rewiring via update_peer is
+    transport-agnostic); targets derive per message, so a member that
+    re-announces on a new address is picked up by the live sender.
+    https peers require ``auth.cafile`` — gRPC channels are TLS-verified
+    with the pinned CA; there is no silent plaintext downgrade."""
+
+    _thread_prefix = "raft-grpc-send"
+
+    def __init__(
+        self,
+        addr_of: Dict[str, str],  # node_id -> http(s)://host:port
+        timeout: float = 2.0,
+        secret: str = "",
+        port_offset: int = 1000,
+        auth: Optional[PeerAuth] = None,
+        peerclient=None,
+    ):
+        super().__init__(addr_of, timeout, auth=auth, peerclient=peerclient)
+        self.secret = secret
+        self.port_offset = port_offset
+        for a in self.addr_of.values():
+            self._check_addr(a)
+        self._chans: Dict[str, object] = {}  # target -> channel
+
+    def _check_addr(self, addr: str) -> None:
+        grpc_target_of(addr, self.port_offset)  # raises if unmappable
+        if addr.startswith("https://") and not (self.auth and self.auth.cafile):
+            raise ValueError(
+                "https peers over the gRPC raft transport require a pinned "
+                "CA (--peer_ca): gRPC has no unverified-TLS mode and "
+                "silently downgrading raft frames to plaintext would leak "
+                "the cluster secret"
+            )
+
+    def update_peer(self, nid: str, addr: str) -> None:
+        self._check_addr(addr)
+        old = self.addr_of.get(nid)
+        super().update_peer(nid, addr)
+        if old and old != addr:
+            # close the superseded channel unless another peer still maps
+            # to the same target — re-addressing members must not leak
+            # one open HTTP/2 connection per churn for the process life
+            old_t = grpc_target_of(old, self.port_offset)
+            live = {
+                grpc_target_of(a, self.port_offset)
+                for a in self.addr_of.values()
+            }
+            if old_t not in live:
+                with self._lock:
+                    ch = self._chans.pop(old_t, None)
+                if ch is not None:
+                    try:
+                        ch.close()
+                    except Exception as e:  # noqa: BLE001 — grpc close
+                        # failures are unactionable here, but visible
+                        from dgraph_tpu_torch.utils.metrics import note_swallowed
+
+                        note_swallowed("transport.channel_close", e)
+
+    def _channel_for(self, addr: str):
+        from dgraph_tpu_torch.serve.grpc_server import make_channel
+
+        target = grpc_target_of(addr, self.port_offset)
+        with self._lock:
+            ch = self._chans.get(target)
+            if ch is None:
+                ch = make_channel(target, self.auth.cafile
+                                  if addr.startswith("https://") else "")
+                self._chans[target] = ch
+            return ch
+
+    def _sender(self, peer: str, q: "queue.Queue") -> None:
+        import grpc
+
+        from dgraph_tpu_torch.serve.grpc_server import (
+            _SECRET_MD,
+            encode_payload,
+            frame_raft,
+        )
+        from dgraph_tpu_torch.utils.metrics import RAFT_DROPPED, note_swallowed
+
+        md = [(_SECRET_MD, self.secret)] if self.secret else None
+        while not self._stop.is_set():
+            try:
+                group, body = q.get(timeout=0.5)
+            except queue.Empty:
+                continue
+            try:
+                # re-resolve per message (like HttpRaftTransport): a
+                # member re-announcing on a new address routes the next
+                # frame to the new target
+                addr = self.addr_of.get(peer)
+                if addr is None:
+                    continue
+                payload = encode_payload(frame_raft(group, body))
+                # the channel-RPC itself runs inside PeerClient (its
+                # grpc_unary leg): bounded retries, breaker sheds, and
+                # the ValueError a closing channel throws mid-call is
+                # classified transient there — a ValueError out of
+                # encode_payload above still reaches the unexpected
+                # handler below, as before
+                try:
+                    # slice_budget=False for the same reason as the HTTP
+                    # twin: a loaded peer answering within the legacy
+                    # window must not fail two half-window slices
+                    self.peerclient.grpc_unary(
+                        peer, "raft.send", self._channel_for(addr),
+                        "/protos.Worker/RaftMessage", payload,
+                        metadata=md, budget=self.timeout, attempts=2,
+                        slice_budget=False,
+                    )
+                except ValueError as e:
+                    # the RESILIENCE=0 off-path returns the raw attempt,
+                    # so the closed-channel ValueError arrives HERE
+                    # instead of wrapped transient inside peerclient:
+                    # same quiet counted drop as any peer-down error,
+                    # not a per-frame traceback
+                    RAFT_DROPPED.add(peer)
+                    note_swallowed("transport.grpc_send", e)
+            except (grpc.RpcError, OSError) as e:
+                # peer still down after retries: drop (heartbeats will
+                # re-send) — counted, never silent
+                RAFT_DROPPED.add(peer)
+                note_swallowed("transport.grpc_send", e)
+            except Exception as e:  # noqa: BLE001 — ANY other failure
+                # (encode bug, channel-construction surprise) must not
+                # kill this peer's only sender thread for the process
+                # lifetime; count under its own site AND print — an
+                # unexpected type here is a bug worth a traceback
+                import traceback
+
+                note_swallowed("transport.sender_unexpected", e)
+                traceback.print_exc()
+
+    def stop(self) -> None:
+        super().stop()
+        from dgraph_tpu_torch.utils.metrics import note_swallowed
+
+        with self._lock:
+            for ch in self._chans.values():
+                try:
+                    ch.close()
+                except Exception as e:  # noqa: BLE001 — best-effort teardown
+                    note_swallowed("transport.channel_close", e)
+            self._chans.clear()

@@ -37,8 +37,8 @@ an unrelated-predicate write costs every subscription nothing.
 Transport is the serving layer's (serve/server.py): ``POST /subscribe``
 (register; streams SSE inline under ``Accept: text/event-stream`` or
 ``?stream=1``), ``GET /subscribe?id=`` (attach) and ``POST
-/subscribe/cancel?id=``.  The reference's gRPC ``Subscribe`` stream is
-not ported yet.  Each subscription buffers at most
+/subscribe/cancel?id=`` — and serve/grpc_server.py mirrors it as the
+``/protos.Dgraph/Subscribe`` server-stream.  Each subscription buffers at most
 ``DGRAPH_TPU_SUBS_QUEUE`` undelivered events; a slower consumer loses
 the OLDEST (counted ``lagged``).
 """

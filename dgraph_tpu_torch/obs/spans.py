@@ -27,8 +27,8 @@ Design constraints, in priority order:
    parsed from incoming HTTP headers and injected into every outgoing
    PeerClient call (cluster/peerclient.py), so a forwarded mutation and
    a cross-group read record spans on BOTH nodes under one trace_id.
-   (The reference also reads it from gRPC metadata; the port serves no
-   gRPC.)
+   The gRPC surface reads it from the ``traceparent`` metadata key
+   (serve/grpc_server.py), and a gRPC peer call sends it there.
 
 Device time: :func:`block_ready_ms` waits on a CUDA event recorded on
 the producing tensor's current stream (never ``torch.cuda.synchronize``,

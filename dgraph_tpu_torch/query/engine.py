@@ -307,7 +307,7 @@ class DeviceExpander:
         if dec is not None:
             self._expand_dec = None
             actual_ms = st["device_expand_ms"] + st["host_expand_ms"] - before
-            planner.note_outcome(dec, actual_ms * 1e3)
+            planner.note_served_outcome(dec, actual_ms * 1e3)
         return out, seg_ptr
 
     def _expand_one_inner(

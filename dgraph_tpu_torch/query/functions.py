@@ -147,7 +147,7 @@ class FuncResolver:
             with obs.stage(st, "resolver_expand_ms"):
                 out, _seg = arena.expand_host(rows)
                 res = np.unique(out)
-            planner.note_outcome(dec, (st["resolver_expand_ms"] - r0) * 1e3)
+            planner.note_served_outcome(dec, (st["resolver_expand_ms"] - r0) * 1e3)
             return res
         with obs.stage(st, "resolver_expand_ms"):
             cap = ops.bucket(total)
@@ -158,7 +158,7 @@ class FuncResolver:
             out, _seg, _t = ops.expand_csr(arena.offsets, arena.dst, rows_t, cap)
             u = ops.sort_unique(out).cpu().numpy()
             res = u[u != SENT].astype(np.int64)
-        planner.note_outcome(dec, (st["resolver_expand_ms"] - r0) * 1e3)
+        planner.note_served_outcome(dec, (st["resolver_expand_ms"] - r0) * 1e3)
         return res
 
     def _kway(self, sets: List[np.ndarray]) -> np.ndarray:

@@ -226,7 +226,7 @@ def kway_intersect(
         _COUNTS[route] += 1
     if stats is not None:
         stats[route] = stats.get(route, 0) + 1
-        planner.note_outcome(dec, (stats["kway_ms"] - k0) * 1e3)
+        planner.note_served_outcome(dec, (stats["kway_ms"] - k0) * 1e3)
     return res
 
 

@@ -95,6 +95,9 @@ _LOCK = threading.Lock()
 _RECENT: "deque[dict]" = deque(maxlen=64)
 _COUNTS: dict = {}
 _MISPREDICTS: dict = {}
+# the (kind, route) pairs that have closed a served decision in this
+# process (note_served_outcome)
+_WARMED: set = set()
 _CAL: Calibration = PRIORS
 _RATES: dict = PRIORS.rates()  # live copy the EWMA refines
 
@@ -216,6 +219,27 @@ def note_outcome(dec: Optional[dict], actual_us: float) -> None:
         PLANNER_MISPREDICTS.add(dec["kind"])
     if not outlier:
         _refine(dec["kind"], dec["route"], units, actual_us)
+
+
+def note_served_outcome(dec: Optional[dict], actual_us: float) -> None:
+    """``note_outcome`` for a decision a served hop or k-way call closed.
+    The port's one addition: the first outcome of each (kind, route) in
+    the process is an outlier (recorded for the ring, neither a rate
+    sample nor a mispredict).  It carries the card's one-off costs of a
+    route's first dispatch, which land below the outlier bar yet, at
+    α 0.2, raise the route's rate enough that the next large hop is
+    priced onto the host."""
+    if dec is not None and actual_us > 0.0:
+        key = (dec["kind"], dec["route"])
+        with _LOCK:
+            first = key not in _WARMED
+            _WARMED.add(key)
+            if first:
+                dec["actual_us"] = round(float(actual_us), 1)
+                dec["outlier"] = True
+        if first:
+            return
+    note_outcome(dec, actual_us)
 
 
 # chain and tile timings are composite (planning + packing + the kernel)
@@ -634,6 +658,7 @@ def _reset_for_tests() -> None:
         _RECENT.clear()
         _COUNTS.clear()
         _MISPREDICTS.clear()
+        _WARMED.clear()
         _CAL = PRIORS
         _RATES.clear()
         _RATES.update(PRIORS.rates())

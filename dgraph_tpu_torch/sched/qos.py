@@ -1,18 +1,18 @@
 """Multi-tenant serving QoS: tenant identity, quotas, weighted-fair
 pick, and cooperative query cancellation (copy of
-``dgraph_tpu/sched/qos.py`` without ``grpc_timeout``: the port has no
-gRPC surface).
+``dgraph_tpu/sched/qos.py``).
 
-- **Tenant identity** — the ``X-Dgraph-Tenant`` HTTP header names the
-  scope; absent means the ``default`` tenant.  :func:`resolve_tenant`
+- **Tenant identity** — the ``X-Dgraph-Tenant`` HTTP header / the
+  ``x-dgraph-tenant`` gRPC metadata key names the scope; absent means
+  the ``default`` tenant.  :func:`resolve_tenant`
   normalizes.
 - **Per-tenant config** (:class:`QosConfig` / :class:`TenantConfig`) —
   weight (fair-share of cohort flush slots), ``max_queued`` (admission
   quota: over it sheds 429 with a tenant-scoped ``Retry-After`` BEFORE
   the global cap), ``max_inflight`` (concurrent execution cap), a
   ``priority`` class (low/standard/high/critical) folded into the DRR
-  weight (``PRIORITY_FACTORS``), and ``max_subs`` (kept for the
-  reference's config grammar; the port serves no subscriptions yet).
+  weight (``PRIORITY_FACTORS``), and ``max_subs`` (the live-query
+  subscription quota, ivm/subs.py).
   Configured via the ``DGRAPH_TPU_QOS_TENANTS`` JSON knob; unconfigured
   tenants inherit the ``DGRAPH_TPU_QOS_DEFAULT_*`` defaults (weight 1,
   no quota), so absent configuration changes nothing.
@@ -22,14 +22,16 @@ gRPC surface).
 - **Cooperative cancellation** (:class:`CancelToken`) — carried on
   ``SchedRequest`` and threaded into the engine; checked at hop
   boundaries and segment seams (never inside a launched kernel, so
-  cancellation latency is one hop's duration).  Two sources flip it in
-  the port: deadline lapse mid-execution (the token carries the
-  request budget), client disconnect (an HTTP socket EOF peek) and an
+  cancellation latency is one hop's duration).  Three sources flip it:
+  deadline lapse mid-execution (the token carries the request budget),
+  client disconnect (an HTTP socket EOF peek, plain or TLS, or gRPC's
+  ``context.is_active()``) and an
   operator's ``/admin/cancel?trace_id=`` (:class:`CancelRegistry`, which
   holds the tokens of sampled, scheduled reads under their trace ids).
   A cancelled query raises :class:`QueryCancelledError`; the serving
   layer records ``dgraph_query_cancelled_total{reason,tenant}``.
-- **One deadline resolution** (:func:`parse_timeout`): zero/negative =
+- **One deadline resolution** (:func:`parse_timeout` for the HTTP
+  header, :func:`grpc_timeout` for a gRPC deadline): zero/negative =
   budget already spent; absent/malformed/unbounded = no budget.
 
 Gate: ``DGRAPH_TPU_QOS`` (default on).  ``0`` restores the pre-QoS
@@ -254,11 +256,44 @@ def socket_disconnect_probe(sock) -> Callable[[], bool]:
     """Transport-liveness probe for cooperative cancellation: returns a
     zero-argument callable that reports True when the client is GONE.
 
-    A closed client connection makes the socket readable with EOF;
-    ``MSG_PEEK`` observes that without consuming pipelined bytes.  (The
-    reference also probes TLS sockets; the port serves plain HTTP.)"""
+    Plain TCP: a closed client connection makes the socket readable
+    with EOF; ``MSG_PEEK`` observes that without consuming pipelined
+    bytes.
+
+    TLS (``ssl.SSLSocket``): ``recv`` flags are rejected at the SSL
+    layer, so the probe peeks the RAW transport instead — a second
+    socket object over the same fd, detached after the peek so the
+    shared fd never closes, sees the TCP FIN exactly like the plain
+    probe.  Buffered decrypted bytes (``sock.pending()``) mean the client
+    was alive at least as recently as those records; a readable raw
+    socket with bytes (a TLS record that must not be consumed) reads as
+    connected too — only a raw EOF is a disconnect.  A close_notify
+    without FIN therefore reads as still connected: a conservative miss
+    that the deadline and ``/admin/cancel`` still cover."""
     import select
     import socket as _socket
+    import ssl as _ssl
+
+    if isinstance(sock, _ssl.SSLSocket):
+        def gone_tls() -> bool:
+            try:
+                if sock.pending():
+                    return False  # undrained decrypted bytes: alive
+                r, _w, _x = select.select([sock], [], [], 0)
+                if not r:
+                    return False
+                raw = _socket.socket(fileno=sock.fileno())
+                try:
+                    return raw.recv(1, _socket.MSG_PEEK) == b""
+                finally:
+                    # detach BEFORE gc: the temporary object must never
+                    # close the fd it shares with the live SSLSocket
+                    raw.detach()
+            except ValueError:
+                return False  # fd already detached mid-probe
+            except OSError:
+                return True   # socket already torn down
+        return gone_tls
 
     def gone() -> bool:
         try:
@@ -290,6 +325,20 @@ def parse_timeout(header: Optional[str]) -> Optional[float]:
     if v != v or v == float("inf"):  # NaN / +inf: no bound
         return None
     return max(v, 0.0)
+
+
+def grpc_timeout(context) -> Optional[float]:
+    """The gRPC half of deadline resolution: ``context.time_remaining()``
+    with the contract of :func:`parse_timeout` — None for no deadline
+    (grpcio's huge sentinel) or a transport without deadline support;
+    values ≤ 0 clamp to 0.0 (an already-lapsed deadline sheds at once)."""
+    try:
+        v = context.time_remaining()
+    except Exception:  # noqa: BLE001 — a transport without deadlines
+        return None
+    if v is None or v > 1e8:  # grpcio's "no deadline" sentinel
+        return None
+    return max(float(v), 0.0)
 
 
 # ---------------------------------------------------------- tenant config

@@ -1,2 +1,3 @@
-"""Serving surface of the port: mutation application and the HTTP
-``/query`` endpoint."""
+"""Serving surface of the port: mutation application, the HTTP
+``/query`` endpoint (JSON or the protobuf ``Response``) and the gRPC
+``protos.Dgraph`` / ``protos.Worker`` services."""

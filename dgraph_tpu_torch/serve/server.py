@@ -7,10 +7,13 @@
   ledger to ``extensions``.  ``X-Dgraph-Tenant`` names the request's QoS
   tenant and ``X-Dgraph-Timeout`` its budget in seconds.  The response
   body is built exactly as the reference builds it, so its JSON is
-  byte-identical.  Sheds answer 429 with ``Retry-After`` (the global
-  admission queue or the tenant's quota is full), an exhausted budget
-  504, a client that hung up 499, a device fault 503 with
-  ``Retry-After`` (below).
+  byte-identical.  Under ``Accept: application/protobuf`` (or
+  ``application/x-protobuf``) the body is the protobuf wire-format
+  ``Response`` of graphresponse.proto instead (serve/proto.py), the
+  bytes of the reference's ``encode_response``.  Sheds answer 429 with
+  ``Retry-After`` (the global admission queue or the tenant's quota is
+  full), an exhausted budget 504, a client that hung up 499, a device
+  fault 503 with ``Retry-After`` (below).
 - ``POST /subscribe`` — register a live query (ivm/subs.py): the body is
   a read-only query, variables and tenant ride the ``/query`` headers.
   Under ``Accept: text/event-stream`` (or ``?stream=1``) the answer is
@@ -96,7 +99,12 @@ eviction and retry did not cure — answers 503 ``ErrorServiceUnavailable``
 with ``Retry-After`` the ceiling of ``DGRAPH_TPU_DEVICE_COOLDOWN_S``.
 In a cohort each member it hit answers 503 and the flush worker lives
 on.  Nothing is served from the host instead, unlike the reference.
-The reference's gRPC and TLS are not ported yet.
+
+TLS: a server given ``tls_cert`` (and ``tls_key``) terminates TLS 1.2
+and up on its listener (stdlib ``ssl``; ``addr`` is then ``https://``),
+the handshake deferred into each connection's thread.  The gRPC surface
+(``protos.Dgraph`` and ``protos.Worker``) is ``serve/grpc_server.py``'s
+``GrpcServer`` over this server, on a port of its own.
 """
 
 from __future__ import annotations
@@ -170,6 +178,8 @@ class DgraphServer:
         cluster=None,
         trace_ratio: float = 0.0,
         expose_trace: bool = True,
+        tls_cert: str = "",
+        tls_key: str = "",
     ):
         self.cluster = cluster
         self.store = store
@@ -209,6 +219,11 @@ class DgraphServer:
         self._thread: Optional[threading.Thread] = None
         self._bind = bind
         self._port = port
+        # TLS termination: a PEM certificate chain (and its key, when not
+        # in the same file); the gRPC listener (serve/grpc_server.py)
+        # serves TLS from the same pair
+        self._tls_cert = tls_cert
+        self._tls_key = tls_key
         # cohort scheduler (sched/): gated by DGRAPH_TPU_SCHED (default
         # on); =0 restores the serial per-request path
         self.scheduler = CohortScheduler(self) if sched_enabled() else None
@@ -257,6 +272,21 @@ class DgraphServer:
             request_queue_size = 128
 
         self._httpd = _Server((self._bind, self._port), _make_handler(self))
+        if self._tls_cert:
+            # TLS termination (x/tls_helper.go analog): stdlib ssl, TLS
+            # 1.2 and up.  do_handshake_on_connect=False moves the
+            # handshake off the accept loop into the connection's
+            # handler thread, under its socket timeout: a stalled client
+            # must not block accept()
+            import ssl
+
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ctx.minimum_version = ssl.TLSVersion.TLSv1_2
+            ctx.load_cert_chain(self._tls_cert, self._tls_key or None)
+            self._httpd.socket = ctx.wrap_socket(
+                self._httpd.socket, server_side=True,
+                do_handshake_on_connect=False,
+            )
         self._port = self._httpd.server_address[1]
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name="dgraph-http", daemon=True
@@ -275,7 +305,8 @@ class DgraphServer:
 
     @property
     def addr(self) -> str:
-        return f"http://{self._bind}:{self._port}"
+        scheme = "https" if self._tls_cert else "http"
+        return f"{scheme}://{self._bind}:{self._port}"
 
     def healthy(self) -> bool:
         return self.health.ok()
@@ -515,9 +546,22 @@ class DgraphServer:
 def _make_handler(srv: DgraphServer):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
-        timeout = 60
+        timeout = 60  # bounds reads AND the deferred TLS handshake below
         disable_nagle_algorithm = True
         server_version = "dgraph-tpu-torch/0.1"
+
+        def setup(self):
+            super().setup()
+            # the deferred TLS handshake, in this connection's thread and
+            # under this connection's timeout
+            import ssl
+
+            if isinstance(self.request, ssl.SSLSocket):
+                try:
+                    self.request.do_handshake()
+                except (ssl.SSLError, OSError):
+                    self.close_connection = True
+                    raise
 
         def log_message(self, *a):  # quiet
             pass
@@ -543,7 +587,8 @@ def _make_handler(srv: DgraphServer):
         def _disconnect_probe(self):
             """Transport-liveness probe for cooperative cancellation
             (None when QoS is off): peeks the socket for EOF without
-            consuming pipelined bytes (sched/qos.py)."""
+            consuming pipelined bytes, the raw fd under TLS
+            (sched/qos.py)."""
             if srv.scheduler is None or srv.scheduler.qos is None:
                 return None
             return _qos.socket_disconnect_probe(self.connection)
@@ -1055,6 +1100,15 @@ def _make_handler(srv: DgraphServer):
                 # reported as a 500 with its traceback on stderr
                 traceback.print_exc(file=sys.stderr)
                 return self._err(500, f"{type(e).__name__}: {e}", "ErrorInternal")
+            accept = self.headers.get("Accept", "")
+            if "application/protobuf" in accept or "application/x-protobuf" in accept:
+                # the binary client surface: the protobuf wire-format
+                # Response (graphresponse.proto), hand-encoded
+                # (serve/proto.py)
+                from dgraph_tpu_torch.serve import proto as _proto
+
+                return self._reply(200, _proto.encode_response(out),
+                                   "application/protobuf")
             self._reply(200, json.dumps(out).encode())
 
     return Handler

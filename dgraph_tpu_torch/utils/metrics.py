@@ -19,8 +19,7 @@ the port's kernel builds at first use (``ops/_build.py``: one ``nvcc``
 per CUDA source, one ``g++`` per host library), the counterpart of a
 backend compilation; ``dgraph_build_info`` carries a ``torch`` label
 where the reference's carries ``jax``.  The instruments of the
-unported layers (mesh, device guard, subscriptions, gRPC) are not
-here.
+reference's mesh, which the port has no counterpart of, are not here.
 """
 
 from __future__ import annotations
@@ -467,6 +466,10 @@ metrics = MetricsRegistry()
 
 PENDING_QUERIES = metrics.gauge("dgraph_pending_queries")
 NUM_QUERIES = metrics.counter("dgraph_num_queries_total")
+# the gRPC surface (serve/grpc_server.py): protos.Dgraph/Run calls, and
+# raft frames received over protos.Worker/RaftMessage
+NUM_GRPC_RUNS = metrics.counter("dgraph_grpc_runs_total")
+NUM_GRPC_RAFT = metrics.counter("dgraph_grpc_raft_frames_total")
 
 # latency bucket ladder shared by the serving histograms (seconds):
 # sub-ms through 10s, roughly ×2.5 steps — the client_golang DefBuckets

@@ -12,7 +12,8 @@ against the reference's, on the CPU.
   the raft frames, batches and snapshots cross between the packages.
 - The CLI: three ``python -m dgraph_tpu_torch.cli.server --peer ...
   --device cpu`` processes answer a replicated write; ``--raft_transport
-  grpc`` and an ``https://`` peer exit 2.
+  grpc`` boots a node whose raft plane and reads ride gRPC, and an
+  ``https://`` peer under ``--peer_tls_insecure`` boots and serves.
 
 The reference tests' patience is reused: their proposal patience
 (``_patient_proposals``), their condition-polling writes and waits.
@@ -648,17 +649,52 @@ def test_cli_cluster_of_three_answers(tmp_path):
                 proc.wait(timeout=30)
 
 
-@pytest.mark.parametrize("flags,message", [
-    (["--raft_transport", "grpc"], "not supported by this port"),
-    (["--peer", "1@127.0.0.1:1,2@https://127.0.0.1:2"], "https peers are not supported"),
-])
-def test_cli_refuses_grpc_and_https_peers(tmp_path, flags, message):
-    proc = _cli("--p", str(tmp_path / "p"), "--port", "0", "--device", "cpu", *flags,
-                wait_serving=False)
-    out, err = proc.communicate(timeout=120)
-    assert proc.returncode == 2, (out, err)
-    assert message in err
-    assert "serving on" not in out
+@pytest.mark.parametrize("kind", ["grpc_raft", "https_peer"])
+def test_cli_refuses_grpc_and_https_peers(tmp_path, kind):
+    """(Named when the port refused both; it asserts the opposite now.)
+    Neither is refused: the CLI boots both as the reference's does.  ``--raft_transport grpc``: a one-node cluster whose raft plane
+    is the gRPC Worker RPC serves its gRPC listener at the HTTP port +
+    1000 and answers a write read back over gRPC.  An ``https://`` peer
+    under ``--peer_tls_insecure``: the node boots and serves, no
+    warning."""
+    grpc = pytest.importorskip("grpc")
+    port, other = _free_ports(2)
+    flags = ["--p", str(tmp_path / "p"), "--port", str(port), "--idx", "1",
+             "--device", "cpu"]
+    if kind == "grpc_raft":
+        flags += ["--peer", f"1@127.0.0.1:{port}", "--raft_transport", "grpc"]
+    else:
+        flags += ["--peer", f"1@127.0.0.1:{port},2@https://127.0.0.1:{other}",
+                  "--peer_tls_insecure", "--grpc_port", "-1"]
+    proc = _cli(*flags)
+    try:
+        addr = f"http://127.0.0.1:{port}"
+        if kind == "grpc_raft":
+            line = proc.stdout.readline().strip()
+            assert line == f"gRPC (protos.Dgraph) at 127.0.0.1:{port + 1000}", line
+            out = _post_retry(addr, "/query",
+                              'mutation { set { <0x1> <name> "raft over grpc" . } }')
+            assert out.get("code") == "Success"
+            from dgraph_tpu_torch.serve.grpc_server import encode_request
+            from dgraph_tpu_torch.serve.proto import decode_response
+
+            with grpc.insecure_channel(f"127.0.0.1:{port + 1000}") as ch:
+                got = decode_response(ch.unary_unary("/protos.Dgraph/Run")(
+                    encode_request("{ q(func: uid(0x1)) { name } }"), timeout=60))
+            assert got["q"] == [{"name": "raft over grpc"}]
+        else:
+            with urllib.request.urlopen(addr + "/health", timeout=30) as r:
+                assert r.status == 200
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    err = proc.stderr.read()
+    assert proc.returncode == 0, err[-2000:]
+    assert "refused" not in err and "warning: TLS peers" not in err
 
 
 def test_clustered_server_default_device_raises_without_a_gpu(tmp_path):

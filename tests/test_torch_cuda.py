@@ -9,7 +9,10 @@ card answering its 2-hop through the gather, and a sampled 2-hop served
 on the card whose hop spans carry the device wait, and the planner's
 calibration on the card (positive rates; a kernel that fails to launch
 makes it raise), and the device guard on the card (a real launch error
-and a real OOM classified, the guard's worker on the caller's stream).
+and a real OOM classified, the guard's worker on the caller's stream),
+and the gRPC and binary-HTTP transports on the card (the count and join
+(a) launch the gather and the intersect; a device fault over gRPC is
+UNAVAILABLE with nothing launched in its place).
 Every test is marked ``cuda`` and skips
 where no GPU is visible.  The file imports neither JAX nor the JAX
 package (its planner pin, tests/torch_pins.py, pins the port's planner
@@ -647,3 +650,119 @@ def test_guard_worker_runs_on_the_callers_stream():
     assert got != torch.cuda.current_stream().cuda_stream
     s.synchronize()
     assert out[:3].cpu().tolist() == [7, 8, 9]
+
+
+def _transport_server(device, src, dst):
+    """A port server on ``device`` over a generated ``e`` graph, both
+    gates at 1, the chain pinned off, the caches detached, with its gRPC
+    listener."""
+    from dgraph_tpu_torch.models import PostingStore
+    from dgraph_tpu_torch.serve.grpc_server import GrpcServer
+    from dgraph_tpu_torch.serve.server import DgraphServer
+
+    store = PostingStore()
+    store.apply_schema("e: uid .")
+    store.bulk_set_uid_edges("e", src, dst)
+    srv = DgraphServer(store, device=device)
+    srv.engine.expand_device_min = 1
+    srv.engine.arenas.kway_device_min = 1
+    srv.engine.chain_threshold = 1 << 62
+    srv.engine.arenas.hop_cache = None
+    srv.scheduler.result_cache = None
+    srv.start()
+    g = GrpcServer(srv, port=0)
+    g.start()
+    return srv, g
+
+
+def _transport_queries():
+    rng = np.random.default_rng(101)
+    s0, s1, s2 = (np.unique(rng.integers(1, 20_001, size=512)) for _ in range(3))
+    ul = lambda s: ", ".join("0x%x" % int(u) for u in s)  # noqa: E731
+    count = ("{ var(func: uid(%s)) { e { f as e } } q(func: uid(f)) { count() } }"
+             % ul(s0))
+    join = ("{ var(func: uid(%s)) { e { f as e } } var(func: uid(%s)) { e { g as e } } "
+            "q(func: uid(f)) @filter(has(e) AND uid(g)) { uid } }" % (ul(s1), ul(s2)))
+    return {"count": count, "join_a": join}
+
+
+def test_grpc_and_binary_http_launch_the_kernels_on_the_card():
+    """The 2-hop count and join (a) over gRPC ``Run`` and over HTTP with
+    ``Accept: application/protobuf`` on a card server: every request
+    launches the gather (the count) or the intersect (join (a)), and the
+    bodies equal a CPU server's over the same transport."""
+    _need_gpu()
+    grpc = pytest.importorskip("grpc")
+    import urllib.request
+
+    from dgraph_tpu_torch.serve import proto
+    from dgraph_tpu_torch.serve.grpc_server import encode_request
+
+    src, dst = bench2hop.gen_edges(20_000, 200_000)
+    queries = _transport_queries()
+    bodies = {}
+    for device in ("cpu", "cuda"):
+        srv, g = _transport_server(device, src, dst)
+        try:
+            with grpc.insecure_channel(f"127.0.0.1:{g.port}") as ch:
+                run = ch.unary_unary("/protos.Dgraph/Run")
+                for name, q in queries.items():
+                    for transport in ("grpc", "binary_http"):
+                        n0 = (tgather.KERNEL.launches, kway.KERNEL.launches)
+                        if transport == "grpc":
+                            raw = run(encode_request(q), timeout=120)
+                        else:
+                            req = urllib.request.Request(
+                                srv.addr + "/query", data=q.encode(),
+                                headers={"Accept": "application/protobuf"})
+                            with urllib.request.urlopen(req, timeout=120) as r:
+                                raw = r.read()
+                        if device == "cuda":
+                            torch.cuda.synchronize()
+                            assert tgather.KERNEL.launches > n0[0], (name, transport)
+                            if name == "join_a":
+                                assert kway.KERNEL.launches > n0[1], transport
+                        bodies[(device, name, transport)] = [
+                            f for f in proto.iter_fields(raw) if f[0] != 2]
+        finally:
+            g.stop()
+            srv.stop()
+    for name in queries:
+        for transport in ("grpc", "binary_http"):
+            assert bodies[("cuda", name, transport)] == bodies[("cpu", name, transport)]
+        assert bodies[("cuda", name, "grpc")] == bodies[("cuda", name, "binary_http")]
+
+
+def test_device_fault_over_grpc_is_unavailable_on_the_card():
+    """A DeviceFaultError injected at ``device.hop`` on a card server
+    answers gRPC ``UNAVAILABLE``: no gather launched for it and no host
+    route in its place; the next request, the fault spent, launches the
+    gather and answers."""
+    _need_gpu()
+    grpc = pytest.importorskip("grpc")
+    from dgraph_tpu_torch.serve.grpc_server import encode_request
+    from dgraph_tpu_torch.serve.proto import decode_response
+    from dgraph_tpu_torch.utils.failpoints import fail
+
+    src, dst = bench2hop.gen_edges(20_000, 200_000)
+    q = _transport_queries()["count"]
+    srv, g = _transport_server("cuda", src, dst)
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{g.port}") as ch:
+            run = ch.unary_unary("/protos.Dgraph/Run")
+            want = decode_response(run(encode_request(q), timeout=120))["q"]
+            fail.arm("device.hop", "error(n=1)")
+            n0 = tgather.KERNEL.launches
+            with pytest.raises(grpc.RpcError) as ei:
+                run(encode_request(q), timeout=120)
+            assert ei.value.code() == grpc.StatusCode.UNAVAILABLE
+            assert fail.hits("device.hop") == 1
+            torch.cuda.synchronize()
+            assert tgather.KERNEL.launches == n0
+            got = decode_response(run(encode_request(q), timeout=120))["q"]
+            torch.cuda.synchronize()
+            assert got == want and tgather.KERNEL.launches > n0
+    finally:
+        fail.reset()
+        g.stop()
+        srv.stop()

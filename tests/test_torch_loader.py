@@ -1,8 +1,9 @@
 """The port's client SDK, bulk loader, RDF export and durable CLI server.
 
-The cases of tests/test_client.py that need no protobuf or gRPC, run on
-the port (``dgraph_tpu_torch.client``, ``cli/loader.py``) over a
-``device="cpu"`` server.  Then against the reference, tolerance 0:
+The cases of tests/test_client.py, run on the port
+(``dgraph_tpu_torch.client``, ``cli/loader.py``) over a ``device="cpu"``
+server; the binary-protobuf transport is held to the reference's, and
+the loader's ``--grpc`` loads over the port's gRPC listener.  Then against the reference, tolerance 0:
 ``iter_rdf_lines`` and ``export`` give the same lines and files in both
 packages.  Then the binaries end to end, as subprocesses on the CPU:
 the loader fills a ``--sync`` server, a SIGKILL loses no acknowledged
@@ -386,6 +387,76 @@ def test_readonly_server_sheds_writes_and_serves_reads(tmp_path):
         assert proc.wait(timeout=60) == 0
 
 
-def test_loader_grpc_flag_is_refused(capsys):
-    assert loader_cli.main(["-r", "x.rdf", "--grpc"]) != 0
-    assert "gRPC is not ported" in capsys.readouterr().err
+def test_loader_grpc_flag_is_refused(srv, tmp_path):
+    """(Named when the port refused ``--grpc``; it asserts the opposite
+    now.)  ``--grpc`` is not refused: as in the reference, the loader
+    loads over ``protos.Dgraph/Run`` — to a bare host:port target and to
+    an ``http://`` address mapped to its port + 1000 — and an
+    ``https://`` address without ``--ca`` fails at construction."""
+    pytest.importorskip("grpc")
+    from dgraph_tpu_torch.serve.grpc_server import GrpcServer
+
+    rdf = tmp_path / "g.rdf"
+    rdf.write_text('<0x51> <name> "over grpc" .\n<0x51> <knows> <0x52> .\n'
+                   '<0x52> <name> "second" .\n')
+    g = GrpcServer(srv, port=0)
+    g.start()
+    try:
+        for target in (f"127.0.0.1:{g.port}", f"http://127.0.0.1:{g.port - 1000}"):
+            assert loader_cli.main(["-r", str(rdf), "-d", target, "--grpc"]) == 0
+        out = HttpTransport(srv.addr).run('{ q(func: uid(0x51)) { name knows { name } } }')
+        assert out["q"] == [{"name": "over grpc", "knows": [{"name": "second"}]}]
+        with pytest.raises(ValueError, match="cafile"):
+            loader_cli.main(["-r", str(rdf), "-d", "https://127.0.0.1:1", "--grpc"])
+    finally:
+        g.stop()
+
+
+def test_http_transport_binary_protobuf(srv):
+    """``binary=True`` speaks the protobuf wire surface end to end and
+    gives the JSON path's result dict — empty blocks included — and the
+    reference's binary transport against a reference server over the
+    same mutation gives the same dicts."""
+    from dgraph_tpu.client.client import HttpTransport as JaxHttpTransport
+    from dgraph_tpu.serve.server import DgraphServer as JaxServer
+
+    ref = JaxServer(JaxStore())
+    ref.start()
+    try:
+        mu = ('mutation { set { <0x61> <name> "Alice" . <0x61> <follows> <0x62> . '
+              '<0x62> <name> "Bob" . } }')
+        for addr in (srv.addr, ref.addr):
+            HttpTransport(addr).run(mu)
+        for q in ("{ q(func: uid(0x61)) { name follows { name } } }",
+                  "{ q(func: uid(0x5f)) { name } }"):
+            jout = HttpTransport(srv.addr).run(q)
+            bout = HttpTransport(srv.addr, binary=True).run(q)
+            rout = JaxHttpTransport(ref.addr, binary=True).run(q)
+            assert bout["q"] == jout["q"] == rout["q"]
+        assert HttpTransport(srv.addr, binary=True).run(
+            "{ q(func: uid(0x5f)) { name } }")["q"] == []
+    finally:
+        ref.stop()
+
+
+def test_unmarshal_from_protobuf_nodes(srv):
+    """The Node trees of a protobuf Response unmarshal into the same
+    dataclasses as the JSON tree."""
+    from dgraph_tpu_torch.client import unmarshal_list
+
+    @dataclass
+    class Friend:
+        name: str = ""
+
+    @dataclass
+    class Person:
+        name: str = ""
+        follows: List[Friend] = field(default_factory=list)
+
+    HttpTransport(srv.addr).run(
+        'mutation { set { <0x1> <name> "A" . <0x1> <follows> <0x2> . '
+        '<0x1> <follows> <0x3> . <0x2> <name> "B" . <0x3> <name> "C" . } }')
+    q = "{ q(func: uid(0x1)) { name follows { name } } }"
+    js = unmarshal_list(HttpTransport(srv.addr).run(q)["q"], Person)
+    pb = unmarshal_list(HttpTransport(srv.addr, binary=True).run(q)["q"], Person)
+    assert pb == js == [Person("A", [Friend("B"), Friend("C")])]

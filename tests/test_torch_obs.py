@@ -983,3 +983,110 @@ def test_cli_environment_ratio_drives_both_rings(tmp_path):
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(timeout=30)
+
+
+# --------------------------------------------------- gRPC metadata plumbing
+
+
+def test_grpc_metadata_traceparent_joins_trace(srv):
+    """A ``traceparent`` in gRPC metadata joins the flight recorder's
+    trace (the HTTP header's twin); a malformed one is ignored."""
+    grpc = pytest.importorskip("grpc")
+    from dgraph_tpu_torch.serve.grpc_server import GrpcServer, encode_request
+
+    obs.configure(ratio=1e-9)  # armed: honour the metadata header
+    gsrv = GrpcServer(srv, port=0)
+    gsrv.start()
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{gsrv.port}") as ch:
+            run = ch.unary_unary("/protos.Dgraph/Run")
+            run(encode_request("{ t8(func: uid(0x1)) { name } }"),
+                metadata=(("traceparent", _tp(1008)),), timeout=30)
+            run(encode_request("{ t8b(func: uid(0x1)) { name } }"),
+                metadata=(("traceparent", "junk"),), timeout=30)
+    finally:
+        gsrv.stop()
+    t = _trace(srv.addr, _tid(1008))
+    by_name = {s["name"]: s for s in t["spans"]}
+    assert by_name["query"]["parent_id"] == f"{1008:016x}"
+    assert "engine" in by_name or "cache.result" in by_name
+
+
+def test_grpc_span_tree_matches_reference():
+    """The same traced Run on a port and a reference gRPC server: equal
+    bodies, and the same span names with the same nesting."""
+    grpc = pytest.importorskip("grpc")
+    from dgraph_tpu.serve.grpc_server import GrpcServer as JGrpcServer
+    from dgraph_tpu_torch.serve.grpc_server import GrpcServer, encode_request
+    from dgraph_tpu_torch.serve.proto import decode_response
+
+    port = DgraphServer(PostingStore(), device="cpu")
+    ref = JDgraphServer(JPostingStore())
+    gp, gr = GrpcServer(port, port=0), JGrpcServer(ref, port=0)
+    for s in (port, ref, gp, gr):
+        s.start()
+    try:
+        _post(port.addr, "/query", SEED)
+        _post(ref.addr, "/query", SEED)
+        obs.configure(ratio=1e-9)
+        jobs.configure(ratio=1e-9)
+        q = encode_request("{ q(func: uid(0x1)) { name follows { name } } }")
+        outs = []
+        for g in (gp, gr):
+            with grpc.insecure_channel(f"127.0.0.1:{g.port}") as ch:
+                out = decode_response(ch.unary_unary("/protos.Dgraph/Run")(
+                    q, metadata=(("traceparent", _tp(4242)),), timeout=30))
+            out.pop("server_latency")
+            outs.append(out)
+        assert outs[0] == outs[1]
+        tp = _settled(lambda: obs.get_recorder().trace(_tid(4242)))
+        tr = _settled(lambda: jobs.get_recorder().trace(_tid(4242)))
+        assert _shape(tp["spans"]) == _shape(tr["spans"])
+    finally:
+        for s in (gp, gr, port, ref):
+            s.stop()
+
+
+def test_grpc_peer_call_carries_the_trace_to_the_remote_node():
+    """The gRPC leg of trace propagation between nodes: a raft frame
+    sent through ``PeerClient.grpc_unary`` under a sampled span carries
+    ``traceparent`` in its metadata, and the receiving Worker plane
+    records ``peer.raft-message`` under the same trace id."""
+    grpc = pytest.importorskip("grpc")
+    from dgraph_tpu_torch.cluster.peerclient import PeerClient
+    from dgraph_tpu_torch.serve.grpc_server import (
+        GrpcServer,
+        encode_payload,
+        frame_raft,
+    )
+
+    class _Cluster:
+        node_id = "7"
+
+        class auth:
+            secret = ""
+
+        def __init__(self):
+            self.got = []
+
+        def deliver(self, group, frame):
+            self.got.append((group, frame))
+
+    srv = DgraphServer(PostingStore(), device="cpu")
+    srv.cluster = _Cluster()
+    gsrv = GrpcServer(srv, port=0)
+    gsrv.start()
+    rec = obs.configure(ratio=1.0, seed=3)
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{gsrv.port}") as ch:
+            root = obs.start_request("query")
+            with root:
+                PeerClient().grpc_unary("7", "raft.send", ch, "/protos.Worker/RaftMessage",
+                                        encode_payload(frame_raft(2, b"f")), budget=30)
+        assert srv.cluster.got == [(2, b"f")]
+        spans = rec.trace(root.trace_id)["spans"]
+        legs = [s for s in spans if s["name"] == "peer.raft-message"]
+        assert legs and legs[0]["attrs"]["node"] == "7" and legs[0]["attrs"]["group"] == 2
+        assert all(s["trace_id"] == root.trace_id for s in spans)
+    finally:
+        gsrv.stop()

@@ -149,6 +149,45 @@ def test_runtime_kway_gate_pins_the_static_compare():
     assert port.kway_route(100_000, 3, 1) == (None, None)
 
 
+@pytest.mark.parametrize("kind", ["expand", "kway"])
+def test_first_served_outcome_of_a_route_is_an_outlier(kind, monkeypatch):
+    """The port's one addition to the refinement (a divergence by
+    design): the first outcome of each (kind, route) a served request
+    closes is an outlier, recorded but neither a rate sample nor a
+    mispredict; from the second on, ``note_served_outcome`` refines as
+    the reference's ``note_outcome`` does."""
+    monkeypatch.setattr(ref, "_EWMA_ALPHA", 0.2)
+    monkeypatch.setattr(port, "_EWMA_ALPHA", 0.2)
+    _install(_CARD_LIKE)
+
+    def decide(planner):
+        if kind == "expand":
+            _u, d = planner.expand_route(100_000, 262144, resident=True)
+        else:
+            _u, d = planner.kway_route(100_000, 3)
+        planner.record(None, d)
+        return d
+
+    before = port.rates()
+    first = decide(port)
+    port.note_served_outcome(first, first["est_chosen_us"] * 20.0)
+    assert first["outlier"] is True and "mispredict" not in first
+    assert first["actual_us"] == round(first["est_chosen_us"] * 20.0, 1)
+    assert port.rates() == before
+    assert port.mispredict_stats()["mispredicts"] == 0
+    for factor in (20.0, 0.7, 9.0):
+        d_ref, d_port = decide(ref), decide(port)
+        assert d_ref == d_port
+        actual = d_ref["est_chosen_us"] * factor
+        ref.note_outcome(d_ref, actual)
+        port.note_served_outcome(d_port, actual)
+        assert d_ref == d_port, factor
+    assert port.rates() != before
+    rr, pr = ref.rates(), port.rates()
+    for k in rr:
+        assert pr[k] == pytest.approx(rr[k], rel=1e-12, abs=0.0), k
+
+
 @pytest.mark.parametrize("seed", [3, 17, 101])
 def test_note_outcome_sequence_refines_like_reference(seed, monkeypatch):
     monkeypatch.setattr(ref, "_EWMA_ALPHA", 0.2)

@@ -453,3 +453,144 @@ def test_admin_cancel_mid_flight_stops_hop_dispatch(method):
         assert roots[0]["attrs"]["tenant"] == "batcher"
     finally:
         server.stop()
+
+
+# ------------------------------------------- gRPC deadlines and TLS probes
+
+
+class _Ctx:
+    """A gRPC servicer context's deadline half."""
+
+    def __init__(self, v):
+        self.v = v
+
+    def time_remaining(self):
+        if isinstance(self.v, Exception):
+            raise self.v
+        return self.v
+
+
+@pytest.mark.parametrize("remaining,want", [
+    (None, None), (2e8, None),          # grpcio's no-deadline sentinel
+    (RuntimeError(), None),             # a transport without deadlines
+    (1.25, 1.25), (-0.5, 0.0), (0.0, 0.0),  # lapsed in transit: shed at once
+])
+def test_grpc_timeout_contract(remaining, want):
+    assert qos.grpc_timeout(_Ctx(remaining)) == want
+    assert jqos.grpc_timeout(_Ctx(remaining)) == want
+
+
+def test_grpc_deadline_becomes_the_request_budget():
+    """A gRPC deadline reaches the scheduler as the request's budget, as
+    ``X-Dgraph-Timeout`` does: a Run whose deadline has lapsed by the
+    time it is admitted sheds with DEADLINE_EXCEEDED."""
+    grpc = pytest.importorskip("grpc")
+    from dgraph_tpu_torch.serve import grpc_server as tg
+
+    server = DgraphServer(PostingStore(), device="cpu")
+    server.start()
+    g = tg.GrpcServer(server, port=0)
+    g.start()
+    seen = []
+    real = server.run_query
+
+    def spy(text, *a, **kw):
+        seen.append(kw.get("timeout_s"))
+        return real(text, *a, **kw)
+
+    server.run_query = spy
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{g.port}") as ch:
+            run = ch.unary_unary("/protos.Dgraph/Run")
+            run(tg.encode_request("{ q(func: uid(0x1)) { uid } }"), timeout=30)
+            assert seen[-1] is not None and 0 < seen[-1] <= 30
+            fail.arm("sched.flush", "delay(ms=400,n=1)")
+            with pytest.raises(grpc.RpcError) as ei:
+                run(tg.encode_request("{ q(func: uid(0x2)) { uid } }"), timeout=0.2)
+            assert ei.value.code() == grpc.StatusCode.DEADLINE_EXCEEDED
+    finally:
+        fail.reset()
+        g.stop()
+        server.stop()
+
+
+def _tls_pair(tmp_path):
+    """An ssl-wrapped socketpair (server side, client side); skips when
+    openssl cannot mint the self-signed cert."""
+    import socket as _socket
+    import ssl
+
+    from torch_tls import make_cert
+
+    cert, key = make_cert(tmp_path)
+    s1, s2 = _socket.socketpair()
+    sctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    sctx.load_cert_chain(cert, key)
+    cctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+    cctx.check_hostname = False
+    cctx.verify_mode = ssl.CERT_NONE
+    out = {}
+
+    def _server():
+        out["server"] = sctx.wrap_socket(s1, server_side=True)
+
+    t = threading.Thread(target=_server, daemon=True)
+    t.start()
+    client = cctx.wrap_socket(s2, server_hostname="localhost")
+    t.join(timeout=10)
+    assert "server" in out, "TLS handshake did not complete"
+    return out["server"], client
+
+
+def _wait_true(probe, timeout=5.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if probe():
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def test_disconnect_probe_tls(tmp_path):
+    """The TLS flavour peeks the RAW fd and honours the SSL layer's
+    buffered-pending, so a vanished HTTPS client cancels cooperatively
+    too, and a peeked TLS record is never consumed; the reference's
+    probe gives the same verdict at every step."""
+    server, client = _tls_pair(tmp_path)
+    try:
+        probes = (qos.socket_disconnect_probe(server),
+                  jqos.socket_disconnect_probe(server))
+
+        def verdicts():
+            return [p() for p in probes]
+
+        assert verdicts() == [False, False]           # idle, connected
+        client.sendall(b"app-bytes")                  # an undrained record
+        assert verdicts() == [False, False]           # readable != gone
+        assert server.recv(9) == b"app-bytes"         # record fully intact
+        client.sendall(b"xy")
+        assert server.recv(1) == b"x"                 # leaves 'y' pending
+        assert server.pending() >= 1
+        assert verdicts() == [False, False]           # pending bytes: alive
+        assert server.recv(1) == b"y"
+        client.close()
+        assert _wait_true(probes[0])                  # raw FIN: gone
+        assert probes[1]()
+    finally:
+        server.close()
+
+
+def test_disconnect_probe_plain_tcp_matches_reference():
+    import socket as _socket
+
+    a, b = _socket.socketpair()
+    try:
+        probes = (qos.socket_disconnect_probe(a), jqos.socket_disconnect_probe(a))
+        assert [p() for p in probes] == [False, False]
+        b.sendall(b"pipelined")
+        assert [p() for p in probes] == [False, False]
+        assert a.recv(9) == b"pipelined"
+        b.close()
+        assert _wait_true(probes[0]) and probes[1]()
+    finally:
+        a.close()

@@ -4,9 +4,9 @@ peerclient``, ``utils/failpoints.py``, the degraded reads of
 run on the port's modules and servers (``device="cpu"``).
 
 Unit half: the failpoint registry and PeerClient's retry budget,
-circuit breaker and health ordering with fake attempt functions (the
-reference's gRPC case becomes a case of the ``alive`` classifier: the
-port has no gRPC).  Cluster half (``chaos``-marked, seeded and bounded,
+circuit breaker and health ordering with fake attempt functions, and
+the gRPC leg (``grpc_unary``) held to the reference's on the same fake
+channels.  Cluster half (``chaos``-marked, seeded and bounded,
 tier 1): a real 2-server placement cluster of port servers with faults
 injected at the named sites — bounded latency under a stalling or dead
 owner, degraded-but-correct stale reads that converge after heal, 503 +
@@ -364,10 +364,9 @@ def test_http_error_means_peer_alive():
 
 
 def test_alive_status_is_breaker_success_not_retried():
-    """The ``alive`` classifier (the reference's gRPC leg uses it, the
-    port has no gRPC): a transient-typed error it judges alive is the
-    peer ANSWERING — un-retried, a breaker success; a dead one is
-    retried until the breaker opens."""
+    """The ``alive`` classifier (the gRPC leg uses it): a transient-typed
+    error it judges alive is the peer ANSWERING — un-retried, a breaker
+    success; a dead one is retried until the breaker opens."""
 
     class _Err(Exception):
         def __init__(self, code):
@@ -401,6 +400,59 @@ def test_alive_status_is_breaker_success_not_retried():
     assert len(calls2) == 2  # retried until the threshold opened the breaker
     assert pc.state_of("p2") == OPEN
 
+
+
+@pytest.mark.parametrize("pkg", ["port", "reference"])
+def test_grpc_alive_status_is_breaker_success_not_retried(pkg):
+    """gRPC's one RpcError covers both planes; only UNAVAILABLE /
+    DEADLINE_EXCEEDED / CANCELLED mean the peer is unreachable.  An
+    application-level rejection (UNAUTHENTICATED, INVALID_ARGUMENT, …)
+    is the peer ANSWERING: un-retried, a breaker success.  The port's
+    PeerClient and the reference's count the same calls and land in the
+    same breaker states on the same fake channels."""
+    grpc = pytest.importorskip("grpc")
+    if pkg == "port":
+        make = _client
+    else:
+        from dgraph_tpu.cluster import peerclient as jpc
+
+        def make(**kw):
+            kw.update(attempts=3, backoff_base=0.001, breaker_cooldown=0.2,
+                      rng=random.Random(1))
+            return jpc.PeerClient(**kw)
+
+    class _Err(grpc.RpcError):
+        def __init__(self, code):
+            self._code = code
+
+        def code(self):
+            return self._code
+
+    class _Chan:
+        def __init__(self, exc):
+            self.calls = 0
+            self._exc = exc
+
+        def unary_unary(self, method):
+            def rpc(payload, timeout=None, metadata=None):
+                self.calls += 1
+                raise self._exc
+
+            return rpc
+
+    pc = make(breaker_threshold=2)
+    ch = _Chan(_Err(grpc.StatusCode.UNAUTHENTICATED))
+    with pytest.raises(grpc.RpcError):
+        pc.grpc_unary("p", "raft.send", ch, "/m", b"", budget=1.0)
+    assert ch.calls == 1  # the peer answered: no retry
+    assert pc.state_of("p") == CLOSED
+
+    ch2 = _Chan(_Err(grpc.StatusCode.UNAVAILABLE))
+    with pytest.raises(Exception) as ei:
+        pc.grpc_unary("p2", "raft.send", ch2, "/m", b"", budget=1.0)
+    assert type(ei.value).__name__ == "PeerUnavailableError"
+    assert ch2.calls == 2  # retried until the threshold opened the breaker
+    assert pc.state_of("p2") == OPEN
 
 def test_order_by_health_sorts_failing_peer_last():
     pc = _client(breaker_cooldown=60)

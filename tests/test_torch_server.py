@@ -104,3 +104,93 @@ def test_default_device_raises_without_a_gpu():
         QueryEngine(PostingStore())
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["--port", "0"])
+
+
+def _https_post(addr, text, ctx):
+    req = urllib.request.Request(addr + "/query", data=text.encode(), method="POST")
+    with urllib.request.urlopen(req, context=ctx, timeout=60) as r:
+        return r.status, r.read()
+
+
+def test_tls_serving(tmp_path):
+    """HTTPS termination (upstream x/tls_helper.go): a port server given
+    ``tls_cert``/``tls_key`` serves ``https://``, TLS 1.2 and up, and
+    answers the requests of the byte-identity case with the reference
+    TLS server's bodies; a TLS 1.1 client is refused."""
+    import ssl
+
+    from torch_tls import make_cert
+
+    cert, key = make_cert(tmp_path)
+    ctx = ssl.create_default_context(cafile=cert)
+    port = DgraphServer(PostingStore(), device="cpu", tls_cert=cert, tls_key=key)
+    ref = JaxServer(JaxStore(), tls_cert=cert, tls_key=key)
+    for s in (port, ref):
+        s.start()
+    try:
+        assert port.addr.startswith("https://") and ref.addr.startswith("https://")
+        for text in REQUESTS[:-1]:
+            gc, gb = _https_post(port.addr, text, ctx)
+            wc, wb = _https_post(ref.addr, text, ctx)
+            assert gc == wc == 200
+            assert _strip(gb) == _strip(wb), text
+        old = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+        old.load_verify_locations(cert)
+        try:
+            old.minimum_version = old.maximum_version = ssl.TLSVersion.TLSv1_1
+        except (ValueError, ssl.SSLError):
+            return  # this OpenSSL cannot even offer TLS 1.1
+        with pytest.raises((ssl.SSLError, OSError)):
+            _https_post(port.addr, REQUESTS[1], old)
+    finally:
+        for s in (port, ref):
+            s.stop()
+
+
+def test_tls_handshake_is_deferred_off_the_accept_loop(tmp_path):
+    """A client that connects and never starts its TLS handshake holds
+    only its own connection's thread: another client is served at once."""
+    import socket
+    import ssl
+    import time
+
+    from torch_tls import make_cert
+
+    cert, key = make_cert(tmp_path)
+    srv = DgraphServer(PostingStore(), device="cpu", tls_cert=cert, tls_key=key)
+    srv.start()
+    stalled = socket.create_connection(("127.0.0.1", srv.port), timeout=10)
+    try:
+        t0 = time.monotonic()
+        ctx = ssl.create_default_context(cafile=cert)
+        with urllib.request.urlopen(srv.addr + "/health", context=ctx, timeout=10) as r:
+            assert r.read() == b"OK"
+        assert time.monotonic() - t0 < 5
+    finally:
+        stalled.close()
+        srv.stop()
+
+
+def test_protobuf_response_equals_reference_encoder():
+    """A port server's protobuf body is the reference's ``encode_response``
+    of the port's own JSON tree, byte for byte (the latency field aside),
+    for every read of the byte-identity case."""
+    from dgraph_tpu.serve import proto as jproto
+    from dgraph_tpu_torch.serve import proto
+
+    srv = DgraphServer(PostingStore(), device="cpu")
+    srv.start()
+    try:
+        _post(srv.addr, REQUESTS[0])
+        for text in REQUESTS[1:6] + REQUESTS[7:8]:
+            req = urllib.request.Request(
+                srv.addr + "/query", data=text.encode(), method="POST",
+                headers={"Accept": "application/protobuf"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                assert r.headers["Content-Type"] == "application/protobuf"
+                raw = r.read()
+            tree = json.loads(_strip(_post(srv.addr, text)[1]))
+            want = [f for f in jproto.iter_fields(jproto.encode_response(tree))]
+            assert [f for f in proto.iter_fields(raw) if f[0] != 2] == want, text
+    finally:
+        srv.stop()

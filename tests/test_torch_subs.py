@@ -6,8 +6,10 @@
   identical event lists (kind, pred, src, dst, sign, version), and
   identical overflow behaviour at a small cap.  A durable store's live
   mutations and schema changes publish; its recovery replay does not.
-- Subscriptions (the reference's cases of ``tests/test_ivm.py`` other
-  than gRPC, on the port's server): a push on an affecting write only,
+- Subscriptions (the reference's cases of ``tests/test_ivm.py``, on the
+  port's server; the gRPC ``Subscribe`` stream beside the reference's,
+  with equal pushed Responses and status codes): a push on an affecting
+  write only,
   SSE inline and by attach, an unchanged result skips, quotas and caps,
   a debounce coalesces a burst, an unknowable footprint idles, a
   scheduler shed defers, a device fault defers, server stop cancels, and
@@ -541,3 +543,167 @@ def test_events_match_reference(monkeypatch):
     finally:
         ref.stop()
         port.stop()
+
+
+# ------------------------------------------------ the gRPC Subscribe stream
+
+
+class _Stream:
+    """One ``/protos.Dgraph/Subscribe`` call consumed on a thread: each
+    pushed Response decoded into ``got``."""
+
+    def __init__(self, grpc, port, text, proto, request):
+        self.grpc = grpc
+        self.ch = grpc.insecure_channel(f"127.0.0.1:{port}")
+        self.call = self.ch.unary_stream("/protos.Dgraph/Subscribe")(
+            request(text), timeout=60)
+        self.got = []
+        self.error = None
+
+        def consume():
+            try:
+                for m in self.call:
+                    self.got.append(proto.decode_response(m))
+            except grpc.RpcError as e:
+                self.error = e
+
+        self.thread = threading.Thread(target=consume, daemon=True)
+        self.thread.start()
+
+    def wait(self, n, timeout=10.0):
+        return _wait(lambda: len(self.got) >= n, timeout)
+
+    def close(self):
+        self.call.cancel()
+        self.thread.join(timeout=10)
+        self.ch.close()
+
+
+def _grpc_stream(srv, text, pkg="port"):
+    grpc = pytest.importorskip("grpc")
+    if pkg == "port":
+        from dgraph_tpu_torch.serve import grpc_server as g
+        from dgraph_tpu_torch.serve import proto
+    else:
+        from dgraph_tpu.serve import grpc_server as g
+        from dgraph_tpu.serve import proto
+    gs = g.GrpcServer(srv, port=0)
+    gs.start()
+    return gs, _Stream(grpc, gs.port, text, proto, g.encode_request)
+
+
+def test_subscribe_grpc_server_stream(sub_srv):
+    """The unary-stream twin of POST /subscribe: a snapshot Response with
+    the ``_subscription_`` block, an update after an affecting write, and
+    the registry drops the subscription when the client goes away."""
+    srv, _rec = sub_srv
+    gs, st = _grpc_stream(srv, "{ s(func: uid(0x1)) { c: count(friend) } }")
+    try:
+        assert st.wait(1), "no snapshot frame"
+        assert st.got[0]["s"][0]["c"] == 2
+        meta = st.got[0]["_subscription_"][0]
+        assert meta["kind"] == "snapshot" and meta["sub_id"]
+        assert srv.subs.get(meta["sub_id"]) is not None
+        _post(srv.addr, "mutation { set { <0x1> <friend> <0x4> . } }")
+        assert st.wait(2)
+        assert st.got[1]["s"][0]["c"] == 3
+        assert st.got[1]["_subscription_"][0]["kind"] == "update"
+        assert st.got[1]["_subscription_"][0]["preds"] == "friend"
+        st.close()
+        assert _wait(lambda: srv.subs.get(meta["sub_id"]) is None), (
+            "the subscription outlived its client")
+    finally:
+        gs.stop()
+
+
+def test_subscribe_grpc_stream_matches_reference(monkeypatch):
+    """The same registrations and writes through a reference server's
+    Subscribe stream and a port server's give the same sequence of
+    pushed Responses (the per-process sub and trace ids aside)."""
+    monkeypatch.setenv("DGRAPH_TPU_SUBS_DEBOUNCE_MS", "5")
+    ref = JaxServer(_seed_ref_store())
+    port = DgraphServer(_seed_store(), device="cpu")
+    ref.start()
+    port.start()
+    seqs = {}
+    try:
+        for name, srv in (("reference", ref), ("port", port)):
+            opened = [_grpc_stream(srv, q, name) for q in _CROSS_SUBS]
+            try:
+                for _gs, st in opened:
+                    assert st.wait(1)
+                for w in _CROSS_WRITES:
+                    _post(srv.addr, w)
+                    time.sleep(0.6)
+                seqs[name] = []
+                for _gs, st in opened:
+                    frames = []
+                    for m in st.got:
+                        m = dict(m)
+                        meta = dict(m.pop("_subscription_")[0])
+                        for k in ("sub_id", "trace_id"):
+                            meta.pop(k, None)
+                        frames.append([meta, m])
+                    seqs[name].append(frames)
+            finally:
+                for gs, st in opened:
+                    st.close()
+                    gs.stop()
+        assert json.dumps(seqs["port"], sort_keys=True) == json.dumps(
+            seqs["reference"], sort_keys=True)
+        kinds = [f[0]["kind"] for frames in seqs["port"] for f in frames]
+        assert kinds.count("snapshot") == 3 and "update" in kinds
+    finally:
+        ref.stop()
+        port.stop()
+
+
+def test_subscribe_grpc_device_fault_defers(monkeypatch):
+    """A re-evaluation that meets a sick card is deferred, not ended: the
+    gRPC stream stays open and pushes once the probe re-admits — never a
+    host evaluation in between (the port's divergence, ROADMAP.md)."""
+    monkeypatch.setenv("DGRAPH_TPU_CACHE", "0")
+    monkeypatch.setenv("DGRAPH_TPU_DEVICE_COOLDOWN_S", "1")
+    srv = _server()
+    srv.engine.expand_device_min = 1
+    gs, st = _grpc_stream(srv, "{ s(func: uid(0x1)) { friend { uid } } }")
+    try:
+        assert st.wait(1)
+        s0 = SUBS_EVENTS.snapshot().get("deferred", 0)
+        fail.arm("device.hop", "error(n=3)")  # three faults: sick
+        _post(srv.addr, "mutation { set { <0x1> <friend> <0x5> . } }")
+        assert _wait(lambda: SUBS_EVENTS.snapshot().get("deferred", 0) > s0)
+        assert len(st.got) == 1 and st.error is None
+        assert st.wait(2, timeout=15)
+        assert st.got[1]["_subscription_"][0]["kind"] == "update"
+        assert len(st.got[1]["s"][0]["friend"]) == 3
+        assert devguard.get().faults.get("transient", 0) >= 1
+    finally:
+        st.close()
+        gs.stop()
+        srv.stop()
+
+
+@pytest.mark.parametrize("text,env", [
+    ("mutation { set { <0x1> <name> \"x\" . } }", {}),   # read-only: refused
+    ("{ s(func: uid(0x1)) { name }", {}),                 # parse error
+    ("{ s(func: uid(0x1)) { name } }", {"DGRAPH_TPU_SUBS": "0"}),  # disabled
+])
+def test_subscribe_grpc_status_codes_match_reference(monkeypatch, text, env):
+    grpc = pytest.importorskip("grpc")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    codes = []
+    for pkg, srv in (("reference", JaxServer(_seed_ref_store())),
+                     ("port", DgraphServer(_seed_store(), device="cpu"))):
+        srv.start()
+        gs, st = _grpc_stream(srv, text, pkg)
+        try:
+            st.thread.join(timeout=20)
+            assert not st.thread.is_alive() and st.error is not None
+            codes.append(st.error.code())
+        finally:
+            st.close()
+            gs.stop()
+            srv.stop()
+    assert codes[0] == codes[1] != grpc.StatusCode.OK
