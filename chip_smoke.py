@@ -181,6 +181,33 @@ fewer it is no more than the largest one.
    at the root (8192 seeds) and under a child (64 seeds).  One line per
    query: p50/p99, the gather's launches, ``device_order_ms`` and the
    engine's routes.  The counts are read right after.
+9a. routes — every kernel's launch count is set to 0, then, on the same
+   server (caches detached, the chain pinned off, the gate at 1 so that
+   every hop goes to the card), from seeds of ``default_rng(109)``: the
+   var-block 2-hop count from 8192 seeds, the materialised 2-hop from 64
+   and the child ``orderdesc: rank, first: 2`` 2-hop, each forced in turn
+   through the engine's classed, inline (``DGRAPH_TPU_RESIDENT=0``), csr
+   and resident routes (the served engine's resident gate, fused hop and
+   inline gate), the routes alternating request by request, 2 requests a
+   route: one with ``?ledger=true``, one with ``?debug=true``.  Every
+   body must equal the host route's (the debug one with both trees'
+   ``_uid_`` keys left out), every hop of both must name the forced route,
+   the inline route must launch the slot-map kernel once a hop and the
+   resident route the gather once a hop.  The p50 of each route and query
+   is printed on one line with the card's name and power limit.  The
+   counts are read right after; then the slot map at the inline route's
+   Q = 1 shape (the count's second hop) is held against its plain version
+   and timed (its launches count on no path).
+9b. cli surface — a graph of its own (2000 uids with a 3-word name each,
+   6000 ``f`` edges, seed 113), in the git-ignored ``_smoke/cli``
+   (removed at the end): ``python -m dgraph_tpu_torch.cli.server`` booted
+   with ``--config`` (a YAML setting its port, directories and no gRPC
+   listener), ``--dumpsg``, ``--cpu`` and ``--mem``, loaded by ``python -m
+   dgraph_tpu_torch.cli.loader``: ``GET /`` must be the console page, a
+   share must round-trip, a query must write one dump, both profiles must
+   exist after ``/admin/shutdown``, and ``python -m
+   dgraph_tpu_torch.cli.posting_iterator`` must print exactly the lines of
+   ``/admin/export``.
 10. multi-hop kernels — ``ops.multi_hop`` (one gather launch a hop) on
    the card against the same call on the CPU, exactly: from the 8192
    seeds of phase 11's (a) over the served resident CSR and its uid->row
@@ -284,8 +311,14 @@ fewer it is no more than the largest one.
    1000 queries in chunks of 200 (a warm pass, then best of 4); every
    query's edge count and checksum and the last query's set must equal
    numpy's (``np_two_hop``), and the slot-map kernel must have launched
-   twice per chunk in every pass plus twice for the last set.  The counts
-   are read right after.  Edges/s, the numpy baseline and the caps are
+   twice per chunk in every pass plus twice for the last set.  Then the
+   host-dedup arm (``bench2hop.run_host_dedup``, bench.py's
+   ``_run_host_dedup``): each hop one batched plan of the arena's
+   ``ClassedExpander`` over sub-batches of 50, ``np.unique`` between the
+   hops, capacities planned once with ``bucket_fine``, the best of 2
+   passes; every query's edge count and checksum and the last set must
+   equal numpy's, and it launches no slot map.  The counts are read right
+   after.  Edges/s of both arms, the numpy baseline and the caps are
    printed.
 17. durability — every kernel's launch count is set to 0, then, all
    in a git-ignored ``_smoke/`` removed at the end: (a) the generated
@@ -339,8 +372,8 @@ fewer it is no more than the largest one.
    replica, per group.  With both query caches detached, the three
    servers are asked the var-block 2-hop count from phase 4's 8192
    seeds together (each one's seconds to it: the read snapshot, the
-   arena seed, the first gather), then each in turn that count 4
-   times, the materialised 2-hop from those seeds once and join (a) 4
+   arena seed, the first gather), then each in turn that count 2
+   times, the materialised 2-hop from those seeds once and join (a) 2
    times, every body equal to a host-route engine over a single-node
    store of the same data, each server's requests launching the gather
    and (a)'s the intersect.  Then 64 added and 64 deleted ``e`` edges
@@ -387,7 +420,8 @@ fewer it is no more than the largest one.
    ms by kernel name; one pass with CUDA events around each chunk; each
    kernel's wrapper at its path's shapes (the gather at the large
    2-hop's second hop, at a 10^6-edge row among light rows and at a
-   frontier of B 2^20; the slot-map at both hops; the intersect at the
+   frontier of B 2^20; the slot-map at both hops (and, after phase 9a's
+   counts, at the inline route's Q = 1 shape); the intersect at the
    served matrices and bench_ops.py's K 2/4/8 at L 8192) timed three
    ways: CUDA events around each call, events around 30 back-to-back
    calls, and the device time of every device op in the profiler window
@@ -417,6 +451,9 @@ phase 5 (join (a) needs them) and phase 7a.
 ``python3 chip_smoke.py --subs-only`` phases 1 and 2, the names of phase 5
 and phase 7d; ``--transports-only`` phases 1 and 2, the names of phase 5
 and phase 7c, with 20 requests of each query on each transport.
+``python3 chip_smoke.py --routes-only`` runs phases 1 and 2, the ranks
+of phase 8, phases 9a and 9b, the dense arena of phase 14 and phase 16
+(about five minutes).
 ``python3 chip_smoke.py --serving-only`` runs phases 1-3, the names of
 phase 5 and phase 12 alone (the serving plane on the caches' first
 use).  ``python3 chip_smoke.py --mxu-only`` runs phase 1 and phase 13
@@ -483,7 +520,9 @@ CHAIN_SEED, PINNED_OFF = 53, 1 << 62
 CHAIN_REPEATS, CHAIN_REPEATS_BULKY, P99_MIN = 2, 1, 20
 
 # the serving plane: client threads (12, not 16: with the transports'
-# phase the run took 1099.6 s of its 1200), requests each (the last
+# phase the run took 1099.6 s of its 1200; at 8 the scheduled round
+# launched 45 gathers against the serial round's 46, too thin a margin
+# for the check that it launches fewer), requests each (the last
 # repeats the client's first; 5, not 8: with the cluster phase the run
 # must still fit its time limit), shortest paths each, rounds of each
 # path (scheduled, serial), and the seed of the mix's draws
@@ -547,9 +586,9 @@ CLUSTER_RECORD_EDGES, CLUSTER_RECORD_NAMES = 1 << 18, 1 << 17
 # leaders through the whole load; 100 ms (a 1-2 s timeout, etcd's
 # default scale) outlasts an apply
 CLUSTER_TICK_MS = 100
-# (4 timed requests a query and server: 10 before the flight recorder,
-# 6 before the planner)
-CLUSTER_SEED, CLUSTER_DELTA, CLUSTER_REPEATS, CLUSTER_WAIT_S = 79, 64, 4, 600
+# (2 timed requests a query and server: 10 before the flight recorder,
+# 6 before the planner, 4 before the routes' and CLI surface's phases)
+CLUSTER_SEED, CLUSTER_DELTA, CLUSTER_REPEATS, CLUSTER_WAIT_S = 79, 64, 2, 600
 
 # the flight recorder: its seed (seeds, trace ids), traced requests of
 # each query, unsampled requests, the hop delay that holds the cancelled
@@ -597,15 +636,35 @@ TRANSPORT_SEED, TRANSPORT_REPEATS, TRANSPORT_TIMED, TRANSPORT_CONNECTS = 103, 1,
 TRANSPORT_LEASE, TRANSPORT_SUB_SEEDS, TRANSPORT_DELTA = 1000, 1024, 64
 TLS_TRIO_SHARE, TLS_TRIO_GROUPS = 64, "1=0,1;2=0,1;3=0,1,2"
 
+# the engine's routes: the seeds' seed, and the routes, each as the
+# served engine's knobs that force it
+# (the resident gate, the fused hop, the inline gate); the classed
+# route needs DGRAPH_TPU_FUSED_HOP=force on a CUDA device, the inline
+# route is the card's default with DGRAPH_TPU_RESIDENT=0
+ROUTES_SEED = 109
+ROUTE_PINS = {
+    "classed": ("0", "force", "1"),
+    "inline": ("0", "1", "1"),
+    "csr": ("0", "0", "0"),
+    "resident": ("1", "1", "1"),
+}
+# the batched 2-hop's host-dedup arm: timed passes (no warm pass: the
+# best of 2)
+HOST_DEDUP_PASSES = 2
+# the CLI surface: its graph (uids with a name each, edges, seed), loaded
+# from an RDF file of its own by the loader into a CLI server of its own
+# (5000 uids and 20,000 edges took the phase to 35 s on the card's host)
+CLI_UIDS, CLI_EDGES, CLI_SEED = 2000, 6000, 113
+
 # kernels: (name, wrapper module, TPU kernel it replaces, paths that run it)
 KERNELS = [
     ("gather_packed", "dgraph_tpu_torch.ops.gather",
      "dgraph_tpu/ops/pallas_gather.py:48",
      ("main_path", "flight_recorder", "device_guard", "subscriptions",
-      "transports", "query_surface", "chain", "serving_plane", "mxu_join",
-      "durability", "cluster", "planner")),
+      "transports", "query_surface", "routes", "chain", "serving_plane",
+      "mxu_join", "durability", "cluster", "planner")),
     ("slotmap", "dgraph_tpu_torch.ops.slotmap",
-     "dgraph_tpu/ops/pallas_slotmap.py:46", ("batched_2hop",)),
+     "dgraph_tpu/ops/pallas_slotmap.py:46", ("routes", "batched_2hop")),
     ("intersect", "dgraph_tpu_torch.ops.kway",
      "dgraph_tpu/ops/pallas_intersect.py:35",
      ("join_path", "flight_recorder", "device_guard", "subscriptions",
@@ -700,7 +759,7 @@ def host_engine(store):
     eng.arenas.kway_device_min = 1 << 62
     eng.arenas.hop_cache = None
     eng.chain_threshold = PINNED_OFF
-    eng.expander.fused_hop = False
+    eng.expander.fused_hop = "0"
     _HOST_REF[id(store)] = (version, eng)
     return eng
 
@@ -720,7 +779,7 @@ def per_level(engine):
     """The served engine with its fused chain and fused @recurse pinned
     off: every level on the per-level route."""
     thr, hop = engine.chain_threshold, engine.expander.fused_hop
-    engine.chain_threshold, engine.expander.fused_hop = PINNED_OFF, False
+    engine.chain_threshold, engine.expander.fused_hop = PINNED_OFF, "0"
     try:
         yield
     finally:
@@ -2834,6 +2893,270 @@ def phase_query_surface(store, srv, n_ranked: int, card: str) -> dict:
             "large_seeds": large}
 
 
+# -- phase 9a: the engine's routes -------------------------------------------
+
+
+@contextlib.contextmanager
+def pinned_route(engine, route: str):
+    """The served engine (and so every scheduled shell) forced onto
+    ``route``: its resident gate, fused hop and inline gate."""
+    ex = engine.expander
+    before = (ex.resident_mode, ex.fused_hop, ex.inline_mode)
+    ex.resident_mode, ex.fused_hop, ex.inline_mode = ROUTE_PINS[route]
+    try:
+        yield
+    finally:
+        ex.resident_mode, ex.fused_hop, ex.inline_mode = before
+
+
+def inline_q1_inputs(arena, seeds):
+    """The slot map's (cs, cd, capc) at the inline route's largest hop of
+    the count from ``seeds`` (its second level): Q = 1, pcap the padded
+    frontier."""
+    import torch
+
+    from dgraph_tpu_torch import ops
+    from dgraph_tpu_torch.ops.sets import ov_slotmap_inputs
+
+    out1, _ = arena.expand_host(arena.rows_for_uids_host(seeds))
+    rows = arena.rows_for_uids_host(np.unique(out1))
+    B = ops.bucket(len(rows))
+    capc = ops.bucket(max(1, int(arena.ov_chunk_degree_of_rows(rows).sum())))
+    metap, _ov = arena.inline_layout()
+    rt = torch.from_numpy(ops.pad_rows(rows, B)).to(metap.device)
+    cs, cd = ov_slotmap_inputs(metap, rt, B)
+    return cs[None].contiguous(), cd[None].contiguous(), capc
+
+
+def strip_debug_uids(obj):
+    """A body's tree without its ``_uid_`` keys: the ones ``?debug=true``
+    attaches to every node, and the ones a ``uid`` in the query asks
+    for (both render under that key)."""
+    if isinstance(obj, dict):
+        return {k: strip_debug_uids(v) for k, v in obj.items() if k != "_uid_"}
+    if isinstance(obj, list):
+        return [strip_debug_uids(v) for v in obj]
+    return obj
+
+
+def phase_routes(store, srv, card: str) -> dict:
+    """The count from 8192 seeds, the materialised 2-hop from 64 and the
+    child order-by 2-hop, each forced in turn through the classed,
+    inline, csr and resident routes with every hop on the card (the gate
+    at 1, the chain pinned off, the caches detached by the caller), the
+    routes alternating request by request, 2 requests a route: one with
+    ``?ledger=true`` (its hops by route) and one with ``?debug=true``
+    (the engine's routes).  Every body must equal the host route's (the
+    debug one with both trees' ``_uid_`` keys left out), every hop must name the forced
+    route (or ``empty``), the inline route must launch the slot map once
+    a hop and the resident route the gather once a hop."""
+    from dgraph_tpu_torch.ops import gather, slotmap
+
+    t0 = time.perf_counter()
+    ref = host_engine(store)
+    rng = np.random.default_rng(ROUTES_SEED)
+    large = np.unique(rng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+    small = np.unique(rng.integers(1, N_NODES + 1, size=SMALL_SEEDS))
+    queries = {
+        "count_8192": two_hop_count(large),
+        "materialised_2hop_64": two_hop(small),
+        "child_order_2hop": "{ q(func: uid(%s)) { e { e (orderdesc: rank, "
+                            "first: 2) { uid } } } }" % uid_list(large),
+    }
+    want = {n: json.dumps(ref.run(q)) for n, q in queries.items()}
+    ref_s = time.perf_counter() - t0
+    eng = srv.engine
+    gate, thr = eng.expand_device_min, eng.chain_threshold
+    eng.expand_device_min, eng.chain_threshold = 1, PINNED_OFF
+    lat = {r: {n: [] for n in queries} for r in ROUTE_PINS}
+    hops = {r: {n: {} for n in queries} for r in ROUTE_PINS}
+    launches = {r: {"slotmap": 0, "gather": 0} for r in ROUTE_PINS}
+    try:
+        for name, q in queries.items():
+            for params in ("?ledger=true", "?debug=true"):
+                for route in ROUTE_PINS:
+                    what = f"routes {name} ({route}, {params})"
+                    n0 = (slotmap.KERNEL.launches, gather.KERNEL.launches)
+                    with pinned_route(eng, route):
+                        status, raw, secs = post(srv.addr, q, params)
+                    n1 = (slotmap.KERNEL.launches, gather.KERNEL.launches)
+                    check(status == 200, f"{what}: HTTP {status}: {raw[:300]!r}")
+                    body = json.loads(raw)
+                    if params == "?ledger=true":
+                        h = body["extensions"]["ledger"]["hops"]
+                        check(strip_latency(raw) == want[name],
+                              f"{what}: body differs from the host route")
+                    else:
+                        h = body["server_latency"]["engine"]["routes"]
+                        body.pop("server_latency")
+                        check(strip_debug_uids(body)
+                              == strip_debug_uids(json.loads(want[name])),
+                              f"{what}: body differs from the host route")
+                    check(set(h) <= {route, "empty"} and h.get(route, 0) > 0,
+                          f"{what}: hops {h}")
+                    sm, ga = n1[0] - n0[0], n1[1] - n0[1]
+                    if route == "inline":
+                        check(sm == h[route], f"{what}: {sm} slot-map launches "
+                                              f"for {h[route]} inline hops")
+                    if route == "resident":
+                        check(ga == h[route], f"{what}: {ga} gather launches "
+                                              f"for {h[route]} resident hops")
+                    launches[route]["slotmap"] += sm
+                    launches[route]["gather"] += ga
+                    lat[route][name].append(secs)
+                    for k, v in h.items():
+                        hops[route][name][k] = hops[route][name].get(k, 0) + v
+    finally:
+        eng.expand_device_min, eng.chain_threshold = gate, thr
+    p50 = {r: {n: float(np.percentile(v, 50)) * 1e3 for n, v in by.items()}
+           for r, by in lat.items()}
+    out = {"p50_ms": p50, "hops": hops, "launches": launches,
+           "host_reference_s": ref_s, "seconds": time.perf_counter() - t0,
+           "card": card}
+    log({"phase": "routes", "p50_ms": p50, "card": card})
+    log(dict(phase="routes_detail", **{k: v for k, v in out.items() if k != "p50_ms"}))
+    out["large_seeds"] = large
+    return out
+
+
+def inline_slotmap_timing(arena, seeds, card: str) -> dict:
+    """The slot map at the inline route's Q = 1 shape (the count's second
+    hop from ``seeds``), held against its plain version and timed: the
+    wrapper's times (``kernel_times``), the plain version's and the
+    bytes bound.  Its launches are the comparison's, after the route's
+    counts were read."""
+    import torch
+
+    from dgraph_tpu_torch.ops import slotmap
+
+    cs, cd, capc = inline_q1_inputs(arena, seeds)
+    check(torch.equal(slotmap.slotmap(cs, cd, capc), slotmap.slotmap_plain(cs, cd, capc)),
+          "slot map != plain version at the inline route's Q = 1 shape")
+    # the function reads cs and cd once and writes the map once
+    nbytes = 4 * (2 * cs.shape[1] + capc)
+    out = {"Q": 1, "pcap": int(cs.shape[1]), "capc": int(capc),
+           "total": int(cd.sum()), "bytes": nbytes,
+           **kernel_times(lambda: slotmap.slotmap(cs, cd, capc), kernel="slotmap_tiles"),
+           "plain_ms": cuda_ms(lambda: slotmap.slotmap_plain(cs, cd, capc)),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "card": card}
+    log(dict(phase="inline_slotmap_timing", **out))
+    return out
+
+
+# -- phase 9b: the rest of the server and the CLI ------------------------------
+
+
+def phase_cli_surface(device, card: str) -> dict:
+    """A small graph of its own, in the git-ignored ``_smoke/cli``
+    (removed at the end): ``python -m dgraph_tpu_torch.cli.server`` booted
+    with ``--config`` (a YAML that sets its port, its directories and no
+    gRPC listener), ``--dumpsg``, ``--cpu`` and ``--mem``, loaded by
+    ``python -m dgraph_tpu_torch.cli.loader``; ``GET /`` must be the
+    console page, a share must round-trip, a query must write one dump,
+    both profiles must exist after ``/admin/shutdown``, and ``python -m
+    dgraph_tpu_torch.cli.posting_iterator`` must print exactly the lines
+    of ``/admin/export``."""
+    import gzip
+    import shutil
+
+    from dgraph_tpu_torch.serve.dashboard import DASHBOARD_HTML
+
+    t0 = time.perf_counter()
+    work = ROOT / "_smoke" / "cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rng = np.random.default_rng(CLI_SEED)
+    src = rng.integers(1, CLI_UIDS + 1, size=CLI_EDGES)
+    dst = rng.integers(1, CLI_UIDS + 1, size=CLI_EDGES)
+    words = rng.integers(0, len(VOCAB), size=(CLI_UIDS, NAME_WORDS))
+    rdf = work / "cli.rdf.gz"
+    with gzip.open(rdf, "wt") as f:
+        for a, b in zip(src.tolist(), dst.tolist()):
+            f.write("<0x%x> <f> <0x%x> .\n" % (a, b))
+        for u, row in enumerate(words, 1):
+            f.write('<0x%x> <name> "%s" .\n' % (u, " ".join(VOCAB[w] for w in row)))
+    schema = work / "schema.txt"
+    schema.write_text("name: string @index(term) .\nf: uid .\n")
+    port = free_ports(1)[0]
+    conf = work / "conf.yaml"
+    conf.write_text(f"port: {port}\ngrpc_port: -1\npostings_dir: {work / 'p'}\n"
+                    f"export_path: {work / 'export'}\n")
+    paths = {"sg": work / "sg", "cpu": work / "cpu.pstats", "mem": work / "mem.txt"}
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    log_path = work / "server.log"
+    out = {"card": card}
+    with open(log_path, "ab") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dgraph_tpu_torch.cli.server", "--config", str(conf),
+             "--device", str(device), "--dumpsg", str(paths["sg"]),
+             "--cpu", str(paths["cpu"]), "--mem", str(paths["mem"])],
+            cwd=str(ROOT), stdout=subprocess.PIPE, stderr=err, text=True, env=env)
+    try:
+        addr = None
+        lines = []
+        while addr is None:
+            line = proc.stdout.readline()
+            check(line != "", f"the CLI server exited before serving: {lines} "
+                              f"{log_path.read_text()[-2000:]}")
+            lines.append(line.strip())
+            if line.startswith("serving on "):
+                addr = line.split()[2]
+        check(addr == f"http://127.0.0.1:{port}", f"--config did not set the port: {addr}")
+        out["boot_s"] = time.perf_counter() - t0
+        r = subprocess.run(
+            [sys.executable, "-m", "dgraph_tpu_torch.cli.loader", "-r", str(rdf),
+             "-s", str(schema), "-d", addr],
+            cwd=str(ROOT), capture_output=True, text=True, timeout=300, env=env)
+        check(r.returncode == 0, f"loader failed: {r.stderr[-2000:]}")
+        with urllib.request.urlopen(addr + "/", timeout=60) as resp:
+            page = resp.read().decode()
+        check(page == DASHBOARD_HTML, "GET / is not the console page")
+        text = "{ q(func: has(name)) { count() } }"
+        req = urllib.request.Request(addr + "/share", data=text.encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            sid = json.loads(resp.read())["uids"]["share"]
+        check(get_json(addr, f"/share/{sid}") == {"share": text}, "the share did not round-trip")
+        n_dumps = len(os.listdir(paths["sg"])) if paths["sg"].exists() else 0
+        seeds = np.unique(src)[:16]
+        q = ("{ q(func: uid(%s)) { uid name f { uid name f { uid } } } }"
+             % uid_list(seeds))
+        status, raw, _secs = post(addr, q)
+        check(status == 200 and json.loads(raw)["q"], f"query: HTTP {status}: {raw[:200]!r}")
+        dumps = sorted(os.listdir(paths["sg"]))
+        check(len(dumps) == n_dumps + 1, f"{len(dumps) - n_dumps} dumps for one query")
+        dump = json.loads((paths["sg"] / dumps[-1]).read_text())
+        check(dump[0]["n_dest"] == len(seeds), f"the dump's root: {dump[0]}")
+        exp = get_json(addr, "/admin/export")
+        with gzip.open(exp["rdf"], "rt") as f:
+            export_lines = f.read().splitlines()
+        get_json(addr, "/admin/shutdown")
+        proc.wait(timeout=120)
+        check(proc.returncode == 0, f"the CLI server exited {proc.returncode}")
+        rest = proc.stdout.read()
+        for k in ("cpu", "mem"):
+            check(paths[k].exists() and paths[k].stat().st_size > 0,
+                  f"no {k} profile after shutdown: {rest}")
+        t1 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "dgraph_tpu_torch.cli.posting_iterator",
+             "--p", str(work / "p")],
+            cwd=str(ROOT), capture_output=True, text=True, timeout=300, env=env)
+        check(r.returncode == 0, f"posting iterator failed: {r.stderr[-2000:]}")
+        check(r.stdout.splitlines() == export_lines,
+              "the posting iterator's lines differ from /admin/export's")
+        out.update(iterator_s=time.perf_counter() - t1, lines=len(export_lines),
+                   dump_root=dump[0], cpu_profile_bytes=paths["cpu"].stat().st_size,
+                   mem_profile_bytes=paths["mem"].stat().st_size,
+                   seconds=time.perf_counter() - t0)
+    finally:
+        import signal
+
+        end_proc(proc, signal.SIGTERM)
+        shutil.rmtree(work, ignore_errors=True)
+    log(dict(phase="cli_surface", **out))
+    return out
+
+
 # -- phases 10-11: the fused chain --------------------------------------------
 
 
@@ -2979,7 +3302,7 @@ def phase_chain(store, srv, large, small, rseeds, card: str) -> dict:
 
     eng = srv.engine
     check_priced(srv, chain=True)
-    check(eng.expander.fused_hop, "the server must run with fused hops on")
+    check(eng.expander.fused_hop != "0", "the server must run with fused hops on")
     ref = host_engine(store)
     # (name, query, fused levels, gathers a request, multi-hop calls a
     # request, served per level as well, requests a route)
@@ -4736,6 +5059,25 @@ def phase_batched_2hop(a, frontiers, fcap, plan, card: str) -> dict:
           f"slot-map launches per pass {per_pass}, want {2 * n_chunks} each")
     check(launches == sum(per_pass) + 2,
           f"slot-map launches {launches}, want {sum(per_pass) + 2}")
+    # the host-dedup arm (bench.py's _run_host_dedup): classed plans, no
+    # slot map
+    hstats: dict = {}
+    t2 = time.perf_counter()
+    host_s, host_edges, host_chks, host_last = bench2hop.run_host_dedup(
+        a, frontiers, timed=HOST_DEDUP_PASSES, warm=False, stats=hstats)
+    host_run_s = time.perf_counter() - t2
+    check(slotmap.KERNEL.launches == launches, "the host-dedup arm launched the slot map")
+    bad = np.nonzero(hstats["counts"] != cpu_edges)[0]
+    check(not len(bad), f"host-dedup edge counts differ from numpy at {bad[:10].tolist()}")
+    bad = np.nonzero(host_chks != cpu_chks)[0]
+    check(not len(bad), f"host-dedup checksums differ from numpy at {bad[:10].tolist()}")
+    check(np.array_equal(host_last, want_last), "host-dedup last set differs from numpy")
+    check(host_edges == edges, "host-dedup total edges differ")
+    host = {"best_pass_s": host_s, "pass_seconds": hstats["pass_seconds"],
+            "edges_per_s": host_edges / host_s, "vs_baseline": cpu_s / host_s,
+            "caps1": hstats["caps1"], "caps2": hstats["caps2"],
+            "sub_batch": hstats["sub_batch"], "run_s": host_run_s,
+            "checksums_equal_numpy": True}
     out = {
         "queries": len(frontiers), "seeds_drawn": BATCH_SEEDS,
         "chunk_q": CHUNK_Q, "caps": stats["plan"], "edges": edges,
@@ -4745,7 +5087,7 @@ def phase_batched_2hop(a, frontiers, fcap, plan, card: str) -> dict:
         "numpy_edges_per_s": edges / cpu_s, "vs_baseline": cpu_s / dev_s,
         "slotmap_launches_per_pass": per_pass, "slotmap_launches": launches,
         "checksums_equal_numpy": True, "last_set_equal_numpy": True,
-        "run_s": run_s, "numpy_run_s": numpy_s, "card": card,
+        "run_s": run_s, "numpy_run_s": numpy_s, "host_dedup": host, "card": card,
     }
     log(dict(phase="batched_2hop", **out))
     return out
@@ -5213,6 +5555,7 @@ def main(argv) -> int:
     guard_only = "--guard-only" in argv
     subs_only = "--subs-only" in argv
     transports_only = "--transports-only" in argv
+    routes_only = "--routes-only" in argv
     try:
         import torch
     except ImportError:
@@ -5363,6 +5706,30 @@ def main(argv) -> int:
                  "planner": {k: pl[k] for k in ("decisions", "mispredict_rate",
                                                 "rows", "seconds")}})
             return 0
+        if routes_only:
+            phase = mark("ranks")
+            phase_ranks(store, srv, N_RANKED)
+            phase = mark("routes")
+            zero_counts()
+            with no_caches(srv):
+                rt = phase_routes(store, srv, info["nvidia_smi"])
+            read_counts("routes")
+            phase = mark("inline_slotmap_timing")
+            inline_slotmap_timing(srv.engine.arenas.data("e"), rt["large_seeds"],
+                                  info["nvidia_smi"])
+            phase = mark("cli_surface")
+            cli = phase_cli_surface("cuda", info["nvidia_smi"])
+            phase = mark("dense")
+            dense, frontiers, fcap, plan = phase_dense("cuda", src, dst, N_NODES)
+            phase = mark("batched_2hop")
+            zero_counts()
+            batched = phase_batched_2hop(dense, frontiers, fcap, plan, info["nvidia_smi"])
+            read_counts("batched_2hop")
+            mark("done")
+            log({"phase_seconds": phase_s, "launches": launches,
+                 "routes": rt["p50_ms"], "cli_surface_s": cli["seconds"],
+                 "host_dedup": batched["host_dedup"]})
+            return 0
         if serving_only:
             phase = mark("names")
             phase_names(store, srv, N_NAMED)
@@ -5425,6 +5792,12 @@ def main(argv) -> int:
         with per_level(srv.engine):
             surface = phase_query_surface(store, srv, N_RANKED, info["nvidia_smi"])
         read_counts("query_surface")
+        phase = mark("routes")
+        zero_counts()
+        rt = phase_routes(store, srv, info["nvidia_smi"])
+        read_counts("routes")
+        phase = mark("cli_surface")
+        cli = phase_cli_surface("cuda", info["nvidia_smi"])
         phase = mark("multi_hop_kernels")
         arena = srv.engine.arenas.data("e")
         large_c, small_c, by_size = chain_seeds()
@@ -5478,6 +5851,9 @@ def main(argv) -> int:
         phase = mark("pass_profile")
         log(dict(phase="pass_profile", chunk_q=CHUNK_Q,
                  **pass_profile(dense, frontiers, fcap, plan)))
+        phase = mark("inline_slotmap_timing")
+        q1 = inline_slotmap_timing(srv.engine.arenas.data("e"), rt["large_seeds"],
+                                   info["nvidia_smi"])
         phase = mark("intersect_timing")
         it = intersect_timing(srv.engine.device, served, np.random.default_rng(37))
         log(dict(phase="intersect_timing", **it))
@@ -5547,9 +5923,16 @@ def main(argv) -> int:
                  "after_mutation": mxu["rows"]["after_mutation"],
                  "mask_chain": {k: mxu["mask_chain_timing"][k] for k in (
                      "ms", "b2b_ms", "device_ms", "bound_ms", "bound_by")}},
-             "batched_2hop": {k: batched[k] for k in (
+             "routes": {"p50_ms": rt["p50_ms"], "seconds": rt["seconds"],
+                        "inline_q1_slotmap": {k: q1[k] for k in (
+                            "pcap", "capc", "ms", "b2b_ms", "device_ms", "plain_ms",
+                            "bound_ms")}},
+             "cli_surface": {k: cli[k] for k in ("seconds", "boot_s", "lines")},
+             "batched_2hop": {**{k: batched[k] for k in (
                  "queries", "edges", "edges_per_s", "numpy_edges_per_s",
                  "vs_baseline", "chunk_q", "caps")},
+                 "host_dedup": {k: batched["host_dedup"][k] for k in (
+                     "edges_per_s", "vs_baseline", "best_pass_s", "caps1", "caps2")}},
              "durability": {
                  "d1_time_to_recover_s": dur["d1"]["time_to_recover_s"],
                  "d1_recovery_seconds": dur["d1"]["dgraph_recovery_seconds"],

@@ -1,5 +1,5 @@
-"""Batched 2-hop pipeline with on-device dedup (the port of ``bench.py``'s
-headline arm, ``_run_device_dedup``).
+"""Batched 2-hop pipeline (the port of ``bench.py``'s two arms:
+``_run_device_dedup``, the headline, and ``_run_host_dedup``).
 
 The graph is a dense CSR arena (row i == uid i) in the skey-grouped
 inline-head layout on the device.  Per chunk of queries the pipeline runs
@@ -11,14 +11,27 @@ device between hops.  Each hop's overflow slot-map is the slot-map kernel
 the plain version.  A numpy CSR walk of the same queries is the baseline
 and the oracle (``np_two_hop``).
 
+The host-dedup arm (``run_host_dedup``) runs each hop as one batched plan
+of the arena's ``ops.ClassedExpander`` (torch ops: one masked gather per
+degree class) over sub-batches of 50 queries: hop 1 materialises its
+targets, the host dedups them with ``np.unique`` and class-partitions
+them, and hop 2 returns only per-query checksums and edge counts.  Its
+capacities are planned once over the whole stream with ``bucket_fine``.
+Every hop-1 sub-batch is launched up front, so the host's dedup overlaps
+the device's queue.
+
     python -m dgraph_tpu_torch.bench2hop                # on cuda
     python -m dgraph_tpu_torch.bench2hop --device cpu   # plain versions
+    python -m dgraph_tpu_torch.bench2hop --dedup both   # both arms
 
 Environment: BENCH_NODES (2,000,000), BENCH_EDGES (21,000,000),
 BENCH_SEEDS (4096 drawn seeds per query), BENCH_ITERS (1000 queries).
-Prints one JSON line: metric, value (edges/s), unit, vs_baseline,
-hop_dedup, slotmap_launches, platform, device.  Exits non-zero when any query's
-edge count or checksum, or the last query's set, differs from numpy's.
+``--dedup`` device (default), host or both picks the arms.  Prints one
+JSON line: metric, value (edges/s), unit, vs_baseline and hop_dedup of
+the first arm run (device, when it runs), ``arms`` (each arm's edges/s,
+vs_baseline and seconds), slotmap_launches, platform, device.  Exits
+non-zero when any arm's per-query edge count or checksum, or its last
+query's set, differs from numpy's.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ from dgraph_tpu_torch import ops
 from dgraph_tpu_torch.device import resolve
 from dgraph_tpu_torch.models.arena import CSRArena, csr_dense_from_edges
 import dgraph_tpu_torch.ops.slotmap as _slotmap
+from dgraph_tpu_torch.ops.batch import wrap_int32
 from dgraph_tpu_torch.ops.sets import SENT
 
 GRAPH_SEED = 7      # bench.py build_graph's default
@@ -168,17 +182,11 @@ def next_rows(inl1: torch.Tensor, ov1: torch.Tensor, plan: Plan) -> torch.Tensor
     return torch.where(f1 == SENT, -1, f1 & plan.mask)
 
 
-def _wrap_int32(s: torch.Tensor) -> torch.Tensor:
-    """int64 sums -> int32 modulo 2^32, signed (jnp.sum(dtype=int32))."""
-    s = s & 0xFFFFFFFF
-    return torch.where(s >= (1 << 31), s - (1 << 32), s).to(torch.int32)
-
-
 def checksum(inl2: torch.Tensor, ov2: torch.Tensor, mask: int) -> torch.Tensor:
     """Per-query sum of every produced (decoded) hop-2 uid, int32."""
     si = torch.where(inl2 == SENT, 0, inl2 & mask).sum((1, 2), dtype=torch.int64)
     so = torch.where(ov2 == SENT, 0, ov2 & mask).sum((1, 2), dtype=torch.int64)
-    return _wrap_int32(si + so)
+    return wrap_int32(si + so)
 
 
 def two_hop_batch(metap, ov_chunks, fm: torch.Tensor, plan: Plan):
@@ -283,10 +291,115 @@ def run_device_dedup(a: CSRArena, frontiers, fcap: int, chunk_q: int = CHUNK_Q,
     return best, edges, chks, last_set
 
 
+SUB_BATCH = 50  # queries per batched plan of the host-dedup arm (bench.py)
+
+
+def run_host_dedup(a: CSRArena, frontiers, timed: int = 4, warm: bool = True,
+                   sub_batch: int = SUB_BATCH, stats: Optional[dict] = None):
+    """The host-dedup 2-hop over ``frontiers`` (dense arena: rows are
+    uids): ``warm`` pass first, then the best of ``timed`` passes.
+    Returns (best seconds, edges, per-query checksums int32, the last
+    query's hop-2 uid set); ``stats`` receives the per-query edge counts,
+    each pass's seconds and both hops' capacity tuples."""
+    ce = ops.ClassedExpander(a.offsets, a.dst, a.h_offsets)
+    n_cls, dev, h_dst = ce.n_cls, a.device, a.host_dst()
+    # capacity planning (untimed): the worst per-class composition over
+    # the stream, bucket_fine'd, so one plan per hop serves every
+    # sub-batch
+    c1w = np.ones(n_cls, np.int64)
+    c2w = np.ones(n_cls, np.int64)
+    h1w = e1w = h2w = e2w = 0
+    uniq1 = []
+    for f in frontiers:
+        c1, h1, e1 = ce.class_counts(f)
+        c1w = np.maximum(c1w, c1)
+        h1w, e1w = max(h1w, h1), max(e1w, e1)
+        f1 = np.unique(np_expand(a.h_offsets, h_dst, f))
+        uniq1.append(f1)
+        c2, h2, e2 = ce.class_counts(f1)
+        c2w = np.maximum(c2w, c2)
+        h2w, e2w = max(h2w, h2), max(e2w, e2)
+    caps1 = ce.plan_caps(c1w, h1w, e1w)
+    caps2 = ce.plan_caps(c2w, h2w, e2w)
+    hop1 = ce.program(caps1, "materialize", batched=True)
+    hop2 = ce.program(caps2, "checksum", batched=True)
+
+    def stack_partitions(queries, caps):
+        """Each query's rows class-sorted into stacked [B, cap_c] mats
+        (-1 pad): the host side of one batched hop."""
+        mats = [np.full((len(queries), c), -1, np.int32) for c in caps[:n_cls]]
+        mats.append(np.full((len(queries), max(caps[n_cls], 1)), -1, np.int32))
+        for j, f in enumerate(queries):
+            rs, starts, _deg, _pos = ce.class_sort(f)
+            for k in range(n_cls + 1):
+                lo, hi = int(starts[k]), int(starts[k + 1])
+                if hi > lo:
+                    mats[k][j, : hi - lo] = rs[lo:hi]
+        return tuple(torch.from_numpy(m).to(dev) for m in mats)
+
+    n = len(frontiers)
+    seed_batches = [stack_partitions(frontiers[b: b + sub_batch], caps1)
+                    for b in range(0, n, sub_batch)]
+
+    def one_pass():
+        # every hop-1 sub-batch launched up front: the host's dedup and
+        # partitioning below overlap the device working through its queue
+        futs = [hop1(mb, ()) for mb in seed_batches]
+        chks = np.empty(n, np.int32)
+        counts = np.empty(n, np.int64)
+        for b, (lanes, t1) in enumerate(futs):
+            lo = b * sub_batch
+            lanes = lanes.cpu().numpy()  # waits for this sub-batch only
+            uniq = []
+            for row in lanes:
+                u = np.unique(row)
+                uniq.append(u[:-1] if len(u) and u[-1] == SENT else u)
+            c, t2 = hop2(stack_partitions(uniq, caps2), ())
+            chks[lo: lo + len(uniq)] = c.cpu().numpy()
+            counts[lo: lo + len(uniq)] = (t1.cpu().numpy().astype(np.int64)
+                                         + t2.cpu().numpy())
+        return counts, chks
+
+    secs = []
+    if warm:
+        one_pass()
+    for _ in range(timed):
+        _sync(dev)
+        t0 = time.perf_counter()
+        counts, chks = one_pass()
+        secs.append(time.perf_counter() - t0)
+    # untimed correctness artifact: the last query's full hop-2 set
+    pm, _pos = ce.partition(uniq1[-1], caps2)
+    lanes, _t = ce.program(caps2, "materialize")(
+        tuple(torch.from_numpy(m).to(dev) for m in pm), ())
+    last_set = np.unique(lanes.cpu().numpy())
+    last_set = last_set[last_set != SENT]
+    if stats is not None:
+        stats.update(counts=counts, pass_seconds=secs, caps1=list(caps1),
+                     caps2=list(caps2), sub_batch=sub_batch, queries=n)
+    return min(secs), int(counts.sum()), chks, last_set
+
+
+def _failures(arm: str, edges: int, chks, last_set, cpu_edges, cpu_chks,
+              want_last) -> list:
+    out = []
+    if not np.array_equal(last_set, want_last):
+        out.append(f"{arm}: 2-hop != numpy reference (last query's set)")
+    if edges != int(cpu_edges.sum()):
+        out.append(f"{arm}: edges {edges} != numpy {int(cpu_edges.sum())}")
+    if not np.array_equal(chks, cpu_chks):
+        out.append(f"{arm}: per-query checksums != numpy")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the kernels' plain versions)")
+    ap.add_argument("--dedup", choices=("device", "host", "both"),
+                    default="device",
+                    help="which arms run: the device-dedup pipeline, the "
+                         "host-dedup classed pipeline, or both")
     args = ap.parse_args(argv)
     dev = resolve(args.device)
     n_nodes = int(os.environ.get("BENCH_NODES", 2_000_000))
@@ -301,37 +414,42 @@ def main(argv=None) -> int:
     fcap = ops.bucket(max(len(f) for f in frontiers))
 
     stats: dict = {}
-    dev_s, dev_edges, chks, last_set = run_device_dedup(
-        a, frontiers, fcap, CHUNK_Q, stats)
+    results = {}  # arm -> (best seconds, edges, checksums, last set)
+    if args.dedup in ("device", "both"):
+        results["device"] = run_device_dedup(a, frontiers, fcap, CHUNK_Q, stats)
+    if args.dedup in ("host", "both"):
+        results["host"] = run_host_dedup(a, frontiers)
     cpu_s, cpu_edges, cpu_chks = numpy_baseline(a, frontiers)
 
     # correctness cross-check: per-query checksums + the last frontier set
     _, want, _ = np_two_hop(a, a.host_dst(), frontiers[-1])
     failures = []
-    if not np.array_equal(last_set, want):
-        failures.append("device 2-hop != numpy reference (last query's set)")
-    if dev_edges != int(cpu_edges.sum()):
-        failures.append(f"edges {dev_edges} != numpy {int(cpu_edges.sum())}")
-    if not np.array_equal(chks, cpu_chks):
-        failures.append("per-query device checksums != numpy")
+    for arm, (_s, edges, chks, last_set) in results.items():
+        failures += _failures(arm, edges, chks, last_set, cpu_edges,
+                              cpu_chks, want)
     if failures:
         print("bench2hop: FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
 
-    dev_eps = dev_edges / dev_s
-    cpu_eps = dev_edges / cpu_s
+    cpu_eps = int(cpu_edges.sum()) / cpu_s
+    arms = {arm: {"value": edges / secs, "vs_baseline": edges / secs / cpu_eps,
+                  "device_s": secs}
+            for arm, (secs, edges, _c, _l) in results.items()}
+    first = next(iter(results))
+    dev_s = results[first][0]
     print(json.dumps({
         "metric": "edges_traversed_per_sec_2hop",
-        "value": dev_eps,
+        "value": arms[first]["value"],
         "unit": "edges/s",
-        "vs_baseline": dev_eps / cpu_eps,
-        "hop_dedup": "device",
-        "slotmap_launches": sum(stats["slotmap_launches_per_pass"]),
+        "vs_baseline": arms[first]["vs_baseline"],
+        "hop_dedup": first,
+        "arms": arms,
+        "slotmap_launches": sum(stats.get("slotmap_launches_per_pass", [])),
         "platform": "gpu" if dev.type == "cuda" else "cpu",
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "nodes": n_nodes, "edges_stored": a.n_edges, "queries": iters,
-        "seeds": n_seeds, "chunk_q": CHUNK_Q, "caps": stats["plan"],
+        "seeds": n_seeds, "chunk_q": CHUNK_Q, "caps": stats.get("plan"),
         "device_s": dev_s, "numpy_s": cpu_s, "build_s": build_s,
     }))
     return 0

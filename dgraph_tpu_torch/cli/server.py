@@ -1,6 +1,8 @@
 """Server binary of the port:
 
     python -m dgraph_tpu_torch.cli.server --p DIR --port 8080 [--sync] [--device cpu]
+    python -m dgraph_tpu_torch.cli.server --config conf.yaml [--dumpsg DIR] \
+        [--cpu cpu.pstats] [--mem mem.txt] [--memory_mb 8192]
     python -m dgraph_tpu_torch.cli.server --p DIR --port 8081 --idx 1 --groups 0,1 \
         --peer 1@127.0.0.1:8081,2@127.0.0.1:8082,3@127.0.0.1:8083 [--device cpu]
     python -m dgraph_tpu_torch.cli.server --p DIR --port 8081 --idx 1 \
@@ -17,6 +19,18 @@ storage flags and their defaults are the reference's
 snapshotter's thresholds (0 keeps ``DGRAPH_TPU_SNAPSHOT_WAL_MB`` /
 ``DGRAPH_TPU_SNAPSHOT_WAL_RECORDS`` or 64 MB / 200,000 records),
 ``--export`` the directory of ``/admin/export``.
+
+Options come from the defaults, then ``--config`` (a flat ``key: value``
+YAML file of ``utils/config.Options``' field names), then the explicit
+flags, which win (the reference's ``build_options``).  ``--memory_mb``
+(alias ``--arena_budget_mb``) is the device memory budget of the cached
+arenas (0 = 3/4 of free memory on cuda).  ``--dumpsg DIR`` writes each
+query's execution-shape tree as JSON into DIR.  ``--cpu PATH`` profiles
+query execution with cProfile (the server then runs the serial path)
+and ``--mem PATH`` traces allocations with tracemalloc; both are
+written at shutdown (pstats, and the top 50 lines as text).  ``--w``,
+``--workers``, ``--num_pending`` and ``--max_edges`` are accepted and
+kept in the options, as the reference keeps them.
 
 Clustered (``--peer``, or ``--join`` a live member): the server is
 node ``--idx`` of a Raft cluster serving the groups ``--groups`` (group 0,
@@ -65,71 +79,128 @@ import sys
 from dgraph_tpu_torch.device import resolve
 from dgraph_tpu_torch.models.wal import DurableStore
 from dgraph_tpu_torch.serve.server import DgraphServer
+from dgraph_tpu_torch.utils.config import Options
 
 
-def main(argv=None) -> int:
+def build_options(argv=None) -> Options:
+    """Options from the defaults, the ``--config`` YAML, then the
+    explicit flags: the YAML's values become the flags' defaults, so an
+    explicit flag always wins and a YAML-only key survives."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--config", default="")
+    pre_ns, _ = pre.parse_known_args(argv)
+    d = Options()
+    if pre_ns.config:
+        d = d.merged_with_yaml(pre_ns.config)
     ap = argparse.ArgumentParser(prog="dgraph_tpu_torch.cli.server")
-    ap.add_argument("--p", dest="postings_dir", default="p",
+    ap.add_argument("--config", default="", help="YAML config file (flat key: value)")
+    ap.add_argument("--p", dest="postings_dir", default=d.postings_dir,
                     help="directory of the WAL, its sealed segments and snapshots")
+    ap.add_argument("--w", dest="wal_dir", default=d.wal_dir,
+                    help="(reserved) separate WAL directory; the WAL lives in --p")
     ap.add_argument("--sync", dest="sync_writes", action="store_true",
+                    default=d.sync_writes,
                     help="fsync the WAL before a mutation is acknowledged")
-    ap.add_argument("--snapshot_wal_mb", type=float, default=0.0,
+    ap.add_argument("--snapshot_wal_mb", type=float, default=d.snapshot_wal_mb,
                     help="seal+compact the WAL once it passes this many MB "
                          "(0 = env DGRAPH_TPU_SNAPSHOT_WAL_MB or 64)")
-    ap.add_argument("--snapshot_wal_records", type=int, default=0,
+    ap.add_argument("--snapshot_wal_records", type=int,
+                    default=d.snapshot_wal_records,
                     help="seal+compact once this many records are journaled "
                          "(0 = env DGRAPH_TPU_SNAPSHOT_WAL_RECORDS or 200000)")
-    ap.add_argument("--export", dest="export_path", default="export",
+    ap.add_argument("--export", dest="export_path", default=d.export_path,
                     help="directory /admin/export writes to")
-    ap.add_argument("--port", type=int, default=8080, help="HTTP port (0 = any free port)")
-    ap.add_argument("--grpc_port", type=int, default=0,
+    ap.add_argument("--port", type=int, default=d.port,
+                    help="HTTP port (0 = any free port)")
+    ap.add_argument("--grpc_port", type=int, default=d.grpc_port,
                     help="gRPC listener port (protos.Dgraph service); "
                          "0 = http port + 1000, below 0 disables")
-    ap.add_argument("--tls_cert", default="",
+    ap.add_argument("--tls_cert", default=d.tls_cert,
                     help="PEM certificate chain: serve HTTPS and gRPC over TLS")
-    ap.add_argument("--tls_key", default="",
+    ap.add_argument("--tls_key", default=d.tls_key,
                     help="PEM key of --tls_cert (empty = inside the cert file)")
-    ap.add_argument("--bind", default="127.0.0.1", help="address to listen on")
-    ap.add_argument("--device", default=None, help="torch device: cuda (default) or cpu")
-    ap.add_argument("--arena_budget_mb", type=int, default=0,
-                    help="device memory budget for cached arenas (0 = 3/4 of free memory on cuda)")
+    ap.add_argument("--bind", default=d.bind, help="address to listen on")
+    ap.add_argument("--device", default=d.device,
+                    help="torch device: cuda (default) or cpu")
+    ap.add_argument("--memory_mb", "--arena_budget_mb", dest="memory_mb",
+                    type=int, default=d.memory_mb,
+                    help="device memory budget for cached arenas in MB "
+                         "(0 = 3/4 of free memory on cuda)")
+    ap.add_argument("--dumpsg", default=d.dumpsg,
+                    help="directory to dump each query's execution-shape "
+                         "tree as JSON")
+    ap.add_argument("--cpu", dest="cpu_profile", default=d.cpu_profile,
+                    help="write a CPU profile of query execution (pstats "
+                         "format) here at shutdown")
+    ap.add_argument("--mem", dest="mem_profile", default=d.mem_profile,
+                    help="write a memory allocation profile (tracemalloc "
+                         "top-50 text) here at shutdown")
+    ap.add_argument("--workers", type=int, default=d.workers)
+    ap.add_argument("--num_pending", type=int, default=d.num_pending)
+    ap.add_argument("--max_edges", type=int, default=d.max_edges)
     # cluster identity (the reference's --idx/--groups/--peer family)
-    ap.add_argument("--idx", dest="raft_id", type=int, default=1,
+    ap.add_argument("--idx", dest="raft_id", type=int, default=d.raft_id,
                     help="this server's raft node id")
-    ap.add_argument("--groups", dest="group_ids", default="0",
+    ap.add_argument("--groups", dest="group_ids", default=d.group_ids,
                     help="comma-separated groups this server serves (0 = metadata)")
-    ap.add_argument("--peer", default="",
+    ap.add_argument("--peer", default=d.peer,
                     help='cluster members "1@host:port,2@host:port" (self included)')
-    ap.add_argument("--peer_groups", default="",
+    ap.add_argument("--peer_groups", default=d.peer_groups,
                     help='per-peer group placement "1=0,1;2=0,2"; absent '
                          "peers serve every group")
-    ap.add_argument("--join", default="",
+    ap.add_argument("--join", default=d.join,
                     help="address of a live cluster member; boot as a "
                          "joining node and acquire membership at runtime")
-    ap.add_argument("--my", dest="my_addr", default="",
+    ap.add_argument("--my", dest="my_addr", default=d.my_addr,
                     help="address peers reach this server at "
                          "(default http://127.0.0.1:<port>)")
-    ap.add_argument("--cluster_secret", default="",
+    ap.add_argument("--cluster_secret", default=d.cluster_secret,
                     help="shared secret required on intra-cluster endpoints "
                          "(/raft*, /assign-uids, /join, /pred-snapshot, "
                          "/predlist); empty disables the gate")
-    ap.add_argument("--peer_ca", default="",
+    ap.add_argument("--peer_ca", default=d.peer_ca,
                     help="PEM CA bundle to verify peer TLS certs against "
                          "(CA pinning for the raft plane)")
     ap.add_argument("--peer_tls_insecure", action="store_true",
+                    default=d.peer_tls_insecure,
                     help="explicitly skip peer TLS verification "
                          "(throwaway self-signed clusters only)")
-    ap.add_argument("--trace", dest="trace_ratio", type=float, default=0.0,
+    ap.add_argument("--trace", dest="trace_ratio", type=float,
+                    default=d.trace_ratio,
                     help="share of requests sampled into the flight recorder "
                          "(DGRAPH_TPU_TRACE_RATIO wins when set)")
     ap.add_argument("--expose_trace", action="store_true",
+                    default=d.expose_trace,
                     help="serve /debug/traces, /debug/slow_queries and "
                          "/debug/requests")
-    ap.add_argument("--raft_transport", default="http", choices=("http", "grpc"),
+    ap.add_argument("--raft_transport", default=d.raft_transport,
+                    choices=("http", "grpc"),
                     help="raft frame carrier between servers; grpc uses "
                          "/protos.Worker/RaftMessage at peer http port + "
                          "the gRPC offset")
-    opts = ap.parse_args(argv)
+    ns = ap.parse_args(argv)
+    return Options(**{**d.__dict__,
+                      **{k: v for k, v in vars(ns).items() if k != "config"}})
+
+
+def _write_profiles(opts, profiler) -> None:
+    """The shutdown profiles: cProfile's pstats file and tracemalloc's
+    top 50 lines by size."""
+    if profiler is not None:
+        profiler.dump_stats(opts.cpu_profile)
+        print(f"cpu profile written to {opts.cpu_profile}", flush=True)
+    if opts.mem_profile:
+        import tracemalloc
+
+        snap = tracemalloc.take_snapshot()
+        with open(opts.mem_profile, "w") as f:
+            for stat in snap.statistics("lineno")[:50]:
+                f.write(str(stat) + "\n")
+        print(f"memory profile written to {opts.mem_profile}", flush=True)
+
+
+def main(argv=None) -> int:
+    opts = build_options(argv)
     # the gRPC listener this process binds (0 = http port + 1000)
     grpc_port = (
         -1
@@ -154,7 +225,18 @@ def main(argv=None) -> int:
             return 2
     # the device first: a missing GPU fails start-up before the disk is
     # touched
-    device = resolve(opts.device)
+    device = resolve(opts.device or None)
+    # profiles: cProfile covers query execution (enabled per request on
+    # the serial path), tracemalloc the whole process from here
+    profiler = None
+    if opts.cpu_profile:
+        import cProfile
+
+        profiler = cProfile.Profile()
+    if opts.mem_profile:
+        import tracemalloc
+
+        tracemalloc.start(10)
     cluster = None
     if opts.peer or opts.join:
         try:
@@ -181,10 +263,10 @@ def main(argv=None) -> int:
     # flight recorder's ratio (--trace, or DGRAPH_TPU_TRACE_RATIO when set)
     srv = DgraphServer(
         store, port=opts.port, bind=opts.bind, device=device,
-        arena_budget_mb=opts.arena_budget_mb, export_path=opts.export_path,
+        arena_budget_mb=opts.memory_mb, export_path=opts.export_path,
         cluster=cluster, trace_ratio=obs.get_recorder().sampler.ratio,
         expose_trace=opts.expose_trace, tls_cert=opts.tls_cert,
-        tls_key=opts.tls_key,
+        tls_key=opts.tls_key, profiler=profiler, dumpsg_path=opts.dumpsg,
     )
     # explicit flags win over the environment the snapshotter read
     if srv.snapshotter is not None and opts.snapshot_wal_mb:
@@ -221,6 +303,7 @@ def main(argv=None) -> int:
     srv.wait()
     if grpc_srv is not None:
         grpc_srv.stop()
+    _write_profiles(opts, profiler)
     return 0
 
 

@@ -137,7 +137,7 @@ class CSRArena:
         unit."""
         n = (_nbytes(self.src) + _nbytes(self.offsets) + _nbytes(self.dst)
              + _nbytes(self._lut))
-        for pair in (self._inline, self._inline_grouped):
+        for pair in (self._chunked, self._inline, self._inline_grouped):
             if pair is not None:
                 n += sum(_nbytes(t) for t in pair)
         if self._resident is not None:
@@ -291,6 +291,59 @@ class CSRArena:
                     [h, np.zeros(b + 1 - len(h), dtype=h.dtype)]
                 )
             h[b] += step
+
+    # -- chunk-packed layout (ops/sets.py expand_chunked) --------------------
+
+    _chunked: Optional[tuple] = None  # lazy (meta8, chunk_dst)
+
+    def chunked(self) -> tuple:
+        """Chunk-packed layout for ops.expand_chunked, built lazily from
+        the host mirrors and uploaded once.
+
+        Returns (meta8, chunk_dst): int32[Sb, 8] per-row (chunk_start,
+        chunk_count, degree) and int32[NCb, CHUNK] chunk-packed targets
+        with SENT pad lanes.  A delta drops it; host capacity planning
+        uses chunk_degree_of_rows."""
+        if self._chunked is not None:
+            return self._chunked
+        with _BUILD_LOCK:
+            if self._chunked is not None:  # lost the build race: reuse
+                return self._chunked
+            C = ops.CHUNK
+            S, E = self.n_rows, self.n_edges
+            deg = self.h_offsets[1:] - self.h_offsets[:-1]
+            cdeg = (deg + C - 1) // C
+            coff = np.zeros(S + 1, dtype=np.int64)
+            np.cumsum(cdeg, out=coff[1:])
+            chunk = np.full((ops.bucket(max(1, int(coff[-1]))), C), SENT,
+                            dtype=np.int32)
+            if E:
+                rowid = np.repeat(np.arange(S, dtype=np.int64), deg)
+                within = np.arange(E, dtype=np.int64) - np.repeat(
+                    self.h_offsets[:-1], deg
+                )
+                chunk[coff[rowid] + within // C, within % C] = self.host_dst()
+            # sized from the host mirrors: the staged device tensors may be
+            # stale until ensure_device()
+            meta = np.zeros((ops.bucket(max(1, S)), 8), dtype=np.int32)
+            meta[:S, 0] = coff[:-1]
+            meta[:S, 1] = cdeg
+            meta[:S, 2] = deg
+            self._chunked = (_to_device(meta, self.device),
+                             _to_device(chunk, self.device))
+            return self._chunked
+
+    def chunk_degree_of_rows(self, rows: np.ndarray) -> np.ndarray:
+        """Host chunk-count lookup (ceil(degree/CHUNK)) for planning."""
+        C = ops.CHUNK
+        return (self.degree_of_rows(rows) + C - 1) // C
+
+    # -- degree-classed hop plans (ops/batch.py) ------------------------------
+
+    # the arena's ClassedExpander and its cached plans, built by
+    # ops.classed_for_arena; dropped with the other derived layouts on a
+    # delta and counted by ArenaManager.residency
+    _classed: Optional[object] = None
 
     # -- inline-head layouts (ops/sets.py expand_inline*) --------------------
 
@@ -479,6 +532,8 @@ class CSRArena:
         self.n_edges = len(h_dst)
         # derived layouts and planning caches are rebuilt from the new
         # mirrors at next use
+        self._chunked = None
+        self._classed = None
         self._inline = None
         self._inline_grouped = None
         self._lut = None
@@ -997,8 +1052,8 @@ class ArenaManager:
         running total — the number eviction decisions are made on — so
         the telemetry can never disagree with the enforcement.
         ``tile_bytes`` walks the cached uid arenas' tile sets (the tile
-        join tier's dense blocks).  The reference's classed expanders
-        have no counterpart in the port: their counts are 0."""
+        join tier's dense blocks); ``program_caches`` counts the cached
+        arenas' classed expanders and their cached plans."""
         with self._cache_lock:
             resident = self._lru_total
             entries = len(self._lru)
@@ -1006,11 +1061,17 @@ class ArenaManager:
             arenas = list(self._data.values()) + list(self._reverse.values())
         tile_bytes = 0
         tile_sets = 0
+        classed = 0
+        classed_programs = 0
         for a in arenas:
             pt = a._tiles
             if pt is not None:
                 tile_bytes += pt.device_bytes()
                 tile_sets += 1
+            ce = a._classed
+            if ce is not None:
+                classed += 1
+                classed_programs += len(ce._programs)
         return {
             "resident_bytes": resident,
             "budget_bytes": self.budget_bytes,
@@ -1022,8 +1083,8 @@ class ArenaManager:
             "evictions": evictions,
             "tile_bytes": tile_bytes,
             "program_caches": {
-                "classed_expanders": 0,
-                "classed_programs": 0,
+                "classed_expanders": classed,
+                "classed_programs": classed_programs,
                 "tile_sets": tile_sets,
             },
         }

@@ -1,14 +1,15 @@
-"""Sorted-set ops over int32 uid tensors, the inline-head expansions and
-the port's hand-written kernels (the PyTorch counterpart of
-``dgraph_tpu.ops``, for the subset the 2-hop query path and the batched
-2-hop pipeline call, and the k-way intersection of the join path).  The
-slot-map kernel's wrapper lives in ``ops.slotmap`` (``slotmap``,
-``slotmap_plain``, ``KERNEL``), the intersect kernel's in ``ops.kway``
-(its ``KERNEL`` counts launches).  The segmented order-by
+"""Sorted-set ops over int32 uid tensors, the chunked and inline-head
+expansions and the port's hand-written kernels (the PyTorch counterpart
+of ``dgraph_tpu.ops``).  The slot-map kernel's wrapper lives in
+``ops.slotmap`` (``slotmap``, ``slotmap_plain``, ``KERNEL``), the
+intersect kernel's in ``ops.kway`` (its ``KERNEL`` counts launches),
+exported here as ``kway_intersect_batch``.  The segmented order-by
 (``gather_ranks``, ``segmented_sort_perm``) is plain torch ops.
-``expand_ascending`` and ``multi_hop`` (``ops.batch``) walk hops through
-the gather; the reference's batched set ops of ``ops.batch`` are not
-ported, and ``intersect_batch`` here is the k-way intersect wrapper.
+``ops.batch`` holds the reference's batched set ops (``intersect_batch``
+here is the rowwise pairwise intersection, as in the reference),
+``expand_filter_compact``, the degree-classed hop plans
+(``ClassedExpander``, ``classed_for_arena``), and ``expand_ascending``
+and ``multi_hop``, which walk hops through the gather.
 The tile join tier (``ops.spgemm``: blocked boolean tile products over
 a predicate's adjacency, the mask chain and the triangle) is torch ops
 on the card, as the reference leaves it to XLA."""
@@ -16,6 +17,7 @@ on the card, as the reference leaves it to XLA."""
 from dgraph_tpu_torch.ops.sets import (  # noqa: F401
     SENT,
     INLINE,
+    CHUNK,
     GROUP_BIT,
     GROUP_MASK,
     bucket,
@@ -23,6 +25,8 @@ from dgraph_tpu_torch.ops.sets import (  # noqa: F401
     pad_to,
     pad_rows,
     sort_unique,
+    sort_desc_free,
+    compact,
     count_valid,
     member_mask,
     intersect,
@@ -30,14 +34,21 @@ from dgraph_tpu_torch.ops.sets import (  # noqa: F401
     union,
     intersect_many,
     union_many,
+    mask_to_set,
+    unique_dense,
+    unique_rows_sorted,
+    range_rows,
     rows_of,
     expand_csr,
+    expand_chunked,
     skey_encode,
     skey_uid,
     frontier_rows,
     expand_inline,
     expand_inline_grouped,
     expand_inline_grouped_kernel,
+    expand_inline_grouped_auto,
+    expand_inline_seg,
 )
 from dgraph_tpu_torch.ops.gather import (  # noqa: F401
     gather_packed,
@@ -45,7 +56,7 @@ from dgraph_tpu_torch.ops.gather import (  # noqa: F401
 )
 from dgraph_tpu_torch.ops.kway import (  # noqa: F401
     KMAX,
-    intersect_batch,
+    intersect_batch as kway_intersect_batch,
     intersect_kernel,
     intersect_plain,
 )
@@ -54,8 +65,17 @@ from dgraph_tpu_torch.ops.order import (  # noqa: F401
     segmented_sort_perm,
 )
 from dgraph_tpu_torch.ops.batch import (  # noqa: F401
+    ClassedExpander,
+    classed_for_arena,
+    difference_batch,
     expand_ascending,
+    expand_filter_compact,
+    expand_filter_compact_batch,
+    intersect_batch,
+    member_mask_batch,
     multi_hop,
+    sort_unique_batch,
+    union_many_batch,
 )
 from dgraph_tpu_torch.ops.spgemm import (  # noqa: F401
     PredTiles,

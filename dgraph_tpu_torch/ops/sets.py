@@ -1,16 +1,20 @@
 """Sorted-set kernels over int32 uid tensors (PyTorch).
 
-The port of ``dgraph_tpu/ops/sets.py`` for the subset the 2-hop query
-path and the batched 2-hop pipeline (``bench2hop.py``) call.  Same
+The port of ``dgraph_tpu/ops/sets.py``.  Same
 representation (docs/sets-contract.md): a uid set is an int32 vector,
 sorted ascending, padded with ``SENT`` (int32 max), so padding always
 sorts last; row vectors use ``-1`` as the skip marker.  Every op returns
 int32 tensors byte-equal to its JAX counterpart on the same inputs, on
 whatever device the inputs live.
 
-The inline-head expansions take a batch of frontiers ``rows[Q, B]`` (the
-reference ``vmap``s its 1-D functions over queries; here the batch
-dimension is written out) and equally a single ``rows[B]``.
+The grouped inline-head expansions take a batch of frontiers
+``rows[Q, B]`` (the reference ``vmap``s its 1-D functions over queries;
+here the batch dimension is written out) and equally a single
+``rows[B]``; ``expand_chunked`` and ``expand_inline_seg`` take one
+``rows[B]``, as the reference's do.  Their slot -> chunk maps are the
+reference's scatter and prefix sums in torch ops, except
+``expand_inline_seg``'s, which is the slot-map kernel's (``ops/slotmap.py``)
+with Q = 1: the engine's inline route launches it on the card.
 
 Torch's ``cumsum``/``arange``/``searchsorted`` default to int64; every
 call here names its dtype so results stay int32 like the reference.
@@ -69,8 +73,16 @@ def pad_rows(x: np.ndarray, size: int) -> np.ndarray:
     return pad_to(x, size, fill=-1)
 
 
-def _sort(x: torch.Tensor) -> torch.Tensor:
+def sort_desc_free(x: torch.Tensor) -> torch.Tensor:
+    """Ascending value sort along the last axis (the reference's unstable
+    bare-value sort: with values alone, stability is meaningless)."""
     return torch.sort(x, dim=-1).values
+
+
+
+def compact(x: torch.Tensor) -> torch.Tensor:
+    """Re-establish the invariant after masking: sort so SENT pads the tail."""
+    return sort_desc_free(x)
 
 
 def count_valid(x: torch.Tensor) -> torch.Tensor:
@@ -82,10 +94,10 @@ def sort_unique(x: torch.Tensor) -> torch.Tensor:
     """Sort and deduplicate padded vectors along the last axis: sort,
     replace adjacent duplicates with SENT, re-sort (same shape as the
     input; a ``[Q, L]`` batch is Q independent vectors)."""
-    x = _sort(x)
+    x = sort_desc_free(x)
     dup = torch.zeros_like(x, dtype=torch.bool)
     dup[..., 1:] = x[..., 1:] == x[..., :-1]
-    return _sort(torch.where(dup, SENT, x))
+    return sort_desc_free(torch.where(dup, SENT, x))
 
 
 def member_mask(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -97,13 +109,13 @@ def member_mask(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 def intersect(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a ∩ b for sorted-unique-padded sets (result shaped like ``a``)."""
-    return _sort(torch.where(member_mask(a, b), a, SENT))
+    return sort_desc_free(torch.where(member_mask(a, b), a, SENT))
 
 
 def difference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a \\ b for sorted-unique-padded sets."""
     keep = (~member_mask(a, b)) & (a != SENT)
-    return _sort(torch.where(keep, a, SENT))
+    return sort_desc_free(torch.where(keep, a, SENT))
 
 
 def union(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -114,10 +126,10 @@ def union(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _intersect_pairs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Row-wise a ∩ b over [P, L] batches of sorted-UNIQUE rows: an
     element of the merged sort equal to its successor is in both sets."""
-    z = _sort(torch.cat([a, b], dim=1))
+    z = sort_desc_free(torch.cat([a, b], dim=1))
     dup = torch.zeros_like(z, dtype=torch.bool)
     dup[:, :-1] = (z[:, :-1] == z[:, 1:]) & (z[:, :-1] != SENT)
-    return _sort(torch.where(dup, z, SENT))[:, : a.shape[1]]
+    return sort_desc_free(torch.where(dup, z, SENT))[:, : a.shape[1]]
 
 
 def intersect_many(mat: torch.Tensor) -> torch.Tensor:
@@ -134,6 +146,46 @@ def intersect_many(mat: torch.Tensor) -> torch.Tensor:
 def union_many(mat: torch.Tensor) -> torch.Tensor:
     """Union of the K rows of a [K, L] padded matrix (one flat sort)."""
     return sort_unique(mat.reshape(-1))
+
+
+def mask_to_set(values: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Select ``values`` where ``keep``, as a sorted-unique-padded set."""
+    return sort_unique(torch.where(keep, values, SENT))
+
+
+def unique_dense(x: torch.Tensor, n_universe: int, cap: int) -> torch.Tensor:
+    """Sort-free dedup for dense uid spaces: a presence mask over
+    [0, n_universe], then its first ``cap`` set positions, ascending and
+    SENT-padded (silently truncated beyond ``cap`` distinct values).
+    Values outside [0, n_universe] (padding included) are dropped."""
+    mask = torch.zeros(n_universe + 2, dtype=torch.bool, device=x.device)
+    ok = (x >= 0) & (x <= n_universe)
+    mask[torch.where(ok, x, n_universe + 1).to(torch.int64)] = True
+    mask[n_universe + 1] = False
+    idx = torch.nonzero(mask).reshape(-1).to(torch.int32)[:cap]
+    out = torch.full((cap,), SENT, dtype=torch.int32, device=x.device)
+    out[: idx.shape[0]] = idx
+    return out
+
+
+def unique_rows_sorted(x: torch.Tensor) -> torch.Tensor:
+    """Deduplicate a padded uid vector into dense-arena row form without
+    compaction: sort, then mark duplicates and padding -1 (the expansion
+    kernels' skip marker); the result keeps the input's capacity."""
+    x = sort_desc_free(x)
+    first = torch.ones_like(x, dtype=torch.bool)
+    first[..., 1:] = x[..., 1:] != x[..., :-1]
+    return torch.where(first & (x != SENT), x, -1).to(torch.int32)
+
+
+def range_rows(lo, hi, cap: int, device=None):
+    """Row indices [lo, hi) as an int32[cap] vector, -1 padded, and the
+    true count ``hi - lo`` (int32; above ``cap`` the vector truncated)."""
+    lo = torch.as_tensor(lo, dtype=torch.int32, device=device)
+    hi = torch.as_tensor(hi, dtype=torch.int32, device=lo.device)
+    i = torch.arange(cap, dtype=torch.int32, device=lo.device)
+    n = hi - lo
+    return torch.where(i < n, lo + i, -1), n
 
 
 def rows_of(src: torch.Tensor, uids: torch.Tensor) -> torch.Tensor:
@@ -229,6 +281,60 @@ def _ov_slot_map(cs: torch.Tensor, cd: torch.Tensor, capc: int):
     return chunkid, i < total, cstart, productive
 
 
+def _ov_owner_map(cstart: torch.Tensor, productive: torch.Tensor,
+                  capc: int) -> torch.Tensor:
+    """Owner of each overflow chunk slot (1-D): the ordinal of the owning
+    productive row by scatter + prefix sum, mapped back to its position
+    in the row vector."""
+    dev = cstart.device
+    nrows = cstart.shape[0]
+    slot = torch.where(productive, cstart, capc).clamp(max=capc).to(torch.int64)
+    ivec = torch.zeros(capc + 1, dtype=torch.int32, device=dev)
+    ivec[slot] = 1
+    k = torch.cumsum(ivec[:capc], 0, dtype=torch.int32) - 1
+    k_row = torch.cumsum(productive.to(torch.int32), 0, dtype=torch.int32) - 1
+    pos_of_ord = torch.zeros(nrows + 1, dtype=torch.int32, device=dev)
+    pos_of_ord[torch.where(productive, k_row, nrows).to(torch.int64)] = torch.arange(
+        nrows, dtype=torch.int32, device=dev)
+    return pos_of_ord[k.clamp(0, nrows - 1)]
+
+
+CHUNK = 8  # chunk width in uids: 8 × int32 = 32 bytes, one aligned granule
+
+
+def expand_chunked(
+    meta8: torch.Tensor,
+    chunk_dst: torch.Tensor,
+    rows: torch.Tensor,
+    capc: int,
+    with_seg: bool = False,
+):
+    """Chunked CSR expansion over the chunk-packed layout
+    (``CSRArena.chunked``): one row gather of CHUNK targets a slot.
+
+    Args:
+      meta8:     int32[Sb, 8] per-row (chunk_start, chunk_count, degree).
+      chunk_dst: int32[NCb, CHUNK] chunk-packed targets, SENT pad lanes.
+      rows:      int32[B] row ids, ascending over the valid entries, each
+                 valid row distinct; -1 = skip (anywhere).
+      capc:      chunk capacity of the output (silently truncates).
+      with_seg:  also return the index into ``rows`` owning each slot.
+
+    Returns (out int32[capc, CHUNK] SENT-padded, total int32 — the true
+    edge count —, seg int32[capc] with -1 pad, or None)."""
+    valid = rows >= 0
+    m = meta8[torch.where(valid, rows, 0)]
+    cs = torch.where(valid, m[:, 0], 0)
+    cd = torch.where(valid, m[:, 1], 0)
+    total = torch.where(valid, m[:, 2], 0).sum(dtype=torch.int32)
+    chunkid, ok, cstart, productive = _ov_slot_map(cs, cd, capc)
+    out = _ov_rows(chunk_dst, chunkid, ok)
+    if not with_seg:
+        return out, total, None
+    seg = _ov_owner_map(cstart, productive, capc)
+    return out, total, torch.where(ok, seg, -1)
+
+
 def _inline_gather(metap: torch.Tensor, rows: torch.Tensor):
     """One metap row gather per frontier row: (m[..., B, 8], valid,
     inline[..., B, INLINE], degree, total)."""
@@ -313,6 +419,48 @@ def expand_inline_grouped_kernel(
         capc,
     ).reshape(lead + (capc,))
     return inline, _ov_rows(ov_chunks, cid, cid >= 0), total
+
+
+def expand_inline_grouped_auto(
+    metap: torch.Tensor,
+    ov_chunks: torch.Tensor,
+    rows: torch.Tensor,
+    capc: int,
+    pcap: int,
+):
+    """The grouped expansion that grouped-frontier consumers call (the
+    reference's knob-dispatched seam): the slot-map kernel on a CUDA
+    tensor, its plain version on a CPU tensor."""
+    return expand_inline_grouped_kernel(metap, ov_chunks, rows, capc, pcap)
+
+
+def expand_inline_seg(
+    metap: torch.Tensor,
+    ov_chunks: torch.Tensor,
+    rows: torch.Tensor,
+    capc: int,
+):
+    """Inline-head expansion of one frontier plus the owner of each
+    overflow chunk: the engine's inline route.
+
+    rows: int32[B] row ids, ascending-distinct over the valid entries, -1
+    skips anywhere.  Returns (inline int32[B, INLINE], ov int32[capc, 8],
+    total int32, ovseg int32[capc]) where ovseg[j] is the index into
+    ``rows`` owning overflow chunk j, -1 on padding.  The slot -> chunk
+    map is the slot-map kernel with Q = 1 (on a CUDA tensor it launches
+    or raises; a CPU tensor runs its plain version): for ascending rows
+    it equals the reference's scatter and prefix sums, and a row that
+    owns no chunk (cd = 0, a skip among them) owns no slot in either."""
+    from dgraph_tpu_torch.ops.slotmap import slotmap
+
+    m, valid, inline, dg, total = _inline_gather(metap, rows)
+    cs = torch.where(valid, m[:, 0], 0)
+    cd = (torch.clamp(dg - INLINE, min=0) + 7) >> 3
+    cid = slotmap(cs[None].contiguous(), cd[None].contiguous(), capc)[0]
+    ok = cid >= 0
+    ccum = torch.cumsum(cd, 0, dtype=torch.int32)
+    ovseg = _ov_owner_map(ccum - cd, cd > 0, capc)
+    return inline, _ov_rows(ov_chunks, cid, ok), total, torch.where(ok, ovseg, -1)
 
 
 def expand_inline(

@@ -259,6 +259,47 @@ def _run_fused(engine, root_vec, arenas, luts, keeps, orders, caps, light):
     return host_parts[0] if len(host_parts) == 1 else np.concatenate(host_parts)
 
 
+def packed_inline_to_matrix(packed, B: int, capov: int, n_src: int):
+    """Unpack the engine inline route's fetched ``[inline.ravel |
+    ov.ravel | ovseg]`` buffer (``ops.expand_inline_seg`` over ``B``
+    padded rows, ``capov`` overflow chunks) into the uid matrix."""
+    inline = packed[: B * ops.INLINE].reshape(B, ops.INLINE)
+    ovflat = packed[B * ops.INLINE: B * ops.INLINE + capov * ops.CHUNK]
+    ovseg = packed[B * ops.INLINE + capov * ops.CHUNK:]
+    return inline_to_matrix(inline, ovflat, ovseg, n_src)
+
+
+def inline_to_matrix(inline, ovflat, ovseg, n_src: int):
+    """Host assembly of the engine's uid matrix from an inline-head
+    expansion: per row, its inline heads (the first min(deg, INLINE)
+    targets, ascending) then its overflow tail (ascending too), so the
+    concatenation keeps each row ascending.
+
+    inline: int32[B, INLINE]; ovflat: int32[capc*CHUNK]; ovseg:
+    int32[capc] (owner row per overflow chunk, -1 pad); n_src: the true
+    row count (<= B).  Returns (out_flat int64[total], seg_ptr
+    int64[n_src+1])."""
+    iv = inline[:n_src] != SENT
+    ci = iv.sum(axis=1)
+    ow = np.repeat(ovseg, ops.CHUNK)
+    ovalid = (ovflat != SENT) & (ow >= 0) & (ow < n_src)
+    ovals = ovflat[ovalid].astype(np.int64)
+    ow = ow[ovalid]
+    counts = ci + np.bincount(ow, minlength=n_src)[:n_src]
+    seg_ptr = np.zeros(n_src + 1, dtype=np.int64)
+    np.cumsum(counts, out=seg_ptr[1:])
+    out_flat = np.empty(int(seg_ptr[-1]), dtype=np.int64)
+    within_i = np.cumsum(iv, axis=1) - iv
+    dest_i = seg_ptr[:n_src, None] + within_i
+    out_flat[dest_i[iv]] = inline[:n_src][iv].astype(np.int64)
+    if len(ovals):
+        idx = np.arange(len(ow))
+        first = np.r_[True, ow[1:] != ow[:-1]]
+        run_start = idx[first][np.cumsum(first) - 1]
+        out_flat[seg_ptr[ow] + ci[ow] + (idx - run_start)] = ovals
+    return out_flat, seg_ptr
+
+
 def try_run_chain(
     engine, child, src: np.ndarray, resolver=None, first_edges=None
 ) -> bool:
@@ -402,7 +443,9 @@ def _fuse(engine, child, src: np.ndarray, resolver, first_edges, reject) -> bool
         light
         and undecorated
         and all(a is arenas[0] for a in arenas)
-        and engine.expander.fused_hop
+        # the fused-hop kill switch (DGRAPH_TPU_FUSED_HOP=0) turns the
+        # multi-hop pass off, as in the reference
+        and engine.expander.fused_hop != "0"
         and _try_chain_scan(engine, levels, arenas[0], src, est_edges)
     ):
         # the chain ran: record the decision and hand it to the engine's

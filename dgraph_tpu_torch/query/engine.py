@@ -5,11 +5,16 @@ over the arena instead of per-key posting-list loops; filters combine
 uid sets on the host, ordering runs on the host, and the JSON encoding
 is the reference's, so responses are byte-identical to the JAX engine's.
 
-Expansion routes (``DeviceExpander``): ``empty``, ``host`` (numpy over
-the host mirror, where the planner prices it cheaper:
-``query/planner.py``), ``resident`` (the
+Expansion routes (``DeviceExpander``), in the reference's order:
+``empty``, ``host`` (numpy over the host mirror, where the planner
+prices it cheaper: ``query/planner.py``), ``resident`` (the
 hand-written gather kernel over the device-resident CSR, the default on
-a CUDA device) and ``csr`` (torch ``expand_csr`` over the staged CSR).
+a CUDA device), ``classed`` (``ops.ClassedExpander``: one masked 2-D
+gather per degree class, torch ops; an ascending frontier, by default
+on a CPU device only), ``inline`` (``ops.expand_inline_seg`` over the
+inline-head layout, its slot map the slot-map kernel; an ascending
+frontier) and ``csr`` (torch ``expand_csr`` over the staged CSR: any
+frontier order).
 Before any per-level expansion, a uid child tries the fused chain
 (``query/chain.py``): where the planner prices it cheaper than per-level
 execution (the static ``chain_threshold`` when it is off) a whole
@@ -36,10 +41,12 @@ the routing, each expansion probes the tier-1 hop cache
 into one union expansion (``DeviceExpander.submit_hop``); every hop is
 a cancellation checkpoint (``QueryEngine.checkpoint``).  Every device
 dispatch runs under the device guard (``utils/devguard.py``); a fault
-raises to the caller, never to a host route.  The
-reference's classed route and mesh are execution strategies over the
-same semantics and are not ported; filters other than the k-way AND and
-a fused chain's keep-sets fold on the host.
+raises to the caller, never to a host route.  The reference's mesh is
+not ported (it needs more than one card); filters other than the k-way
+AND and a fused chain's keep-sets fold on the host.  With
+``dump_shapes`` set (the server's ``--dumpsg``) each request leaves the
+execution shape of its blocks in ``last_dump``
+(``query/subgraph.dump_dict``).
 """
 
 from __future__ import annotations
@@ -115,6 +122,14 @@ def _fresh_stats() -> dict:
     }
 
 
+def _packed_expand_inline(metap, ov_chunks, rows: torch.Tensor,
+                          capc: int) -> torch.Tensor:
+    """The inline route's expansion, concatenated on the device for one
+    fetch: ``[inline.ravel | ov.ravel | ovseg]``."""
+    inline, ov, _total, ovseg = ops.expand_inline_seg(metap, ov_chunks, rows, capc)
+    return torch.cat([inline.reshape(-1), ov.reshape(-1), ovseg])
+
+
 def _seg_ptr_of(seg: np.ndarray, n: int) -> np.ndarray:
     seg_ptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(np.bincount(seg, minlength=n), out=seg_ptr[1:])
@@ -125,17 +140,25 @@ class DeviceExpander:
     """Per-level expansion routing: ONE device dispatch (or one host
     numpy pass) per (level × predicate).
 
-    Routing per call: ``empty`` (no edges to walk) → ``host`` (the
-    planner's ``expand_route`` prices numpy cheaper; with the planner off
-    or the knob pinned, a fan-out below ``expand_device_min``) →
-    ``resident`` (the gather kernel over the arena's device-resident
-    CSR) → ``csr`` (torch
-    ``expand_csr`` over the staged CSR tensors).  The resident route is
-    taken when ``_use_resident()``: DGRAPH_TPU_RESIDENT '0' never, '1'
-    (default) on a CUDA device, 'force' on any device — on the CPU the
-    gather wrapper then runs its plain version (the parity tests).
-    ``fused_hop`` (False: off) gates the chain's multi-hop pass and the
-    fused var-block @recurse.  Above the routing sit the tier-1 hop
+    Routing per call, the reference's order: ``empty`` (no edges to
+    walk) → ``host`` (the planner's ``expand_route`` prices numpy
+    cheaper; with the planner off or the knob pinned, a fan-out below
+    ``expand_device_min``) → ``resident`` (the gather kernel over the
+    arena's device-resident CSR) → ``classed`` (an ascending frontier:
+    ``ops.ClassedExpander``'s masked class gathers) → ``inline`` (an
+    ascending frontier: ``ops.expand_inline_seg``, whose slot map is the
+    slot-map kernel) → ``csr`` (torch ``expand_csr`` over the staged CSR
+    tensors, any frontier order).  The resident route is taken when
+    ``_use_resident()``: DGRAPH_TPU_RESIDENT '0' never, '1' (default) on
+    a CUDA device, 'force' on any device — on the CPU the gather wrapper
+    then runs its plain version (the parity tests).  ``fused_hop`` is the
+    reference's DGRAPH_TPU_FUSED_HOP: '0' turns the classed route, the
+    chain's multi-hop pass and the fused var-block @recurse off; '1' takes
+    the classed route on a CPU device (as the reference does on its CPU
+    backend); 'force' on any device.  ``inline_mode``
+    (DGRAPH_TPU_INLINE_HOP, the port's own) '0' sends what the inline
+    route would take to ``csr``.  On a CPU tensor the slot-map wrapper
+    runs its plain version.  Above the routing sit the tier-1 hop
     cache and, under the cohort scheduler, the cross-request hop merger
     (``_expand_cached``).  Each device expansion — the rows' upload, the
     launch and the one fetch — runs under the device guard
@@ -148,7 +171,8 @@ class DeviceExpander:
     def __init__(self, engine: "QueryEngine"):
         self.engine = engine
         self.resident_mode = planconfig.resident()
-        self.fused_hop = True
+        self.fused_hop = planconfig.fused_hop()
+        self.inline_mode = planconfig.inline_hop()
         # cross-request hop coalescing: the cohort scheduler
         # (sched/scheduler.py) installs one HopMerger per cohort so
         # same-(arena, predicate, direction) expansions from different
@@ -167,6 +191,13 @@ class DeviceExpander:
             return True
         return self.engine.device.type == "cuda"
 
+    def _use_classed(self) -> bool:
+        if self.fused_hop == "0":
+            return False
+        if self.fused_hop == "force":
+            return True
+        return self.engine.device.type == "cpu"
+
     def expand(
         self, arena, src: np.ndarray, attr: str = "", reverse: bool = False,
         plan=None,
@@ -180,7 +211,7 @@ class DeviceExpander:
         When the request is SAMPLED (obs/spans.py), each call records
         one ``hop`` span carrying the predicate, frontier size, edges
         traversed, the route the expansion took (cache/merged/host/
-        resident/csr/empty) and the device/host split — on the device
+        resident/classed/inline/csr/empty) and the device/host split — on the device
         routes ``device_sync_ms``, the wait for the gather's result
         measured on a CUDA event before the fetch.  The unsampled path
         branches away before any span object exists.
@@ -325,8 +356,9 @@ class DeviceExpander:
         # host/device: the priced break-even by default, the static
         # expand_device_min compare when the planner is off or the knob
         # is pinned
+        use_resident = self._use_resident()
         use_device, dec = planner.expand_route(
-            total, eng.expand_device_min, resident=self._use_resident()
+            total, eng.expand_device_min, resident=use_resident
         )
         if dec is not None:
             planner.record(eng.stats, dec)
@@ -334,12 +366,22 @@ class DeviceExpander:
         if not use_device:
             # a device dispatch costs a round trip that dwarfs the work
             return self._host_expand(arena, rows)
+        if not use_resident:
+            # the classed and inline routes need ASCENDING-distinct rows;
+            # an ordered root permutes the frontier, which only the
+            # order-agnostic csr route takes
+            valid = rows[rows >= 0]
+            if bool(np.all(valid[1:] > valid[:-1])):
+                if self._use_classed():
+                    return self._expand_classed(arena, rows)
+                if self.inline_mode != "0":
+                    return self._expand_inline(arena, rows)
         cap = ops.bucket(total)
         padded = ops.pad_rows(rows, ops.bucket(n))
         # the hop span ``expand`` opened (a merged hop's union runs in
         # its leader's thread, under the leader's span); None unsampled
         hs = obs.current_span()
-        self._route = "resident" if self._use_resident() else "csr"
+        self._route = "resident" if use_resident else "csr"
 
         def _dispatch():
             # upload, expansion and the ONE fetch, all inside the device
@@ -361,21 +403,83 @@ class DeviceExpander:
             return packed, sync_ms, t["ms"]
 
         packed, sync_ms, ms = self._run_guarded("device.hop", _dispatch)
-        # the stage is the dispatch's own time on the worker, without the
-        # guard's hand-off: the planner refines the resident rate from it
-        eng.stats["device_expand_ms"] += ms
+        self._account(ms, sync_ms, hs, padded.nbytes, packed.nbytes)
+        out = packed[:total].astype(np.int64)
+        seg = packed[cap : cap + total].astype(np.int64)
+        eng.stats["edges"] += len(out)
+        return out, _seg_ptr_of(seg, n)
+
+    def _account(self, ms: float, sync_ms, hs, h2d: int, d2h: int) -> None:
+        """A device expansion's stage time, its ``device_sync_ms`` (on the
+        hop span and the ledger) and its transfers.  The stage is the
+        dispatch's own time on the guard's worker, without the hand-off:
+        the planner refines the device rate from it."""
+        self.engine.stats["device_expand_ms"] += ms
         led = _ledger.current()
         if sync_ms is not None:
             hs.set_attr("device_sync_ms", round(sync_ms, 3))
             if led is not None:
                 led.device_sync_ms += sync_ms
         if led is not None:
-            led.bytes_h2d += int(padded.nbytes)
-            led.bytes_d2h += int(packed.nbytes)
-        out = packed[:total].astype(np.int64)
-        seg = packed[cap : cap + total].astype(np.int64)
-        eng.stats["edges"] += len(out)
-        return out, _seg_ptr_of(seg, n)
+            led.bytes_h2d += int(h2d)
+            led.bytes_d2h += int(d2h)
+
+    def _expand_classed(self, arena, rows: np.ndarray):
+        """The classed route: one plan of the arena's ClassedExpander
+        (ops/batch.py) over the ascending rows, one fetch, the uid
+        matrix reassembled on the host from the rows' degrees."""
+        self._route = "classed"
+        degs = arena.degree_of_rows(rows)
+
+        def _dispatch():
+            fail.point("device.hop")
+            t = {}
+            with obs.stage(t, "ms"):
+                # re-uploads the staged CSR after host deltas
+                ce = ops.classed_for_arena(arena)
+                out, seg_ptr = ce.expand_rows(rows, degs)
+            return out, seg_ptr, t["ms"]
+
+        out, seg_ptr, ms = self._run_guarded("device.hop", _dispatch)
+        self._account(ms, None, None, rows.nbytes, out.nbytes + seg_ptr.nbytes)
+        self.engine.stats["edges"] += len(out)
+        return out, seg_ptr
+
+    def _expand_inline(self, arena, rows: np.ndarray):
+        """The inline route: ``ops.expand_inline_seg`` over the arena's
+        inline-head layout (one metadata row gather serves a row's first
+        INLINE targets, overflow chunks through the slot-map kernel),
+        concatenated on the device for one fetch and unpacked into the
+        uid matrix on the host (``chain.packed_inline_to_matrix``)."""
+        n = len(rows)
+        B = ops.bucket(n)
+        capov = ops.bucket(
+            max(1, int(arena.ov_chunk_degree_of_rows(rows).sum()))
+        )
+        padded = ops.pad_rows(rows, B)
+        hs = obs.current_span()
+        self._route = "inline"
+
+        def _dispatch():
+            fail.point("device.hop")
+            # the layout's staging inside the bracket: an out-of-memory
+            # uploading it classifies like a launch's
+            metap, ov_chunks = arena.inline_layout()
+            t = {}
+            with obs.stage(t, "ms"):
+                dev = _packed_expand_inline(
+                    metap, ov_chunks, torch.from_numpy(padded).to(arena.device),
+                    capov,
+                )
+                sync_ms = obs.block_ready_ms(dev) if hs is not None else None
+                packed = dev.cpu().numpy()
+            return packed, sync_ms, t["ms"]
+
+        packed, sync_ms, ms = self._run_guarded("device.hop", _dispatch)
+        self._account(ms, sync_ms, hs, padded.nbytes, packed.nbytes)
+        out, seg_ptr = chain.packed_inline_to_matrix(packed, B, capov, n)
+        self.engine.stats["edges"] += len(out)
+        return out, seg_ptr
 
     def _run_guarded(self, op: str, fn):
         """Run one dispatch-and-fetch closure under the device guard
@@ -466,6 +570,11 @@ class QueryEngine:
         self._pending_chain_dec = None
         # per-request execution stats (reset by run_parsed)
         self.stats = _fresh_stats()
+        # --dumpsg: with dump_shapes set (by the server), each request
+        # leaves its blocks' execution shapes (never the result-bearing
+        # trees) in last_dump, reset per request
+        self.dump_shapes = False
+        self.last_dump = None
         # cooperative cancellation (sched/qos.py): the scheduler installs
         # the request's CancelToken here; checkpoint() probes it at hop
         # boundaries.  None (embedded engines, QoS off) costs one
@@ -510,6 +619,7 @@ class QueryEngine:
         """Execute an already-parsed request — the single request pipeline
         shared by the embedded path (run) and the HTTP server."""
         self.stats = _fresh_stats()
+        self.last_dump = None
         # arm the fused hop loops' segment seams for this request.  A
         # scheduler-installed context contributes the preempt hook (and
         # the token it registered); with none active (embedded engines,
@@ -593,6 +703,10 @@ class QueryEngine:
             if not progressed:
                 raise QueryError("circular variable dependency between blocks")
 
+        if self.dump_shapes:
+            from dgraph_tpu_torch.query.subgraph import dump_dict
+
+            self.last_dump = [dump_dict(sg) for sg in blocks]
         with obs.stage(self.stats, "encode_ms"):
             for sg in blocks:
                 if sg.params.is_internal:

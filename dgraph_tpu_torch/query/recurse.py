@@ -146,7 +146,7 @@ def _try_fused_recurse(engine, sg: SubGraph, uid_templates) -> bool:
     p = sg.params
     if not p.is_internal or p.cascade or len(uid_templates) != 1:
         return False
-    if not engine.expander.fused_hop:
+    if engine.expander.fused_hop == "0":
         return False
     if any(not _is_uid_child(engine, c) for c in sg.children):
         return False  # value leaves re-evaluate per level: loop path

@@ -91,6 +91,32 @@ class SubGraph:
         return not len(self.out_flat) and bool(self.values)
 
 
+def dump_dict(sg: "SubGraph") -> dict:
+    """A block's execution SHAPE as a JSON-able dict (the reference's
+    ``--dumpsg`` dump, cmd/dgraph/main.go:347-358): attrs, params, edge
+    counts, frontier sizes and chain fusion flags, without the result
+    payload — what to diff when a plan regresses.  Keys whose value is
+    None, False or 0 are left out (``attr`` always stays)."""
+    p = sg.params
+    d = {
+        "attr": ("~" if sg.reverse else "") + (sg.attr or ""),
+        "alias": sg.alias or None,
+        "func": sg.func.name if sg.func is not None else None,
+        "filtered": sg.filter is not None,
+        "order": p.order_attr or None,
+        "first": p.first or None,
+        "offset": p.offset or None,
+        "n_src": int(len(sg.src_uids)) if sg.src_uids is not None else 0,
+        "n_edges": int(len(sg.out_flat)) if sg.out_flat is not None else 0,
+        "n_dest": int(len(sg.dest_uids)) if sg.dest_uids is not None else 0,
+        "chain_fused": bool(sg.chain_filtered or sg.chain_ordered),
+    }
+    kids = [dump_dict(c) for c in sg.children]
+    if kids:
+        d["children"] = kids
+    return {k: v for k, v in d.items() if v not in (None, False, 0) or k == "attr"}
+
+
 def build_subgraph(gq: GraphQuery) -> SubGraph:
     """AST → SubGraph (ToSubGraph:850 + params fill query.go:789-848)."""
     sg = SubGraph()

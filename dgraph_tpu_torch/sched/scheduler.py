@@ -809,17 +809,19 @@ class CohortScheduler:
                     es.link(flush_span)
             with es:
                 # a shell over the shared arena cache, with the served
-                # engine's knobs: its chain gate, and (the port's knobs
-                # the reference reads from the environment) the fused hop
-                # and resident route
+                # engine's knobs: its chain gate and its route gates (the
+                # fused hop, the resident and inline routes), which a
+                # caller may have set on it
                 eng = QueryEngine(srv.store, arenas=srv.engine.arenas)
                 eng.chain_threshold = srv.engine.chain_threshold
                 eng.expander.fused_hop = srv.engine.expander.fused_hop
                 eng.expander.resident_mode = srv.engine.expander.resident_mode
+                eng.expander.inline_mode = srv.engine.expander.inline_mode
                 eng.expander.hop_merger = merger
                 # cooperative cancellation (sched/qos.py): the engine
                 # checkpoints this token at hop boundaries
                 eng.cancel = req.cancel
+                eng.dump_shapes = bool(srv.dumpsg_path)
                 token = outputnode.DEBUG_UIDS.set(req.debug)
                 # segment seams inside the fused hop loops probe this
                 # context — the request's cancel token, the
@@ -843,6 +845,8 @@ class CohortScheduler:
                     _segments.deactivate(seg_prev)
                     outputnode.DEBUG_UIDS.reset(token)
                 es.set_attr("edges", eng.stats.get("edges", 0))
+            if srv.dumpsg_path and eng.last_dump:
+                srv.dump_subgraphs(eng.last_dump)
             if req.ledger is not None:
                 # fold this shell's stats in BEFORE completion: once
                 # complete() fires, the handler thread owns the ledger

@@ -56,6 +56,13 @@
   delta stream and the subscription table (``ivm``), the QoS tenant
   table (``qos``) and the join tier's route counts and recent decisions
   (``join``).
+- ``GET /`` — the query console (``serve/dashboard.py``, the
+  reference's page byte for byte); it fetches ``/health``, ``/query``,
+  ``/debug/store`` and ``/share``.
+- ``POST /share`` — keep a query text under a 16-hex id (answers
+  ``{"code": "Success", "uids": {"share": id}}``); ``GET /share/<id>``
+  gives it back as ``{"share": text}`` (404 when unknown).  The last
+  1024 shares are kept (an LRU, not durable state).
 - ``GET /admin/shutdown`` — stops the server.
 - ``GET /admin/snapshot`` (``?wait=1`` blocks until the round is done)
   — one seal + compaction round of a durable store's WAL now.
@@ -78,7 +85,10 @@ cached answers 503 with ``Retry-After``.
 Over a ``DurableStore`` (``models/wal.py``) every mutation is journaled
 before it applies; with ``--sync`` its ack waits for a shared fsync
 taken after the write lock is released (group commit), and a background
-``Snapshotter`` keeps the WAL bounded.  A disk fault latches the store
+``Snapshotter`` keeps the WAL bounded.  ``DGRAPH_TPU_GROUP_COMMIT=0``
+keeps the fsync inside the write lock, one a write;
+``DGRAPH_TPU_SNAPSHOTTER=0`` starts no snapshotter (``/admin/snapshot``
+then answers 404).  A disk fault latches the store
 read-only: mutations answer 503 with ``Retry-After`` before they queue
 on the write lock, while reads keep flowing.
 
@@ -89,7 +99,12 @@ lock, each member on an engine shell of its own over the shared arenas,
 their same-predicate hops merged into one gather launch, a tier-2 result
 cache in front.  Mutations take the write side and run on the server's
 engine.  ``DGRAPH_TPU_SCHED=0`` restores the serial path: every request
-under the write side on the server's engine, one at a time.
+under the write side on the server's engine, one at a time.  A server
+given a ``profiler`` (a ``cProfile.Profile``: the CLI's ``--cpu``) runs
+the serial path, the profiler enabled around each request's execution.
+With ``dumpsg_path`` (the CLI's ``--dumpsg``) every request that ran a
+query writes its blocks' execution shapes as one JSON file there
+(``query/subgraph.dump_dict``; named by time and a sequence number).
 
 Device faults (utils/devguard.py).  Every dispatch to the card runs
 under the device guard's watchdog.  A classified fault that reaches a
@@ -109,12 +124,17 @@ the handshake deferred into each connection's thread.  The gRPC surface
 
 from __future__ import annotations
 
+import datetime
+import hashlib
+import itertools
 import json
+import os
 import sys
 import threading
 import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from collections import OrderedDict
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
@@ -180,6 +200,8 @@ class DgraphServer:
         expose_trace: bool = True,
         tls_cert: str = "",
         tls_key: str = "",
+        profiler=None,
+        dumpsg_path: str = "",
     ):
         self.cluster = cluster
         self.store = store
@@ -190,6 +212,15 @@ class DgraphServer:
         # ``expose_trace`` gates the trace surfaces (403 when off)
         self.tracer = Tracer(trace_ratio)
         self.expose_trace = expose_trace
+        # --dumpsg: the directory of each request's execution-shape dump
+        self.dumpsg_path = dumpsg_path
+        # --cpu: a cProfile.Profile enabled around each request's
+        # execution; it is not thread-safe, so such a server runs the
+        # serial path
+        self._profiler = profiler
+        # shared query texts (POST /share): a bounded LRU, not durable
+        self._shares: "OrderedDict[str, str]" = OrderedDict()
+        self._max_shares = 1024
         self.engine = QueryEngine(
             store, device=device,
             arena_budget_bytes=(arena_budget_mb * (1 << 20)) or None,
@@ -225,8 +256,11 @@ class DgraphServer:
         self._tls_cert = tls_cert
         self._tls_key = tls_key
         # cohort scheduler (sched/): gated by DGRAPH_TPU_SCHED (default
-        # on); =0 restores the serial per-request path
-        self.scheduler = CohortScheduler(self) if sched_enabled() else None
+        # on); =0, or a profiler, restores the serial per-request path
+        self.scheduler = (
+            CohortScheduler(self)
+            if sched_enabled() and profiler is None else None
+        )
         # incremental view maintenance (ivm/): attach the mutation delta
         # stream to the store and stand up the live-query registry
         # (POST /subscribe).  A ClusterStore keeps per-predicate versions
@@ -252,11 +286,18 @@ class DgraphServer:
         # exclusive write section into a shared post-lock barrier, so
         # concurrent writers amortize one fsync; the snapshotter's
         # seal/compact loop keeps the WAL bounded under sustained writes
-        # (the reference's DGRAPH_TPU_GROUP_COMMIT / DGRAPH_TPU_SNAPSHOTTER
-        # off switches are not ported)
+        # (DGRAPH_TPU_GROUP_COMMIT=0 keeps the fsync inside the write
+        # lock, DGRAPH_TPU_SNAPSHOTTER=0 starts no snapshotter)
         self.snapshotter = None
-        if hasattr(store, "seal_segment"):
+        if (
+            hasattr(store, "enable_group_commit")
+            and os.environ.get("DGRAPH_TPU_GROUP_COMMIT", "1") != "0"
+        ):
             store.enable_group_commit()
+        if (
+            hasattr(store, "seal_segment")
+            and os.environ.get("DGRAPH_TPU_SNAPSHOTTER", "1") != "0"
+        ):
             self.snapshotter = Snapshotter(
                 store, exclusive=self._engine_lock.write
             )
@@ -462,8 +503,7 @@ class DgraphServer:
                     debug_token = outputnode.DEBUG_UIDS.set(debug)
                     try:
                         with self._engine_lock.write():
-                            out.update(self.engine.run_parsed(parsed))
-                            stats = self.engine.stats
+                            stats = self._run_serial(parsed, out)
                     finally:
                         outputnode.DEBUG_UIDS.reset(debug_token)
                     if parsed.mutation is not None:
@@ -541,6 +581,52 @@ class DgraphServer:
             # to /debug/traces/<id>
             QUERY_LATENCY.observe(dur, trace_id=trace_id or slow_tid)
             self.tracer.finish(tr, "query", text[:120])
+
+
+    def _run_serial(self, parsed, out: dict) -> dict:
+        """Execute on the server's engine (the caller holds the write
+        lock), the profiler enabled around it; write the request's
+        execution-shape dump.  Returns the engine's stats."""
+        eng = self.engine
+        eng.dump_shapes = bool(self.dumpsg_path)
+        if self._profiler is not None:
+            self._profiler.enable()
+        try:
+            out.update(eng.run_parsed(parsed))
+        finally:
+            if self._profiler is not None:
+                self._profiler.disable()
+        if self.dumpsg_path and eng.last_dump:
+            self.dump_subgraphs(eng.last_dump)
+        return eng.stats
+
+    _dump_seq = itertools.count()
+
+    def dump_subgraphs(self, dump) -> None:
+        """Write one request's execution-shape dump under ``dumpsg_path``
+        as ``<date>.<time>.<µs>.<seq>.json``; a failed write never fails
+        the query."""
+        try:
+            os.makedirs(self.dumpsg_path, exist_ok=True)
+            # the sequence number keeps two dumps in one microsecond apart
+            name = "%s.%06d.json" % (
+                datetime.datetime.now().strftime("%Y%m%d.%H%M%S.%f"),
+                next(self._dump_seq),
+            )
+            with open(os.path.join(self.dumpsg_path, name), "w") as f:
+                json.dump(dump, f, indent=1, default=str)
+        except (OSError, ValueError):
+            pass
+
+    def share(self, text: str) -> str:
+        """Keep ``text`` under its id (the first 16 hex digits of its
+        SHA-256) in the bounded LRU; returns the id."""
+        sid = hashlib.sha256(text.encode()).hexdigest()[:16]
+        self._shares[sid] = text
+        self._shares.move_to_end(sid)
+        while len(self._shares) > self._max_shares:
+            self._shares.popitem(last=False)
+        return sid
 
 
 def _make_handler(srv: DgraphServer):
@@ -693,6 +779,16 @@ def _make_handler(srv: DgraphServer):
                     self._reply(200, b"OK", "text/plain")
                 else:
                     self._reply(503, b"\"uninitialized\"")
+            elif path == "/":
+                from dgraph_tpu_torch.serve.dashboard import DASHBOARD_HTML
+
+                self._reply(200, DASHBOARD_HTML.encode(), "text/html")
+            elif path.startswith("/share/"):
+                q = srv._shares.get(path.rsplit("/", 1)[1])
+                if q is None:
+                    self._err(404, "no such share")
+                else:
+                    self._reply(200, json.dumps({"share": q}).encode())
             elif path in ("/metrics", "/debug/prometheus_metrics"):
                 # content negotiation: a scraper asking for OpenMetrics
                 # gets histogram bucket EXEMPLARS (trace ids that
@@ -1019,6 +1115,10 @@ def _make_handler(srv: DgraphServer):
                         "message": f"subscription {sid} cancelled",
                     }).encode())
                 return self._err(404, "no such subscription")
+            if u.path == "/share":
+                sid = srv.share(body)
+                return self._reply(200, json.dumps(
+                    {"code": "Success", "uids": {"share": sid}}).encode())
             if u.path != "/query":
                 return self._err(404, "no such endpoint")
             debug = qs.get("debug", ["false"])[0] == "true"

@@ -110,7 +110,7 @@ def measure(edges: int = 1 << 16, reps: int = 5, device=None) -> Calibration:
     engine's own routes: the resident gather kernel
     (``ops.gather_packed``), the staged ``ops.expand_csr``, numpy over a
     host CSR, ``np.intersect1d``, the intersect kernel
-    (``ops.intersect_batch``) and the tile product (``ops.spgemm``).
+    (``ops.kway_intersect_batch``) and the tile product (``ops.spgemm``).
 
     Every device call is closed by ``torch.cuda.synchronize`` before its
     clock stops, so a rate is the work's, not the enqueue's.  A kernel
@@ -209,7 +209,7 @@ def measure(edges: int = 1 << 16, reps: int = 5, device=None) -> Calibration:
         np.stack([ops.pad_to(a, L), ops.pad_to(b, L)])[None]
     ).to(dev)
     device_intersect_us = max(
-        (_timed_us(lambda: ops.intersect_batch(mat), reps, sync)
+        (_timed_us(lambda: ops.kway_intersect_batch(mat), reps, sync)
          - dispatch_us) / (len(a) + len(b)),
         1e-5,
     )

@@ -19,6 +19,21 @@ DGRAPH_TPU_RESIDENT           1        resident-CSR gather tier: '0' never,
                                        '1' on a CUDA device, 'force' on any
                                        device (the CPU runs the kernel's
                                        plain version; the parity tests)
+DGRAPH_TPU_FUSED_HOP          1        the reference's fused-hop gate: '0'
+                                       never (no classed route, no multi-hop
+                                       pass, no fused @recurse), '1' the
+                                       classed route on a CPU device only,
+                                       'force' the classed route on any
+                                       device (ops/batch.py ClassedExpander)
+DGRAPH_TPU_INLINE_HOP         1        the port's inline-route gate: '0'
+                                       sends an ascending frontier that no
+                                       earlier route took to the csr route
+                                       (what a test or chip_smoke.py pins to
+                                       reach csr); no reference counterpart
+DGRAPH_TPU_CLASS_W_MAX        10       widest classed-gather degree class
+                                       (log2 width), bound when ops.batch is
+                                       imported; wider rows form the classed
+                                       programs' residual bucket
 DGRAPH_TPU_KWAY_DEVICE_MIN    262144   min total elements of a k-way
                                        intersection before the host fold
                                        yields to the intersect kernel
@@ -48,7 +63,9 @@ DGRAPH_TPU_IVM_REPAIR         1        in-place repair of hop-cache entries
 DGRAPH_TPU_IVM_REPAIR_MAX_DELTA 512    largest edge delta repaired in place
 
 Every knob is read per call, so a test or an operator flips it without
-rebuilding the engine.  A knob set in the environment is pinned
+rebuilding the engine, except DGRAPH_TPU_CLASS_W_MAX (bound when
+ops.batch is imported) and the expansion route gates DGRAPH_TPU_RESIDENT,
+_FUSED_HOP and _INLINE_HOP (read when an engine is built).  A knob set in the environment is pinned
 (``overridden``): the planner then keeps the static compare for the
 gate it steers.
 """
@@ -65,6 +82,7 @@ MXU_MASK_MAX_DEFAULT = 1 << 22
 TILE_DEFAULT = 128
 TILE_BUDGET_DEFAULT = 1 << 28
 IVM_REPAIR_MAX_DELTA_DEFAULT = 512
+CLASS_W_MAX_DEFAULT = 10
 CALIBRATION_FILE_DEFAULT = "scratch/planner_calib_torch.json"
 
 
@@ -111,6 +129,23 @@ def expand_device_min() -> int:
 def resident() -> str:
     """DGRAPH_TPU_RESIDENT: '0', '1' (auto) or 'force'."""
     return os.environ.get("DGRAPH_TPU_RESIDENT", "1")
+
+
+def fused_hop() -> str:
+    """DGRAPH_TPU_FUSED_HOP: the classed route and the fused hop loops
+    ('0' / '1' / 'force')."""
+    return os.environ.get("DGRAPH_TPU_FUSED_HOP", "1")
+
+
+def inline_hop() -> str:
+    """DGRAPH_TPU_INLINE_HOP: the inline route ('0' off, '1' default)."""
+    return os.environ.get("DGRAPH_TPU_INLINE_HOP", "1")
+
+
+def class_w_max() -> int:
+    """Widest classed-gather degree class (log2 width); rows above it go
+    to the residual bucket."""
+    return _int("DGRAPH_TPU_CLASS_W_MAX", CLASS_W_MAX_DEFAULT)
 
 
 def kway_device_min() -> int:

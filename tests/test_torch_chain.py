@@ -301,3 +301,33 @@ def test_scan_serves_light_chains(qi, monkeypatch):
     monkeypatch.setattr(tops, "multi_hop", counting)
     _jf, tf = _check(engines, SCANNED[qi])
     assert calls == [3] and tf == 3
+
+
+@pytest.mark.parametrize("fused_hop", ["1", "0"])
+@pytest.mark.parametrize("qi", range(len(SCANNED)))
+def test_fused_hop_env_gates_the_multi_hop_pass_in_both(qi, fused_hop, monkeypatch):
+    """DGRAPH_TPU_FUSED_HOP, read by both engines when they are built:
+    at "0" neither runs the chain's multi-hop pass (its levels go per
+    level or through the staged pass, alike in both), at "1" both run
+    it; the bodies are equal either way."""
+    from dgraph_tpu import ops as jops
+
+    monkeypatch.setenv("DGRAPH_TPU_FUSED_HOP", fused_hop)
+    engines = _engines(_random_graph(4))
+    assert {e.expander.fused_hop for e in engines} == {fused_hop}
+    calls = {"ref": 0, "port": 0}
+
+    def counting(mod, name):
+        real = mod.multi_hop
+
+        def fn(*a, **k):
+            calls[name] += 1
+            return real(*a, **k)
+
+        monkeypatch.setattr(mod, "multi_hop", fn)
+
+    counting(jops, "ref")
+    counting(tops, "port")
+    _check(engines, SCANNED[qi])
+    assert calls["ref"] == calls["port"]
+    assert (calls["port"] > 0) == (fused_hop == "1"), calls

@@ -12,7 +12,9 @@ makes it raise), and the device guard on the card (a real launch error
 and a real OOM classified, the guard's worker on the caller's stream),
 and the gRPC and binary-HTTP transports on the card (the count and join
 (a) launch the gather and the intersect; a device fault over gRPC is
-UNAVAILABLE with nothing launched in its place).
+UNAVAILABLE with nothing launched in its place), and the engine's
+inline and classed routes on the card equal to their CPU runs (the
+inline route's slot map one launch a hop).
 Every test is marked ``cuda`` and skips
 where no GPU is visible.  The file imports neither JAX nor the JAX
 package (its planner pin, tests/torch_pins.py, pins the port's planner
@@ -766,3 +768,81 @@ def test_device_fault_over_grpc_is_unavailable_on_the_card():
         fail.reset()
         g.stop()
         srv.stop()
+
+
+def _route_engines(route):
+    """(card engine, CPU engine) over one generated graph, every hop on
+    the device route ``route`` (the served engine's knobs)."""
+    from dgraph_tpu_torch.models import PostingStore
+    from dgraph_tpu_torch.query import QueryEngine
+
+    src, dst = bench2hop.gen_edges(20_000, 200_000)
+    st = PostingStore()
+    st.apply_schema("e: uid .")
+    st.bulk_set_uid_edges("e", src, dst)
+    out = []
+    for dev in ("cuda", "cpu"):
+        eng = QueryEngine(st, device=dev)
+        eng.arenas.hop_cache = None
+        eng.expand_device_min = 1
+        eng.chain_threshold = 1 << 62
+        ex = eng.expander
+        ex.resident_mode, ex.fused_hop, ex.inline_mode = "0", {
+            "inline": "0", "classed": "force"}[route], "1"
+        out.append(eng)
+    return out
+
+
+@pytest.mark.parametrize("route", ["inline", "classed"])
+def test_route_on_the_card_matches_its_cpu_run(route):
+    """The 2-hop count and the materialised 2-hop on the card's inline
+    (classed) route answer as the same route on the CPU; the inline
+    route launches the slot-map kernel once a hop, the classed route
+    none."""
+    _need_gpu()
+    card, cpu = _route_engines(route)
+    rng = np.random.default_rng(67)
+    seeds = ", ".join("0x%x" % u for u in np.unique(rng.integers(1, 20_001, size=2000)))
+    for q in ("{ var(func: uid(%s)) { e { f as e } } q(func: uid(f)) { count() } }" % seeds,
+              "{ q(func: uid(%s)) { uid e { uid e { uid } } } }" % seeds):
+        want = cpu.run(q)
+        assert cpu.stats["routes"] == {route: 2}
+        n0 = tslot.KERNEL.launches
+        got = card.run(q)
+        torch.cuda.synchronize()
+        assert card.stats["routes"] == {route: 2}
+        assert tslot.KERNEL.launches - n0 == (2 if route == "inline" else 0)
+        got.pop("server_latency", None)
+        want.pop("server_latency", None)
+        assert got == want
+
+
+def test_expand_inline_seg_on_the_card_matches_the_cpu():
+    """ops.expand_inline_seg on CUDA tensors (its slot map the kernel, Q
+    = 1, one launch) equals the CPU run, -1 skips and truncation
+    included."""
+    _need_gpu()
+    src, dst = bench2hop.gen_edges(5_000, 60_000)
+    cpu_a = tops_arena(src, dst, "cpu")
+    card_a = tops_arena(src, dst, "cuda")
+    rng = np.random.default_rng(71)
+    for trial in range(6):
+        f = np.unique(rng.integers(1, 5_001, size=int(rng.integers(1, 2000))))
+        rows = np.insert(f, rng.integers(0, len(f) + 1, size=trial), -1)
+        rows = tops.pad_rows(rows, tops.bucket(len(rows)))
+        need = int(cpu_a.ov_chunk_degree_of_rows(f).sum())
+        capc = tops.bucket(max(1, need)) if trial % 2 else max(1, need // 2)
+        want = tops.expand_inline_seg(*cpu_a.inline_layout(), torch.from_numpy(rows), capc)
+        n0 = tslot.KERNEL.launches
+        got = tops.expand_inline_seg(*card_a.inline_layout(),
+                                     torch.from_numpy(rows).cuda(), capc)
+        torch.cuda.synchronize()
+        assert tslot.KERNEL.launches == n0 + 1
+        for w, g in zip(want, got):
+            assert torch.equal(w, g.cpu())
+
+
+def tops_arena(src, dst, device):
+    from dgraph_tpu_torch.models.arena import csr_dense_from_edges
+
+    return csr_dense_from_edges(src, dst, 5_000, device)

@@ -154,12 +154,32 @@ def test_query_surface_parity(surface_pair, name, monkeypatch):
 
 
 def test_recurse_var_block_per_level(surface_pair, monkeypatch):
-    """With the fused BFS off (``fused_hop`` False) the port walks the
+    """With the fused BFS off (``fused_hop`` "0") the port walks the
     var-block @recurse level by level, every level through the gather on
     the resident route, and still answers the reference's bytes."""
     teng = surface_pair[1]
-    monkeypatch.setattr(teng.expander, "fused_hop", False)
+    monkeypatch.setattr(teng.expander, "fused_hop", "0")
     _got, stats, calls, _jhops = _serve(surface_pair, "recurse_var_block",
                                         monkeypatch)
     assert stats["fused_gathers"] == 0
     assert calls == stats["routes"].get("resident", 0) > 0
+
+
+def test_fused_hop_env_off_walks_recurse_per_level_in_both(monkeypatch):
+    """DGRAPH_TPU_FUSED_HOP=0, read by both engines when they are built,
+    turns the fused var-block @recurse off in both: the reference's
+    ledger then counts its levels as resident hops (the fused BFS counts
+    none), and the port walks the same levels through the gather, with
+    the same body."""
+    monkeypatch.setenv("DGRAPH_TPU_FUSED_HOP", "0")
+    gen = _fixture_pair(_setup)
+    pair = next(gen)
+    try:
+        jeng, teng, _routes = pair
+        assert jeng.expander.fused_hop == teng.expander.fused_hop == "0"
+        _got, stats, calls, jhops = _serve(pair, "recurse_var_block", monkeypatch)
+        assert stats["fused_gathers"] == 0
+        assert calls == stats["routes"].get("resident", 0) > 0
+        assert jhops.get("resident", 0) == stats["routes"]["resident"]
+    finally:
+        gen.close()
