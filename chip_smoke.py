@@ -186,15 +186,19 @@ fewer it is no more than the largest one.
    every hop goes to the card), from seeds of ``default_rng(109)``: the
    var-block 2-hop count from 8192 seeds, the materialised 2-hop from 64
    and the child ``orderdesc: rank, first: 2`` 2-hop, each forced in turn
-   through the engine's classed, inline (``DGRAPH_TPU_RESIDENT=0``), csr
-   and resident routes (the served engine's resident gate, fused hop and
-   inline gate), the routes alternating request by request, 2 requests a
-   route: one with ``?ledger=true``, one with ``?debug=true``.  Every
-   body must equal the host route's (the debug one with both trees'
-   ``_uid_`` keys left out), every hop of both must name the forced route,
-   the inline route must launch the slot-map kernel once a hop and the
-   resident route the gather once a hop.  The p50 of each route and query
-   is printed on one line with the card's name and power limit.  The
+   through the engine's classed, inline (``DGRAPH_TPU_RESIDENT=0``) and
+   resident routes (the served engine's resident gate and fused hop),
+   and, for csr, each with its root ordered by rank under the inline
+   route's knobs (a deployment sends csr only the frontier an ordered
+   root permutes), the routes alternating request by request, 2
+   requests a route: one with ``?ledger=true``, one with
+   ``?debug=true``.  Every body must equal the host route's (the debug
+   one with both trees' ``_uid_`` keys left out), every hop of both must
+   name the forced route (on the csr row: the ordered root's hop csr,
+   the ascending levels below it inline), every inline hop must launch
+   the slot-map kernel once and every resident hop the gather once.  The
+   p50 of each route and query is printed on one line with the card's
+   name and power limit.  The
    counts are read right after; then the slot map at the inline route's
    Q = 1 shape (the count's second hop) is held against its plain version
    and timed (its launches count on no path).
@@ -637,16 +641,18 @@ TRANSPORT_LEASE, TRANSPORT_SUB_SEEDS, TRANSPORT_DELTA = 1000, 1024, 64
 TLS_TRIO_SHARE, TLS_TRIO_GROUPS = 64, "1=0,1;2=0,1;3=0,1,2"
 
 # the engine's routes: the seeds' seed, and the routes, each as the
-# served engine's knobs that force it
-# (the resident gate, the fused hop, the inline gate); the classed
-# route needs DGRAPH_TPU_FUSED_HOP=force on a CUDA device, the inline
-# route is the card's default with DGRAPH_TPU_RESIDENT=0
+# served engine's knobs that steer it (the resident gate, the fused
+# hop); the classed route needs DGRAPH_TPU_FUSED_HOP=force on a CUDA
+# device, the inline route is the card's default with
+# DGRAPH_TPU_RESIDENT=0, and csr takes, under the inline route's knobs,
+# the frontier an ordered root permutes (the csr row's queries order
+# their root by rank)
 ROUTES_SEED = 109
 ROUTE_PINS = {
-    "classed": ("0", "force", "1"),
-    "inline": ("0", "1", "1"),
-    "csr": ("0", "0", "0"),
-    "resident": ("1", "1", "1"),
+    "classed": ("0", "force"),
+    "inline": ("0", "1"),
+    "csr": ("0", "0"),
+    "resident": ("1", "1"),
 }
 # the batched 2-hop's host-dedup arm: timed passes (no warm pass: the
 # best of 2)
@@ -2898,15 +2904,21 @@ def phase_query_surface(store, srv, n_ranked: int, card: str) -> dict:
 
 @contextlib.contextmanager
 def pinned_route(engine, route: str):
-    """The served engine (and so every scheduled shell) forced onto
-    ``route``: its resident gate, fused hop and inline gate."""
+    """The served engine (and so every scheduled shell) steered onto
+    ``route``: its resident gate and fused hop."""
     ex = engine.expander
-    before = (ex.resident_mode, ex.fused_hop, ex.inline_mode)
-    ex.resident_mode, ex.fused_hop, ex.inline_mode = ROUTE_PINS[route]
+    before = (ex.resident_mode, ex.fused_hop)
+    ex.resident_mode, ex.fused_hop = ROUTE_PINS[route]
     try:
         yield
     finally:
-        ex.resident_mode, ex.fused_hop, ex.inline_mode = before
+        ex.resident_mode, ex.fused_hop = before
+
+
+def ordered_root(q: str) -> str:
+    """``q`` with its first root, a ``uid(...)`` list, ordered by rank:
+    the permuted frontier that a deployment sends to the csr route."""
+    return q.replace("))", "), orderasc: rank)", 1)
 
 
 def inline_q1_inputs(arena, seeds):
@@ -2942,14 +2954,16 @@ def strip_debug_uids(obj):
 def phase_routes(store, srv, card: str) -> dict:
     """The count from 8192 seeds, the materialised 2-hop from 64 and the
     child order-by 2-hop, each forced in turn through the classed,
-    inline, csr and resident routes with every hop on the card (the gate
-    at 1, the chain pinned off, the caches detached by the caller), the
+    inline and resident routes, and with its root ordered by rank
+    through csr (``ordered_root``), every hop on the card (the gate at
+    1, the chain pinned off, the caches detached by the caller), the
     routes alternating request by request, 2 requests a route: one with
     ``?ledger=true`` (its hops by route) and one with ``?debug=true``
     (the engine's routes).  Every body must equal the host route's (the
-    debug one with both trees' ``_uid_`` keys left out), every hop must name the forced
-    route (or ``empty``), the inline route must launch the slot map once
-    a hop and the resident route the gather once a hop."""
+    debug one with both trees' ``_uid_`` keys left out), every hop must
+    name the forced route (or ``empty``; on the csr row, ``inline`` for
+    the ascending levels below the ordered root), every inline hop must
+    launch the slot map once and every resident hop the gather once."""
     from dgraph_tpu_torch.ops import gather, slotmap
 
     t0 = time.perf_counter()
@@ -2963,7 +2977,11 @@ def phase_routes(store, srv, card: str) -> dict:
         "child_order_2hop": "{ q(func: uid(%s)) { e { e (orderdesc: rank, "
                             "first: 2) { uid } } } }" % uid_list(large),
     }
-    want = {n: json.dumps(ref.run(q)) for n, q in queries.items()}
+    asked = {r: {n: ordered_root(q) if r == "csr" else q
+                 for n, q in queries.items()} for r in ROUTE_PINS}
+    want = {r: {n: json.dumps(ref.run(q)) for n, q in by.items()}
+            for r, by in asked.items() if r in ("csr", "resident")}
+    want.update({r: want["resident"] for r in ("classed", "inline")})
     ref_s = time.perf_counter() - t0
     eng = srv.engine
     gate, thr = eng.expand_device_min, eng.chain_threshold
@@ -2972,35 +2990,34 @@ def phase_routes(store, srv, card: str) -> dict:
     hops = {r: {n: {} for n in queries} for r in ROUTE_PINS}
     launches = {r: {"slotmap": 0, "gather": 0} for r in ROUTE_PINS}
     try:
-        for name, q in queries.items():
+        for name in queries:
             for params in ("?ledger=true", "?debug=true"):
                 for route in ROUTE_PINS:
                     what = f"routes {name} ({route}, {params})"
                     n0 = (slotmap.KERNEL.launches, gather.KERNEL.launches)
                     with pinned_route(eng, route):
-                        status, raw, secs = post(srv.addr, q, params)
+                        status, raw, secs = post(srv.addr, asked[route][name], params)
                     n1 = (slotmap.KERNEL.launches, gather.KERNEL.launches)
                     check(status == 200, f"{what}: HTTP {status}: {raw[:300]!r}")
                     body = json.loads(raw)
                     if params == "?ledger=true":
                         h = body["extensions"]["ledger"]["hops"]
-                        check(strip_latency(raw) == want[name],
+                        check(strip_latency(raw) == want[route][name],
                               f"{what}: body differs from the host route")
                     else:
                         h = body["server_latency"]["engine"]["routes"]
                         body.pop("server_latency")
                         check(strip_debug_uids(body)
-                              == strip_debug_uids(json.loads(want[name])),
+                              == strip_debug_uids(json.loads(want[route][name])),
                               f"{what}: body differs from the host route")
-                    check(set(h) <= {route, "empty"} and h.get(route, 0) > 0,
+                    allowed = {route, "empty"} | ({"inline"} if route == "csr" else set())
+                    check(set(h) <= allowed and h.get(route, 0) > 0,
                           f"{what}: hops {h}")
                     sm, ga = n1[0] - n0[0], n1[1] - n0[1]
-                    if route == "inline":
-                        check(sm == h[route], f"{what}: {sm} slot-map launches "
-                                              f"for {h[route]} inline hops")
-                    if route == "resident":
-                        check(ga == h[route], f"{what}: {ga} gather launches "
-                                              f"for {h[route]} resident hops")
+                    check(sm == h.get("inline", 0), f"{what}: {sm} slot-map "
+                          f"launches for {h.get('inline', 0)} inline hops")
+                    check(ga == h.get("resident", 0), f"{what}: {ga} gather "
+                          f"launches for {h.get('resident', 0)} resident hops")
                     launches[route]["slotmap"] += sm
                     launches[route]["gather"] += ga
                     lat[route][name].append(secs)

@@ -321,8 +321,8 @@ def run_host_dedup(a: CSRArena, frontiers, timed: int = 4, warm: bool = True,
         h2w, e2w = max(h2w, h2), max(e2w, e2)
     caps1 = ce.plan_caps(c1w, h1w, e1w)
     caps2 = ce.plan_caps(c2w, h2w, e2w)
-    hop1 = ce.program(caps1, "materialize", batched=True)
-    hop2 = ce.program(caps2, "checksum", batched=True)
+    hop1 = ce.program(caps1, "materialize")
+    hop2 = ce.program(caps2, "checksum")
 
     def stack_partitions(queries, caps):
         """Each query's rows class-sorted into stacked [B, cap_c] mats

@@ -485,7 +485,6 @@ class SubscriptionRegistry:
             eng.chain_threshold = srv.engine.chain_threshold
             eng.expander.fused_hop = srv.engine.expander.fused_hop
             eng.expander.resident_mode = srv.engine.expander.resident_mode
-            eng.expander.inline_mode = srv.engine.expander.inline_mode
             eng.cancel = sub.token
             return eng.run_parsed(sub.parsed)
 

@@ -14,7 +14,7 @@ through the resident gather (``expand_ascending``).
   ⌈log2(degree)⌉; class c expands as one 2-D gather
   ``dst[o0[:, None] + iota(2^c)]`` masked by degree, rows above
   ``2^LOG_W_MAX`` through `expand_ascending` (the residual bucket).
-  Its plans (capacity tuple, mode, batched) are cached per expander;
+  Its plans (capacity tuple, mode) are cached per expander;
   capacities are bucketed, so a steady workload builds a handful.  The
   engine's ``classed`` route (``expand_rows``) and the batched 2-hop's
   host-dedup arm (``bench2hop.run_host_dedup``) run on it.
@@ -258,7 +258,8 @@ class ClassedExpander:
 
     On the host, rows partition by degree class (``partition``); on the
     device, each class is one 2-D gather masked by degree.  Plans cache
-    per (capacity tuple, mode, batched) in ``_programs``; capacities are
+    per (capacity tuple, mode) in ``_programs`` (one plan serves a
+    frontier and a [B, ...] batch of them alike); capacities are
     bucketed (pow2 per query on the engine's path, ``bucket_fine`` for
     one stream-wide plan), so the cache stays small.
 
@@ -350,7 +351,7 @@ class ClassedExpander:
 
     # -- device plans ---------------------------------------------------------
 
-    def _build(self, caps: tuple, mode: str, batched: bool):
+    def _build(self, caps: tuple, mode: str):
         offsets, dst = self.offsets, self.dst
         n_cls, widths = self.n_cls, self.widths
         he_cap = caps[n_cls + 1]
@@ -402,20 +403,20 @@ class ClassedExpander:
 
         return run
 
-    def program(self, caps: tuple, mode: str = "materialize",
-                batched: bool = False):
+    def program(self, caps: tuple, mode: str = "materialize"):
         """Fetch-or-build the hop plan for a capacity tuple.
 
         mode: "materialize" (flat SENT-masked lanes + edge total — the
         engine's matrix source), "frontier" (sorted-unique next frontier
         + total), or "checksum" (int32 wraparound sum of produced uids +
         total).  A plan takes (mats, keeps): the class mats of
-        ``partition`` as int32 tensors on the arena's device ([B, cap]
-        each when ``batched``) and a tuple of keep-sets."""
-        key = (caps, mode, batched)
+        ``partition`` as int32 tensors on the arena's device ([cap], or
+        [B, cap] each for a batch of B frontiers) and a tuple of
+        keep-sets."""
+        key = (caps, mode)
         p = self._programs.get(key)
         if p is None:
-            p = self._build(caps, mode, batched)
+            p = self._build(caps, mode)
             self._programs[key] = p
         return p
 
@@ -442,20 +443,9 @@ class ClassedExpander:
             return self._expand_rows(rows, degs, hs)
 
     def _expand_rows(self, rows: np.ndarray, degs: np.ndarray, span):
-        rs, starts, deg_s, pos = self.class_sort(rows)
-        counts = np.diff(starts)[: self.n_cls]
-        hlo, hhi = int(starts[self.n_cls]), int(starts[self.n_cls + 1])
-        n_heavy = hhi - hlo
-        heavy_edges = int(deg_s[hlo:hhi].sum()) if n_heavy else 0
+        counts, n_heavy, heavy_edges = self.class_counts(rows)
         caps = self.plan_caps(counts, n_heavy, heavy_edges, fine=False)
-        mats, positions = [], []
-        for k in range(self.n_cls + 1):
-            lo, hi = int(starts[k]), int(starts[k + 1])
-            m = np.full(max(caps[k], 1) if k == self.n_cls else caps[k], -1,
-                        dtype=np.int32)
-            m[: hi - lo] = rs[lo:hi]
-            mats.append(m)
-            positions.append(pos[lo:hi])
+        mats, positions = self.partition(rows, caps)
         dev = self.offsets.device
         lanes_dev, _total = self.program(caps, mode="materialize")(
             tuple(torch.from_numpy(m).to(dev) for m in mats), ())

@@ -454,8 +454,7 @@ def expand_inline_seg(
     from dgraph_tpu_torch.ops.slotmap import slotmap
 
     m, valid, inline, dg, total = _inline_gather(metap, rows)
-    cs = torch.where(valid, m[:, 0], 0)
-    cd = (torch.clamp(dg - INLINE, min=0) + 7) >> 3
+    cs, cd = _prefix_chunks(m, valid, dg, rows.shape[-1])
     cid = slotmap(cs[None].contiguous(), cd[None].contiguous(), capc)[0]
     ok = cid >= 0
     ccum = torch.cumsum(cd, 0, dtype=torch.int32)

@@ -155,9 +155,8 @@ class DeviceExpander:
     reference's DGRAPH_TPU_FUSED_HOP: '0' turns the classed route, the
     chain's multi-hop pass and the fused var-block @recurse off; '1' takes
     the classed route on a CPU device (as the reference does on its CPU
-    backend); 'force' on any device.  ``inline_mode``
-    (DGRAPH_TPU_INLINE_HOP, the port's own) '0' sends what the inline
-    route would take to ``csr``.  On a CPU tensor the slot-map wrapper
+    backend); 'force' on any device.  A bool assigned to it reads as
+    '1' (True) or '0' (False).  On a CPU tensor the slot-map wrapper
     runs its plain version.  Above the routing sit the tier-1 hop
     cache and, under the cohort scheduler, the cross-request hop merger
     (``_expand_cached``).  Each device expansion — the rows' upload, the
@@ -172,7 +171,6 @@ class DeviceExpander:
         self.engine = engine
         self.resident_mode = planconfig.resident()
         self.fused_hop = planconfig.fused_hop()
-        self.inline_mode = planconfig.inline_hop()
         # cross-request hop coalescing: the cohort scheduler
         # (sched/scheduler.py) installs one HopMerger per cohort so
         # same-(arena, predicate, direction) expansions from different
@@ -183,6 +181,18 @@ class DeviceExpander:
         # the planner's decision of the expansion in flight, closed with
         # its measured latency by _expand_one
         self._expand_dec = None
+
+    @property
+    def fused_hop(self) -> str:
+        return self._fused_hop
+
+    @fused_hop.setter
+    def fused_hop(self, value) -> None:
+        # the reference's string; a bool (the older spelling) maps onto
+        # it, so False turns the fused routes off rather than on
+        if isinstance(value, bool):
+            value = "1" if value else "0"
+        self._fused_hop = value
 
     def _use_resident(self) -> bool:
         if self.resident_mode == "0":
@@ -366,16 +376,13 @@ class DeviceExpander:
         if not use_device:
             # a device dispatch costs a round trip that dwarfs the work
             return self._host_expand(arena, rows)
-        if not use_resident:
+        if not use_resident and self._ascending(rows):
             # the classed and inline routes need ASCENDING-distinct rows;
             # an ordered root permutes the frontier, which only the
             # order-agnostic csr route takes
-            valid = rows[rows >= 0]
-            if bool(np.all(valid[1:] > valid[:-1])):
-                if self._use_classed():
-                    return self._expand_classed(arena, rows)
-                if self.inline_mode != "0":
-                    return self._expand_inline(arena, rows)
+            if self._use_classed():
+                return self._expand_classed(arena, rows)
+            return self._expand_inline(arena, rows)
         cap = ops.bucket(total)
         padded = ops.pad_rows(rows, ops.bucket(n))
         # the hop span ``expand`` opened (a merged hop's union runs in
@@ -408,6 +415,11 @@ class DeviceExpander:
         seg = packed[cap : cap + total].astype(np.int64)
         eng.stats["edges"] += len(out)
         return out, _seg_ptr_of(seg, n)
+
+    @staticmethod
+    def _ascending(rows: np.ndarray) -> bool:
+        valid = rows[rows >= 0]
+        return bool(np.all(valid[1:] > valid[:-1]))
 
     def _account(self, ms: float, sync_ms, hs, h2d: int, d2h: int) -> None:
         """A device expansion's stage time, its ``device_sync_ms`` (on the

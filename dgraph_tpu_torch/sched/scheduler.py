@@ -810,13 +810,12 @@ class CohortScheduler:
             with es:
                 # a shell over the shared arena cache, with the served
                 # engine's knobs: its chain gate and its route gates (the
-                # fused hop, the resident and inline routes), which a
-                # caller may have set on it
+                # fused hop and the resident route), which a caller may
+                # have set on it
                 eng = QueryEngine(srv.store, arenas=srv.engine.arenas)
                 eng.chain_threshold = srv.engine.chain_threshold
                 eng.expander.fused_hop = srv.engine.expander.fused_hop
                 eng.expander.resident_mode = srv.engine.expander.resident_mode
-                eng.expander.inline_mode = srv.engine.expander.inline_mode
                 eng.expander.hop_merger = merger
                 # cooperative cancellation (sched/qos.py): the engine
                 # checkpoints this token at hop boundaries

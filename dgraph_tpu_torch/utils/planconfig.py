@@ -25,11 +25,6 @@ DGRAPH_TPU_FUSED_HOP          1        the reference's fused-hop gate: '0'
                                        classed route on a CPU device only,
                                        'force' the classed route on any
                                        device (ops/batch.py ClassedExpander)
-DGRAPH_TPU_INLINE_HOP         1        the port's inline-route gate: '0'
-                                       sends an ascending frontier that no
-                                       earlier route took to the csr route
-                                       (what a test or chip_smoke.py pins to
-                                       reach csr); no reference counterpart
 DGRAPH_TPU_CLASS_W_MAX        10       widest classed-gather degree class
                                        (log2 width), bound when ops.batch is
                                        imported; wider rows form the classed
@@ -64,10 +59,10 @@ DGRAPH_TPU_IVM_REPAIR_MAX_DELTA 512    largest edge delta repaired in place
 
 Every knob is read per call, so a test or an operator flips it without
 rebuilding the engine, except DGRAPH_TPU_CLASS_W_MAX (bound when
-ops.batch is imported) and the expansion route gates DGRAPH_TPU_RESIDENT,
-_FUSED_HOP and _INLINE_HOP (read when an engine is built).  A knob set in the environment is pinned
-(``overridden``): the planner then keeps the static compare for the
-gate it steers.
+ops.batch is imported) and the expansion route gates DGRAPH_TPU_RESIDENT
+and _FUSED_HOP (read when an engine is built).  A knob set in the
+environment is pinned (``overridden``): the planner then keeps the
+static compare for the gate it steers.
 """
 
 from __future__ import annotations
@@ -135,11 +130,6 @@ def fused_hop() -> str:
     """DGRAPH_TPU_FUSED_HOP: the classed route and the fused hop loops
     ('0' / '1' / 'force')."""
     return os.environ.get("DGRAPH_TPU_FUSED_HOP", "1")
-
-
-def inline_hop() -> str:
-    """DGRAPH_TPU_INLINE_HOP: the inline route ('0' off, '1' default)."""
-    return os.environ.get("DGRAPH_TPU_INLINE_HOP", "1")
 
 
 def class_w_max() -> int:

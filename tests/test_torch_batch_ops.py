@@ -368,7 +368,7 @@ def test_classed_programs_match_reference(dense_pair, mode, batched):
         for jmats, tmats in zip(jm, tm):
             want = jce.program(caps, mode, batched)(
                 tuple(jnp.asarray(m) for m in jmats), tuple(jnp.asarray(k) for k in kk))
-            got = tce.program(caps, mode, batched)(
+            got = tce.program(caps, mode)(
                 tuple(T(m) for m in tmats), tuple(T(k) for k in kk))
             for j, t in zip(want, got):
                 same(j, t)

@@ -787,8 +787,8 @@ def _route_engines(route):
         eng.expand_device_min = 1
         eng.chain_threshold = 1 << 62
         ex = eng.expander
-        ex.resident_mode, ex.fused_hop, ex.inline_mode = "0", {
-            "inline": "0", "classed": "force"}[route], "1"
+        ex.resident_mode, ex.fused_hop = "0", {
+            "inline": "0", "classed": "force"}[route]
         out.append(eng)
     return out
 

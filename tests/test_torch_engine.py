@@ -32,7 +32,7 @@ from dgraph_tpu_torch.query import QueryEngine
 
 from tests import test_film, test_goldens
 from tests.torch_parity import (
-    REFERENCE_ENV, body, golden_queries, port_store_of,
+    REFERENCE_ENV, body, csr_only, golden_queries, port_store_of,
 )
 from torch_pins import pinned_planner  # noqa: F401
 
@@ -49,8 +49,9 @@ def _fixture_pair(setup, port_resident="force"):
     """(reference engine, port engine, the port's allowed routes) over one
     graph built by ``setup`` in the reference store, every level on the
     device route: the reference's resident tier, and the port's resident
-    route (``port_resident="force"``) or its csr route ("0", with the
-    classed and inline routes pinned off)."""
+    route (``port_resident="force"``) or its csr route ("0", every
+    frontier read as not ascending, so that no hop takes the classed or
+    inline route first)."""
     with pytest.MonkeyPatch.context() as mp:
         for k, v in REFERENCE_ENV.items():
             mp.setenv(k, v)
@@ -59,12 +60,9 @@ def _fixture_pair(setup, port_resident="force"):
         jeng.expand_device_min = 1
         jeng.chain_threshold = 1 << 62  # per-level hops, no fused chain
         mp.setenv("DGRAPH_TPU_RESIDENT", port_resident)
-        if port_resident == "0":
-            # the csr route itself: the classed and inline routes, which
-            # an ascending frontier would take first, pinned off
-            mp.setenv("DGRAPH_TPU_FUSED_HOP", "0")
-            mp.setenv("DGRAPH_TPU_INLINE_HOP", "0")
         teng = QueryEngine(port_store_of(jeng.store), device="cpu")
+        if port_resident == "0":
+            csr_only(teng)
         teng.expand_device_min = 1
         teng.chain_threshold = 1 << 62
         routes = {"resident" if port_resident == "force" else "csr", "empty"}

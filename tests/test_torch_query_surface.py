@@ -165,6 +165,22 @@ def test_recurse_var_block_per_level(surface_pair, monkeypatch):
     assert calls == stats["routes"].get("resident", 0) > 0
 
 
+@pytest.mark.parametrize("off", [False, "0"])
+def test_fused_hop_false_reads_as_off(surface_pair, off, monkeypatch):
+    """``fused_hop`` holds the reference's string; the older bool
+    spelling maps onto it (True "1", False "0"), so ``False`` turns the
+    fused var-block @recurse off and the classed route with it."""
+    ex = surface_pair[1].expander
+    monkeypatch.setattr(ex, "fused_hop", True)
+    assert ex.fused_hop == "1"
+    monkeypatch.setattr(ex, "fused_hop", off)
+    assert ex.fused_hop == "0" and not ex._use_classed()
+    _got, stats, calls, _jhops = _serve(surface_pair, "recurse_var_block",
+                                        monkeypatch)
+    assert stats["fused_gathers"] == 0
+    assert calls == stats["routes"].get("resident", 0) > 0
+
+
 def test_fused_hop_env_off_walks_recurse_per_level_in_both(monkeypatch):
     """DGRAPH_TPU_FUSED_HOP=0, read by both engines when they are built,
     turns the fused var-block @recurse off in both: the reference's

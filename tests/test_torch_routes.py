@@ -11,7 +11,10 @@ each route in turn, its kernels' plain versions on the CPU:
 - ``classed``: ``DGRAPH_TPU_RESIDENT=0`` (the CPU default of
   ``DGRAPH_TPU_FUSED_HOP=1`` takes it);
 - ``inline``: ``DGRAPH_TPU_RESIDENT=0`` and ``DGRAPH_TPU_FUSED_HOP=0``;
-- ``csr``: as inline, with ``DGRAPH_TPU_INLINE_HOP=0``;
+- ``csr``: ``DGRAPH_TPU_RESIDENT=0`` with every frontier read as not
+  ascending (``torch_parity.csr_only``), as an ordered root's is: the
+  only frontier a deployment sends to csr, which
+  ``test_ordered_frontier_takes_csr`` drives as it comes;
 - ``resident``: ``DGRAPH_TPU_RESIDENT=force``.
 
 Responses must be byte-identical JSON (tolerance none), and every hop
@@ -31,7 +34,9 @@ from dgraph_tpu_torch.obs import ledger as tledger
 from dgraph_tpu_torch.query import QueryEngine
 
 from tests import test_film, test_goldens
-from tests.torch_parity import REFERENCE_ENV, body, golden_queries, port_store_of
+from tests.torch_parity import (
+    REFERENCE_ENV, body, csr_only, golden_queries, port_store_of,
+)
 from torch_pins import pinned_planner  # noqa: F401
 
 pytestmark = [
@@ -43,8 +48,7 @@ pytestmark = [
 ROUTE_ENV = {
     "classed": {"DGRAPH_TPU_RESIDENT": "0", "DGRAPH_TPU_FUSED_HOP": "1"},
     "inline": {"DGRAPH_TPU_RESIDENT": "0", "DGRAPH_TPU_FUSED_HOP": "0"},
-    "csr": {"DGRAPH_TPU_RESIDENT": "0", "DGRAPH_TPU_FUSED_HOP": "0",
-            "DGRAPH_TPU_INLINE_HOP": "0"},
+    "csr": {"DGRAPH_TPU_RESIDENT": "0"},
     "resident": {"DGRAPH_TPU_RESIDENT": "force"},
 }
 ROUTES = list(ROUTE_ENV)
@@ -78,6 +82,8 @@ def _port(jstore, route):
         for k, v in dict(REFERENCE_ENV, **ROUTE_ENV[route]).items():
             mp.setenv(k, v)
         teng = QueryEngine(port_store_of(jstore), device="cpu")
+    if route == "csr":
+        csr_only(teng)
     teng.expand_device_min = 1
     teng.chain_threshold = 1 << 62
     return teng

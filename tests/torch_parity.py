@@ -73,6 +73,15 @@ def snapshot_of(st) -> dict:
     }
 
 
+def csr_only(teng):
+    """Send every device hop of the port's engine ``teng`` that skips the
+    resident route to the csr route: each frontier reads as not
+    ascending, as an ordered root's does (the only frontier that reaches
+    csr in a deployment), so every golden can be held on csr."""
+    teng.expander._ascending = lambda rows: False
+    return teng
+
+
 def port_store_of(st):
     from dgraph_tpu_torch.models.carry import store_from_snapshot
 
