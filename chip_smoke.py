@@ -319,8 +319,8 @@ fewer it is no more than the largest one.
    host-dedup arm (``bench2hop.run_host_dedup``, bench.py's
    ``_run_host_dedup``): each hop one batched plan of the arena's
    ``ClassedExpander`` over sub-batches of 50, ``np.unique`` between the
-   hops, capacities planned once with ``bucket_fine``, the best of 2
-   passes; every query's edge count and checksum and the last set must
+   hops, capacities planned once with ``bucket_fine``, one timed
+   pass; every query's edge count and checksum and the last set must
    equal numpy's, and it launches no slot map.  The counts are read right
    after.  Edges/s of both arms, the numpy baseline and the caps are
    printed.
@@ -366,10 +366,10 @@ fewer it is no more than the largest one.
    the end), under the group rules ``1: e`` / ``2: name`` / ``default:
    fp % 2 + 1``: (t) three servers each serving groups 0, 1 and 2 (3
    replicas of every predicate), their device and k-way gates at 1: the
-   schema, then every eighth generated edge (a stride sample: both the
+   schema, then every 16th generated edge (a stride sample: both the
    uniform and the pareto-skewed halves of the targets) in
    source-ascending ``BULKEDGES`` records of 262,144 edges and phase 5's
-   names on uids 1..250,000 in ``BULKVALS`` records of 131,072, one
+   names on uids 1..125,000 in ``BULKVALS`` records of 131,072, one
    proposal each,
    submitted through a follower of its group (forwarded to the leader);
    seconds from the first proposal to the last applied on every
@@ -440,6 +440,32 @@ fewer it is no more than the largest one.
    by path), error, time, plain-version time and bound (one ``kernels``
    JSON line), the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
+20. mesh — the mesh serving plane on virtual chips of the card (runs
+   after every phase that reads the main server's arenas: its write
+   reaches only the server that refreshes first).  First the crossover
+   model's constants (``parallel/crossover.py``'s ``measure``: the
+   per-index gather at three table sizes around the 50 MB L2 and in HBM,
+   the on-card copy rate, a one-uid dispatch at 4 virtual chips), the
+   ``mesh_calibration`` line.  Then a second server over the main store
+   with ``mesh=make_mesh(devices=[cuda:0] * 4)``, caches detached, on the
+   per-level route; the seconds to build ``e``'s arena and to shard it.
+   (a) the count from 8192 seeds (``default_rng(127)``), the
+   materialised 2-hop from 64 seeds, join (a) and chain (a) (per level),
+   each body equal to the host route, every ``e`` hop on ``route: mesh``
+   with ``mesh_chips`` 4 in its ledger, no gather launch, and join (a)'s
+   intersect launched.  (b) one mesh multi-hop segment of chain (a)'s
+   shape under ``torch.cuda.set_sync_debug_mode("error")``: nothing
+   synchronizes, its count is chain (a)'s.  (e) the count's p50 at 4
+   virtual chips, at ``DGRAPH_TPU_MESH=force`` (a 1-wide mesh) and
+   unsharded (the main server), printed, not compared.  (c) under
+   ``device.mesh=error(p=1,n=1,chip=3)`` the next count is identical at
+   width 3, the epoch one past the plan's version and ``degraded.mesh``
+   set; after the chip guard's cooldown the staged rejoin brings width 4
+   back; a segmented chain (a) (one hop a segment) whose epoch another
+   query's chip loss flips between its segments resumes, equal to the
+   unflipped run.  (d) a 64-edge write, then the count equals the host
+   route with the new edges.  The intersect's counts are read right
+   after.
 
 Exits non-zero without a CUDA GPU, or when the package is not beside it.
 
@@ -458,6 +484,8 @@ and phase 7c, with 20 requests of each query on each transport.
 ``python3 chip_smoke.py --routes-only`` runs phases 1 and 2, the ranks
 of phase 8, phases 9a and 9b, the dense arena of phase 14 and phase 16
 (about five minutes).
+``python3 chip_smoke.py --mesh-only`` runs phases 1 and 2, the names of
+phase 5 and phase 20.
 ``python3 chip_smoke.py --serving-only`` runs phases 1-3, the names of
 phase 5 and phase 12 alone (the serving plane on the caches' first
 use).  ``python3 chip_smoke.py --mxu-only`` runs phase 1 and phase 13
@@ -547,6 +575,8 @@ TRI_NODES, TRI_EDGES, TRI_ROOTS, TRI_B = 512, 32_768, 48, 64
 # its snapshot threshold in WAL records (the native path journals about
 # two records a batch of 1000 quads) and the sources of its tail write
 DUR_SEED, DUR_SEEDS, DUR_EDGES, DUR_ARENA_MB = 73, 64, 256, 8192
+# the recovered d1's timed counts (5, not 10: the run's time limit)
+DUR_REPEATS = 5
 # d1's snapshot threshold, above its 336 MB log: a snapshot is written
 # one record per edge, and the default 64 MB would fold the 21M edges
 # into 16.2M records (a minute and a half to replay on the card's host)
@@ -576,8 +606,10 @@ PAIR_EDGE_SHARE, PAIR_NAMED = 64, 125_000
 # limit; every fourth edge until the transports' phase, which took the
 # whole run past 1050 s); at this size the count's second hop is below
 # the default device gate, so the trio's servers run both gates at 1, as
-# the pair's reader does
-TRIO_EDGE_SHARE, TRIO_NAMED = 8, 250_000
+# the pair's reader does; every 16th edge and names on 125,000 uids, not
+# every 8th and 250,000, since a whole run on a slow host took 1208.7 s
+# of its 1200 with the mesh phase
+TRIO_EDGE_SHARE, TRIO_NAMED = 16, 125_000
 # the trio's load in per-range records (uids ascending, as the loader's
 # batches are) of at most this many edges / names, one proposal each:
 # a raft frame crosses the transport's 2 s send window, and the leader
@@ -613,8 +645,9 @@ PLANNER_CLIENTS, PLANNER_BURST, PLANNER_BURST_SEEDS, PLANNER_SEED = 16, 4, 1024,
 # the hang check, the wedge's length, the re-admission probes made to
 # fail first (8: the domain stays sick about 9 s, past the wedge's own
 # wake-up and launch, so the sick requests' launches are counted alone),
-# the concurrent clients while sick, the re-admission wait
-GUARD_SEED, GUARD_OVERHEAD_REPEATS = 91, 4
+# the concurrent clients while sick, the re-admission wait (the
+# overhead's requests 2, not 4: the run's time limit)
+GUARD_SEED, GUARD_OVERHEAD_REPEATS = 91, 2
 GUARD_PADS, GUARD_PAD_EDGES = ("_guard_pad_1", "_guard_pad_2"), 2_000_000
 GUARD_HANG_MS, GUARD_WEDGE_MS, GUARD_COOLDOWN_S = 500, 3000, 1.0
 GUARD_PROBE_FAILS, GUARD_CLIENTS, GUARD_READMIT_S = 8, 16, 10.0
@@ -654,9 +687,10 @@ ROUTE_PINS = {
     "csr": ("0", "0"),
     "resident": ("1", "1"),
 }
-# the batched 2-hop's host-dedup arm: timed passes (no warm pass: the
-# best of 2)
-HOST_DEDUP_PASSES = 2
+# the batched 2-hop's host-dedup arm: timed passes (no warm pass; 1, not
+# 2: a whole run on a slow host took 1208.7 s of its 1200 with the mesh
+# phase)
+HOST_DEDUP_PASSES = 1
 # the CLI surface: its graph (uids with a name each, edges, seed), loaded
 # from an RDF file of its own by the loader into a CLI server of its own
 # (5000 uids and 20,000 edges took the phase to 35 s on the card's host)
@@ -674,8 +708,16 @@ KERNELS = [
     ("intersect", "dgraph_tpu_torch.ops.kway",
      "dgraph_tpu/ops/pallas_intersect.py:35",
      ("join_path", "flight_recorder", "device_guard", "subscriptions",
-      "transports", "chain", "serving_plane", "mxu_join", "cluster", "planner")),
+      "transports", "chain", "serving_plane", "mxu_join", "cluster", "planner",
+      "mesh")),
 ]
+
+# the mesh phase: virtual chips of the card, the seeds' seed, timed
+# requests of the count at each width (3, not 5: the run's time limit),
+# the write's edges, the chip guards' cooldown (the staged rejoin's
+# wait), the rejoin's bound
+MESH_WIDTH, MESH_SEED, MESH_REPEATS, MESH_DELTA = 4, 127, 3, 64
+MESH_COOLDOWN_S, MESH_REJOIN_S = 1.0, 120.0
 
 
 class SmokeFailure(RuntimeError):
@@ -3385,6 +3427,241 @@ def phase_chain(store, srv, large, small, rseeds, card: str) -> dict:
     return rows
 
 
+# -- phase 20: the mesh serving plane -----------------------------------------
+
+
+def mesh_served(msrv, ref, name: str, q: str, width: int, intersect: bool) -> dict:
+    """One request of ``q`` on the mesh server: its body equal to the
+    host route ``ref``'s, every hop on ``route: mesh`` at ``width`` chips,
+    no gather launch, and with ``intersect`` the intersect kernel
+    launched.  Returns its row."""
+    from dgraph_tpu_torch.ops import gather, kway
+
+    want = json.dumps(ref.run(q))
+    g0, k0 = gather.KERNEL.launches, kway.KERNEL.launches
+    status, raw, secs = post(msrv.addr, q, "?ledger=true&debug=true")
+    check(status == 200, f"mesh {name}: HTTP {status}")
+    check(strip_latency(raw) == want, f"mesh {name}: body differs from the host route")
+    body = json.loads(raw)
+    led = body["extensions"]["ledger"]
+    eng = body["server_latency"]["engine"]
+    routes = {k: v for k, v in eng["routes"].items() if k != "empty"}
+    check(set(routes) == {"mesh"} and set(led["hops"]) <= {"mesh", "empty"},
+          f"mesh {name}: hops off the mesh: {eng['routes']} / {led['hops']}")
+    check(led.get("mesh_chips") == width,
+          f"mesh {name}: mesh_chips {led.get('mesh_chips')}, want {width}")
+    gathers = gather.KERNEL.launches - g0
+    intersects = kway.KERNEL.launches - k0
+    check(gathers == 0, f"mesh {name}: {gathers} gather launches on mesh hops")
+    if intersect:
+        check(intersects >= 1, f"mesh {name}: the intersect kernel was not launched")
+    return {"query": name, "ms": secs * 1e3, "routes": eng["routes"],
+            "mesh_chips": led["mesh_chips"], "exchange_bytes": led["exchange_bytes"],
+            "mesh_ms": led["mesh_ms"], "edges": led["edges"],
+            "gather_launches": gathers, "intersect_launches": intersects,
+            "body_bytes": len(want), "byte_identical_to_host_route": True}
+
+
+def mesh_summary(m: dict) -> dict:
+    """The summary line's ``mesh`` key."""
+    return {
+        "seconds": m["seconds"], "setup": m["setup"],
+        "served_ms": {n: r["ms"] for n, r in m["served"].items()},
+        "exchange_bytes": {n: r["exchange_bytes"] for n, r in m["served"].items()},
+        "count_p50_ms": {k: v["p50_ms"] for k, v in m["timing"].items()},
+        "rejoin_s": m["chip_loss"]["rejoin_s"], "write": m["write"],
+        "calibration": m["calibration"],
+    }
+
+
+def mesh_count_p50(addr: str, q: str) -> dict:
+    lat = []
+    for _ in range(MESH_REPEATS):
+        status, _raw, secs = post(addr, q)
+        check(status == 200, f"mesh timing: HTTP {status}")
+        lat.append(secs * 1e3)
+    return {"p50_ms": float(np.percentile(lat, 50)), "request_ms": lat}
+
+
+def phase_mesh(store, srv, s1, s2, chain_large, card: str) -> dict:
+    """Phase 20 (see the module docstring); the caller zeroes the launch
+    counts just before and reads them right after."""
+    import torch
+
+    from dgraph_tpu_torch import ops
+    from dgraph_tpu_torch.mesh.programs import mesh_multi_hop_step
+    from dgraph_tpu_torch.parallel import crossover, make_mesh
+    from dgraph_tpu_torch.query import chain
+    from dgraph_tpu_torch.sched import segments
+    from dgraph_tpu_torch.serve.server import DgraphServer
+    from dgraph_tpu_torch.utils import devguard
+    from dgraph_tpu_torch.utils.failpoints import FailpointError, fail
+
+    t_phase = time.perf_counter()
+    cal = crossover.measure("cuda")
+    log(dict(phase="mesh_calibration", card=card, **cal,
+             nvlink_bytes_per_s_estimate=crossover.NVLINK_BYTES_PER_S,
+             l2_bytes=crossover.L2_BYTES, hbm_bytes=crossover.HBM_TOTAL))
+    out = {"calibration": cal, "card": card}
+    rng = np.random.default_rng(MESH_SEED)
+    count_seeds = np.unique(rng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+    count_q = two_hop_count(count_seeds)
+    small = np.unique(rng.integers(1, N_NODES + 1, size=SMALL_SEEDS))
+    chain_q = two_hop_count(chain_large)
+    ref = host_engine(store)
+    msrv = wsrv = None
+    with env_set("DGRAPH_TPU_DEVICE_COOLDOWN_S", str(MESH_COOLDOWN_S)):
+        devguard.reset_for_tests()
+        try:
+            msrv = DgraphServer(store, device="cuda",
+                                mesh=make_mesh(devices=["cuda:0"] * MESH_WIDTH))
+            msrv.start()
+            arenas = msrv.engine.arenas
+            t0 = time.perf_counter()
+            a = arenas.data("e")
+            t1 = time.perf_counter()
+            sa = arenas.sharded_csr("e")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out["setup"] = {"arena_build_s": t1 - t0, "shard_s": t2 - t1,
+                            "width": MESH_WIDTH, "shard_bytes": sa.device_bytes(),
+                            "rows": a.n_rows, "edges": a.n_edges}
+            log(dict(phase="mesh_setup", card=card, **out["setup"]))
+            with no_caches(msrv), per_level(msrv.engine):
+                # (a) the served requests
+                rows = [
+                    mesh_served(msrv, ref, "count", count_q, MESH_WIDTH, False),
+                    mesh_served(msrv, ref, "materialised_2hop", two_hop(small),
+                                MESH_WIDTH, False),
+                    mesh_served(msrv, ref, "join_a", join_filter_query(s1, s2),
+                                MESH_WIDTH, True),
+                    mesh_served(msrv, ref, "chain_a", chain_q, MESH_WIDTH, False),
+                ]
+                for r in rows:
+                    log(dict(phase="mesh", card=card, **r))
+                out["served"] = {r["query"]: r for r in rows}
+                # (b) one multi-hop segment, nothing synchronizing
+                first = int(a.degree_of_rows(a.rows_for_uids_host(chain_large)).sum())
+                cap = chain.scan_cap(a, len(chain_large), first, 2)
+                check(cap is not None, "mesh (b): chain (a) exceeds the light cap")
+                f = torch.from_numpy(ops.pad_to(chain_large, cap)).to("cuda")
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    fs, tot, _final = mesh_multi_hop_step(
+                        arenas.mesh, arenas.sharded_csr("e"), f, cap, 2)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                n2 = int((fs[1] != ops.SENT).sum())
+                want_n = json.loads(json.dumps(ref.run(chain_q)))["q"][0]["count"]
+                check(n2 == want_n, f"mesh (b): {n2} uids at hop 2, want {want_n}")
+                out["no_sync"] = {"cap": cap, "hop_edges": tot.tolist(),
+                                  "count": n2, "raised": False}
+                log(dict(phase="mesh_no_sync", **out["no_sync"]))
+                # (e) the count's p50 at 4 virtual chips, 1 chip, unsharded
+                timing = {"virtual_chips_4": mesh_count_p50(msrv.addr, count_q)}
+                with env_set("DGRAPH_TPU_MESH", "force"):
+                    wsrv = DgraphServer(store, device="cuda")
+                wsrv.start()
+                check(wsrv.engine.arenas.mesh.shape["model"] == 1,
+                      "DGRAPH_TPU_MESH=force on one card must make a 1-wide mesh")
+                with no_caches(wsrv), per_level(wsrv.engine):
+                    post(wsrv.addr, count_q)
+                    timing["force_width_1"] = mesh_count_p50(wsrv.addr, count_q)
+                wsrv.stop()
+                wsrv = None
+                with no_caches(srv), per_level(srv.engine):
+                    timing["unsharded"] = mesh_count_p50(srv.addr, count_q)
+                out["timing"] = timing
+                log(dict(phase="mesh_timing", card=card,
+                         **{k: v["p50_ms"] for k, v in timing.items()}))
+                # (c) chip loss, staged rejoin, a resumed segmented chain
+                dom = arenas.mesh_fault
+                want = json.dumps(ref.run(count_q))
+                version0 = arenas.mesh_plan.version
+                fail.seed(0)
+                fail.arm("device.mesh", "error(p=1,n=1,chip=3)")
+                t_loss = time.perf_counter()
+                status, raw, _secs = post(msrv.addr, count_q, "?ledger=true")
+                loss_s = time.perf_counter() - t_loss
+                fail.disarm("device.mesh")
+                body = json.loads(raw)
+                deg = body.pop("degraded", {})
+                body.pop("server_latency", None)
+                led = body.pop("extensions")["ledger"]
+                check(status == 200 and json.dumps(body) == want,
+                      "mesh (c): the count after the loss differs")
+                check(deg.get("mesh", {}).get("chips_healthy") == MESH_WIDTH - 1
+                      and "device" not in deg,
+                      f"mesh (c): disclosure {deg}")
+                check(led["mesh_chips"] == MESH_WIDTH - 1,
+                      f"mesh (c): mesh_chips {led['mesh_chips']}")
+                check(dom.epoch == version0 + 1,
+                      f"mesh (c): epoch {dom.epoch}, plan version was {version0}")
+                epoch_loss = dom.epoch
+                rejoin_s = wait_until(lambda: dom.width == MESH_WIDTH, MESH_REJOIN_S,
+                                      "mesh (c): the staged rejoin never came back")
+                check(dom.mesh is dom.boot_mesh, "mesh (c): rejoin off the boot mesh")
+                status, raw, _secs = post(msrv.addr, count_q, "?ledger=true")
+                check(status == 200 and strip_latency(raw) == want
+                      and "degraded" not in json.loads(raw),
+                      "mesh (c): the count after the rejoin differs")
+                ex = arenas.mesh_executor()
+                with env_set("DGRAPH_TPU_SEGMENT", "force"), \
+                        env_set("DGRAPH_TPU_SEGMENT_K", "1"):
+                    fs0, tot0 = ex.multi_hop("e", False, chain_large, 2, cap, {})
+                    flipped = []
+
+                    def flip():
+                        # another query's chip loss, between two segments
+                        if not flipped:
+                            flipped.append(1)
+                            dom._sink("transient", "mesh.multi_hop",
+                                      FailpointError("lost (chip=1)"))
+
+                    stats = {}
+                    prev = segments.activate(segments.SegmentContext(
+                        preempt=flip, stats=stats))
+                    try:
+                        fs1, tot1 = ex.multi_hop("e", False, chain_large, 2, cap, stats)
+                    finally:
+                        segments.deactivate(prev)
+                check(flipped and stats.get("resumed", {}).get("epoch") == 1,
+                      f"mesh (c): the segmented chain did not resume: {stats}")
+                check(np.array_equal(fs0, fs1) and np.array_equal(tot0, tot1),
+                      "mesh (c): the resumed chain differs")
+                rejoin2_s = wait_until(lambda: dom.width == MESH_WIDTH, MESH_REJOIN_S,
+                                       "mesh (c): the second rejoin never came back")
+                out["chip_loss"] = {
+                    "count_after_loss_ms": loss_s * 1e3, "epoch": epoch_loss,
+                    "plan_version_before": version0, "disclosure": deg,
+                    "rejoin_s": rejoin_s, "resumed": stats["resumed"],
+                    "second_rejoin_s": rejoin2_s, "status": dom.status()}
+                log(dict(phase="mesh_chip_loss", card=card, **out["chip_loss"]))
+                # (d) a 64-edge write
+                adds, _dels = delta_edges(store, count_seeds, MESH_DELTA, rng)
+                status, raw, _secs = post(msrv.addr, edge_mutation(adds, []))
+                check(status == 200, f"mesh (d): write HTTP {status}")
+                status, raw, _secs = post(msrv.addr, count_q, "?ledger=true")
+                check(status == 200, f"mesh (d): count HTTP {status}")
+                host_engine_advanced(store, ref, adds)
+                want_d = json.dumps(ref.run(count_q))
+                check(strip_latency(raw) == want_d,
+                      "mesh (d): the count after the write differs from the host route")
+                out["write"] = {"edges": len(adds),
+                                "count": json.loads(want_d)["q"][0]["count"],
+                                "count_before": json.loads(want)["q"][0]["count"]}
+                log(dict(phase="mesh_write", **out["write"]))
+        finally:
+            fail.reset()
+            for x in (wsrv, msrv):
+                if x is not None:
+                    x.stop()
+            devguard.reset_for_tests()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 # -- phase 12: the serving plane ----------------------------------------------
 
 
@@ -4283,7 +4560,7 @@ def phase_durability(device, src, dst, card: str) -> dict:
         stats = json.loads(raw)["server_latency"]["engine"]
         check(served_on_device(stats), f"recovered d1: the count was not served on the card: {stats}")
         lat = []
-        for _ in range(10):
+        for _ in range(DUR_REPEATS):
             status, raw, secs = post(addr, count_q)
             check(status == 200 and strip_latency(raw) == bodies["count"],
                   "recovered d1: a repeat of the count differs")
@@ -5573,6 +5850,7 @@ def main(argv) -> int:
     subs_only = "--subs-only" in argv
     transports_only = "--transports-only" in argv
     routes_only = "--routes-only" in argv
+    mesh_only = "--mesh-only" in argv
     try:
         import torch
     except ImportError:
@@ -5587,6 +5865,10 @@ def main(argv) -> int:
               "beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    # the servers of every other phase stay unsharded on a host of any
+    # number of cards: only phase mesh has a mesh, which it passes in
+    # (``DgraphServer(mesh=)``) or asks for by DGRAPH_TPU_MESH=force
+    os.environ["DGRAPH_TPU_MESH"] = "0"
 
     srv = None
     phase = "build"
@@ -5747,6 +6029,20 @@ def main(argv) -> int:
                  "routes": rt["p50_ms"], "cli_surface_s": cli["seconds"],
                  "host_dedup": batched["host_dedup"]})
             return 0
+        if mesh_only:
+            phase = mark("names")
+            phase_names(store, srv, N_NAMED)
+            jrng = np.random.default_rng(JOIN_SEED)
+            s1, s2 = (np.unique(jrng.integers(1, N_NODES + 1, size=LARGE_SEEDS))
+                      for _ in range(2))
+            phase = mark("mesh")
+            zero_counts()
+            mesh = phase_mesh(store, srv, s1, s2, chain_seeds()[0], info["nvidia_smi"])
+            read_counts("mesh")
+            mark("done")
+            log({"phase_seconds": phase_s, "launches": launches,
+                 "mesh": mesh_summary(mesh)})
+            return 0
         if serving_only:
             phase = mark("names")
             phase_names(store, srv, N_NAMED)
@@ -5877,6 +6173,15 @@ def main(argv) -> int:
         phase = mark("order_timing")
         log(dict(phase="order_timing", card=info["nvidia_smi"],
                  **order_timing(srv.engine, surface["large_seeds"])))
+        # the mesh last: its write reaches the mesh server's arenas, not
+        # the main server's
+        phase = mark("mesh")
+        zero_counts()
+        mesh = phase_mesh(store, srv, s1, s2, large_c, info["nvidia_smi"])
+        read_counts("mesh")
+        # the gather on the mesh server's e hops: none (checked a request)
+        launches["gather_packed"]["mesh"] = sum(
+            r["gather_launches"] for r in mesh["served"].values())
         # the wrapper's device time for the k-way calls of one request
         kms = {"filter_and": it["served_a_filter"]["ms"],
                "allofterms": it["served_b_root"]["ms"] + it["served_b_filter"]["ms"]}
@@ -5978,6 +6283,7 @@ def main(argv) -> int:
                  "pair_trace": clu["pair"]["trace"]},
              "planner": {k: pl[k] for k in (
                  "seconds", "decisions", "mispredicts", "mispredict_rate", "rows")},
+             "mesh": mesh_summary(mesh),
              "launches_by_path": launches})
         log({"kernels": kernels})
         log(info["nvidia_smi"])

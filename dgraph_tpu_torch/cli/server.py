@@ -32,6 +32,12 @@ written at shutdown (pstats, and the top 50 lines as text).  ``--w``,
 ``--workers``, ``--num_pending`` and ``--max_edges`` are accepted and
 kept in the options, as the reference keeps them.
 
+Multi-device: the server builds its mesh as ``DgraphServer`` does
+(``DGRAPH_TPU_MESH``: ``auto`` shards over every card when there are two
+or more, ``force`` over the one card too, ``0`` never;
+``DGRAPH_TPU_MESH_SHARD_ROWS`` the rows a predicate needs to shard);
+there is no flag for virtual chips.
+
 Clustered (``--peer``, or ``--join`` a live member): the server is
 node ``--idx`` of a Raft cluster serving the groups ``--groups`` (group 0,
 the metadata group, always), placed by ``--peer_groups`` ("1=0,1;2=0,2",

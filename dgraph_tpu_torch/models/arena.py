@@ -33,8 +33,17 @@ patch repairs what it can in place (IVM): the degree histogram always,
 the tiles and the tier-1 hop-cache entries (``cache/hop.py``) behind one
 repair-vs-rebuild gate (``_ivm_repair_gate``); what is not repaired is
 dropped.  The manager drops an arena's hop-cache entries when the arena
-is evicted or rebuilt.  Not ported yet: the chunked layout and mesh
-sharding.
+is evicted or rebuilt.
+
+- **mesh sharding** (``ArenaManager.sharded_csr``): with a mesh
+  (``parallel/mesh.py``), a predicate whose arena ``use_mesh_for``
+  accepts is row-sharded over the mesh's model axis, each shard on its
+  chip, placed by the ``MeshPlan`` (``mesh/plan.py``) and served by the
+  ``MeshExecutor`` (``mesh/executor.py``); the elastic fault domain
+  (``mesh/fault.py``) re-shards onto surviving chips.  Sharded views
+  count against the residency budget like any arena.
+
+Not ported yet: the chunked layout.
 """
 
 from __future__ import annotations
@@ -953,9 +962,21 @@ class ArenaManager:
         store: PostingStore,
         device=None,
         budget_bytes: Optional[int] = None,
+        mesh=None,
+        shard_threshold: int = 4096,
     ):
         self.store = store
         self.device = resolve(device)
+        # the device mesh big predicates row-shard over (the
+        # intra-predicate sharding upstream lacks, SURVEY.md §5); None =
+        # unsharded execution.  ``self.mesh`` is a property: with the
+        # elastic fault domain live it reads the CURRENT surviving
+        # sub-mesh, so every consumer follows a re-shard through one swap
+        self._mesh = mesh
+        self.shard_threshold = shard_threshold
+        self.mesh_plan = None
+        self._mesh_exec = None
+        self.mesh_fault = None
         # every kernel built and bound now, never inside a guarded
         # dispatch's watchdog (ops.bind_kernels; a no-op off CUDA)
         ops.bind_kernels(self.device)
@@ -968,6 +989,8 @@ class ArenaManager:
         self._reverse: Dict[str, CSRArena] = {}
         self._index: Dict[Tuple[str, str], IndexArena] = {}
         self._values: Dict[str, ValueArena] = {}
+        # (pred, reverse) -> (source arena, ShardedArena, plan offset)
+        self._sharded: Dict[Tuple[str, bool], tuple] = {}
         self._cache_lock = threading.RLock()
         self.budget_bytes = int(
             budget_bytes if budget_bytes is not None
@@ -981,6 +1004,7 @@ class ArenaManager:
             id(self._reverse): self._reverse,
             id(self._index): self._index,
             id(self._values): self._values,
+            id(self._sharded): self._sharded,
         }
         # tier-1 hop-expansion cache (cache/hop.py): expansion results
         # are arena-snapshot state, so the cache lives and dies with this
@@ -990,6 +1014,18 @@ class ArenaManager:
         from dgraph_tpu_torch.cache import HopCache, cache_enabled
 
         self.hop_cache = HopCache() if cache_enabled() else None
+        if mesh is not None:
+            # predicate→shard placement and, with more than one chip to
+            # lose, the elastic fault domain (DGRAPH_TPU_MESH_ELASTIC=0
+            # keeps the one latching plane)
+            from dgraph_tpu_torch.mesh.plan import MeshPlan
+
+            self.mesh_plan = MeshPlan.load(int(mesh.shape["model"]))
+            if int(mesh.shape["model"]) > 1:
+                from dgraph_tpu_torch.mesh import fault as _mesh_fault
+
+                if _mesh_fault.elastic_enabled():
+                    self.mesh_fault = _mesh_fault.MeshFaultDomain(self, mesh)
 
     def _drop_hops(self, arena) -> None:
         """Drop the hop-cache entries of an arena leaving the cache NOW,
@@ -998,10 +1034,13 @@ class ArenaManager:
         if arena is not None and self.hop_cache is not None:
             self.hop_cache.drop_arena(id(arena))
 
-    def _get_or_build(self, cache, key, build):
+    def _get_or_build(self, cache, key, build, valid=None):
+        """cache[key], built under the cache lock when missing or when
+        ``valid`` rejects the cached entry (sharded_csr checks its source
+        arena, width and placement)."""
         with self._cache_lock:
             a = cache.get(key)
-            if a is None:
+            if a is None or (valid is not None and not valid(a)):
                 a = build()
                 cache[key] = a
             self._touch((id(cache), key), a)
@@ -1010,6 +1049,8 @@ class ArenaManager:
     def _touch(self, lkey: tuple, obj) -> None:
         """LRU bookkeeping under _cache_lock: refresh recency + size (the
         resident arena built after caching grows the footprint)."""
+        if lkey[0] == id(self._sharded):
+            obj = obj[1]  # (source arena, ShardedArena, offset)
         new = obj.device_bytes()
         self._lru_total += new - self._lru.get(lkey, 0)
         self._lru[lkey] = new
@@ -1028,7 +1069,14 @@ class ArenaManager:
         self._lru_total -= vbytes
         self.evictions += 1
         ARENA_EVICTIONS.add(1)
-        self._drop_hops(self._caches_by_id[victim[0]].pop(victim[1], None))
+        cache = self._caches_by_id[victim[0]]
+        gone = cache.pop(victim[1], None)
+        if cache is self._sharded:
+            return
+        self._drop_hops(gone)
+        if cache is self._data or cache is self._reverse:
+            # the sharded view holds the arena: it would pin its memory
+            self._drop_sharded_key((victim[1], cache is self._reverse))
 
     def evict_for_oom(self, n: int = 2) -> int:
         """Device-memory pressure valve (utils/devguard.py): a dispatch
@@ -1059,6 +1107,7 @@ class ArenaManager:
             entries = len(self._lru)
             evictions = self.evictions
             arenas = list(self._data.values()) + list(self._reverse.values())
+            sharded = [e[1] for e in self._sharded.values()]
         tile_bytes = 0
         tile_sets = 0
         classed = 0
@@ -1082,6 +1131,7 @@ class ArenaManager:
             "entries": entries,
             "evictions": evictions,
             "tile_bytes": tile_bytes,
+            "sharded_bytes": sum(sa.device_bytes() for sa in sharded),
             "program_caches": {
                 "classed_expanders": classed,
                 "classed_programs": classed_programs,
@@ -1111,7 +1161,8 @@ class ArenaManager:
             if "*" in dirty:  # full-store replacement
                 if self.hop_cache is not None:
                     self.hop_cache.clear()
-                for c in (self._data, self._reverse, self._index, self._values):
+                for c in (self._data, self._reverse, self._index,
+                          self._values, self._sharded):
                     c.clear()
                 self._lru.clear()
                 self._lru_total = 0
@@ -1138,6 +1189,8 @@ class ArenaManager:
                     self._lru_drop(self._index, key)
                 self._values.pop(p, None)
                 self._lru_drop(self._values, p)
+                for sk in ((p, False), (p, True)):
+                    self._drop_sharded_key(sk)
                 dirty.discard(p)
 
     def _try_apply_delta(self, pred: str, delta: list, base=None) -> bool:
@@ -1155,6 +1208,10 @@ class ArenaManager:
         a = self._data.get(pred)
         if a is None or (pred + "\x00has") in self._data:
             return False
+        # the sharded views re-shard from the patched host mirrors at
+        # their next read (the reference rebuilds the whole arena)
+        for sk in ((pred, False), (pred, True)):
+            self._drop_sharded_key(sk)
         _E = np.zeros((0, 2), dtype=np.int64)
         if not delta:
             # facet-only touches: arenas unaffected, and the cached
@@ -1248,6 +1305,155 @@ class ArenaManager:
                 led.repairs += repaired
         if dropped:
             IVM_REPAIRS.add(("hop", "rebuild"))
+
+    # -- mesh sharding ------------------------------------------------------
+
+    @property
+    def mesh(self):
+        """The CURRENT serving mesh: the boot mesh, or the surviving
+        sub-mesh the elastic fault domain re-sharded onto.  None =
+        unsharded execution."""
+        if self.mesh_fault is not None:
+            return self.mesh_fault.mesh
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, m):
+        self._mesh = m
+
+    def _drop_sharded_key(self, key) -> None:
+        # caller holds _cache_lock (or is the only thread)
+        self._sharded.pop(key, None)
+        self._lru_drop(self._sharded, key)
+
+    @staticmethod
+    def _shard(a: CSRArena, mesh, offset_of):
+        """``a`` row-sharded over ``mesh``'s model axis on the host,
+        rolled by the placement offset ``offset_of(host shards)`` returns,
+        each shard then moved onto its chip.  Returns (ShardedArena,
+        offset)."""
+        from dgraph_tpu_torch.mesh.plan import MeshPlan
+        from dgraph_tpu_torch.parallel.mesh import shard_arena_rows
+
+        n = int(mesh.shape["model"])
+        sa = shard_arena_rows(a.h_src, a.h_offsets, a.host_dst(), n)
+        off = offset_of(sa)
+        return MeshPlan.rolled(sa, off % n).to(mesh.model_devices()), off
+
+    def sharded_csr(self, pred: str, reverse: bool = False):
+        """Row-sharded view of a predicate's CSR over the mesh's model
+        axis, cached against the source arena's identity (rebuilds follow
+        the arena's own dirty invalidation), the mesh width (an elastic
+        re-shard changes it) and the MeshPlan offset it was placed under
+        (a ``rebalance()`` moves a predicate's offset)."""
+        a = self.reverse(pred) if reverse else self.data(pred)
+        pkey = ("~" + pred) if reverse else pred
+
+        def offset_of(sa):
+            # placement is assigned on first sight (least-loaded chip)
+            if self.mesh_plan is None:
+                return 0
+            self.mesh_plan.offset_for(pkey, sa.device_bytes())
+            return self.mesh_plan.placement.get(pkey, 0)
+
+        def build():
+            sa, off = self._shard(a, self.mesh, offset_of)
+            return (a, sa, off)
+
+        def valid(e):
+            if e[0] is not a:
+                return False
+            if e[1].n_shards != int(self.mesh.shape["model"]):
+                return False
+            if self.mesh_plan is None:
+                return True
+            return self.mesh_plan.placement.get(pkey, 0) == e[2]
+
+        return self._get_or_build(
+            self._sharded, (pred, reverse), build, valid=valid
+        )[1]
+
+    def mesh_executor(self):
+        """The memoized serving-path executor (mesh/executor.py) over
+        this manager's mesh; None when unsharded."""
+        if self.mesh is None:
+            return None
+        if self._mesh_exec is None:
+            from dgraph_tpu_torch.mesh.executor import MeshExecutor
+
+            self._mesh_exec = MeshExecutor(self)
+        return self._mesh_exec
+
+    def use_mesh_for(self, arena: CSRArena) -> bool:
+        """Route this arena's expansions through the row-sharded mesh?
+
+        Never below ``shard_threshold`` rows (``DGRAPH_TPU_MESH_SHARD_ROWS``).
+        At or above it, the policy follows what the mesh is:
+          - virtual chips of one card, or a 1-wide mesh: shard — the
+            caller built the mesh to run the sharded plane;
+          - more than one distinct card: the crossover model
+            (parallel/crossover.py, the card's measured constants) —
+            shard when it predicts sharded wins for a typical query
+            against this arena's size, or when one card cannot hold it."""
+        mesh = self.mesh
+        if mesh is None or arena.n_rows < self.shard_threshold:
+            return False
+        n = int(mesh.shape["model"])
+        if n < 2 or not mesh.distinct:
+            return True
+        from dgraph_tpu_torch.parallel.crossover import should_shard
+
+        arena_bytes = 12 * arena.n_rows + 4 * arena.n_edges
+        avg_deg = arena.n_edges / max(1, arena.n_rows)
+        return should_shard(arena_bytes, arena.n_rows, avg_deg, n)
+
+    def drop_sharded(self) -> None:
+        """Drop every sharded view — the elastic re-shard's cache
+        surgery: the evicted width's views are dead weight on the new
+        sub-mesh, and the survivors re-seed lazily through sharded_csr
+        under the same budget (this IS the re-seeding mechanism)."""
+        with self._cache_lock:
+            for key in list(self._sharded):
+                self._drop_sharded_key(key)
+
+    def warm_sharded(self, mesh):
+        """Pre-build sharded views at a rejoin CANDIDATE mesh's width —
+        the warm half of warm-then-cutover, run on the fault domain's
+        probe thread while live traffic keeps serving the current
+        sub-mesh.  Offsets come from the plan's ``preview`` of the
+        candidate width, so the cutover's ``rebalance`` finds the adopted
+        entries valid.  Build failures propagate: an unprovable warm
+        means no cutover."""
+        from dgraph_tpu_torch.mesh.fault import StagedShards
+
+        n_model = int(mesh.shape["model"])
+        staged = StagedShards(n_model)
+        with self._cache_lock:
+            keys = list(self._sharded)
+        preview = (
+            self.mesh_plan.preview(n_model)
+            if self.mesh_plan is not None
+            else {}
+        )
+        for pred, reverse in keys:
+            a = self.reverse(pred) if reverse else self.data(pred)
+            pkey = ("~" + pred) if reverse else pred
+            sa, off = self._shard(
+                a, mesh, lambda _sa, k=pkey: preview.get(k, 0) % n_model
+            )
+            staged.views[(pred, reverse)] = (a, sa, off)
+        return staged
+
+    def adopt_sharded(self, staged) -> None:
+        """The cutover half of warm-then-cutover: install the staged views
+        with budget accounting as if each had just been built (a stage
+        whose width no longer matches the live mesh is discarded)."""
+        if self.mesh is None or int(self.mesh.shape["model"]) != staged.width:
+            return
+        with self._cache_lock:
+            for key, entry in staged.views.items():
+                self._sharded[key] = entry
+                self._touch((id(self._sharded), key), entry)
 
     # -- data / reverse ----------------------------------------------------
 

@@ -31,9 +31,12 @@ Design constraints, in the flight recorder's order:
    (cardinality-capped), routes and stages are fixed small sets.
 
 ``device_sync_ms`` is populated only on SAMPLED requests: the unsampled
-path never waits on device results by design.  The reference's mesh
-fields (``mesh_ms``, ``mesh_chips``, ``exchange_bytes``) are not here:
-the port has no mesh serving plane.
+path never waits on device results by design.  A request the mesh
+serving plane served (``mesh/executor.py``) also carries ``mesh_ms``
+(wall time inside mesh dispatches), ``mesh_chips`` (the widest mesh
+they ran on) and ``exchange_bytes`` (the estimated cross-chip payload);
+``finish`` drains them as the stages ``mesh`` and ``mesh_chip``
+(wall × width).
 
 Env: ``DGRAPH_TPU_LEDGER`` (default on; read per request).
 """
@@ -82,7 +85,7 @@ class Ledger:
         "tenant", "edges", "hops", "host_ms", "device_ms",
         "device_sync_ms", "bytes_h2d", "bytes_d2h", "compiles",
         "cache_hits", "cache_misses", "cache_hit_bytes", "repairs",
-        "coalesced",
+        "coalesced", "exchange_bytes", "mesh_ms", "mesh_chips",
     )
 
     def __init__(self):
@@ -105,6 +108,12 @@ class Ledger:
         self.cache_hit_bytes = 0
         self.repairs = 0
         self.coalesced = 0
+        # the mesh serving plane: wall time inside mesh dispatches, the
+        # model-axis width they ran on (aggregate chip-time is
+        # mesh_ms × mesh_chips) and the estimated exchange payload
+        self.exchange_bytes = 0
+        self.mesh_ms = 0.0
+        self.mesh_chips = 0
 
     # -- instrumentation sites (callers checked current() is not None) ------
 
@@ -152,8 +161,9 @@ class Ledger:
 
     def to_dict(self) -> dict:
         """The response-extension / span-attr rendering (stable keys, ms
-        rounded)."""
-        return {
+        rounded).  The mesh keys appear only when a mesh dispatch ran
+        this request."""
+        d = {
             "edges": self.edges,
             "hops": dict(self.hops),
             "host_ms": round(self.host_ms, 3),
@@ -168,6 +178,11 @@ class Ledger:
             "repairs": self.repairs,
             "coalesced": self.coalesced,
         }
+        if self.mesh_chips:
+            d["mesh_ms"] = round(self.mesh_ms, 3)
+            d["mesh_chips"] = self.mesh_chips
+            d["exchange_bytes"] = self.exchange_bytes
+        return d
 
 
 # bounded free list: at most (handler threads in flight) ledgers are live
@@ -221,6 +236,13 @@ def finish(led: Ledger) -> dict:
         LEDGER_STAGE_US.add("device", int(led.device_ms * 1e3))
     if led.device_sync_ms:
         LEDGER_STAGE_US.add("device_sync", int(led.device_sync_ms * 1e3))
+    if led.mesh_ms:
+        # every chip of a mesh dispatch is held for its wall time: "mesh"
+        # is the wall clock, "mesh_chip" the aggregate chip-time
+        LEDGER_STAGE_US.add("mesh", int(led.mesh_ms * 1e3))
+        LEDGER_STAGE_US.add(
+            "mesh_chip", int(led.mesh_ms * 1e3) * max(1, led.mesh_chips)
+        )
     if led.bytes_h2d:
         LEDGER_BYTES.add("h2d", led.bytes_h2d)
     if led.bytes_d2h:

@@ -26,9 +26,13 @@ recorded in ``stats["planner"]`` and closed with the chain's measured
 planner is off or the threshold is pinned).  A light
 (var-block) chain may first be taken by the tile join tier
 (``joinplan.try_mxu_route``: a mask chain over adjacency tiles, where
-its cost model picks it).  Otherwise a light, same-arena, undecorated
-chain runs the multi-hop pass (``ops.multi_hop``, ``_try_chain_scan``);
-every other chain the staged pass ``_run_fused``.
+its cost model picks it).  A light, same-predicate, undecorated chain
+on an arena the mesh shards runs as the mesh's multi-hop program
+(``_try_mesh_chain``, mesh/executor.py), the exchange on the devices
+between hops; otherwise a light, same-arena, undecorated chain runs the
+multi-hop pass (``ops.multi_hop``, ``_try_chain_scan``); every other
+chain the staged pass ``_run_fused``, truncated at the first mesh arena
+(its levels then run per level, over the mesh).
 
 Layout.  The reference expands each level through its inline-head layout
 (``expand_inline_seg``), which serves the TPU gather's 32-byte index
@@ -55,8 +59,9 @@ guard (failpoint sites ``device.chain``, ``device.multi_hop``,
 ``device.spgemm``).  A sick domain makes the chain raise
 ``DeviceSickError`` up front; an out-of-memory fault of any fused pass
 declines to the per-level route, recorded in ``chain_reject``; every
-other fault propagates (the server's 503).  Nothing falls back to the
-host.
+other fault propagates (the server's 503).  A faulted mesh chain that no
+chip owns declines too: its levels re-plan per level.  Nothing falls
+back to the host.
 """
 
 from __future__ import annotations
@@ -350,6 +355,11 @@ def _fuse(engine, child, src: np.ndarray, resolver, first_edges, reject) -> bool
     levels = collect_chain(engine, child)
     if len(levels) < 2:
         return reject("chain shorter than 2 levels")
+    # the mesh's multi-hop program: a light same-predicate undecorated
+    # chain on a shard-eligible arena, the exchange on the devices
+    got = _try_mesh_chain(engine, levels, src, first_edges, reject)
+    if got is not None:
+        return got
     arenas = []
     for sg in levels:
         a = (
@@ -357,12 +367,12 @@ def _fuse(engine, child, src: np.ndarray, resolver, first_edges, reject) -> bool
             if sg.reverse
             else engine.arenas.data(sg.attr)
         )
-        if a.n_edges == 0:
+        if a.n_edges == 0 or engine.arenas.use_mesh_for(a):
             break  # truncate the chain here; the tail runs per level
         arenas.append(a)
     levels = levels[: len(arenas)]
     if len(levels) < 2:
-        return reject("chain truncated below 2 levels (empty arena)")
+        return reject("chain truncated below 2 levels (empty/mesh arena)")
 
     # --- whole-chain fan-out estimate and the route decision ---
     if first_edges is None:
@@ -571,6 +581,85 @@ def scan_cap(arena, n_src: int, est_edges: int, n_hops: int):
         m = min(e, nd)
     cap = ops.bucket(max(max(caps), n_src, 1))
     return None if cap > CHAIN_MAX_CAP_LIGHT else cap
+
+
+def _try_mesh_chain(engine, levels, src, first_edges, reject):
+    """The fused multi-hop over the mesh serving plane (mesh/executor.py)
+    for light same-predicate undecorated chains on a shard-eligible
+    arena — the sharded twin of ``_try_chain_scan``.
+
+    Tri-state: ``True`` the chain ran and every level is stashed;
+    ``False`` the planner's verdict was per-level (recorded and
+    rejected); ``None`` the chain is not mesh-fusable (decorated,
+    mixed-predicate, over the light cap, or a fault no chip owns) and the
+    caller goes on to the staged pass, which truncates at the mesh arena
+    so those levels run per level."""
+    ex = engine.arenas.mesh_executor()
+    if ex is None:
+        return None
+    first = levels[0]
+    attr, rev = first.attr, bool(first.reverse)
+    if any(sg.attr != attr or bool(sg.reverse) != rev for sg in levels):
+        return None
+    if any(sg.filter is not None for sg in levels):
+        return None
+    if any(
+        sg.params.cascade or sg.params.order_attr or sg.params.first
+        or sg.params.offset
+        for sg in levels
+    ):
+        return None
+    # var blocks only (result matrices never leave the device) and the
+    # fused-hop kill switch, as the unsharded multi-hop pass
+    if not engine._cur_block_internal or engine.expander.fused_hop == "0":
+        return None
+    a = engine.arenas.reverse(attr) if rev else engine.arenas.data(attr)
+    if a.n_edges == 0 or not engine.arenas.use_mesh_for(a):
+        return None
+    if not ex.allowed():
+        return None
+    src = np.asarray(src)
+    if first_edges is None:
+        first_edges = int(a.degree_of_rows(a.rows_for_uids_host(src)).sum())
+    cap = scan_cap(a, len(src), first_edges, len(levels))
+    if cap is None:
+        return None
+    est_total = est_u = first_edges
+    for _ in levels[1:]:
+        est_u = min(est_u, a.n_rows)
+        lvl = int(est_u * (a.n_edges / max(1, a.n_rows)))
+        est_total += lvl
+        est_u = lvl
+    fuse, plan_dec = planner.chain_route(engine, est_total, len(levels))
+    if not fuse:
+        if plan_dec is not None:
+            planner.record(engine.stats, plan_dec)
+            return reject(
+                f"fan-out estimate {est_total}: calibrated model favors "
+                f"per-level ({plan_dec['est_other_us']}us fused vs "
+                f"{plan_dec['est_chosen_us']}us per-level)"
+            )
+        return reject(
+            f"fan-out estimate {est_total} below threshold "
+            f"{engine.chain_threshold}"
+        )
+    try:
+        fs, totals = ex.multi_hop(attr, rev, src, len(levels), cap, engine.stats)
+    except devguard.DeviceFaultError:
+        # a fault no chip owns: decline the fused program, counted and
+        # disclosed (``degraded.device``) — the staged pass truncates at
+        # this arena and its levels re-plan per level
+        devguard.count_failover("unsharded", engine.stats, "mesh")
+        return None
+    src_list = np.asarray(src, dtype=np.int64)
+    for i, sg in enumerate(levels):
+        sg.chain_filtered = False
+        sg.chain_ordered = False
+        dest = fs[i][fs[i] != SENT].astype(np.int64)
+        sg.chain_stash = ("light", dest, src_list, int(totals[i]))
+        src_list = dest
+    _ran(engine, plan_dec)
+    return True
 
 
 def _needs_dest(levels, i: int) -> bool:

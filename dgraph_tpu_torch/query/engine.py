@@ -6,8 +6,11 @@ uid sets on the host, ordering runs on the host, and the JSON encoding
 is the reference's, so responses are byte-identical to the JAX engine's.
 
 Expansion routes (``DeviceExpander``), in the reference's order:
-``empty``, ``host`` (numpy over the host mirror, where the planner
-prices it cheaper: ``query/planner.py``), ``resident`` (the
+``empty``, ``mesh`` (a predicate the arena manager shards over the
+engine's mesh: ``mesh/executor.py``, each chip expanding its uid range
+and the segments reassembled on the devices), ``host`` (numpy over the
+host mirror, where the planner prices it cheaper:
+``query/planner.py``), ``resident`` (the
 hand-written gather kernel over the device-resident CSR, the default on
 a CUDA device), ``classed`` (``ops.ClassedExpander``: one masked 2-D
 gather per degree class, torch ops; an ascending frontier, by default
@@ -41,8 +44,11 @@ the routing, each expansion probes the tier-1 hop cache
 into one union expansion (``DeviceExpander.submit_hop``); every hop is
 a cancellation checkpoint (``QueryEngine.checkpoint``).  Every device
 dispatch runs under the device guard (``utils/devguard.py``); a fault
-raises to the caller, never to a host route.  The reference's mesh is
-not ported (it needs more than one card); filters other than the k-way
+raises to the caller, never to a host route.  The one failover is the
+mesh's: a level whose mesh dispatch faulted (or whose mesh plane is
+latched sick) re-plans on the card's unsharded routes, disclosed as
+``degraded.device``; a level served on a surviving sub-mesh after a chip
+loss is disclosed as ``degraded.mesh``.  Filters other than the k-way
 AND and a fused chain's keep-sets fold on the host.  With
 ``dump_shapes`` set (the server's ``--dumpsg``) each request leaves the
 execution shape of its blocks in ``last_dump``
@@ -141,9 +147,10 @@ class DeviceExpander:
     numpy pass) per (level × predicate).
 
     Routing per call, the reference's order: ``empty`` (no edges to
-    walk) → ``host`` (the planner's ``expand_route`` prices numpy
+    walk) → ``mesh`` (an arena ``ArenaManager.use_mesh_for`` shards:
+    ``_mesh_expand``) → ``host`` (the planner's ``expand_route`` prices numpy
     cheaper; with the planner off or the knob pinned, a fan-out below
-    ``expand_device_min``) → ``resident`` (the gather kernel over the
+    ``expand_device_min``; never for a level the mesh failed over) → ``resident`` (the gather kernel over the
     arena's device-resident CSR) → ``classed`` (an ascending frontier:
     ``ops.ClassedExpander``'s masked class gathers) → ``inline`` (an
     ascending frontier: ``ops.expand_inline_seg``, whose slot map is the
@@ -301,7 +308,7 @@ class DeviceExpander:
             self._route = "merged"
             out, seg_ptr = self.submit_hop(arena, src, attr, reverse)
         else:
-            out, seg_ptr = self._expand_one(arena, src, plan)
+            out, seg_ptr = self._expand_one(arena, src, plan, attr, reverse)
         if ver is not None:
             # ``ver`` was read BEFORE the expansion: an entry can only
             # land under an older version — stale-keyed, never
@@ -321,7 +328,8 @@ class DeviceExpander:
         device time."""
         key = (attr, bool(reverse), id(arena))
         return self.hop_merger.submit(
-            key, src, lambda union: self._expand_one(arena, union)
+            key, src,
+            lambda union: self._expand_one(arena, union, None, attr, reverse),
         )
 
     def _host_expand(self, arena, rows) -> Tuple[np.ndarray, np.ndarray]:
@@ -334,7 +342,8 @@ class DeviceExpander:
         return out, seg_ptr
 
     def _expand_one(
-        self, arena, src: np.ndarray, plan=None
+        self, arena, src: np.ndarray, plan=None, attr: str = "",
+        reverse: bool = False,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Wrapper around the expansion: closes the planner's host/device
         decision (made inside, where the exact fan-out is known) with
@@ -343,7 +352,7 @@ class DeviceExpander:
         st = self.engine.stats
         before = st["device_expand_ms"] + st["host_expand_ms"]
         self._expand_dec = None
-        out, seg_ptr = self._expand_one_inner(arena, src, plan)
+        out, seg_ptr = self._expand_one_inner(arena, src, plan, attr, reverse)
         dec = self._expand_dec
         if dec is not None:
             self._expand_dec = None
@@ -351,8 +360,40 @@ class DeviceExpander:
             planner.note_served_outcome(dec, actual_ms * 1e3)
         return out, seg_ptr
 
+    def _mesh_expand(self, src, attr: str, reverse: bool, cap: int, total: int):
+        """The sharded expansion under the ``"mesh"`` fault domain,
+        dispatched through the mesh serving plane (mesh/executor.py —
+        the guard bracket and the ledger's mesh attribution live there).
+        Returns (out, seg_ptr), or None when the mesh plane is latched
+        sick or its dispatch faulted without a chip to own it: the
+        caller then re-plans this level on the card's unsharded routes,
+        and the response discloses the failover (``degraded.device``)."""
+        eng = self.engine
+        ex = eng.arenas.mesh_executor()
+        if ex is None or not ex.allowed():
+            devguard.count_failover("unsharded", eng.stats, "mesh")
+            return None
+        # route:mesh is priced: the decision records the mesh estimate
+        # against the best unsharded route, and _expand_one closes it with
+        # the measured stage time (refining mesh_edge_us)
+        _, dec = planner.mesh_route(total, ex.width)
+        if dec is not None:
+            planner.record(eng.stats, dec)
+            self._expand_dec = dec
+        try:
+            out, seg_ptr = ex.expand(attr, reverse, src, cap, eng.stats)
+        except devguard.DeviceFaultError:
+            # a failed dispatch is not a rate sample for the mesh route
+            self._expand_dec = None
+            devguard.count_failover("unsharded", eng.stats, "mesh")
+            return None
+        self._route = "mesh"
+        eng.stats["edges"] += len(out)
+        return out, seg_ptr
+
     def _expand_one_inner(
-        self, arena, src: np.ndarray, plan=None
+        self, arena, src: np.ndarray, plan=None, attr: str = "",
+        reverse: bool = False,
     ) -> Tuple[np.ndarray, np.ndarray]:
         eng = self.engine
         n = len(src)
@@ -363,16 +404,27 @@ class DeviceExpander:
         if total == 0:
             self._route = "empty"
             return _EMPTY, np.zeros(n + 1, dtype=np.int64)
+        failed_over = False
+        if attr and eng.arenas.use_mesh_for(arena):
+            got = self._mesh_expand(src, attr, reverse, ops.bucket(total), total)
+            if got is not None:
+                return got
+            # the mesh plane is latched or its dispatch faulted: the
+            # level re-plans on the card's unsharded routes below, never
+            # on the host
+            failed_over = True
         # host/device: the priced break-even by default, the static
         # expand_device_min compare when the planner is off or the knob
         # is pinned
         use_resident = self._use_resident()
-        use_device, dec = planner.expand_route(
-            total, eng.expand_device_min, resident=use_resident
-        )
-        if dec is not None:
-            planner.record(eng.stats, dec)
-            self._expand_dec = dec
+        use_device = True
+        if not failed_over:
+            use_device, dec = planner.expand_route(
+                total, eng.expand_device_min, resident=use_resident
+            )
+            if dec is not None:
+                planner.record(eng.stats, dec)
+                self._expand_dec = dec
         if not use_device:
             # a device dispatch costs a round trip that dwarfs the work
             return self._host_expand(arena, rows)
@@ -556,17 +608,22 @@ class QueryEngine:
         device=None,
         arenas: Optional[ArenaManager] = None,
         arena_budget_bytes: Optional[int] = None,
+        mesh=None,
+        shard_threshold: int = 4096,
     ):
         """``device`` is where the arenas live and the kernels run:
         ``cuda`` by default (raises without a GPU), ``"cpu"`` on request.
         ``arenas`` shares a warm ArenaManager (and its device) between
-        engine instances."""
+        engine instances.  ``mesh`` (``parallel.make_mesh``) row-shards
+        every predicate of at least ``shard_threshold`` rows over its
+        model axis (the ``mesh`` route)."""
         self.store = store
         self.arenas = (
             arenas
             if arenas is not None
             else ArenaManager(
-                store, device=device, budget_bytes=arena_budget_bytes
+                store, device=device, budget_bytes=arena_budget_bytes,
+                mesh=mesh, shard_threshold=shard_threshold,
             )
         )
         # per-level expansion routing — see DeviceExpander
@@ -680,6 +737,30 @@ class QueryEngine:
                 info = deg(preds=lambda: referenced_preds(parsed.queries))
                 if info:
                     out["degraded"] = info
+            # the mesh's failover (a level re-planned on the card's
+            # unsharded routes) says so: the results are byte-identical,
+            # only the route changed.  Absent on every fault-free request
+            if self.stats.get("device_failover"):
+                out.setdefault("degraded", {})["device"] = {
+                    "failovers": int(self.stats["device_failover"]),
+                    "domains": {
+                        d: {
+                            "state": st["state"],
+                            "last_fault": st["last_fault"],
+                            "retry_after": st["cooldown_s"],
+                        }
+                        for d, st in devguard.summary().items()
+                        if st["state"] != "healthy" or st["faults"]
+                    },
+                }
+            # the elastic mesh fault domain (mesh/fault.py): a request
+            # served on a SURVIVING sub-mesh, or drained and resumed
+            # across an epoch flip, carries the epoch and capacity (gRPC
+            # mirrors the epoch as a dgraph-mesh-epoch trailer)
+            if self.stats.get("mesh_degraded"):
+                out.setdefault("degraded", {})["mesh"] = dict(
+                    self.stats["mesh_degraded"]
+                )
         elif parsed.mutation is not None and "schema" not in out:
             out["code"] = "Success"
             out["message"] = "Done"

@@ -350,8 +350,8 @@ def try_mxu_route(engine, child, src: np.ndarray, resolver) -> bool:
             if sg.reverse
             else engine.arenas.data(sg.attr)
         )
-        if a.n_edges == 0:
-            break
+        if a.n_edges == 0 or engine.arenas.use_mesh_for(a):
+            break  # a mesh arena's levels run per level, over the mesh
         arenas.append(a)
     levels = levels[: len(arenas)]
     if len(levels) < 2:

@@ -7,6 +7,9 @@ per-route rates and picks the cheaper one:
 - ``expand_route``: one level's expansion as numpy over the host mirror,
   or one device dispatch (the resident gather kernel, route
   ``resident``, or the staged ``expand_csr``, route ``device``);
+- ``mesh_route``: a shard-eligible level's expansion over the mesh
+  (route ``mesh``: priced and recorded; eligibility is the arena
+  manager's);
 - ``merge_gate``: whether a cohort hop-merge admits an expansion (the
   expand decision on the estimated fan-out);
 - ``chain_route``: a uid chain fused into one device pass, or run level
@@ -42,7 +45,10 @@ Where the port differs from the reference:
   sick; the port has no host failover, and a device fault raises.
 - ``boot`` takes the backend from the server's torch device (``cuda``
   or ``cpu``), not from a JAX backend.
-- ``mesh_route`` is not ported: the port has no mesh.
+- ``mesh_route`` prices the mesh without the guard's price-out factor
+  (the port has no ``cost_factor``); its rate ``mesh_edge_us`` is
+  measured by ``DGRAPH_TPU_CALIBRATE=1`` on a virtual-width mesh of the
+  card.
 - ``kway_route`` also takes the caller's runtime gate
   (``configured_min``): an arena's ``kway_device_min`` assigned away from
   its default pins the static compare, as ``expand_device_min`` does.
@@ -248,6 +254,7 @@ _RATE_KEY = {
     ("expand", "host"): ("host_edge_us", 0.0),
     ("expand", "device"): ("device_edge_us", 1.0),   # minus one dispatch
     ("expand", "resident"): ("resident_edge_us", 1.0),
+    ("expand", "mesh"): ("mesh_edge_us", 1.0),
     ("kway", "host"): ("host_intersect_us", 0.0),
     ("kway", "device"): ("device_intersect_us", 1.0),
 }
@@ -357,6 +364,38 @@ def expand_route(
         ),
     }
     return use_device, dec
+
+
+def mesh_route(total: int, width: int) -> Tuple[bool, Optional[dict]]:
+    """Price one shard-eligible level's expansion over the mesh (the
+    ``route: mesh`` leaf, mesh/executor.py).
+
+    Eligibility is the operator's verdict (``ArenaManager.use_mesh_for``:
+    a mesh, the shard threshold and, on distinct cards, the crossover
+    model) and the planner does not overrule it, which keeps
+    ``DGRAPH_TPU_MESH=0`` a pure availability switch.  What the planner adds is the price: the
+    recorded decision carries the mesh estimate against the best
+    unsharded route, ``note_outcome`` refines ``mesh_edge_us`` from the
+    measured dispatch, and the mispredict counters show arenas where
+    sharding costs more than it saves.
+
+    Returns (True, dec); dec is None when the planner is off."""
+    if not enabled():
+        return True, None
+    r = rates()
+    host_c = r["host_setup_us"] + total * r["host_edge_us"]
+    dev_c = _device_factor() * (r["dispatch_us"] + total * r["device_edge_us"])
+    mesh_c = r["dispatch_us"] + total * r["mesh_edge_us"]
+    dec = {
+        "kind": "expand",
+        "route": "mesh",
+        "units": int(total),
+        "width": int(width),
+        "est_chosen_us": round(mesh_c, 1),
+        "est_other_us": round(min(host_c, dev_c), 1),
+        "reason": "shard-eligible arena priced over the mesh",
+    }
+    return True, dec
 
 
 def merge_gate(est_edges: float, configured_min: int) -> bool:
@@ -540,7 +579,7 @@ class CohortController:
 
     Deterministic given the observation sequence, and bounded:
 
-      max_batch ∈ [base, min(8×base, 1024)]
+      max_batch ∈ [base, min(8×base×width, 1024)]
       flush deadline ∈ [base/8, base]
 
     Rules per update (EWMA α=0.25 on occupancy and queue wait):
@@ -549,15 +588,17 @@ class CohortController:
     - queue wait past 4× the deadline → the deadline halves;
     - queue wait under 1/4 of the deadline → it relaxes toward base.
 
-    The reference scales the ceiling with its mesh's width; the port has
-    no mesh, so its width is 1 (kept in ``state()`` as ``mesh_width``,
-    the reference's key).
+    The ceiling scales with the serving mesh's width (``mesh_width`` in
+    ``state()``): N chips drain one merged cohort frontier, so sustained
+    load may batch N× harder before the 1024 clamp; the base, the floor
+    and the idle behaviour stay put.
     """
 
-    def __init__(self, base_batch: int, base_flush_s: float):
+    def __init__(self, base_batch: int, base_flush_s: float, width: int = 1):
         self.base_batch = max(1, int(base_batch))
-        self.width = 1
-        self.hi_batch = min(self.base_batch * 8, 1024)
+        self.width = max(1, int(width))
+        self._clamp_cap = 1024
+        self.hi_batch = min(self.base_batch * 8 * self.width, self._clamp_cap)
         self.base_flush_s = float(base_flush_s)
         self.lo_flush_s = self.base_flush_s / 8.0
         self.max_batch = self.base_batch
@@ -567,6 +608,21 @@ class CohortController:
         self._service = 0.0
         self._updates = 0
         self._lock = threading.Lock()
+
+    def set_width(self, width: int) -> None:
+        """Re-target the batching ceiling at a new mesh width: the
+        elastic fault domain (mesh/fault.py) shrinks and widens the
+        serving sub-mesh at run time, and the scheduler re-samples it per
+        flush.  A shrink clamps the live cap at once; growth lets the
+        occupancy rule climb back on its own evidence."""
+        width = max(1, int(width))
+        with self._lock:
+            if width == self.width:
+                return
+            self.width = width
+            self.hi_batch = min(self.base_batch * 8 * width, self._clamp_cap)
+            if self.max_batch > self.hi_batch:
+                self.max_batch = self.hi_batch
 
     def update(
         self, occupancy: int, queue_wait_s: float, service_s: float = 0.0

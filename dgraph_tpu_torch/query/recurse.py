@@ -139,7 +139,8 @@ def _try_fused_recurse(engine, sg: SubGraph, uid_templates) -> bool:
     light contract of the fused chain (query/chain.py).
 
     Strictly gated (the reference's gates): any decoration (filters,
-    ordering, value leaves, @cascade, unbounded depth) or an edge bound
+    ordering, value leaves, @cascade, unbounded depth), an arena the mesh
+    shards, or an edge bound
     over MAX_EDGES falls back to the level-by-level loop, decided before
     any dispatch.  An out-of-memory device fault falls back to the loop
     too; any other device fault propagates."""
@@ -176,7 +177,8 @@ def _try_fused_recurse(engine, sg: SubGraph, uid_templates) -> bool:
         if tmpl.reverse
         else engine.arenas.data(tmpl.attr)
     )
-    if arena.n_edges == 0:
+    if arena.n_edges == 0 or engine.arenas.use_mesh_for(arena):
+        # a mesh arena's levels run per level, over the mesh
         return False
     cap = fused_cap(arena, len(frontier), depth)
     if cap is None:

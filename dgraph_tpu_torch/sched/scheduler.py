@@ -49,8 +49,8 @@ on; ``0`` restores today's path byte-identically).
 Admission is load-adaptive by default: while the planner is on
 (``DGRAPH_TPU_PLANNER``) and neither knob is pinned, cohort size and the
 flush deadline track measured queue wait and occupancy inside hard
-bounds — [base, 8×base] members, [base/8, base] deadline — through
-``query/planner.py::CohortController`` (its state at
+bounds — [base, 8×base×mesh width] members, [base/8, base] deadline —
+through ``query/planner.py::CohortController`` (its state at
 ``/debug/planner``).  Responses never depend on either knob; pinning
 one (env or constructor argument) keeps the static values.
 
@@ -202,8 +202,10 @@ class CohortScheduler:
             and not _planconfig.overridden("DGRAPH_TPU_SCHED_MAX_BATCH")
             and not _planconfig.overridden("DGRAPH_TPU_SCHED_FLUSH_MS")
         ):
+            # the ceiling scales with the mesh width: N chips drain one
+            # merged cohort frontier
             self._adaptive = _planner.CohortController(
-                self.max_batch, self.flush_s
+                self.max_batch, self.flush_s, width=self._mesh_width()
             )
         n_workers = int(
             concurrency
@@ -722,12 +724,21 @@ class CohortScheduler:
             # queue wait and the cohort's service time
             self._adapt(len(cohort.reqs), max_wait, time.monotonic() - now)
 
+    def _mesh_width(self) -> int:
+        """The serving mesh's model-axis width (1 unsharded)."""
+        mesh = self._server.engine.arenas.mesh
+        return int(mesh.shape["model"]) if mesh is not None else 1
+
     def _adapt(self, occupancy: int, max_wait: float, service_s: float) -> None:
         """Feed one flush's measurements to the adaptive controller,
         honouring a runtime planner flip: switched off, the knobs snap
         back to their static bases."""
         if self._adaptive is None:
             return
+        # the elastic mesh fault domain moves the width at run time (a
+        # chip eviction shrinks the sub-mesh, a rejoin widens it):
+        # re-sample per flush
+        self._adaptive.set_width(self._mesh_width())
         if _planner.enabled():
             mb, fs = self._adaptive.update(occupancy, max_wait, service_s)
         else:

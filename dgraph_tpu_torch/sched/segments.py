@@ -21,8 +21,9 @@ The context is thread-local and activated by the scheduler around
 ``engine.run_parsed`` (token + preempt hook + stats), or by the engine
 itself token-only when no scheduler is driving.  ``seam()`` with no
 active context is a cheap no-op.  ``early_exit`` counts a segmented
-mask chain (``query/joinplan.py``) that stopped at a drained frontier;
-the reference's mesh drain-and-resume (``resume``) has no counterpart.
+loop (a mask chain of ``query/joinplan.py``, a mesh multi-hop) that
+stopped at a drained frontier; ``resume`` counts a mesh query's
+drain-and-resume across an epoch flip (``mesh/executor.py``).
 """
 
 from __future__ import annotations
@@ -31,7 +32,11 @@ import threading
 from typing import Callable, Optional
 
 from dgraph_tpu_torch.utils.failpoints import fail
-from dgraph_tpu_torch.utils.metrics import SEGMENT_DISPATCHES, SEGMENT_YIELDS
+from dgraph_tpu_torch.utils.metrics import (
+    QUERY_RESUMED,
+    SEGMENT_DISPATCHES,
+    SEGMENT_YIELDS,
+)
 
 _tls = threading.local()
 
@@ -99,6 +104,22 @@ def early_exit(loop: str) -> None:
     """Record an early exit: the frontier drained mid-chain, and the
     remaining segments are never dispatched."""
     SEGMENT_YIELDS.add("early_exit")
+
+
+def resume(loop: str, reason: str) -> None:
+    """Record one drain-and-resume of the elastic mesh fault domain
+    (mesh/fault.py): an in-flight mesh query observed an epoch flip at a
+    seam, or lost its chip mid-segment, and continued from its host
+    carry under the new sub-mesh.  ``reason`` ∈ ``epoch`` (flip seen at a
+    seam), ``loss`` (its own dispatch hit the evicted chip), ``hang``
+    (wedged dispatch: the remaining hops finished unsharded on the
+    card).  Counted in ``dgraph_query_resumed_total{reason}`` and the
+    request's ``stats["resumed"]``."""
+    QUERY_RESUMED.add(reason)
+    ctx = current()
+    if ctx is not None and ctx.stats is not None:
+        r = ctx.stats.setdefault("resumed", {})
+        r[reason] = r.get(reason, 0) + 1
 
 
 def plan(n_steps: int, est_step_units: int, loop: str) -> int:

@@ -584,12 +584,16 @@ class GrpcServer:
         if deg:
             # stale-read disclosure: the proto Response has no field for
             # it (graphresponse.proto is frozen), so it rides a trailer —
-            # same shape as the JSON extension
+            # same shape as the JSON extension.  Sub-mesh serving also
+            # mirrors the epoch as a trailer of its own (ONE
+            # set_trailing_metadata call: grpc replaces, not merges)
             import json as _json
 
-            context.set_trailing_metadata(
-                (("dgraph-degraded", _json.dumps(deg)),)
-            )
+            md = [("dgraph-degraded", _json.dumps(deg))]
+            mesh_deg = deg.get("mesh")
+            if mesh_deg:
+                md.append(("dgraph-mesh-epoch", str(mesh_deg.get("epoch", 0))))
+            context.set_trailing_metadata(tuple(md))
         return _p.encode_response(out)
 
     def _subscribe(self, req: bytes, context):

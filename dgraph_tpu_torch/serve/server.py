@@ -23,10 +23,12 @@
   ``POST /subscribe/cancel?id=`` cancels it.  Over quota: 429 with
   ``Retry-After``.
 - ``GET /health`` — ``OK`` while serving; ``?detail=1`` a JSON object
-  with the device fault domain's state (``device``: utils/devguard.py)
-  and the storage plane's (``storage``: read-only latch, WAL bytes and
-  records, sealed segments, snapshot age, the last recovery) when the
-  store is durable.
+  with the device fault domain's state (``device``: utils/devguard.py),
+  the elastic mesh fault domain's (``mesh``: epoch, chips, per-chip
+  guard states, placement; mesh/fault.py) on a server with a mesh of
+  more than one chip, and the storage plane's (``storage``: read-only
+  latch, WAL bytes and records, sealed segments, snapshot age, the last
+  recovery) when the store is durable.
 - ``GET /metrics`` (and ``/debug/prometheus_metrics``) — the Prometheus
   text exposition of ``utils/metrics.py``; with ``Accept:
   application/openmetrics-text`` the OpenMetrics exposition, whose
@@ -184,6 +186,9 @@ _CORS = {
 class DgraphServer:
     """Owns the store + engine and serves the HTTP surface.  ``device``
     is the engine's device: ``cuda`` by default (raises without a GPU).
+    ``mesh`` (``parallel.make_mesh``) row-shards every predicate of at
+    least ``DGRAPH_TPU_MESH_SHARD_ROWS`` rows (default 4096) over its
+    chips; None asks :func:`_auto_mesh` (``DGRAPH_TPU_MESH``).
     ``cluster`` is the ``ClusterService`` whose ``ClusterStore`` is
     ``store`` on a clustered server, else None."""
 
@@ -202,6 +207,7 @@ class DgraphServer:
         tls_key: str = "",
         profiler=None,
         dumpsg_path: str = "",
+        mesh=None,
     ):
         self.cluster = cluster
         self.store = store
@@ -224,6 +230,11 @@ class DgraphServer:
         self.engine = QueryEngine(
             store, device=device,
             arena_budget_bytes=(arena_budget_mb * (1 << 20)) or None,
+            mesh=mesh if mesh is not None else _auto_mesh(device),
+            # rows at/above this shard over the mesh's model axis
+            shard_threshold=int(
+                os.environ.get("DGRAPH_TPU_MESH_SHARD_ROWS", "4096")
+            ),
         )
         # planner calibration (query/planner.py): a persisted calibration
         # of this device's backend loads on every boot; the measurement
@@ -629,6 +640,40 @@ class DgraphServer:
         return sid
 
 
+def _auto_mesh(device=None):
+    """The mesh a server on a card builds when none is given: one over
+    every visible card, whose big predicates then expand row-sharded
+    through the mesh serving plane (dgraph_tpu_torch/mesh).  A server
+    whose ``device`` is not CUDA (``None`` is the default ``cuda``) gets
+    none.
+
+    ``DGRAPH_TPU_MESH`` (the reference's tri-state, over
+    ``torch.cuda.device_count()``):
+      "0"/"off"        — never: unsharded serving;
+      "1"/"auto"/unset — on when more than one card is visible; on
+                         distinct cards an arena then shards only where
+                         the crossover model says it wins or one card
+                         cannot hold it (``ArenaManager.use_mesh_for``);
+      "force"          — always: a 1-wide mesh over ``cuda:0`` on one
+                         card (the mesh code paths run, results
+                         unchanged); raises without a GPU.
+    A mesh of virtual chips is built by the caller
+    (``DgraphServer(mesh=make_mesh(devices=[cuda:0] * 4))``); the CLI has
+    no flag for it."""
+    import torch
+
+    if torch.device(device if device is not None else "cuda").type != "cuda":
+        return None
+    mode = os.environ.get("DGRAPH_TPU_MESH", "auto")
+    if mode in ("0", "off"):
+        return None
+    if mode != "force" and torch.cuda.device_count() < 2:
+        return None
+    from dgraph_tpu_torch.parallel import make_mesh
+
+    return make_mesh()
+
+
 def _make_handler(srv: DgraphServer):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -772,6 +817,11 @@ def _make_handler(srv: DgraphServer):
                     "enabled": _devguard.enabled(),
                     "domains": _devguard.summary(),
                 }
+                # the elastic mesh fault domain (mesh/fault.py): epoch,
+                # per-chip guard states, placement, drains in flight
+                dom = srv.engine.arenas.mesh_fault
+                if dom is not None:
+                    detail["mesh"] = dom.status()
                 self._reply(200 if srv.healthy() else 503,
                             json.dumps(detail).encode())
             elif path == "/health":

@@ -3,7 +3,8 @@
 
 The planner (query/planner.py) prices every candidate route from a
 handful of rates: the fixed cost of one device round trip, the per-edge
-gather rate on each side of the host/device boundary, the host
+gather rate on each side of the host/device boundary and over a mesh
+of ``MESH_CALIBRATION_WIDTH`` virtual chips of the device, the host
 ``np.intersect1d`` fold rate, the intersect kernel's per-element rate
 and the per-MAC rate of the tile product.  This module measures them on
 the engine's own routes and persists the result, so warm boots skip the
@@ -36,6 +37,9 @@ from typing import Optional
 
 CALIBRATION_VERSION = 1
 
+# the mesh rate's virtual width: that many shards, all on the device
+MESH_CALIBRATION_WIDTH = 4
+
 
 @dataclass(frozen=True)
 class Calibration:
@@ -49,9 +53,10 @@ class Calibration:
     device_edge_us: float = 0.018    # per edge, staged expand_csr route
     resident_edge_us: float = 0.010  # per edge, resident gather kernel
                                      # (no h2d staging rides it)
-    mesh_edge_us: float = 0.008      # the reference's mesh rate: kept for
-                                     # the file format (the port has no
-                                     # mesh)
+    mesh_edge_us: float = 0.008      # per edge, the row-sharded mesh
+                                     # expansion (mesh/executor.py),
+                                     # measured on a virtual-width mesh
+                                     # of the device
     host_edge_us: float = 0.032      # per edge, host numpy expansion
     host_touch_us: float = 0.010     # per edge, host conversion/dedup the
                                      # per-level path pays that a fused
@@ -108,7 +113,9 @@ def _timed_us(fn, reps: int, sync) -> float:
 def measure(edges: int = 1 << 16, reps: int = 5, device=None) -> Calibration:
     """Run the calibration pass on ``device`` (default cuda) through the
     engine's own routes: the resident gather kernel
-    (``ops.gather_packed``), the staged ``ops.expand_csr``, numpy over a
+    (``ops.gather_packed``), the staged ``ops.expand_csr``, the sharded
+expansion over a mesh of virtual chips of the device
+(``parallel.mesh.sharded_expand_segments``), numpy over a
     host CSR, ``np.intersect1d``, the intersect kernel
     (``ops.kway_intersect_batch``) and the tile product (``ops.spgemm``).
 
@@ -162,6 +169,25 @@ def measure(edges: int = 1 << 16, reps: int = 5, device=None) -> Calibration:
     )
     device_edge_us = max(
         (_timed_us(lambda: ops.expand_csr(off_d, dst_d, rows_d, cap),
+                   reps, sync) - dispatch_us) / E,
+        1e-5,
+    )
+
+    # mesh edge rate: the sharded expansion with its reassembly and its
+    # fetch (parallel/mesh.py) over MESH_CALIBRATION_WIDTH virtual chips
+    # of the device, the route:mesh leaf's whole dispatch
+    from dgraph_tpu_torch.parallel.mesh import (
+        make_mesh,
+        shard_arena_rows,
+        sharded_expand_segments,
+    )
+
+    mesh = make_mesh(devices=[dev] * MESH_CALIBRATION_WIDTH)
+    h_src = np.arange(S, dtype=np.int64)
+    sharded = shard_arena_rows(h_src, h_offsets, h_dst, MESH_CALIBRATION_WIDTH,
+                               devices=mesh.model_devices())
+    mesh_edge_us = max(
+        (_timed_us(lambda: sharded_expand_segments(mesh, sharded, h_src, cap),
                    reps, sync) - dispatch_us) / E,
         1e-5,
     )
@@ -231,6 +257,7 @@ def measure(edges: int = 1 << 16, reps: int = 5, device=None) -> Calibration:
         dispatch_us=dispatch_us,
         device_edge_us=device_edge_us,
         resident_edge_us=resident_edge_us,
+        mesh_edge_us=mesh_edge_us,
         host_edge_us=host_edge_us,
         host_touch_us=host_touch_us,
         host_setup_us=host_setup_us,

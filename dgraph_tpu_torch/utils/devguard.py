@@ -5,8 +5,22 @@ the card (PyTorch port of ``dgraph_tpu/utils/devguard.py``).
   A transient fault marks the domain suspect;
   ``DGRAPH_TPU_DEVICE_SICK_AFTER`` consecutive faults (default 3) — or
   ONE wedged dispatch — latch it sick.  A sick domain sheds device work
-  in microseconds (:class:`DeviceSickError`).  The port has one domain,
-  ``"device"``: the card the engine's kernels launch on.
+  in microseconds (:class:`DeviceSickError`).  Domains: ``"device"``
+  (the card the engine's kernels launch on), ``"mesh"`` (the mesh
+  serving plane, ``dgraph_tpu_torch/mesh``: a faulted mesh dispatch
+  latches it, never ``"device"``) and the mesh's per-chip sub-domains
+  ``"mesh.chip<i>"`` (``sick_after=1``, made by ``mesh/fault.py``
+  through :func:`ensure`).
+
+- **Chip attribution** — :func:`chip_of` reads ``chip=N`` off a fault's
+  exception chain (the failpoints' ``chip=`` selector, or
+  :class:`ChipFaultError`, which the mesh raises for a fault on one of
+  several distinct cards).  The ``"mesh"`` guard's ``fault_sink`` (wired
+  by the elastic fault domain) takes an attributed fault to that chip's
+  sub-domain and leaves the plane uncharged; ``on_readmit`` runs after a
+  sub-domain's probe re-admits it (the staged rejoin).  A real CUDA
+  fault on virtual chips of one card names no chip: it is the whole
+  card's, and latches the plane.
 
 - **Dispatch watchdog** — :meth:`DeviceGuard.run` executes a
   dispatch-and-fetch closure on a guard-owned worker thread and waits at
@@ -48,14 +62,18 @@ neither.  A classified fault raises
 :class:`DeviceFaultError` to the caller, which the server answers 503
 with ``Retry-After`` (serve/server.py); the per-level expander alone
 answers an OOM with LRU eviction and one retry on the card
-(query/engine.py ``_run_guarded``).
+(query/engine.py ``_run_guarded``).  The one failover is the mesh's: a
+level or chain whose mesh dispatch faulted re-plans on the card's
+unsharded routes, counted by :func:`count_failover` under
+``("unsharded", stats, "mesh")`` and disclosed as ``degraded.device``.
 
 Gate: ``DGRAPH_TPU_DEVGUARD`` (default on).  ``0`` calls every closure
 inline on the caller's thread: no worker, no state, no classification.
 
 Observability: ``dgraph_device_state{domain}`` (0 healthy / 1 suspect /
 2 sick), ``dgraph_device_faults_total{kind}``,
-``dgraph_device_failover_total{route}`` (``evict_retry`` only),
+``dgraph_device_failover_total{route}`` (``evict_retry``, and
+``unsharded`` for the mesh),
 ``dgraph_device_probes_total{outcome}``; ``/health?detail=1`` carries a
 ``device`` section and ``/debug/device`` a ``guard`` key, both from
 :func:`summary`.  Chaos: the ``hang(ms=)`` / ``xla_oom`` failpoint
@@ -68,6 +86,7 @@ import contextvars
 import math
 import os
 import queue
+import re
 import sys
 import threading
 import time
@@ -131,6 +150,18 @@ class DeviceHangError(DeviceFaultError):
         )
 
 
+class ChipFaultError(RuntimeError):
+    """A device fault raised inside one chip's share of a mesh dispatch on
+    a mesh of distinct cards (``parallel/mesh.py``), tagged ``chip=N``
+    for :func:`chip_of`; it classifies as its cause does."""
+
+    def __init__(self, chip: int, cause: BaseException):
+        self.chip = int(chip)
+        super().__init__(
+            f"{type(cause).__name__}: {cause} (chip={int(chip)})"
+        )
+
+
 def classify(exc: BaseException) -> Optional[str]:
     """Sort a dispatch failure by its type: "oom" / "transient" device
     faults, or None for everything that is not the device's fault —
@@ -139,6 +170,8 @@ def classify(exc: BaseException) -> Optional[str]:
 
     if isinstance(exc, DeviceFaultError):
         return exc.kind
+    if isinstance(exc, ChipFaultError):
+        return classify(exc.__cause__) if exc.__cause__ is not None else "transient"
     if isinstance(exc, torch.cuda.OutOfMemoryError):
         return "oom"
     if isinstance(exc, KernelLaunchError):
@@ -151,6 +184,27 @@ def classify(exc: BaseException) -> Optional[str]:
     if isinstance(exc, OSError):
         # injected faults are OSError by the failpoints' contract
         return "transient"
+    return None
+
+
+# chip attribution: a fault whose exception chain names a chip
+# ("chip=3": the failpoints' chip= selector, or ChipFaultError) is one
+# mesh chip's, which the elastic mesh fault domain (mesh/fault.py) evicts
+_CHIP_RE = re.compile(r"\bchip=(\d+)\b")
+
+
+def chip_of(exc: BaseException) -> Optional[int]:
+    """The chip index a dispatch failure names, walking the exception
+    chain (a DeviceFaultError wraps the raw error); None when the fault
+    cannot be attributed to one chip — a whole-plane fault."""
+    seen = set()
+    e: Optional[BaseException] = exc
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        m = _CHIP_RE.search(f"{type(e).__name__}: {e}")
+        if m:
+            return int(m.group(1))
+        e = e.__cause__ or e.__context__
     return None
 
 
@@ -192,8 +246,20 @@ class DeviceGuard:
         cooldown_s: Optional[float] = None,
         sick_after: Optional[int] = None,
         probe_fn: Optional[Callable[[], None]] = None,
+        on_readmit: Optional[Callable[[], None]] = None,
     ):
         self.domain = domain
+        # fault-attribution sink (the elastic mesh, mesh/fault.py):
+        # consulted in run() after classify(); True means a sub-domain
+        # (one chip's guard) owns the fault and this guard is not
+        # charged — the DeviceFaultError still raises, so the seam can
+        # retry under the re-sharded plan.  None: every fault charges it
+        self.fault_sink: Optional[
+            Callable[[str, str, BaseException], bool]
+        ] = None
+        # called (outside the state lock) after a probe re-admits this
+        # domain: the staged rejoin of a mesh chip
+        self.on_readmit = on_readmit
         self.hang_ms = (
             hang_ms
             if hang_ms is not None
@@ -225,6 +291,7 @@ class DeviceGuard:
         self._idle: "queue.SimpleQueue[_IdleWorker]" = queue.SimpleQueue()
         self.faults: Dict[str, int] = {}
         self.evict_retries = 0
+        self.failovers = 0
         self.probes_ok = 0
         self.probes_failed = 0
         self.readmissions = 0
@@ -295,6 +362,10 @@ class DeviceGuard:
         with self._lock:
             self.evict_retries += 1
 
+    def note_failover(self) -> None:
+        with self._lock:
+            self.failovers += 1
+
     # -- the watchdog-bracketed dispatch ------------------------------------
 
     def run(self, op: str, fn: Callable[[], object]):
@@ -325,6 +396,13 @@ class DeviceGuard:
             kind = classify(job.exc)
             if kind is None:
                 raise job.exc  # not a device fault: never masked
+            sink = self.fault_sink
+            if sink is not None and sink(kind, op, job.exc):
+                # one mesh chip owns this fault: the plane stays
+                # uncharged, but the seam still hears about it
+                raise DeviceFaultError(
+                    self.domain, op, kind, str(job.exc)
+                ) from job.exc
             self.note_fault(kind, op, job.exc)
             raise DeviceFaultError(
                 self.domain, op, kind, str(job.exc)
@@ -405,6 +483,21 @@ class DeviceGuard:
                     self.probes_failed += 1
                     self._gate.open(time.monotonic())
         DEVICE_PROBES.add("ok" if ok else "fail")
+        if ok and self.on_readmit is not None:
+            # outside self._lock: the staged rejoin (mesh/fault.py) runs
+            # warm dispatches and may latch this guard sick again
+            try:
+                self.on_readmit()
+            except Exception as e:  # noqa: BLE001 — a failed rejoin hook
+                # must not kill the probe loop; the mesh stays on its
+                # surviving sub-mesh until the next probe
+                from dgraph_tpu_torch.utils.metrics import note_swallowed
+
+                note_swallowed("devguard.on_readmit", e)
+            if self.state == SICK:
+                # the hook latched sick again (a failed warm): report
+                # un-healed so the probe loop keeps running
+                return False
         return ok
 
     # -- surfaces ------------------------------------------------------------
@@ -416,6 +509,7 @@ class DeviceGuard:
                 "consecutive_faults": self._consecutive,
                 "faults": dict(self.faults),
                 "evict_retries": self.evict_retries,
+                "failovers": self.failovers,
                 "probes_ok": self.probes_ok,
                 "probes_failed": self.probes_failed,
                 "readmissions": self.readmissions,
@@ -507,7 +601,8 @@ def get(domain: str = "device") -> DeviceGuard:
 
 def ensure(domain: str, **kwargs) -> DeviceGuard:
     """The registry constructor for a guard with non-default wiring
-    (``hang_ms``, ``cooldown_s``, ``sick_after``, ``probe_fn``).  The
+    (``hang_ms``, ``cooldown_s``, ``sick_after``, ``probe_fn``,
+    ``on_readmit``: the mesh's per-chip sub-domains).  The
     first caller's kwargs win; later calls return the existing guard
     untouched."""
     with _guards_lock:
@@ -515,6 +610,21 @@ def ensure(domain: str, **kwargs) -> DeviceGuard:
         if g is None:
             g = _guards[domain] = DeviceGuard(domain, **kwargs)
         return g
+
+
+def count_failover(
+    route: str, stats: Optional[dict] = None, domain: str = "device"
+) -> None:
+    """The one failover bookkeeping sequence every seam shares: the
+    per-request stat (the response's ``degraded.device``), the alertable
+    series, and the guard's own counter.  The port's one caller is the
+    mesh: ``count_failover("unsharded", stats, "mesh")``."""
+    from dgraph_tpu_torch.utils.metrics import DEVICE_FAILOVER
+
+    if stats is not None:
+        stats["device_failover"] = stats.get("device_failover", 0) + 1
+    DEVICE_FAILOVER.add(route)
+    get(domain).note_failover()
 
 
 def summary() -> Dict[str, dict]:

@@ -23,8 +23,13 @@ Actions:
 
 ``p`` is the trigger probability (default 1.0), ``n`` caps how many
 times the action fires (default unlimited), ``after`` skips the first
-N matching probes.  ``chip`` (error/xla_oom only) tags the raised
-message with ``chip=N``.  All probability draws come from ONE seeded RNG
+N matching probes.  ``chip`` (error/xla_oom only) attributes the
+injected fault to ONE mesh chip: the raised message carries ``chip=N``,
+which the elastic mesh fault domain (mesh/fault.py, through
+``devguard.chip_of``) reads to evict that chip and re-shard onto the
+survivors — ``device.mesh=error(p=1,n=1,chip=3)`` kills chip 3 once.
+Without ``chip`` the same site is a whole-plane fault: the level re-plans
+unsharded.  All probability draws come from ONE seeded RNG
 (``DGRAPH_TPU_FAILPOINT_SEED``, default 0), so a chaos run replays
 bit-identically.  Triggers are counted per site in
 ``dgraph_failpoints_fired_total{site=...}`` and via :meth:`hits`.
@@ -39,7 +44,10 @@ per-level expansion), ``device.chain`` (a staged chain segment),
 ``device.multi_hop`` (a multi-hop segment) and ``device.spgemm`` (a
 k-way step or a tile chain segment), where ``hang`` and ``xla_oom``
 drive the watchdog and the OOM retry, and ``devguard.probe`` (the
-re-admission probe).
+re-admission probe); the mesh's (mesh/): ``device.mesh`` (inside every
+mesh dispatch: a one-hop sharded expansion or a multi-hop segment),
+``mesh.warm`` (a staged rejoin's warm, before its cutover) and
+``mesh.chip.probe`` (a chip guard's re-admission probe).
 """
 
 from __future__ import annotations

@@ -18,8 +18,10 @@ Where the port differs: the compile families
 the port's kernel builds at first use (``ops/_build.py``: one ``nvcc``
 per CUDA source, one ``g++`` per host library), the counterpart of a
 backend compilation; ``dgraph_build_info`` carries a ``torch`` label
-where the reference's carries ``jax``.  The instruments of the
-reference's mesh, which the port has no counterpart of, are not here.
+where the reference's carries ``jax``.  The mesh's instruments
+(``dgraph_mesh_epoch``, ``dgraph_mesh_chips_healthy``,
+``dgraph_mesh_reshard_total{reason}``, ``dgraph_mesh_reshard_seconds``,
+``dgraph_query_resumed_total{reason}``) are the reference's.
 """
 
 from __future__ import annotations
@@ -597,9 +599,10 @@ SUBS_SHED = metrics.labeled(
 # device fault domain (utils/devguard.py), under the reference's names:
 # DEVICE_STATE per domain (0 healthy, 1 suspect, 2 sick), every
 # classified fault by kind (hang/oom/transient), the re-admission probes
-# by outcome (ok/fail).  DEVICE_FAILOVER counts only ``evict_retry`` in
-# the port (an OOM on the per-level route answered by LRU eviction and
-# one retry on the card): the reference's ``host`` failover is not
+# by outcome (ok/fail).  DEVICE_FAILOVER counts ``evict_retry`` (an OOM
+# on the per-level route answered by LRU eviction and one retry on the
+# card) and ``unsharded`` (a faulted mesh dispatch re-planned on the
+# card's unsharded routes): the reference's ``host`` failover is not
 # ported, a faulted query answers 503
 DEVICE_STATE = metrics.labeled_gauge("dgraph_device_state", label="domain")
 DEVICE_FAULTS = metrics.labeled("dgraph_device_faults_total", label="kind")
@@ -608,6 +611,27 @@ DEVICE_FAILOVER = metrics.labeled(
 )
 DEVICE_PROBES = metrics.labeled(
     "dgraph_device_probes_total", label="outcome"
+)
+
+# the elastic mesh fault domain (mesh/fault.py): MESH_EPOCH is the epoch
+# fence every mesh dispatch carries (the MeshPlan version at the last
+# re-shard) and moves exactly when the serving sub-mesh does;
+# MESH_CHIPS_HEALTHY against the boot width is the capacity headline;
+# MESH_RESHARD counts epoch flips by cause (loss / rejoin / manual) and
+# MESH_RESHARD_SECONDS is each flip's drain window (plan rebalance,
+# stale-shard drop, publication).  QUERY_RESUMED counts in-flight queries
+# that resumed under a new plan (reason epoch / loss / hang)
+MESH_EPOCH = metrics.gauge("dgraph_mesh_epoch")
+MESH_CHIPS_HEALTHY = metrics.gauge("dgraph_mesh_chips_healthy")
+MESH_RESHARD = metrics.labeled(
+    "dgraph_mesh_reshard_total", label="reason"
+)
+MESH_RESHARD_SECONDS = metrics.histogram(
+    "dgraph_mesh_reshard_seconds",
+    (0.001, 0.005, 0.025, 0.1, 0.5, 2.0, 10.0, 60.0),
+)
+QUERY_RESUMED = metrics.labeled(
+    "dgraph_query_resumed_total", label="reason"
 )
 
 # storage plane (models/wal.py + models/durability.py), under the

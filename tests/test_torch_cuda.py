@@ -14,7 +14,10 @@ and the gRPC and binary-HTTP transports on the card (the count and join
 (a) launch the gather and the intersect; a device fault over gRPC is
 UNAVAILABLE with nothing launched in its place), and the engine's
 inline and classed routes on the card equal to their CPU runs (the
-inline route's slot map one launch a hop).
+inline route's slot map one launch a hop), and the mesh serving plane on
+virtual chips of the card (the sharded expansion equal to the host's, a
+multi-hop segment that never synchronizes, a server whose hops all ride
+``route: mesh`` without a gather launch).
 Every test is marked ``cuda`` and skips
 where no GPU is visible.  The file imports neither JAX nor the JAX
 package (its planner pin, tests/torch_pins.py, pins the port's planner
@@ -846,3 +849,88 @@ def tops_arena(src, dst, device):
     from dgraph_tpu_torch.models.arena import csr_dense_from_edges
 
     return csr_dense_from_edges(src, dst, 5_000, device)
+
+
+# -- the mesh serving plane on virtual chips of the card -----------------------
+
+
+@pytest.mark.parametrize("width", [1, 3, 4])
+def test_mesh_on_virtual_chips_matches_the_host(width):
+    """A mesh of ``width`` virtual chips of cuda:0: the sharded one-hop
+    expansion (its reassembly on the card) equals the host expansion,
+    and a multi-hop segment runs under sync debug mode ``error`` with
+    the per-level frontiers of the same program on the CPU."""
+    _need_gpu()
+    from dgraph_tpu_torch.mesh.programs import mesh_multi_hop_step
+    from dgraph_tpu_torch.parallel import make_mesh, shard_arena_rows
+    from dgraph_tpu_torch.parallel.mesh import sharded_expand_segments
+
+    rng = np.random.default_rng(41)
+    src = rng.integers(1, 20_000, size=200_000)
+    dst = rng.integers(1, 20_000, size=200_000)
+    a = csr_from_edges(src, dst, device="cpu")
+    mesh = make_mesh(devices=["cuda:0"] * width)
+    sa = shard_arena_rows(a.h_src, a.h_offsets, a.host_dst(), width,
+                          devices=mesh.model_devices())
+    assert all(t.is_cuda for t in sa.dst)
+    for k in (1, 100, 5000):
+        f = np.unique(rng.integers(1, 20_000, size=k))
+        cap = tops.bucket(int(a.degree_of_rows(a.rows_for_uids_host(f)).sum()) or 1)
+        want, wptr = a.expand_host(a.rows_for_uids_host(f))
+        out, ptr = sharded_expand_segments(mesh, sa, f, cap)
+        assert np.array_equal(out, want) and np.array_equal(ptr, wptr)
+    cap = 1 << 16
+    seed = tops.pad_to(np.arange(1, 200), cap)
+    f = torch.from_numpy(seed).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fs, tot, _final = mesh_multi_hop_step(mesh, sa, f, cap, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cpu_mesh = make_mesh(devices=["cpu"] * width)
+    csa = shard_arena_rows(a.h_src, a.h_offsets, a.host_dst(), width)
+    wfs, wtot, _ = mesh_multi_hop_step(cpu_mesh, csa, torch.from_numpy(seed), cap, 2)
+    assert torch.equal(fs.cpu(), wfs) and torch.equal(tot.cpu(), wtot)
+
+
+def test_mesh_server_on_virtual_chips_serves_route_mesh(monkeypatch):
+    """A server with a mesh of 4 virtual chips of the card answers as a
+    host-route engine, every hop on ``route: mesh``, no gather launch."""
+    _need_gpu()
+    import json
+    import urllib.request
+
+    from dgraph_tpu_torch.models import PostingStore
+    from dgraph_tpu_torch.parallel import make_mesh
+    from dgraph_tpu_torch.query import QueryEngine
+    from dgraph_tpu_torch.serve.server import DgraphServer
+
+    monkeypatch.setenv("DGRAPH_TPU_CACHE", "0")
+    monkeypatch.setenv("DGRAPH_TPU_MESH_SHARD_ROWS", "1")
+    rng = np.random.default_rng(3)
+    lines = [f"<0x{i:x}> <link> <0x{d:x}> ." for i in range(1, 121)
+             for d in rng.integers(1, 121, size=4)]
+    data = "mutation { schema { link: uid . } set { %s } }" % "\n".join(lines)
+    q = "{ q(func: uid(0x1, 0x2)) { uid link { uid link { uid } } } }"
+    srv = DgraphServer(PostingStore(), device="cuda",
+                       mesh=make_mesh(devices=["cuda:0"] * 4))
+    srv.engine.expand_device_min = 1
+    srv.start()
+    try:
+        def post(text, params=""):
+            req = urllib.request.Request(srv.addr + "/query" + params,
+                                         data=text.encode(), method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return json.loads(r.read())
+
+        post(data)
+        n0 = tgather.KERNEL.launches
+        out = post(q, "?debug=true")
+        assert out.pop("server_latency")["engine"]["routes"] == {"mesh": 2}
+        assert tgather.KERNEL.launches == n0
+        host = QueryEngine(PostingStore(), device="cpu")
+        host.run(data)
+        assert out == json.loads(json.dumps(host.run(q)))
+    finally:
+        srv.stop()

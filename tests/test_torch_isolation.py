@@ -42,7 +42,9 @@ def test_importing_every_subpackage_loads_no_jax():
     )
     for m in ("query.engine", "query.joinplan", "ops.kway",
               "cluster.service", "cluster.raft", "obs.spans", "obs.device",
-              "obs.export", "obs.ledger", "utils.trace"):
+              "obs.export", "obs.ledger", "utils.trace", "parallel.mesh",
+              "parallel.crossover", "mesh.plan", "mesh.programs",
+              "mesh.executor", "mesh.fault"):
         assert f"dgraph_tpu_torch.{m}" in subpackages
     code = (
         "import sys, importlib\n"

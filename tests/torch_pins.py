@@ -24,7 +24,12 @@ later device route in the same worker raise) and the failpoints.  Before
 and after each test it resets both packages' guards and disarms both
 packages' failpoints; after it, it checks that no subscription notifier
 (``dgraph-subs``) or device-guard probe loop started during the test
-outlives it (a server a test forgot to stop).
+outlives it (a server a test forgot to stop).  The mesh fault domain's
+state is all in those guards: its plane guard (``mesh``) and per-chip
+guards (``mesh.chip<i>``) are dropped with the rest, their probe loops
+(the staged rejoin runs on them) are among the threads checked, and its
+placement plan lives on the server's arena manager, in memory unless
+``DGRAPH_TPU_MESH_PLAN`` names a file, which the fixture unsets.
 
 This lives beside ``tests/torch_cases.py``, not in it: that module is
 loaded by ``chip_smoke.py`` on the card, where no JAX is installed, and
@@ -98,14 +103,23 @@ def reset_guards() -> None:
         guard.reset_for_tests()
 
 
-# threads that must not outlive the server or guard that started them
-_OWNED_THREADS = ("dgraph-subs", "dgraph-devguard-device")
+# threads that must not outlive the server or guard that started them:
+# the notifier, and the probe loops of the device guard, the mesh plane
+# guard and every mesh chip guard (``dgraph-devguard-mesh.chip<i>``)
+_OWNED_THREADS = ("dgraph-subs", "dgraph-devguard-device", "dgraph-devguard-mesh")
+_OWNED_PREFIXES = ("dgraph-devguard-mesh.chip",)
+
+
+def _owned(name: str) -> bool:
+    return name in _OWNED_THREADS or (
+        name.startswith(_OWNED_PREFIXES) and not name.endswith("-worker")
+    )
 
 
 def _owned_threads() -> set:
     import threading
 
-    return {t for t in threading.enumerate() if t.name in _OWNED_THREADS}
+    return {t for t in threading.enumerate() if _owned(t.name)}
 
 
 def check_no_leaked_threads(before: set, wait_s: float = 5.0) -> None:
@@ -130,6 +144,7 @@ def pinned_planner(monkeypatch):
     # start from healthy guards and no armed failpoint, whatever an
     # earlier file in this worker left behind
     reset_guards()
+    monkeypatch.delenv("DGRAPH_TPU_MESH_PLAN", raising=False)
     threads = _owned_threads()
     for planner, _cal in planners:
         monkeypatch.setattr(planner, "_EWMA_ALPHA", 0.0)
