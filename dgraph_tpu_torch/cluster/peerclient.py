@@ -119,8 +119,15 @@ class StaleUnavailableError(OSError):
 class _PeerState:
     __slots__ = (
         "failures", "state", "gate",
-        "last_success", "last_failure", "total_failures",
+        "last_success", "last_failure", "total_failures", "_race_serial",
     )
+    # breaker counters and state transitions must all carry
+    # PeerClient._lock — the armed lockset witness (analysis/witness.py)
+    # proves the "mutated under PeerClient._lock" comment stays true
+    __race_fields__ = frozenset({
+        "failures", "state", "last_success", "last_failure",
+        "total_failures",
+    })
 
     def __init__(self):
         self.failures = 0           # consecutive transport failures

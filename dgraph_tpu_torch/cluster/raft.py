@@ -402,8 +402,7 @@ class RaftNode:
         # first heartbeat to demote us, so the group never waits out an
         # election timeout.  Crash-stops skip this naturally (no stop()).
         if self.state == LEADER and self.peers and self._thread is not None:
-            # GIL-atomic bool handshake: stop() arms it False then polls;
-            # _run stores True exactly once
+            # graftlint: shared[_transfer_sent] GIL-atomic bool handshake: stop() arms it False then polls; _run stores True exactly once — no compound update, staleness bounded by the poll sleep
             self._transfer_sent = False
             self._inbox.put(("transfer",))
             deadline = time.monotonic() + 2.0

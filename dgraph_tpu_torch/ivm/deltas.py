@@ -54,6 +54,10 @@ Event = Tuple[int, int, str, str, int, int, int]
 class DeltaStream:
     """One per store.  See the module docstring for the event model."""
 
+    # publishers (mutation path) and the notifier both advance these
+    # under _cond — checked by the lockset witness when armed
+    __race_fields__ = frozenset({"_seq", "_dropped"})
+
     def __init__(self, cap: Optional[int] = None):
         self._cap = cap if cap is not None else _cap()
         self._ring: "deque[Event]" = deque(maxlen=self._cap)

@@ -369,6 +369,10 @@ class MeshExecutor:
         fs, totals, _vis = ops.multi_hop(
             a.offsets, a.dst, f, vis, hops, cap, lut=a.lut()
         )
+        # ops.multi_hop's guarded dispatch already waited for these buffers
+        # (ops/batch.py); the one fetch copies ready data, as the
+        # reference's np.asarray does
+        # graftlint: ignore[naked-device-sync]
         host = torch.cat([fs.reshape(-1), totals]).cpu().numpy()
         return host[: hops * cap].reshape(hops, cap), host[hops * cap:]
 

@@ -112,7 +112,12 @@ class MeshFaultDomain:
     # callers (the plane guard's fault_sink runs on query threads), the
     # chip guards' probe loops (rejoin) and /health readers all touch the
     # serving plan: every write below holds self._lock, and _fence is
-    # published as ONE tuple swap so readers never see a torn pair
+    # published as ONE tuple swap so readers never see a torn pair (the
+    # armed lockset witness, analysis/witness.py, checks the writes)
+    __race_fields__ = frozenset({
+        "epoch", "reshards", "drains", "_healthy", "_mesh", "_fence",
+    })
+
     def __init__(self, arenas, mesh):
         self.arenas = arenas          # models/arena.py::ArenaManager
         self.boot_mesh = mesh
@@ -325,6 +330,10 @@ class MeshFaultDomain:
         must round-trip THAT device (the plane's default probe only
         proves the default device answers)."""
         fail.point("mesh.chip.probe")
+        # the half-open probe: its round trip IS the health check, run on
+        # the guard's probe loop (the reference's block_until_ready,
+        # mesh/fault.py)
+        # graftlint: ignore[naked-device-sync]
         torch.arange(8, device=self.devices[chip]).sum().item()
 
     def _chip_rejoin(self, chip: int) -> None:
@@ -406,6 +415,10 @@ class MeshFaultDomain:
                     out, _slots = seg_expand_packed_step(
                         mesh, sa, f, cap, fcap
                     )
+                # the rejoin's warm-up waits for each program on the
+                # rejoining chip, as the reference's block_until_ready
+                # (mesh/fault.py)
+                # graftlint: ignore[naked-device-sync]
                 out.cpu()
 
     # -- surfaces -------------------------------------------------------------

@@ -957,6 +957,15 @@ class ArenaManager:
     recently used arenas are evicted whole once the device bytes of the
     cached arenas exceed ``budget_bytes`` (0 = unlimited)."""
 
+    # the LRU accounting is bumped from every query thread — the armed
+    # lockset witness (analysis/witness.py) holds it to the _cache_lock
+    # discipline.  The reference also lists its full-store-clear build
+    # generation (_inval_gen_star); builds here run under the cache lock
+    # and keep no such generation.  expand_device_min is deliberately
+    # NOT listed: it is a GIL-atomic planner knob (the engine setter
+    # rebinds an int; readers take either value and both are valid).
+    __race_fields__ = frozenset({"_lru_total"})
+
     def __init__(
         self,
         store: PostingStore,

@@ -279,6 +279,7 @@ class Snapshotter:
             # seal/compact faults latch read-only via the store's own
             # guards; anything that slipped past still must not kill
             # the snapshotter thread
+            # graftlint: shared[_last_error] GIL-atomic string store read only by stats(); last-error-wins is the intended semantics when the loop thread and an inline test caller both fail
             self._last_error = f"{type(e).__name__}: {e}"
             return False
         except ValueError as e:

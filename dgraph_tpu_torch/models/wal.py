@@ -193,7 +193,7 @@ class Wal:
             fail.point("wal.seal")
             self._f.close()
             # rename of a fully-synced file: atomic without a tmp hop
-            os.replace(self.path, seg_path)
+            os.replace(self.path, seg_path)  # graftlint: ignore[naked-atomic-write]
             fsync_dir(os.path.dirname(os.path.abspath(self.path)))
             self._f = open(self.path, "ab")
             self.count = 0
@@ -458,7 +458,7 @@ class DurableStore(PostingStore):
             # lose every snapshotted record (models/durability.py)
             corrupt = self.snapshot_path + ".corrupt"
             # preserving evidence, not writing durable state: plain rename
-            os.replace(self.snapshot_path, corrupt)
+            os.replace(self.snapshot_path, corrupt)  # graftlint: ignore[naked-atomic-write]
             fsync_dir(directory)
             raise SnapshotCorruptError(
                 self.snapshot_path, corrupt, str(e)
@@ -529,7 +529,7 @@ class DurableStore(PostingStore):
         except OSError:
             return None
         # wall-clock minus file mtime: mtimes ARE wall clock
-        return max(0.0, time.time() - mtime)
+        return max(0.0, time.time() - mtime)  # graftlint: ignore[wallclock-duration]
 
     def _list_segments(self) -> List[str]:
         segs = []

@@ -86,7 +86,22 @@ class Ledger:
         "device_sync_ms", "bytes_h2d", "bytes_d2h", "compiles",
         "cache_hits", "cache_misses", "cache_hit_bytes", "repairs",
         "coalesced", "exchange_bytes", "mesh_ms", "mesh_chips",
+        "_race_serial",
     )
+    # the single-writer claim above, checked by the armed lockset witness
+    # (analysis/witness.py) with the hand-offs (activate, finish,
+    # SchedRequest.complete/fail) as epoch boundaries.  ``compiles`` is
+    # deliberately NOT listed: the build counter (obs/device.py) bumps it
+    # from whichever thread triggered a kernel build, concurrently with
+    # the request thread — a lost increment costs one count in a
+    # per-request diagnostic (the process-wide dgraph_xla_compiles_total
+    # twin is locked).
+    __race_fields__ = frozenset({
+        "tenant", "edges", "host_ms", "device_ms", "device_sync_ms",
+        "bytes_h2d", "bytes_d2h", "cache_hits",
+        "cache_misses", "cache_hit_bytes", "repairs", "coalesced",
+        "exchange_bytes", "mesh_ms", "mesh_chips",
+    })
 
     def __init__(self):
         LEDGERS_CREATED.add(1)

@@ -548,6 +548,7 @@ class FlightRecorder:
             # backdated USER-VISIBLE timestamp (trace "started" display
             # field), not interval logic — the duration itself was
             # measured monotonically by the caller
+            # graftlint: ignore[wallclock-duration]
             root.started = time.time() - duration_s
             root.set_attr("query", query[:200])
             root.set_attr("tail_sampled", True)

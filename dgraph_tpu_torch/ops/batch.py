@@ -246,11 +246,17 @@ def multi_hop(
 # -- degree-classed hop programs ----------------------------------------------
 
 
+# two's-complement int32 wraparound: the sign bit and the modulus (an
+# arithmetic identity, not a route gate)
+_INT32_SIGN = 1 << 31
+_UINT32_MOD = 1 << 32
+
+
 def wrap_int32(s: torch.Tensor) -> torch.Tensor:
     """int64 sums -> int32 modulo 2^32, signed (the reference's int32
     wraparound sum, ``jnp.sum(dtype=int32)``)."""
-    s = s & 0xFFFFFFFF
-    return torch.where(s >= (1 << 31), s - (1 << 32), s).to(torch.int32)
+    s = s & (_UINT32_MOD - 1)
+    return torch.where(s >= _INT32_SIGN, s - _UINT32_MOD, s).to(torch.int32)
 
 
 class ClassedExpander:
@@ -457,6 +463,10 @@ class ClassedExpander:
             span.set_attr("caps", [int(c) for c in caps])
             span.set_attr("device_sync_ms",
                           round(obs.block_ready_ms(lanes_dev), 3))
+        # the classed pass's one fetch, unguarded as the reference's
+        # np.asarray (ops/batch.py); sampled, block_ready_ms above already
+        # waited
+        # graftlint: ignore[naked-device-sync]
         lanes = lanes_dev.cpu().numpy()
         degs = np.asarray(degs)
         seg_ptr = np.zeros(len(rows) + 1, dtype=np.int64)

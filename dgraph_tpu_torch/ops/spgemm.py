@@ -210,8 +210,12 @@ def apply_tile_delta(
     if int(u.max()) >= nb * t or int(v.max()) >= nb * t or u.min() < 0 or v.min() < 0:
         return None  # universe grew past the block grid
     keys = (u // t) * nb + (v // t)
-    hbi = pt.bi[: pt.n_tiles].cpu().numpy().astype(np.int64)
-    hbj = pt.bj[: pt.n_tiles].cpu().numpy().astype(np.int64)
+    # host repair of the tile index: reads the block coordinates the build
+    # made synchronously, as the reference's np.asarray
+    # graftlint: ignore[naked-device-sync]
+    hbi, hbj = torch.stack(
+        [pt.bi[: pt.n_tiles], pt.bj[: pt.n_tiles]]
+    ).cpu().numpy().astype(np.int64)
     skeys = hbi * nb + hbj  # np.unique build order: ascending
     pos = np.searchsorted(skeys, keys)
     pos = np.clip(pos, 0, max(0, len(skeys) - 1))
@@ -367,5 +371,8 @@ def triangle_mask_batch(bi1, bj1, t1, bi2, bj2, t2, bic, bjc, tc, x):
 def mask_to_uids(mask) -> np.ndarray:
     """Host boundary: 0/1 mask (tensor or array) → ascending int64 uids."""
     if isinstance(mask, torch.Tensor):
+        # the tile tier's host boundary, as the reference's mask_to_uids
+        # np.asarray: the mask is the served result
+        # graftlint: ignore[naked-device-sync]
         mask = mask.cpu().numpy()
     return np.flatnonzero(np.asarray(mask) > 0).astype(np.int64)

@@ -357,6 +357,10 @@ def sharded_expand_segments(
     packed, total_slots = seg_expand_packed_step(mesh, sharded, f, cap, fcap)
     n = len(frontier)
     keep = min(cap, total_slots)
+    # the mesh step's one fetch, as the reference's np.asarray
+    # (parallel/mesh.py); the serving plane runs it under the executor's
+    # guard
+    # graftlint: ignore[naked-device-sync]
     host = torch.cat(
         [packed[:keep], packed[total_slots : total_slots + n + 1]]
     ).cpu().numpy()
@@ -428,12 +432,18 @@ def batched_expand_frontiers(
     f, totals = batched_hop_step(
         mesh, offsets, dst, torch.from_numpy(rows), cap, cap, n_hops
     )
+    # the batched hop's fetch, as the reference's np.asarray
+    # (parallel/mesh.py)
+    # graftlint: ignore[naked-device-sync]
     totals = totals[:B].cpu().numpy()
     if totals.size and int(totals.max()) > cap:
         raise ValueError(
             f"hop fan-out {int(totals.max())} exceeds cap {cap}: "
             "re-plan cap from the worst-hop degree bound"
         )
+    # the batched hop's fetch, as the reference's np.asarray
+    # (parallel/mesh.py)
+    # graftlint: ignore[naked-device-sync]
     return f[:B].cpu().numpy(), totals
 
 
@@ -462,9 +472,12 @@ def shard_tiles(pt, n_shards: int, devices: Optional[Sequence] = None):
     need no masking.  Returns per-shard lists (bi int64[Kp], bj int64[Kp],
     tiles float32[Kp, T, T]), shard i on ``devices[i]`` (default: CPU)."""
     k = max(1, pt.n_tiles)
+    # host-side sharding of the tile blocks, as the reference's np.asarray
+    # (parallel/mesh.py)
+    # graftlint: ignore[naked-device-sync]
     bi = pt.bi[:k].cpu().numpy()
-    bj = pt.bj[:k].cpu().numpy()
-    tiles = pt.tiles[:k].cpu().numpy()
+    bj = pt.bj[:k].cpu().numpy()  # graftlint: ignore[naked-device-sync]
+    tiles = pt.tiles[:k].cpu().numpy()  # graftlint: ignore[naked-device-sync]
     K = len(bi)
     per = -(-K // n_shards)
     Kp = ops.bucket(max(1, per))

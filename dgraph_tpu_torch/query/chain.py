@@ -689,6 +689,10 @@ def _try_chain_scan(engine, levels, arena, src, est_edges) -> bool:
     engine.stats["fused_gathers"] += n
     need = [i for i in range(n) if _needs_dest(levels, i)]
     # ONE fetch: the consumed frontiers, then every hop's edge count
+    # ops.multi_hop's guarded dispatch already waited for these buffers
+    # (ops/batch.py); the one fetch copies ready data, as the reference's
+    # np.asarray does
+    # graftlint: ignore[naked-device-sync]
     host = torch.cat([fs[need].reshape(-1), totals]).cpu().numpy()
     src_list = np.asarray(src, dtype=np.int64)
     for i, sg in enumerate(levels):

@@ -818,6 +818,7 @@ class QueryEngine:
     def _exec_block(self, sg: SubGraph, uid_vars, value_vars):
         resolver = FuncResolver(
             self.store, self.arenas, uid_vars, value_vars, stats=self.stats,
+            cancel=self.cancel,
         )
         # var blocks are never encoded: chains under them may leave their
         # result matrices on the device (light mode, query/chain.py)
@@ -857,6 +858,7 @@ class QueryEngine:
         src = sg.dest_uids
         self._expand_expand_nodes(sg, value_vars)
         for child in sg.children:
+            self.checkpoint()
             self._exec_child(child, src, resolver, uid_vars, value_vars)
         if sg.params.cascade and sg.children:
             self._cascade_prune(sg)
@@ -1474,6 +1476,10 @@ class QueryEngine:
             perm = ops.segmented_sort_perm(
                 torch.from_numpy(seg).to(va.src.device), ranks, bool(desc)
             )
+            # the order-by's one fetch of its permutation, unguarded as the
+            # reference's np.asarray (query/engine.py): it follows a hop the
+            # guard already served on this card
+            # graftlint: ignore[naked-device-sync]
             perm = perm[:n].cpu().numpy()  # padding sorts to the tail
         self.stats["device_order"] += 1
         return perm

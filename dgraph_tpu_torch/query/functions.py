@@ -53,6 +53,7 @@ class FuncResolver:
         uid_vars: Dict[str, np.ndarray],
         value_vars: Dict[str, Dict[int, TypedValue]],
         stats: Optional[dict] = None,
+        cancel=None,
     ):
         self.store = store
         self.arenas = arenas
@@ -60,6 +61,16 @@ class FuncResolver:
         self.value_vars = value_vars
         # per-request engine stats (QueryEngine passes its own)
         self.stats = stats
+        # cooperative cancellation (sched/qos.py): index probes that
+        # loop over per-token/cell expansions checkpoint this token
+        self.cancel = cancel
+
+    def checkpoint(self) -> None:
+        """Cancellation checkpoint for resolver-side expansion loops
+        (the graftlint ``unchecked-hop-loop`` contract)."""
+        tok = self.cancel
+        if tok is not None:
+            tok.check()
 
     # -- public ------------------------------------------------------------
 
@@ -156,6 +167,9 @@ class FuncResolver:
                 ops.pad_rows(rows, ops.bucket(len(rows)))
             ).to(arena.device)
             out, _seg, _t = ops.expand_csr(arena.offsets, arena.dst, rows_t, cap)
+            # the resolver's one fetch of its expansion, unguarded as the
+            # reference's np.asarray (query/functions.py)
+            # graftlint: ignore[naked-device-sync]
             u = ops.sort_unique(out).cpu().numpy()
             res = u[u != SENT].astype(np.int64)
         planner.note_served_outcome(dec, (st["resolver_expand_ms"] - r0) * 1e3)
@@ -311,6 +325,7 @@ class FuncResolver:
             return _EMPTY
         sets = []
         for t in qtoks:
+            self.checkpoint()
             r = idx.row_of(t)
             if r < 0:
                 if all_of:
@@ -359,6 +374,7 @@ class FuncResolver:
             tsets = []
             for lit in _literal_runs(pat):
                 for tg in tokmod.trigram_tokens(lit):
+                    self.checkpoint()
                     r = idx.row_of(tg)
                     tsets.append(
                         self._expand_rows(idx.csr, np.array([r]))
@@ -441,6 +457,7 @@ class FuncResolver:
         cand = None
         sets = []
         for c in cells:
+            self.checkpoint()
             r = idx.row_of(c)
             if r >= 0:
                 sets.append(self._expand_rows(idx.csr, np.array([r])))

@@ -198,6 +198,10 @@ def _try_fused_recurse(engine, sg: SubGraph, uid_templates) -> bool:
         # still on the card, where the per-level OOM retry evicts
         return False
     engine.stats["fused_gathers"] += depth
+    # ops.multi_hop's guarded dispatch already waited for these buffers
+    # (ops/batch.py); the one fetch copies ready data, as the reference's
+    # np.asarray does
+    # graftlint: ignore[naked-device-sync]
     host = torch.cat([fs.reshape(-1), totals]).cpu().numpy()  # ONE fetch
     engine.stats["edges"] += int(host[depth * cap :].astype(np.int64).sum())
     parent = sg

@@ -116,8 +116,16 @@ class CancelToken:
 
     __slots__ = (
         "tenant", "deadline", "_reason", "_probe", "_probe_interval",
-        "_last_probe", "_lock",
+        "_last_probe", "_lock", "_race_serial",
     )
+    # the lockset witness (analysis/witness.py): cancel() publishes
+    # _reason under _lock from whatever thread cancels (registry sweep,
+    # disconnect probe, admin) while engine threads read it — witness
+    # every store.  _last_probe is deliberately NOT listed: it is a probe
+    # throttle written only by whichever single engine thread is running
+    # the request's current segment, and a lost update costs one extra
+    # probe, not correctness.
+    __race_fields__ = frozenset({"_reason"})
 
     def __init__(
         self,

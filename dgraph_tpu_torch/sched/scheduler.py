@@ -123,6 +123,14 @@ def sched_enabled() -> bool:
 class CohortScheduler:
     """Owns the admission queues and the flush loop for one server."""
 
+    # the armed lockset witness (analysis/witness.py) checks every write
+    # to these scalars carries _cond (the adaptive knobs are the seeded
+    # regression — they were once bare stores)
+    __race_fields__ = frozenset({
+        "_depth", "_flushes", "_last_arrival", "_stopped",
+        "max_batch", "flush_s",
+    })
+
     def __init__(
         self,
         server,
@@ -251,6 +259,7 @@ class CohortScheduler:
         # This read feeds the ADMISSION signature (snapshot bucketing for
         # cohorts + singleflight), never a cache key — the tier-2 key
         # below is predicate-scoped through ivm/versions.py.
+        # graftlint: ignore[naked-version-key]
         store_ver = getattr(self._server.store, "version", None)
         sig = hop_signature(parsed, store_ver or 0)
         # tier-2 probe BEFORE admission: the version in the key is

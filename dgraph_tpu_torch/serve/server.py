@@ -1276,6 +1276,9 @@ def _ivm_stats(srv: DgraphServer) -> Optional[dict]:
         return None
     stream = getattr(store, "delta_stream", None)
     return {
+        # debug introspection, not a cache key (the ivm/ helpers ARE
+        # what this section reports on)
+        # graftlint: ignore[naked-version-key]
         "version": store.version,
         "pred_floor": store.pred_floor,
         "tracked_preds": len(store.pred_versions),

@@ -209,7 +209,14 @@ def chip_of(exc: BaseException) -> Optional[int]:
 
 
 class _Job:
-    __slots__ = ("fn", "done", "result", "exc", "abandoned", "lock")
+    __slots__ = (
+        "fn", "done", "result", "exc", "abandoned", "lock", "_race_serial",
+    )
+    # the dispatcher creates the job, ONE worker thread writes result/exc
+    # exactly once before done.set(), and only the dispatcher flips
+    # abandoned (under job.lock) — the lockset witness's single-writer
+    # hand-off tolerance must keep this silent
+    __race_fields__ = frozenset({"result", "exc", "abandoned"})
 
     def __init__(self, fn):
         self.fn = fn
@@ -238,6 +245,15 @@ def _default_probe() -> None:
 
 class DeviceGuard:
     """One fault domain's health state, watchdog and probe machinery."""
+
+    # callers, the idle-worker watchdog and the cooldown probe loop all
+    # mutate the state machine — every write must carry self._lock
+    # (directly or via the caller-holds helpers); the armed lockset
+    # witness (analysis/witness.py) checks it
+    __race_fields__ = frozenset({
+        "state", "_consecutive", "failovers", "probes_ok",
+        "probes_failed", "readmissions", "wedged_workers",
+    })
 
     def __init__(
         self,

@@ -651,6 +651,13 @@ RECOVERY_SECONDS = metrics.gauge("dgraph_recovery_seconds")
 SNAPSHOT_AGE = metrics.gauge("dgraph_snapshot_age_seconds")
 SNAPSHOTS = metrics.counter("dgraph_snapshots_total")
 WAL_BYTES = metrics.gauge("dgraph_wal_bytes")
+
+# the Eraser lockset witness (analysis/witness.py): field states the
+# armed witness is tracking — its own coverage proof.  Zero under an
+# armed test run means the instrumentation regressed (the annotated
+# classes stopped being exercised), not that the tree is race-free.
+# Unarmed serving paths never touch it.
+RACE_WITNESS_FIELDS = metrics.counter("dgraph_race_witness_fields_total")
 WAL_SEGMENTS = metrics.gauge("dgraph_wal_sealed_segments")
 GROUP_COMMIT_SYNCS = metrics.counter("dgraph_group_commit_syncs_total")
 GROUP_COMMIT_WRITES = metrics.counter("dgraph_group_commit_writes_total")

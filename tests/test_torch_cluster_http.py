@@ -730,6 +730,12 @@ def test_cluster_admin_and_debug_surfaces(pair3, tmp_path):
         out = _post_retry(servers[0].addr, "/query",
                           'mutation { set { <0x1> <name> "dbg" . <0x1> <e> <0x2> . } }')
         assert out.get("code") == "Success"
+    # the write was acknowledged by server 0; server 1 of each cluster
+    # applies it asynchronously: wait until both serve it before reading
+    # their admin and debug surfaces
+    q = '{ q(func: uid(0x1)) { name e { uid } } }'
+    want = {"q": [{"name": "dbg", "e": [{"_uid_": "0x2"}]}]}
+    assert _same(port[1].addr, ref[1].addr, q, want), _body(port[1].addr, q)
     snaps = []
     for servers in (port, ref):
         with urllib.request.urlopen(servers[1].addr + "/admin/snapshot", timeout=10) as r:
@@ -744,7 +750,6 @@ def test_cluster_admin_and_debug_surfaces(pair3, tmp_path):
     assert details[0]["raft"].keys() == details[1]["raft"].keys() == {"0", "1"}
     assert details[0]["raft"]["0"].keys() == details[1]["raft"]["0"].keys()
     assert details[0]["degraded"] is None
-    q = '{ q(func: uid(0x1)) { name e { uid } } }'
     assert _same(port[1].addr, ref[1].addr, q)
     for _ in range(3):
         _post(port[1].addr, "/query", q)

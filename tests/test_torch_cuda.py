@@ -17,7 +17,9 @@ inline and classed routes on the card equal to their CPU runs (the
 inline route's slot map one launch a hop), and the mesh serving plane on
 virtual chips of the card (the sharded expansion equal to the host's, a
 multi-hop segment that never synchronizes, a server whose hops all ride
-``route: mesh`` without a gather launch).
+``route: mesh`` without a gather launch), and each kernel's registered
+contract (analysis/programs.py: one launch a call on the caller's
+stream, no host sync, the plain version's outputs).
 Every test is marked ``cuda`` and skips
 where no GPU is visible.  The file imports neither JAX nor the JAX
 package (its planner pin, tests/torch_pins.py, pins the port's planner
@@ -934,3 +936,21 @@ def test_mesh_server_on_virtual_chips_serves_route_mesh(monkeypatch):
         assert out == json.loads(json.dumps(host.run(q)))
     finally:
         srv.stop()
+
+
+@pytest.mark.parametrize("kernel", ["gather_fused", "slotmap_tiles", "intersect_tiles"])
+def test_kernel_contract_holds_on_the_card(kernel):
+    """The contract registry's card half (dgraph_tpu_torch/analysis/
+    programs.py): on a side stream under sync-debug mode "error", with
+    the default stream kept busy, one launch a call on the caller's
+    stream, no host sync, and the plain version's dtype, shape and
+    values after the side stream's event."""
+    _need_gpu()
+    from dgraph_tpu_torch.analysis import programs
+
+    (contract,) = [c for c in programs.CONTRACTS if c.kernel == kernel]
+    rows = programs.check_cuda(contract)
+    assert len(rows) == 3
+    for r in rows:
+        assert r["launches"] == 1 and r["syncs"] == 0 and r["stream"] == "caller"
+        assert r["max_abs_err"] == 0 and r["default_busy"] is not False

@@ -287,6 +287,119 @@ def test_deadline_mid_execution_is_504(graph_store, monkeypatch):
         srv.stop()
 
 
+# ------------------------------------- checkpoints placed as the reference's
+
+# several value children under one block, and a term index probed per
+# token: the engine checkpoints before each child, the resolver before
+# each token's expansion (the reference's QueryEngine._exec_children and
+# FuncResolver.checkpoint)
+CHECK_SCHEMA = ("name: string @index(term) . age: int . city: string . "
+                "nick: string . bio: string .")
+CHECK_WORDS = ["alpha", "beta", "gamma", "delta", "epsilon", "zeta", "eta"]
+CHECK_QUERIES = {
+    "value_children": "{ q(func: uid(0x1, 0x2, 0x3)) { name age city nick bio } }",
+    "allofterms": '{ q(func: allofterms(name, "%s")) { uid } }' % " ".join(CHECK_WORDS),
+}
+
+
+def _check_rdf():
+    lines = []
+    for u in range(1, 6):
+        words = " ".join(CHECK_WORDS[: 3 + u])
+        lines += [f'<0x{u:x}> <name> "{words}" .', f'<0x{u:x}> <age> "{20 + u}" .',
+                  f'<0x{u:x}> <city> "c{u}" .', f'<0x{u:x}> <nick> "n{u}" .',
+                  f'<0x{u:x}> <bio> "b{u}" .']
+    return "\n".join(lines)
+
+
+@pytest.fixture(scope="module")
+def check_engines():
+    """(reference engine, port engine) over one store."""
+    from dgraph_tpu.models import PostingStore as JStore
+    from dgraph_tpu.query import QueryEngine as JEngine
+    from torch_parity import port_store_of
+
+    jeng = JEngine(JStore())
+    jeng.run("mutation { schema { %s } set { %s } }" % (CHECK_SCHEMA, _check_rdf()))
+    return jeng, QueryEngine(port_store_of(jeng.store), device="cpu")
+
+
+def _lapsing(mod, at):
+    """A CancelToken of ``mod`` (either package's sched.qos) whose
+    deadline lapses at its ``at``-th probe; it counts its probes."""
+    class Lapsing(mod.CancelToken):
+        __slots__ = ("probes", "at")
+
+        def check(self):
+            self.probes += 1
+            if self.probes >= self.at:
+                self.cancel("deadline")
+            return super().check()
+
+    tok = Lapsing()
+    tok.probes, tok.at = 0, at
+    return tok
+
+
+def _run_counted(eng, mod, resolver_cls, q, at, monkeypatch):
+    """Run ``q`` with a token lapsing at probe ``at``: (raised reason or
+    None, probes made, children executed, token expansions made)."""
+    tok = _lapsing(mod, at)
+    eng.cancel = tok
+    seen = {"child": 0, "rows": 0}
+    child, rows = eng._exec_child, resolver_cls._expand_rows
+
+    def counted_child(*a, **k):
+        seen["child"] += 1
+        return child(*a, **k)
+
+    def counted_rows(self, *a, **k):
+        seen["rows"] += 1
+        return rows(self, *a, **k)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(eng, "_exec_child", counted_child)
+        mp.setattr(resolver_cls, "_expand_rows", counted_rows)
+        try:
+            eng.run(q)
+            reason = None
+        except mod.QueryCancelledError as e:
+            reason = e.reason
+        finally:
+            eng.cancel = None
+    return reason, tok.probes, seen["child"], seen["rows"]
+
+
+def _both(check_engines, q, at, monkeypatch):
+    from dgraph_tpu.query.functions import FuncResolver as JResolver
+    from dgraph_tpu_torch.query.functions import FuncResolver
+
+    jeng, teng = check_engines
+    return (_run_counted(jeng, jqos, JResolver, q, at, monkeypatch),
+            _run_counted(teng, qos, FuncResolver, q, at, monkeypatch))
+
+
+@pytest.mark.parametrize("name", sorted(CHECK_QUERIES))
+def test_checkpoints_probe_as_the_reference(check_engines, name, monkeypatch):
+    """With no lapse, the port probes its token as often as the
+    reference, and at least once per child or token."""
+    want, got = _both(check_engines, CHECK_QUERIES[name], 10 ** 9, monkeypatch)
+    assert got == want and got[0] is None
+    per = 5 if name == "value_children" else len(CHECK_WORDS)
+    assert got[1] >= per
+
+
+@pytest.mark.parametrize("at", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("name", sorted(CHECK_QUERIES))
+def test_deadline_lapse_stops_where_the_reference_stops(check_engines, name, at,
+                                                          monkeypatch):
+    """A deadline lapsing at the ``at``-th probe stops both packages at the
+    same checkpoint: the same children ran and the same tokens expanded."""
+    want, got = _both(check_engines, CHECK_QUERIES[name], at, monkeypatch)
+    assert got == want
+    assert got[0] == "deadline" and got[1] == at
+
+
 # ------------------------------------------------------- cancel registry
 
 

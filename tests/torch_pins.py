@@ -36,9 +36,14 @@ loaded by ``chip_smoke.py`` on the card, where no JAX is installed, and
 ``tests/test_torch_isolation.py`` holds it free of any reference
 import.  Where JAX is not installed (the card's machine) the fixture
 pins the port's planner alone.
+
+Before each test the fixture also points the port's RWLock and
+hand-off instrumentation at the suite's armed witness
+(``tests/torch_witness.py``).
 """
 
 import pytest
+from torch_witness import cover_port
 
 PINNED_SOURCE = "pinned"
 
@@ -138,6 +143,9 @@ def check_no_leaked_threads(before: set, wait_s: float = 5.0) -> None:
 
 @pytest.fixture
 def pinned_planner(monkeypatch):
+    # the suite's witness covers the port's RWLock and hand-offs too
+    # (tests/torch_witness.py)
+    cover_port()
     planners = _planners()
     # the reference prices a device its device guard holds sick out of
     # every route (its ``_device_factor``), and the port raises on one:
