@@ -1,0 +1,10 @@
+"""checksum_device_ms: device milliseconds a batch of the program's
+``two_hop.checksum`` span over the traced slice (the per-query sum of
+every hop-2 target), timed by CUDA events on the batch's stream
+(``dgraph_tpu_torch.obs.span_totals``)."""
+
+from benchmark.metrics._stage_spans import device_ms_a_batch
+
+
+def read(run):
+    return device_ms_a_batch(run, "two_hop.checksum")

@@ -432,9 +432,9 @@ fewer it is no more than the largest one.
    with the planner at its default (on, priors: no calibration file in
    a fresh checkout); a check that once asserted the static gate
    asserts the recorded decision now.
-19. report — the device time of one 200-query chunk by stage (hop 1,
-   dedup, hop 2, checksum; CUDA events); one pass of the 600 queries
-   under ``torch.profiler``: the card's busy time (the union of its
+19. report — one pass of the 600 queries under ``torch.profiler``
+   (the stage split of a chunk is the program's own spans, read by the
+   benchmark's ``*_device_ms`` metrics): the card's busy time (the union of its
    kernel and copy intervals) over the pass's host wall time, and device
    ms by kernel name; one pass with CUDA events around each chunk; each
    kernel's wrapper at its path's shapes (the gather at the large
@@ -5485,47 +5485,6 @@ def phase_batched_2hop(a, frontiers, fcap, plan, card: str) -> dict:
     return out
 
 
-def batched_breakdown(a, frontiers, plan) -> dict:
-    """Device time of one chunk of the pipeline by stage (CUDA events,
-    median of 10 after a warm run): hop 1, dedup, hop 2, checksum."""
-    import torch
-
-    from dgraph_tpu_torch import bench2hop, ops
-
-    metap, ov = a.inline_layout_grouped()
-    fm = chunk_tensor(a, frontiers, plan)
-    ex = ops.expand_inline_grouped_kernel
-
-    def stages():
-        evs = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        evs[0].record()
-        rows0 = ops.frontier_rows(fm)
-        inl1, ov1, t1 = ex(metap, ov, rows0, plan.capo1, plan.pcap1)
-        evs[1].record()
-        rows1 = bench2hop.next_rows(inl1, ov1, plan)
-        evs[2].record()
-        inl2, ov2, t2 = ex(metap, ov, rows1, plan.capo2, plan.pcap2)
-        evs[3].record()
-        bench2hop.checksum(inl2, ov2, plan.mask)
-        evs[4].record()
-        return evs
-
-    stages()
-    runs = [stages() for _ in range(10)]
-    torch.cuda.synchronize()
-    names = ["hop1_ms", "dedup_ms", "hop2_ms", "checksum_ms"]
-    out = {n: float(np.median([r[k].elapsed_time(r[k + 1]) for r in runs]))
-           for k, n in enumerate(names)}
-    out["chunk_ms"] = float(np.median([r[0].elapsed_time(r[4]) for r in runs]))
-    # hop 2's least traffic: rows in, one 8-lane metap row per row, the
-    # inline lanes out, each overflow chunk gathered and written once,
-    # the slot-map's inputs and map
-    q, u, c, p = fm.shape[0], plan.ucap, plan.capo2, plan.pcap2
-    out["hop2_bytes"] = 4 * q * (u + 8 * u + ops.INLINE * u + 16 * c + 2 * p + c)
-    out["hop2_bound_ms"] = out["hop2_bytes"] / HBM_BYTES_PER_S * 1e3
-    return out
-
-
 def slotmap_timing(a, frontiers, plan) -> dict:
     """The slot-map at both hops' shapes of a chunk (hop 2's is the main
     path's largest): the wrapper's times (``kernel_times``), the plain
@@ -6263,11 +6222,6 @@ def main(argv) -> int:
         phase = mark("slotmap_timing")
         st = slotmap_timing(dense, frontiers, plan)
         log(dict(phase="slotmap_timing", **st))
-        phase = mark("batched_breakdown")
-        bd = batched_breakdown(dense, frontiers, plan)
-        bd["slotmap_share_of_chunk"] = (st["hop1_chunk"]["ms"]
-                                        + st["hop2_chunk"]["ms"]) / bd["chunk_ms"]
-        log(dict(phase="batched_breakdown", chunk_q=CHUNK_Q, **bd))
         phase = mark("pass_profile")
         log(dict(phase="pass_profile", chunk_q=CHUNK_Q,
                  **pass_profile(dense, frontiers, fcap, plan)))

@@ -47,7 +47,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from dgraph_tpu_torch import ops
+from dgraph_tpu_torch import obs, ops
 from dgraph_tpu_torch.device import resolve
 from dgraph_tpu_torch.models.arena import CSRArena, csr_dense_from_edges
 import dgraph_tpu_torch.ops.slotmap as _slotmap
@@ -194,13 +194,31 @@ def two_hop_batch(metap, ov_chunks, fm: torch.Tensor, plan: Plan):
     (checksums int32[Q], edges int32[Q], (inline2, ov2)).  Both hops'
     slot-maps go through the kernel's wrapper; the kernel is exact for
     any row order, so it serves the ungrouped layout too (the TPU kernel
-    needs the grouped prefix)."""
+    needs the grouped prefix).
+
+    Spans (recording under a sampled request or the profiler, each timed
+    on ``fm``'s device): ``two_hop.batch`` around ``two_hop.hop1``,
+    ``two_hop.dedup``, ``two_hop.hop2`` and ``two_hop.checksum``."""
     expander = ops.expand_inline_grouped_kernel
-    rows0 = ops.frontier_rows(fm)
-    inl1, ov1, t1 = expander(metap, ov_chunks, rows0, plan.capo1, plan.pcap1)
-    rows1 = next_rows(inl1, ov1, plan)
-    inl2, ov2, t2 = expander(metap, ov_chunks, rows1, plan.capo2, plan.pcap2)
-    return checksum(inl2, ov2, plan.mask), t1 + t2, (inl2, ov2)
+    dev = fm.device
+    with obs.child("two_hop.batch", device=dev) as sp:
+        if sp.recording:
+            sp.set_attr("Q", fm.shape[0])
+            sp.set_attr("ucap", plan.ucap)
+            sp.set_attr("capo1", plan.capo1)
+            sp.set_attr("capo2", plan.capo2)
+        with obs.child("two_hop.hop1", device=dev):
+            rows0 = ops.frontier_rows(fm)
+            inl1, ov1, t1 = expander(metap, ov_chunks, rows0, plan.capo1,
+                                     plan.pcap1)
+        with obs.child("two_hop.dedup", device=dev):
+            rows1 = next_rows(inl1, ov1, plan)
+        with obs.child("two_hop.hop2", device=dev):
+            inl2, ov2, t2 = expander(metap, ov_chunks, rows1, plan.capo2,
+                                     plan.pcap2)
+        with obs.child("two_hop.checksum", device=dev):
+            chk = checksum(inl2, ov2, plan.mask)
+        return chk, t1 + t2, (inl2, ov2)
 
 
 def layout(a: CSRArena):

@@ -7,7 +7,9 @@ bounded trace ring (``/debug/traces``), a structured slow-query log and
 Chrome ``trace_event`` export; each sampled hop's device time is waited
 for on a CUDA event (``block_ready_ms``).  See obs/spans.py for the
 design, obs/ledger.py for the per-request account and obs/device.py for
-the device snapshot (``/debug/device``).
+the device snapshot (``/debug/device``).  While ``torch.profiler``
+collects, every span is also a profiler range, and ``span_totals()``
+tallies spans by name (count, host seconds, device ms).
 """
 
 from dgraph_tpu_torch.obs import device, ledger  # noqa: F401 — submodule surface
@@ -25,6 +27,7 @@ from dgraph_tpu_torch.obs.spans import (
     format_traceparent,
     parse_traceparent,
     server_span,
+    span_totals,
     stage,
     start_request,
 )
@@ -53,6 +56,7 @@ __all__ = [
     "get_recorder",
     "parse_traceparent",
     "server_span",
+    "span_totals",
     "stage",
     "start_request",
 ]

@@ -33,7 +33,18 @@ Design constraints, in priority order:
 Device time: :func:`block_ready_ms` waits on a CUDA event recorded on
 the producing tensor's current stream (never ``torch.cuda.synchronize``,
 which would also wait on other cohorts' launches), and only a recording
-span calls it, so the unsampled path stays asynchronous.
+span calls it, so the unsampled path stays asynchronous.  A span opened
+with a CUDA ``device`` instead records a pair of timing events on that
+device's current stream and waits on nothing; the pair is resolved when
+:func:`span_totals` is read.
+
+A span also records while ``torch.profiler`` is collecting, sampled or
+not: it then enters a ``record_function`` range of its own name, so the
+program's spans sit in the profiler's trace beside the device ops they
+launched, on the profiler's clock.  A span that records only because the
+profiler collects (no sampled request open) belongs to no trace: it is
+never the current span, lands in no ring, and only feeds the profiler
+and the recorder's in-memory tally by name (:func:`span_totals`).
 
 Span timestamps are ``time.perf_counter_ns()`` — the one monotonic,
 ns-resolution clock in the process — so parent/child nesting is exact
@@ -58,6 +69,10 @@ import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional
+
+import torch
+from torch._C._autograd import _profiler_enabled as profiling
+from torch.autograd.profiler import record_function
 
 from dgraph_tpu_torch.utils.env import env_float
 from dgraph_tpu_torch.utils.metrics import (
@@ -178,16 +193,21 @@ class Sampler:
 
 class Span:
     """One timed operation in a trace.  Only ever constructed on the
-    SAMPLED side — the unsampled path sees None and a shared no-op.
+    recording side (a sampled request, or the profiler collecting) — the
+    unsampled path sees None and a shared no-op.
 
     Spans are manual-finish by default; used as a context manager they
     additionally install themselves as the thread's current span so
-    nested instrumentation parents correctly."""
+    nested instrumentation parents correctly.  ``buf`` None marks a span
+    that records only for the profiler: it belongs to no trace and is
+    never installed as the current span."""
 
     __slots__ = (
         "trace_id", "span_id", "parent_id", "name", "attrs", "links",
         "t0", "t1", "tid", "started", "_buf", "_token", "_root",
+        "_range", "_events",
     )
+    recording = True
 
     def __init__(
         self,
@@ -195,8 +215,9 @@ class Span:
         span_id: str,
         parent_id: Optional[str],
         name: str,
-        buf: list,
+        buf: Optional[list],
         root: bool = False,
+        device=None,
     ):
         self.trace_id = trace_id
         self.span_id = span_id
@@ -211,17 +232,26 @@ class Span:
         self._buf = buf
         self._token = None
         self._root = root
+        self._range = None
+        if profiling():
+            self._range = record_function(name)
+            self._range.__enter__()
+        self._events = _start_events(device)
         SPANS_RECORDED.add(1)
 
     # -- tree ---------------------------------------------------------------
 
-    def child(self, name: str) -> "Span":
+    def child(self, name: str, device=None) -> "Span":
         """One-call child creation (the tentpole's contract): inherits
-        the trace, parents to this span, shares the trace buffer."""
+        the trace, parents to this span, shares the trace buffer.
+        ``device``: time the child on that CUDA device's current stream
+        (see :func:`span_totals`)."""
+        if self._buf is None:
+            return Span("", "", None, name, None, device=device)
         rec = recorder
         return Span(
             self.trace_id, rec.sampler.new_id(64), self.span_id, name,
-            self._buf,
+            self._buf, device=device,
         )
 
     def set_attr(self, key: str, value) -> None:
@@ -243,12 +273,25 @@ class Span:
         if self.t1 is not None:
             return
         self.t1 = time.perf_counter_ns()
+        events = None
+        if self._events is not None:
+            start, stream = self._events
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(stream)
+            events = (start, end)
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        recorder.tally(self.name, self.t1 - self.t0, events)
+        if self._buf is None:
+            return
         self._buf.append(self)
         if self._root:
             recorder.publish(self)
 
     def __enter__(self) -> "Span":
-        self._token = _current.set(self)
+        if self._buf is not None:
+            self._token = _current.set(self)
         return self
 
     def __exit__(self, et, ev, tb) -> None:
@@ -292,7 +335,7 @@ class _NoopSpan:
     def __exit__(self, et, ev, tb):
         return None
 
-    def child(self, name):
+    def child(self, name, device=None):
         return self
 
     def set_attr(self, key, value):
@@ -308,12 +351,30 @@ class _NoopSpan:
 NOOP = _NoopSpan()
 
 
-def child(name: str):
-    """Context-manager child of the current span; the shared no-op when
-    nothing is recording.  For sites where the kwargs/branching cost of
-    checking current_span() explicitly is not worth saving."""
+def child(name: str, device=None):
+    """Context-manager child of the current span; a span of no trace
+    while only the profiler collects; the shared no-op when nothing is
+    recording (one context-variable probe and one profiler-flag probe).
+    ``device``: time the span on that CUDA device's current stream.  For
+    sites where the kwargs/branching cost of checking current_span()
+    explicitly is not worth saving."""
     sp = _current.get()
-    return NOOP if sp is None else sp.child(name)
+    if sp is not None:
+        return sp.child(name, device)
+    if not profiling() or not recorder.enabled:
+        return NOOP
+    return Span("", "", None, name, None, device=device)
+
+
+def _start_events(device):
+    """(start event, stream) recorded on ``device``'s current stream, or
+    None when ``device`` is not a CUDA device."""
+    if getattr(device, "type", None) != "cuda":
+        return None
+    stream = torch.cuda.current_stream(device)
+    start = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    return start, stream
 
 
 # -------------------------------------------------------------- stage timer
@@ -353,8 +414,6 @@ def block_ready_ms(x) -> float:
     threads' work is not waited for.  CPU tensors are ready at once
     (0.0 when no tensor is on a CUDA device).  Called ONLY when a span
     is recording; a failure on a CUDA tensor propagates."""
-    import torch
-
     ts = x if isinstance(x, (tuple, list)) else (x,)
     devs = []
     for t in ts:
@@ -371,6 +430,24 @@ def block_ready_ms(x) -> float:
 
 
 # --------------------------------------------------------------- recorder
+
+# timing pairs a span name holds before its completed ones are resolved
+# unasked (each resolution is two runtime calls on the finishing thread)
+_PENDING_MAX = 4096
+
+
+class _Tally:
+    """Totals of one span name: count, host ns, resolved device ms (None
+    until a timed span resolves) and the timing pairs not yet resolved."""
+
+    __slots__ = ("count", "host_ns", "device_ms", "pending")
+
+    def __init__(self):
+        self.count = 0
+        self.host_ns = 0
+        self.device_ms: Optional[float] = None
+        self.pending: deque = deque()
+
 
 class FlightRecorder:
     """Owns sampling, the bounded trace ring and the slow-query log."""
@@ -400,6 +477,50 @@ class FlightRecorder:
         self._ring: "deque[dict]" = deque(maxlen=max(1, keep))
         self._slow: "deque[dict]" = deque(maxlen=128)
         self._lock = threading.Lock()
+        # span name -> _Tally of every recording span finished
+        self._totals: Dict[str, _Tally] = {}
+
+    # -- totals by span name ------------------------------------------------
+
+    def tally(self, name: str, host_ns: int, events) -> None:
+        """Count one finished span; ``events`` (start, end) is its device
+        timing pair, or None.  Pairs wait for the reader; past
+        ``_PENDING_MAX`` of a name, the completed ones are resolved here
+        (``query`` never waits), so a process nobody reads stays bounded."""
+        with self._lock:
+            t = self._totals.get(name)
+            if t is None:
+                t = self._totals[name] = _Tally()
+            t.count += 1
+            t.host_ns += host_ns
+            if events is None:
+                return
+            t.pending.append(events)
+            if len(t.pending) > _PENDING_MAX:
+                while t.pending and t.pending[0][1].query():
+                    start, end = t.pending.popleft()
+                    t.device_ms = (t.device_ms or 0.0) + start.elapsed_time(end)
+
+    def span_totals(self, reset: bool = False) -> Dict[str, dict]:
+        """{span name: {"count", "host_s", "device_ms"}} over every
+        recording span finished (since the last reset).  ``device_ms`` is
+        None for a name no span of which was timed on a CUDA device.
+        Waits for the device events still pending (the caller's wait,
+        never the enqueue's)."""
+        with self._lock:
+            totals = self._totals
+            if reset:
+                self._totals = {}
+            items = [(n, t.count, t.host_ns, t.device_ms, list(t.pending))
+                     for n, t in totals.items()]
+        out = {}
+        for name, count, host_ns, ms, pending in items:
+            for start, end in pending:
+                end.synchronize()
+                ms = (ms or 0.0) + start.elapsed_time(end)
+            out[name] = {"count": count, "host_s": host_ns / 1e9,
+                         "device_ms": ms}
+        return out
 
     # -- trace intake -------------------------------------------------------
 
@@ -595,3 +716,9 @@ def start_request(
 
 def server_span(name: str, ctx: Optional[TraceContext]):
     return recorder.server_span(name, ctx)
+
+
+def span_totals(reset: bool = False) -> Dict[str, dict]:
+    """The process recorder's totals by span name
+    (:meth:`FlightRecorder.span_totals`)."""
+    return recorder.span_totals(reset)

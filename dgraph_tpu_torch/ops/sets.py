@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dgraph_tpu_torch import obs
+
 # Padding sentinel: int32 max. Sorts after every valid uid.
 SENT = (1 << 31) - 1
 
@@ -407,18 +409,30 @@ def expand_inline_grouped_kernel(
 ):
     """expand_inline_grouped with the overflow slot-map computed by the
     slot-map kernel (ops/slotmap.py, csrc/slotmap.cu) in place of the
-    scatter/scan chain — the same outputs under the same invariants."""
+    scatter/scan chain — the same outputs under the same invariants.
+
+    Spans, each timed on ``rows``' device: ``expand.inline`` (the metap
+    gather), ``expand.slotmap`` (the prefix and the kernel) and
+    ``expand.overflow`` (the gather over every planned lane; attribute
+    ``lanes``, Q·capc·8 from the shapes)."""
     from dgraph_tpu_torch.ops.slotmap import slotmap
 
-    m, valid, inline, dg, total = _inline_gather(metap, rows)
-    cs, cd = _prefix_chunks(m, valid, dg, pcap)
-    lead = cs.shape[:-1]
-    cid = slotmap(
-        cs.reshape(-1, cs.shape[-1]).contiguous(),
-        cd.reshape(-1, cd.shape[-1]).contiguous(),
-        capc,
-    ).reshape(lead + (capc,))
-    return inline, _ov_rows(ov_chunks, cid, cid >= 0), total
+    dev = rows.device
+    with obs.child("expand.inline", device=dev):
+        m, valid, inline, dg, total = _inline_gather(metap, rows)
+    with obs.child("expand.slotmap", device=dev):
+        cs, cd = _prefix_chunks(m, valid, dg, pcap)
+        lead = cs.shape[:-1]
+        cid = slotmap(
+            cs.reshape(-1, cs.shape[-1]).contiguous(),
+            cd.reshape(-1, cd.shape[-1]).contiguous(),
+            capc,
+        ).reshape(lead + (capc,))
+    with obs.child("expand.overflow", device=dev) as sp:
+        if sp.recording:
+            sp.set_attr("lanes", cid.numel() * ov_chunks.shape[-1])
+        ov = _ov_rows(ov_chunks, cid, cid >= 0)
+    return inline, ov, total
 
 
 def expand_inline_grouped_auto(
