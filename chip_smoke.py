@@ -13,7 +13,7 @@ fewer it is no more than the largest one.
    print the card's name and power limit.
 1b. kernel_contracts — the hand kernels' contract registry
    (``dgraph_tpu_torch/analysis/programs.py``) on the card: each wrapper
-   (gather_fused, slotmap_tiles, intersect_tiles) at the registry's small
+   (gather_fused, slotmap_tiles, intersect_tiles, granule_gather) at the registry's small
    instances, called on a side stream under
    ``torch.cuda.set_sync_debug_mode("error")`` with the default stream
    kept busy; one line per kernel with its launches a call (must be 1),
@@ -485,6 +485,10 @@ fewer it is no more than the largest one.
 Exits non-zero without a CUDA GPU, or when the package is not beside it.
 
 ``python3 chip_smoke.py --contracts-only`` runs phases 1 and 1b alone.
+``python3 chip_smoke.py --granules-only`` runs phases 1 and 1b, the graph's
+generation, phase 14's dense arena and the granule gather's timing lines
+(``granule_timing``: the pipeline's real inputs at both hops, held
+against the plain version, and a synthetic ``fof1`` hop 2) alone.
 ``python3 chip_smoke.py --durability-only`` runs phase 1, the graph's
 generation (no server) and phase 17 (about three minutes).
 ``python3 chip_smoke.py --planner-only`` runs phases 1 and 2, the names
@@ -736,6 +740,8 @@ KERNELS = [
      ("join_path", "flight_recorder", "device_guard", "subscriptions",
       "transports", "chain", "serving_plane", "mxu_join", "cluster", "planner",
       "mesh")),
+    # replaces none: the reference leaves the 32-byte row gathers to XLA
+    ("granules", "dgraph_tpu_torch.ops.granules", None, ("routes", "batched_2hop")),
 ]
 
 # the mesh phase: virtual chips of the card, the seeds' seed, timed
@@ -1043,7 +1049,8 @@ def phase_kernel_contracts(card: str) -> dict:
         check(c["syncs"] == 0, f"{name}: {c['syncs']} host syncs")
         check(c["stream"] == "caller", f"{name}: launched on {c['stream']}")
         check(c["max_abs_err"] == 0, f"{name}: differs from its plain version")
-    check(set(summary) == {"gather_fused", "slotmap_tiles", "intersect_tiles"},
+    check(set(summary) == {"gather_fused", "slotmap_tiles", "intersect_tiles",
+                           "granule_gather"},
           f"contracts checked: {sorted(summary)}")
     cli = _cli_counts(outs["lint"][0] + outs["races"][0])
     cli["exit_codes"] = {n: p.returncode for n, p in procs.items()}
@@ -5895,6 +5902,108 @@ def gather_timing(arena, rng) -> dict:
     return out
 
 
+# the granule gather's synthetic shape, timed beside the real inputs: fof1's
+# hop 2, which no graph of this script reaches (queries a batch, chunk
+# slots a query, table rows, the largest live share of a query's slots;
+# each query's live share drawn uniform below it, the rest -1, filled).
+# 1024 roots, capo2 114,688, ~4.9 M overflow chunks of SNB SF100 knows
+# (mean degree 88.9 over 448,626 persons), ~3.5 % of slots live (its
+# lane use is 3.1 %)
+GRANULE_FOF1 = (1024, 114_688, 4_900_000, 0.07)
+GRANULE_RUN = 11  # consecutive chunk ids a row's run (mean overflow chunks a row)
+
+
+def granule_real_inputs(a, frontiers, plan):
+    """(name, table, idx) of the granule gather at both hops of the
+    pipeline's first chunk, as ``two_hop_batch`` makes them: each hop's
+    metap gather over its rows and its overflow-chunk gather over the
+    slot map's chunk ids."""
+    from dgraph_tpu_torch import bench2hop, ops
+    from dgraph_tpu_torch.ops.sets import ov_slotmap_inputs
+    from dgraph_tpu_torch.ops.slotmap import slotmap
+
+    metap, ov = a.inline_layout_grouped()
+    rows0 = ops.frontier_rows(chunk_tensor(a, frontiers, plan))
+    inl1, ov1, _t = ops.expand_inline_grouped_kernel(metap, ov, rows0, plan.capo1, plan.pcap1)
+    rows1 = bench2hop.next_rows(inl1, ov1, plan)
+    cases = []
+    for hop, rows, pcap, capc in ((1, rows0, plan.pcap1, plan.capo1),
+                                  (2, rows1, plan.pcap2, plan.capo2)):
+        cs, cd = ov_slotmap_inputs(metap, rows, pcap)
+        cid = slotmap(cs.contiguous(), cd.contiguous(), capc)
+        cases += [(f"hop{hop}_metap", metap, rows), (f"hop{hop}_overflow", ov, cid)]
+    return cases
+
+
+def granule_fof1_input():
+    """(table, idx) at GRANULE_FOF1, made on the card (seed 25)."""
+    import torch
+
+    q, capc, n, hi = GRANULE_FOF1
+    g = torch.Generator(device="cuda").manual_seed(25)
+    table = torch.randint(0, 1 << 29, (n, 8), dtype=torch.int32, device="cuda", generator=g)
+    live = (hi * torch.rand(q, 1, device="cuda", generator=g) * capc).to(torch.int32)
+    starts = torch.randint(0, n, (q, -(-capc // GRANULE_RUN)), dtype=torch.int32,
+                           device="cuda", generator=g)
+    slot = torch.arange(capc, dtype=torch.int32, device="cuda")
+    cid = (starts[:, slot // GRANULE_RUN] + slot % GRANULE_RUN).clamp(max=n - 1)
+    return table, torch.where(slot < live, cid, -1).contiguous()
+
+
+def granule_timing(card: str, a, frontiers, plan) -> dict:
+    """The granule gather at the pipeline's real inputs
+    (``granule_real_inputs``) and at the synthetic ``fof1_hop2`` shape,
+    keyed by case.  Each is held against the plain version, exactly,
+    then timed: the wrapper (``kernel_times``), the plain version, and
+    PyTorch's library gathers over the clamped index made beforehand:
+    ``library_ms`` ``table[idx]`` (int64 index: ``vectorized_gather_kernel``),
+    ``index_select_ms`` ``torch.index_select`` alone (int32 index),
+    ``index_select_where_ms`` it and the ``where`` that writes the fill
+    (the function as a library chain), ``embedding_ms``
+    ``F.embedding``; beside the bytes bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from dgraph_tpu_torch.ops import granules, sets
+
+    cases = granule_real_inputs(a, frontiers, plan)
+    cases.append(("fof1_hop2", *granule_fof1_input()))
+    out = {}
+    for name, table, idx in cases:
+        got = granules.gather_granules(table, idx, sets.SENT)
+        err = 0 if torch.equal(got, granules.gather_granules_plain(
+            table, idx, sets.SENT)) else 1
+        check(err == 0, f"granule_timing {name}: the kernel differs from its plain version")
+        del got
+        n = table.shape[0]
+        rows, filled = idx.numel(), int((idx < 0).sum())
+        nbytes = 36 * rows + 32 * (rows - filled)
+        i32 = torch.where(idx >= 0, idx, 0).clamp(0, n - 1).reshape(-1)
+        i64 = i32.long()
+        neg = (idx < 0)[..., None]
+        shape = idx.shape + (8,)
+        out[name] = {
+            "shape": list(idx.shape), "table_rows": n, "rows": rows,
+            "filled_share": filled / rows, "bytes": nbytes,
+            **kernel_times(lambda t=table, i=idx: granules.gather_granules(
+                t, i, sets.SENT), kernel="granule_gather"),
+            "plain_ms": cuda_ms(lambda t=table, i=idx: granules.gather_granules_plain(
+                t, i, sets.SENT)),
+            "library_ms": cuda_ms(lambda t=table, i=i64: t[i]),
+            "index_select_ms": cuda_ms(lambda t=table, i=i32: torch.index_select(t, 0, i)),
+            "index_select_where_ms": cuda_ms(
+                lambda t=table, i=i32, m=neg, s=shape: torch.where(
+                    m, sets.SENT, torch.index_select(t, 0, i).view(s))),
+            "embedding_ms": cuda_ms(lambda t=table, i=i64: F.embedding(i, t)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "max_abs_err": err,
+        }
+        del table, idx, i32, i64, neg
+        torch.cuda.empty_cache()
+        log(dict(phase="granule_timing", case=name, card=card, **out[name]))
+    return out
+
+
 def main(argv) -> int:
     gather_only = "--gather-only" in argv
     durability_only = "--durability-only" in argv
@@ -5909,6 +6018,7 @@ def main(argv) -> int:
     routes_only = "--routes-only" in argv
     mesh_only = "--mesh-only" in argv
     contracts_only = "--contracts-only" in argv
+    granules_only = "--granules-only" in argv
     try:
         import torch
     except ImportError:
@@ -5964,6 +6074,18 @@ def main(argv) -> int:
             log({"phase_seconds": phase_s,
                  "kernel_contracts": contracts["summary"],
                  "analysis_cli": contracts["analysis_cli"]})
+            return 0
+        if granules_only:
+            from dgraph_tpu_torch.bench2hop import gen_edges
+
+            phase = mark("graph")
+            src, dst = gen_edges(N_NODES, N_EDGES)
+            phase = mark("dense")
+            dense, frontiers, _fcap, plan = phase_dense("cuda", src, dst, N_NODES)
+            phase = mark("granule_timing")
+            granule_timing(info["nvidia_smi"], dense, frontiers, plan)
+            mark("done")
+            log({"phase_seconds": phase_s, "kernel_contracts": contracts["summary"]})
             return 0
         if mxu_only:
             phase = mark("mxu_join")
@@ -6222,6 +6344,9 @@ def main(argv) -> int:
         phase = mark("slotmap_timing")
         st = slotmap_timing(dense, frontiers, plan)
         log(dict(phase="slotmap_timing", **st))
+        phase = mark("granule_timing")
+        gt = granule_timing(info["nvidia_smi"], dense, frontiers, plan)
+        errs["granules"] = max(r["max_abs_err"] for r in gt.values())
         phase = mark("pass_profile")
         log(dict(phase="pass_profile", chunk_q=CHUNK_Q,
                  **pass_profile(dense, frontiers, fcap, plan)))
@@ -6252,7 +6377,7 @@ def main(argv) -> int:
                 "kway_share_of_p50": j["kway_ms"] / j["p50_ms"]}
             for n, j in join.items()}})
         timing = {"gather_packed": t["hop2_large_seeds"], "slotmap": st["hop2_chunk"],
-                  "intersect": it["served_a_filter"]}
+                  "intersect": it["served_a_filter"], "granules": gt["hop2_overflow"]}
         from dgraph_tpu_torch.analysis.programs import CONTRACTS
 
         contract_of = {c.module: c.kernel for c in CONTRACTS}
@@ -6272,7 +6397,7 @@ def main(argv) -> int:
             "plain_ms": timing[n]["plain_ms"],
             "bound_ms": timing[n]["bound_ms"],
             "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": timing[n].get("library_ms"),
             "contract": contracts["summary"][contract_of[m]],
         } for n, m, r, paths in KERNELS]
         mark("done")

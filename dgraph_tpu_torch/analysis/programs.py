@@ -168,6 +168,26 @@ def _intersect_instances() -> List[Instance]:
     ]
 
 
+def _granule_instances() -> List[Instance]:
+    """A 37-row table gathered by a 1-D, a 2-D and a 3-D index drawn
+    from [-3, 45): negative entries fill, entries past the table clamp
+    to its last row; fills SENT (the inline expansions'), 0 and -1."""
+    from dgraph_tpu_torch.ops import sets
+
+    rng = np.random.default_rng(25)
+    table = rng.integers(-(1 << 31), 1 << 31, size=(37, 8)).astype(np.int32)
+    out = []
+    for shape, fill in (((300,), sets.SENT), ((4, 129), 0), ((2, 3, 50), -1)):
+        idx = rng.integers(-3, 45, size=shape).astype(np.int32)
+        key = "x".join(map(str, shape))
+        out.append(Instance(
+            f"N37xI{key}xF{fill}", (table, idx),
+            lambda m, t, i, fill=fill: m.gather_granules(t, i, fill),
+            lambda m, t, i, fill=fill: m.gather_granules_plain(t, i, fill),
+        ))
+    return out
+
+
 CONTRACTS: Tuple[KernelContract, ...] = (
     KernelContract("gather_fused", "dgraph_tpu_torch.ops.gather",
                    "gather_packed", "gather", "gather_packed",
@@ -177,6 +197,9 @@ CONTRACTS: Tuple[KernelContract, ...] = (
     KernelContract("intersect_tiles", "dgraph_tpu_torch.ops.kway",
                    "intersect_batch", "intersect", "intersect",
                    _intersect_instances),
+    KernelContract("granule_gather", "dgraph_tpu_torch.ops.granules",
+                   "gather_granules", "granules", "gather_granules",
+                   _granule_instances),
 )
 
 

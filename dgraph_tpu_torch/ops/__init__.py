@@ -3,7 +3,9 @@ expansions and the port's hand-written kernels (the PyTorch counterpart
 of ``dgraph_tpu.ops``).  The slot-map kernel's wrapper lives in
 ``ops.slotmap`` (``slotmap``, ``slotmap_plain``, ``KERNEL``), the
 intersect kernel's in ``ops.kway`` (its ``KERNEL`` counts launches),
-exported here as ``kway_intersect_batch``.  The segmented order-by
+exported here as ``kway_intersect_batch``, and the granule gather's
+(the inline expansions' 32-byte row gathers) in ``ops.granules``
+(``gather_granules``, ``gather_granules_plain``, ``KERNEL``).  The segmented order-by
 (``gather_ranks``, ``segmented_sort_perm``) is plain torch ops.
 ``ops.batch`` holds the reference's batched set ops (``intersect_batch``
 here is the rowwise pairwise intersection, as in the reference),

@@ -14,7 +14,10 @@ here the batch dimension is written out) and equally a single
 ``rows[B]``, as the reference's do.  Their slot -> chunk maps are the
 reference's scatter and prefix sums in torch ops, except
 ``expand_inline_seg``'s, which is the slot-map kernel's (``ops/slotmap.py``)
-with Q = 1: the engine's inline route launches it on the card.
+with Q = 1: the engine's inline route launches it on the card.  Their
+32-byte row gathers (the metap and meta8 rows, the overflow chunks) are
+the granule gather's (``ops/granules.py``), which launches its kernel on
+a CUDA tensor.
 
 Torch's ``cumsum``/``arange``/``searchsorted`` default to int64; every
 call here names its dtype so results stay int32 like the reference.
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from dgraph_tpu_torch import obs
+from dgraph_tpu_torch.ops.granules import gather_granules
 
 # Padding sentinel: int32 max. Sorts after every valid uid.
 SENT = (1 << 31) - 1
@@ -324,27 +328,38 @@ def expand_chunked(
 
     Returns (out int32[capc, CHUNK] SENT-padded, total int32 — the true
     edge count —, seg int32[capc] with -1 pad, or None)."""
-    valid = rows >= 0
-    m = meta8[torch.where(valid, rows, 0)]
-    cs = torch.where(valid, m[:, 0], 0)
-    cd = torch.where(valid, m[:, 1], 0)
-    total = torch.where(valid, m[:, 2], 0).sum(dtype=torch.int32)
+    m = _row_gather(meta8, rows, 0)  # a skipped row all 0
+    cs, cd = m[:, 0], m[:, 1]
+    total = m[:, 2].sum(dtype=torch.int32)
     chunkid, ok, cstart, productive = _ov_slot_map(cs, cd, capc)
-    out = _ov_rows(chunk_dst, chunkid, ok)
+    out = gather_granules(chunk_dst, torch.where(ok, chunkid, -1), SENT)
     if not with_seg:
         return out, total, None
     seg = _ov_owner_map(cstart, productive, capc)
     return out, total, torch.where(ok, seg, -1)
 
 
+def _row_gather(table: torch.Tensor, rows: torch.Tensor, fill: int) -> torch.Tensor:
+    """A per-row table's rows (meta8, metap) by ``rows``, ``fill`` in every
+    lane of a skipped row (< 0): one granule gather.  The arena's rows
+    lie below the table's length by construction; the granule gather
+    would read its last row for one past it, so a CPU tensor is checked
+    (as the index gather raised) and the card, which cannot check
+    without a host sync, relies on the construction."""
+    if rows.device.type == "cpu" and rows.numel() and int(rows.max()) >= table.shape[0]:
+        raise IndexError(f"row {int(rows.max())} is past the table's {table.shape[0]} rows")
+    return gather_granules(table, rows, fill)
+
+
 def _inline_gather(metap: torch.Tensor, rows: torch.Tensor):
-    """One metap row gather per frontier row: (m[..., B, 8], valid,
-    inline[..., B, INLINE], degree, total)."""
+    """One metap row gather per frontier row, a skipped row all SENT:
+    (m[..., B, 8], valid, inline[..., B, INLINE], degree, total).  The
+    inline lanes are the view ``m[..., 2:]``: their readers' strided
+    reads cost the batched 2-hop less than a copy would."""
     valid = rows >= 0
-    m = metap[torch.where(valid, rows, 0)]
-    inline = torch.where(valid[..., None], m[..., 2:], SENT)
+    m = _row_gather(metap, rows, SENT)
     dg = torch.where(valid, m[..., 1], 0)
-    return m, valid, inline, dg, dg.sum(-1, dtype=torch.int32)
+    return m, valid, m[..., 2:], dg, dg.sum(-1, dtype=torch.int32)
 
 
 def _prefix_chunks(m, valid, dg, pcap: int):
@@ -362,12 +377,6 @@ def ov_slotmap_inputs(metap: torch.Tensor, rows: torch.Tensor, pcap: int):
     version at the pipeline's real shapes)."""
     m, valid, _inline, dg, _total = _inline_gather(metap, rows)
     return _prefix_chunks(m, valid, dg, pcap)
-
-
-def _ov_rows(ov_chunks: torch.Tensor, chunkid: torch.Tensor, ok: torch.Tensor):
-    nc = ov_chunks.shape[0]
-    ov = ov_chunks[torch.where(ok, chunkid, 0).clamp(0, nc - 1)]
-    return torch.where(ok[..., None], ov, SENT)
 
 
 def expand_inline_grouped(
@@ -397,7 +406,7 @@ def expand_inline_grouped(
     m, valid, inline, dg, total = _inline_gather(metap, rows)
     cs, cd = _prefix_chunks(m, valid, dg, pcap)
     chunkid, ok, _cstart, _productive = _ov_slot_map(cs, cd, capc)
-    return inline, _ov_rows(ov_chunks, chunkid, ok), total
+    return inline, gather_granules(ov_chunks, torch.where(ok, chunkid, -1), SENT), total
 
 
 def expand_inline_grouped_kernel(
@@ -431,7 +440,7 @@ def expand_inline_grouped_kernel(
     with obs.child("expand.overflow", device=dev) as sp:
         if sp.recording:
             sp.set_attr("lanes", cid.numel() * ov_chunks.shape[-1])
-        ov = _ov_rows(ov_chunks, cid, cid >= 0)
+        ov = gather_granules(ov_chunks, cid, SENT)
     return inline, ov, total
 
 
@@ -470,10 +479,10 @@ def expand_inline_seg(
     m, valid, inline, dg, total = _inline_gather(metap, rows)
     cs, cd = _prefix_chunks(m, valid, dg, rows.shape[-1])
     cid = slotmap(cs[None].contiguous(), cd[None].contiguous(), capc)[0]
-    ok = cid >= 0
     ccum = torch.cumsum(cd, 0, dtype=torch.int32)
     ovseg = _ov_owner_map(ccum - cd, cd > 0, capc)
-    return inline, _ov_rows(ov_chunks, cid, ok), total, torch.where(ok, ovseg, -1)
+    return (inline, gather_granules(ov_chunks, cid, SENT), total,
+            torch.where(cid >= 0, ovseg, -1))
 
 
 def expand_inline(

@@ -19,7 +19,10 @@ virtual chips of the card (the sharded expansion equal to the host's, a
 multi-hop segment that never synchronizes, a server whose hops all ride
 ``route: mesh`` without a gather launch), and each kernel's registered
 contract (analysis/programs.py: one launch a call on the caller's
-stream, no host sync, the plain version's outputs).
+stream, no host sync, the plain version's outputs), and the granule
+gather against its plain version (fills and clamps at a random shape,
+and an output past 2^31 bytes) with the batched 2-hop on the card equal
+to its CPU run, two granule launches a hop.
 Every test is marked ``cuda`` and skips
 where no GPU is visible.  The file imports neither JAX nor the JAX
 package (its planner pin, tests/torch_pins.py, pins the port's planner
@@ -38,6 +41,7 @@ from dgraph_tpu_torch import bench2hop
 from dgraph_tpu_torch.models.arena import csr_from_edges
 from dgraph_tpu_torch import ops as tops
 from dgraph_tpu_torch.ops import gather as tgather
+from dgraph_tpu_torch.ops import granules as tgran
 from dgraph_tpu_torch.ops import kway
 from dgraph_tpu_torch.ops import order as torder
 from dgraph_tpu_torch.ops import slotmap as tslot
@@ -125,6 +129,67 @@ def test_batched_two_hop_on_the_card_matches_numpy():
     assert np.array_equal(chks, want_chks)
     _n, want_last, _c = bench2hop.np_two_hop(a, a.host_dst(), frontiers[-1])
     assert np.array_equal(last_set, want_last)
+
+
+@pytest.mark.parametrize("shape,n,fill", [
+    ((1000,), 37, tops.SENT), ((64, 3001), 50_000, 0), ((3, 7, 129), 1, -1),
+    ((5, 1023), 1_000_000, tops.SENT)])
+def test_granule_gather_matches_plain_version(shape, n, fill):
+    """One launch a call, equal to the plain version on the CPU at a
+    random shape: a fifth of the indices negative (filled), a fifth at
+    or past N (clamped to the last row)."""
+    _need_gpu()
+    rng = np.random.default_rng(n + len(shape))
+    table = rng.integers(-(1 << 31), 1 << 31, size=(n, 8)).astype(np.int32)
+    idx = rng.integers(-(n // 4) - 1, n + n // 4 + 2, size=shape).astype(np.int32)
+    want = tgran.gather_granules_plain(torch.from_numpy(table), torch.from_numpy(idx), fill)
+    t, i = torch.from_numpy(table).cuda(), torch.from_numpy(idx).cuda()
+    n0 = tgran.KERNEL.launches
+    got = tgran.gather_granules(t, i, fill)
+    torch.cuda.synchronize()
+    assert tgran.KERNEL.launches == n0 + 1
+    assert got.shape == want.shape and torch.equal(got.cpu(), want)
+
+
+def test_granule_gather_past_2_31_bytes_of_output():
+    """69.6 M rows, 2.23 GB of output: the rows past byte 2^31 equal
+    the plain version's (the kernel's offsets are 64-bit)."""
+    _need_gpu()
+    g = torch.Generator(device="cuda").manual_seed(31)
+    n = 5_000_000
+    table = torch.randint(-(1 << 31), (1 << 31) - 1, (n, 8), dtype=torch.int32,
+                          device="cuda", generator=g)
+    idx = torch.randint(-(n // 2), n + n // 4, (1024, 68_000), dtype=torch.int32,
+                        device="cuda", generator=g)
+    assert idx.numel() * 32 > (1 << 31)
+    got = tgran.gather_granules(table, idx, tops.SENT)
+    want = tgran.gather_granules_plain(table, idx, tops.SENT)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    del want
+    tail = got.reshape(-1, 8)[(1 << 31) // 32:]
+    assert (tail != tops.SENT).any() and (tail == tops.SENT).all(1).any()
+
+
+def test_two_hop_batch_on_the_card_equals_its_cpu_run():
+    """bench2hop.two_hop_batch on CUDA tensors returns its CPU run's
+    bytes, and each batch launches the granule gather 4 times: the metap
+    and the overflow-chunk gather of each hop."""
+    _need_gpu()
+    frontiers = bench2hop.draw_frontiers(20_000, 512, 6)
+    fcap = tops.bucket(max(len(f) for f in frontiers))
+    cpu = bench2hop.build_graph(20_000, 200_000, "cpu")
+    card = bench2hop.build_graph(20_000, 200_000, "cuda")
+    cm, cov, plan, cf = bench2hop.prepare(cpu, frontiers, fcap)
+    gm, gov, _plan, gf = bench2hop.prepare(card, frontiers, fcap, plan)
+    for b in (0, 3):
+        want = bench2hop.two_hop_batch(cm, cov, cf[b: b + 3], plan)
+        n0 = tgran.KERNEL.launches
+        got = bench2hop.two_hop_batch(gm, gov, gf[b: b + 3], plan)
+        torch.cuda.synchronize()
+        assert tgran.KERNEL.launches == n0 + 4
+        for w, g in [want[0], got[0]], [want[1], got[1]], *zip(want[2], got[2]):
+            assert w.dtype == g.dtype and torch.equal(w, g.cpu())
 
 
 def _sets(rng, b, k, L, universe):
@@ -838,11 +903,12 @@ def test_expand_inline_seg_on_the_card_matches_the_cpu():
         need = int(cpu_a.ov_chunk_degree_of_rows(f).sum())
         capc = tops.bucket(max(1, need)) if trial % 2 else max(1, need // 2)
         want = tops.expand_inline_seg(*cpu_a.inline_layout(), torch.from_numpy(rows), capc)
-        n0 = tslot.KERNEL.launches
+        n0, g0 = tslot.KERNEL.launches, tgran.KERNEL.launches
         got = tops.expand_inline_seg(*card_a.inline_layout(),
                                      torch.from_numpy(rows).cuda(), capc)
         torch.cuda.synchronize()
         assert tslot.KERNEL.launches == n0 + 1
+        assert tgran.KERNEL.launches == g0 + 2  # the metap and the chunk gather
         for w, g in zip(want, got):
             assert torch.equal(w, g.cpu())
 
@@ -938,7 +1004,8 @@ def test_mesh_server_on_virtual_chips_serves_route_mesh(monkeypatch):
         srv.stop()
 
 
-@pytest.mark.parametrize("kernel", ["gather_fused", "slotmap_tiles", "intersect_tiles"])
+@pytest.mark.parametrize("kernel", ["gather_fused", "slotmap_tiles", "intersect_tiles",
+                                    "granule_gather"])
 def test_kernel_contract_holds_on_the_card(kernel):
     """The contract registry's card half (dgraph_tpu_torch/analysis/
     programs.py): on a side stream under sync-debug mode "error", with
