@@ -1,4 +1,4 @@
-"""The benchmark of ``dgraph_tpu_torch``: batched 2-hop cells on one H100.
+"""The benchmark of ``dgraph_tpu_torch``: cells on one H100, or on four.
 
 One run of one cell, from the root of a checkout:
 
@@ -10,13 +10,17 @@ One run of one cell, from the root of a checkout:
 (``benchmark/traffic/<name>.json``) and the metrics, each read by
 ``benchmark/metrics/<name>.py``.  A configuration's graph is made by
 ``benchmark/generators/<generator>.py``, a mix's pool of queries by
-``benchmark/pool_laws/<pool_law>.py``.  A new cell, configuration, mix or
-metric is a new file and a new entry; the harness finds it by name.
+``benchmark/pool_laws/<pool_law>.py``.  A mix's timed loop is the driver
+it names, ``benchmark/drivers/<driver>.py`` (``batched_2hop`` where it names
+none), which gets the cell's cards; a cell's size for the CPU tests is
+``benchmark/tiny/<cell>.json``.  A new cell, configuration, mix, driver or
+metric is a new file and a new entry; the harness finds it by name
+(``benchmark/spec.py``, which also states what a driver returns).
 
 Everything that judges the program lives here and imports nothing of it:
 the data and traffic generators (``data.py``), the plain numpy reference
 (``reference.py``), the comparison and its limits (``compare.py``), the
 reduction of profiler traces (``trace.py``) and the table of peaks with
-the kernels' byte counts (``roofline.py``).  Only ``measure.py`` imports
-the program, to drive it.
+the kernels' byte counts (``roofline.py``).  Only the drivers import the
+program, to drive it.
 """

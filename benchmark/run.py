@@ -1,4 +1,4 @@
-"""Run one cell of the benchmark on one card and print its result.
+"""Run one cell of the benchmark on its cards and print its result.
 
     python -m benchmark.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
@@ -8,12 +8,16 @@ with ``--trace 1`` its per-layer ones), ``device``, with ``--trace 1``
 ``breakdown``, and last ``checks``: each number compared beside its
 limit, which are also the last lines of stderr.  An earlier stdout line
 (``info``) gives the card, its power limit, the peak device memory, the
-plan and the counts of batches and queries.
+counts of batches and queries and what the cell's driver adds.
 
-Exits non-zero with no result when torch sees no CUDA card or fewer
-cards than the cell asks for, when the program is missing, or when JAX
-or the JAX package is loaded once the result is built, just before it
-would be printed.
+The cell's traffic names its driver (``benchmark/drivers/<driver>.py``,
+``benchmark/spec.py``), which gets the cell's ``chips`` cards,
+``cuda:0`` up, and times the window.
+
+Exits non-zero with no result when the driver is missing, when torch
+sees no CUDA card or fewer cards than the cell asks for, when the
+program is missing, or when JAX or the JAX package is loaded once the
+result is built, just before it would be printed.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ def power_limit() -> str:
         return "not read"
 
 
-def result_line(cell, run, checks, failed, info, tracing: bool, device) -> dict:
+def result_line(cell, run, checks, failed, info, tracing: bool, devices) -> dict:
     """The result object (``checks`` last)."""
     import torch
 
@@ -56,10 +60,11 @@ def result_line(cell, run, checks, failed, info, tracing: bool, device) -> dict:
 
     metrics = spec.read_metrics(cell.per_layer if tracing else cell.end_to_end,
                                run, cell.root)
+    device = devices[0]
     dev = {"platform": "gpu" if device.type == "cuda" else "cpu",
            "kind": (torch.cuda.get_device_name(device) if device.type == "cuda"
                     else "cpu"),
-           "count": 1, "memory_peak_bytes": info["memory_peak_bytes"]}
+           "count": len(devices), "memory_peak_bytes": info["memory_peak_bytes"]}
     out = {"correct": compare.is_correct(checks), "attempted": run.queries,
            "failed": failed, "metrics": metrics, "device": dev}
     if tracing and run.trace is not None:
@@ -71,14 +76,14 @@ def result_line(cell, run, checks, failed, info, tracing: bool, device) -> dict:
     return out
 
 
-def report(cell, run, checks, failed, info, tracing: bool, device) -> int:
+def report(cell, run, checks, failed, info, tracing: bool, devices) -> int:
     """Build the result, then print it unless a forbidden module is
     loaded by then (the metrics' readers are loaded while it is built):
     the info line, the checks on stderr, the result last.  Returns the
     exit code."""
     from benchmark import compare
 
-    out = result_line(cell, run, checks, failed, info, tracing, device)
+    out = result_line(cell, run, checks, failed, info, tracing, devices)
     found = forbidden_modules(list(sys.modules))
     if found:
         print(f"benchmark: forbidden modules loaded: {', '.join(found)}",
@@ -103,9 +108,14 @@ def main(argv=None) -> int:
 
     import torch
 
-    from benchmark import measure, spec
+    from benchmark import spec
 
     cell = spec.load_cell(args.workload)
+    try:
+        driver = spec.driver(cell)
+    except FileNotFoundError as e:
+        print(f"benchmark: {e}", file=sys.stderr)
+        return 2
     chips = int(cell.workload["chips"])
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         print(f"benchmark: the cell needs {chips} CUDA card(s); torch sees "
@@ -113,13 +123,13 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    device = torch.device("cuda", 0)
-    run, checks, failed, info = measure.run_cell(
-        cell, args.seed, args.seconds, bool(args.trace), device, _T_START)
+    devices = [torch.device("cuda", i) for i in range(chips)]
+    run, checks, failed, info = driver.run_cell(
+        cell, args.seed, args.seconds, bool(args.trace), devices, _T_START)
     info.update(workload=args.workload, seed=args.seed, trace=args.trace,
-                card=torch.cuda.get_device_name(device),
+                card=torch.cuda.get_device_name(devices[0]),
                 cards=torch.cuda.device_count(), power=power_limit())
-    return report(cell, run, checks, failed, info, bool(args.trace), device)
+    return report(cell, run, checks, failed, info, bool(args.trace), devices)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,7 @@ import pytest
 from benchmark import compare, control, data, reference
 from benchmark.tests import tiny
 
-CELLS = list(tiny.SIZES)
+CELLS = tiny.cells("batched_2hop")  # the control is the batched 2-hop's
 
 
 @pytest.mark.parametrize("seed", [3, 2**31 + 1, 977])

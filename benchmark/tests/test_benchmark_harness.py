@@ -1,16 +1,19 @@
 """The harness end to end on the CPU at tiny sizes, with the port's
 plain versions: the result line, the comparison against planted faults,
-the import check, the data-driven lookup and BENCHMARK.json's contract."""
+the import check, the data-driven lookup and BENCHMARK.json's contract.
+The checks of what a run's process has loaded run in a child interpreter,
+so that they see the harness's modules and not the test runner's."""
 
 import json
 import re
 import shutil
+import subprocess
 import sys
 
 import pytest
 import torch
 
-from benchmark import measure, run, spec
+from benchmark import run, spec
 from benchmark.tests import tiny
 from dgraph_tpu_torch import bench2hop
 from dgraph_tpu_torch.ops.sets import SENT
@@ -19,8 +22,16 @@ CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
 
 
 def one_run(cell, tracing=False, seed=2**31 + 17, seconds=0.5):
-    r, checks, failed, info = measure.run_cell(cell, seed, seconds, tracing, tiny.CPU)
-    return run.result_line(cell, r, checks, failed, info, tracing, tiny.CPU), info
+    r, checks, failed, info = tiny.run(cell, seed, seconds, tracing)
+    return run.result_line(cell, r, checks, failed, info, tracing,
+                           tiny.devices(cell)), info
+
+
+def child(code, *args):
+    """``code`` run by a fresh interpreter from the checkout's root, with
+    ``args`` as ``sys.argv[1:]``."""
+    return subprocess.run([sys.executable, "-c", code, *map(str, args)],
+                          cwd=spec.ROOT, capture_output=True, text=True, timeout=600)
 
 
 @pytest.mark.parametrize("tracing", [False, True])
@@ -39,7 +50,8 @@ def test_tiny_run_is_correct_and_its_line_has_the_keys(name, tracing):
     host_only = {"plan_s", "layout_s", "dispatch_ms", "hop2_lane_use_pct"}
     assert (host_only & wanted) <= set(line["metrics"]) if tracing else \
         set(line["metrics"]) == wanted
-    assert line["device"]["count"] == 1 and "memory_peak_bytes" in line["device"]
+    assert line["device"]["count"] == cell.workload["chips"] == 1
+    assert "memory_peak_bytes" in line["device"]
 
 
 def _fault(kind):
@@ -95,10 +107,27 @@ def test_forbidden_modules_compare_whole_top_level_names(names, found):
     assert run.forbidden_modules(names) == found
 
 
-def test_the_harness_imports_no_jax():
-    import sys
+HARNESS = """
+import json, sys
+from benchmark import (compare, control, data, measure, reference, roofline, run,
+                       spec, trace)
+from benchmark.tests import tiny
+from dgraph_tpu_torch import bench2hop
+bench = spec.load_benchmark()
+for w in bench["workloads"]:
+    spec.driver(spec.load_cell(w["name"], bench))
+for m in bench["end_to_end"] + bench["per_layer"]:
+    spec.reader(m["name"])
+print(json.dumps(run.forbidden_modules(list(sys.modules))))
+"""
 
-    assert run.forbidden_modules(list(sys.modules)) == []
+
+def test_the_harness_imports_no_jax():
+    """The harness's modules, every cell's driver and every metric's reader,
+    and the program, loaded by a fresh interpreter, load no JAX."""
+    got = child(HARNESS)
+    assert got.returncode == 0, got.stderr[-2000:]
+    assert json.loads(got.stdout.strip().splitlines()[-1]) == []
 
 
 def test_without_a_card_the_run_exits_nonzero_and_prints_no_result(capsys):
@@ -181,38 +210,39 @@ def test_new_files_are_found_by_name(tmp_path, generator, pool_law):
     assert "batches_per_s" not in [m["name"] for m in tiny.cell(CELLS[0]).end_to_end]
 
 
-def test_a_reader_that_loads_jax_stops_the_result(tmp_path, monkeypatch, capsys):
+REPORT = """
+import sys
+from pathlib import Path
+sys.path.insert(0, sys.argv[3])  # a stub jax, where one is given
+from benchmark import run
+from benchmark.tests import tiny
+cell = tiny.cell(sys.argv[1], root=Path(sys.argv[2]))
+r, checks, failed, info = tiny.run(cell, int(sys.argv[4]), 0.3)
+sys.exit(run.report(cell, r, checks, failed, info, False, tiny.devices(cell)))
+"""
+
+
+def test_a_reader_that_loads_jax_stops_the_result(tmp_path):
     """A metric's reader is loaded while the result is built, after the
     window: if it loads JAX, the run exits 3 and prints no result."""
     stub = tmp_path / "stubs" / "jax"
     stub.mkdir(parents=True)
     (stub / "__init__.py").write_text("")
-    monkeypatch.syspath_prepend(str(tmp_path / "stubs"))
     root = _checkout_with(tmp_path / "co", {
         "metrics/loads_jax.py": "import jax  # noqa: F401\n\n\n"
                                 "def read(run):\n    return 1.0\n"},
         end_to_end=[{"name": "loads_jax", "unit": "1", "better": "higher",
                      "bound": 0.05, "source": "host_clock",
                      "workloads": [CELLS[0]]}])
-    cell = tiny.cell(CELLS[0], root=root)
-    had = {k: v for k, v in sys.modules.items() if k.split(".")[0] == "jax"}
-    try:
-        r, checks, failed, info = measure.run_cell(cell, 5, 0.3, False, tiny.CPU)
-        capsys.readouterr()
-        assert run.report(cell, r, checks, failed, info, False, tiny.CPU) == 3
-    finally:
-        for k in [k for k in sys.modules if k.split(".")[0] == "jax"]:
-            if k not in had:
-                del sys.modules[k]
-    got = capsys.readouterr()
-    assert got.out == "" and "forbidden modules loaded: jax" in got.err
+    got = child(REPORT, CELLS[0], root, tmp_path / "stubs", 5)
+    assert got.returncode == 3, got.stderr[-2000:]
+    assert got.stdout == "" and "forbidden modules loaded: jax" in got.stderr
 
 
-def test_a_clean_run_reports_its_result(capsys):
-    cell = tiny.cell(CELLS[0])
-    r, checks, failed, info = measure.run_cell(cell, 6, 0.3, False, tiny.CPU)
-    assert run.report(cell, r, checks, failed, info, False, tiny.CPU) == 0
-    lines = capsys.readouterr().out.strip().splitlines()
+def test_a_clean_run_reports_its_result(tmp_path):
+    got = child(REPORT, CELLS[0], spec.ROOT, tmp_path / "no-stubs", 6)
+    assert got.returncode == 0, got.stderr[-2000:]
+    lines = got.stdout.strip().splitlines()
     assert list(json.loads(lines[0])) == ["info"]
     assert json.loads(lines[-1])["correct"] is True
 

@@ -6,7 +6,7 @@ from types import SimpleNamespace
 
 import pytest
 
-from benchmark import measure, spec, trace
+from benchmark import spec, trace
 from benchmark.tests import tiny
 from dgraph_tpu_torch import obs
 
@@ -96,12 +96,11 @@ def test_program_idle_reads_nothing_without_batch_ranges_or_device(host, device)
     assert spec.reader("program_idle_pct")(SimpleNamespace(trace=None)) is None
 
 
-@pytest.mark.parametrize("name", [w["name"] for w in spec.load_benchmark()["workloads"]])
+@pytest.mark.parametrize("name", tiny.cells("batched_2hop"))
 def test_a_tiny_traced_run_tallies_its_slice_and_reads_nothing_on_cpu(name):
     obs.span_totals(reset=True)
     cell = tiny.cell(name)
-    run, _checks, _failed, _info = measure.run_cell(cell, 2**31 + 5, 0.5, True,
-                                                    tiny.CPU)
+    run, _checks, _failed, _info = tiny.run(cell, 2**31 + 5, 0.5, True)
     tot = obs.span_totals()
     assert tot["two_hop.batch"]["count"] == run.trace.batches > 0
     assert tot["expand.overflow"]["count"] == 2 * run.trace.batches

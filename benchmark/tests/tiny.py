@@ -1,5 +1,9 @@
 """Tiny versions of the cells for the CPU tests: the same generators,
-traffic and comparison at a size the CPU runs in seconds."""
+traffic, driver and comparison at a size the CPU runs in seconds.  A
+cell's size is ``benchmark/tiny/<cell>.json``: ``{"config": {...},
+"traffic": {...}}``, overrides of its configuration and traffic mix."""
+
+import json
 
 import torch
 
@@ -7,18 +11,33 @@ from benchmark import spec
 
 CPU = torch.device("cpu")
 
-SIZES = {
-    "synth21m.fanout4096": ({"nodes": 20_000, "generated_edges": 210_000},
-                               {"pool": 40, "batch": 10, "seeds_per_query": 256}),
-    "ldbc-snb-sf100.fof1": ({"nodes": 3_000, "knows_edges": 120_000},
-                            {"pool": 64, "batch": 16}),
-}
+
+def cells(driver: str, root=spec.ROOT):
+    """The names of BENCHMARK.json's cells whose traffic runs ``driver``."""
+    names = [w["name"] for w in spec.load_benchmark(root)["workloads"]]
+    return [n for n in names
+            if spec.load_cell(n, root=root).traffic.get("driver", spec.DEFAULT_DRIVER)
+            == driver]
+
+
+def devices(cell):
+    """One CPU device for each card the cell asks for."""
+    return [CPU] * int(cell.workload["chips"])
 
 
 def cell(name: str, root=spec.ROOT):
     """The cell ``name`` of BENCHMARK.json cut to its tiny size."""
+    path = root / "benchmark" / "tiny" / f"{name}.json"
+    if not path.exists():
+        raise FileNotFoundError(f"no tiny size for cell {name!r} at {path}")
     c = spec.load_cell(name, root=root)
-    cfg, tr = SIZES[name]
-    c.config.update(cfg)
-    c.traffic.update(tr)
+    size = json.loads(path.read_text())
+    c.config.update(size.get("config", {}))
+    c.traffic.update(size.get("traffic", {}))
     return c
+
+
+def run(cell, seed: int, seconds: float, tracing: bool = False):
+    """One run of ``cell`` through its own driver on the CPU, one CPU
+    device a card: (run, checks, failed, info)."""
+    return spec.driver(cell).run_cell(cell, seed, seconds, tracing, devices(cell))
